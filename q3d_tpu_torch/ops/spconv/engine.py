@@ -1,0 +1,164 @@
+"""Sparse-convolution rulebooks + the plain gather-GEMM.
+
+Port of the rulebook builders of ``q3d_tpu/ops/spconv/engine.py``, in torch
+on the tensor's device:
+
+  * a rulebook is an (M, K) int32 gather-index matrix into the input rows;
+    K enumerates the kernel offsets k0-major (x fastest, the layout of the
+    (K, Cin, Cout) weights) and a miss is the input capacity N;
+  * strided convs generate their output coordinates with spconv semantics
+    (an output exists iff some kernel tap hits an input voxel), kept as the
+    ascending unique keys with the lowest ``out_capacity`` kept on
+    overflow — the reference's exact rule.
+
+The reference's chunk tables (``chunk_anchor_code``, ``subm_chunk_indices``,
+probe stacks, ``x_window_matrix``) only feed the TPU's one-hot span gather;
+the Hopper kernel gathers rows by index from the direct table, so they have
+no counterpart here.  ``gather_conv`` is the plain PyTorch version of the
+sparse conv that ``gather_conv.sparse_gather_conv`` runs as a CUDA kernel.
+"""
+
+import itertools
+
+import numpy as np
+import torch
+
+from .sparse_tensor import SparseConvTensor, linearize, BIG_KEY
+
+
+def _tuplify(v, nd):
+    return tuple(v) if isinstance(v, (tuple, list)) else (v,) * nd
+
+
+def kernel_offsets(kernel_size, nd):
+    """Kernel offsets in the weight layout order (Cout, k0, k1, ..., Cin):
+    k0-major."""
+    ks = _tuplify(kernel_size, nd)
+    return np.array(list(itertools.product(*[range(k) for k in ks])),
+                    dtype=np.int64), ks
+
+
+def out_spatial_shape(spatial_shape, kernel_size, stride, padding):
+    nd = len(spatial_shape)
+    ks = _tuplify(kernel_size, nd)
+    s = _tuplify(stride, nd)
+    p = _tuplify(padding, nd)
+    return tuple((int(spatial_shape[d]) + 2 * int(p[d]) - int(ks[d]))
+                 // int(s[d]) + 1 for d in range(nd))
+
+
+def _in_bounds(coords, shape):
+    lim = torch.as_tensor(shape, dtype=coords.dtype, device=coords.device)
+    return ((coords >= 0) & (coords < lim)).all(-1)
+
+
+def _query(st, batch_col, coords, ok):
+    """Look up (R, K, nd) coordinates of batch ``batch_col`` (R, 1) in ``st``;
+    entries with ``ok`` False miss.  -> (R, K) int32 row ids."""
+    r, k, nd = coords.shape
+    b = batch_col[:, None, :].expand(r, k, 1)
+    q = torch.cat([b, coords], dim=-1).reshape(-1, 1 + nd)
+    qkeys = linearize(q, st.spatial_shape)
+    qkeys = torch.where(ok.reshape(-1), qkeys, torch.full_like(qkeys, BIG_KEY))
+    return st.lookup(qkeys).reshape(r, k)
+
+
+def subm_gather_indices(st: SparseConvTensor, kernel_size, dilation=1):
+    """Rulebook for submanifold conv (out coords == in coords): (N, K) int32."""
+    nd = len(st.spatial_shape)
+    offsets, ks = kernel_offsets(kernel_size, nd)
+    dil = np.array(_tuplify(dilation, nd), np.int64)
+    center = np.array([(k - 1) // 2 for k in ks], np.int64)
+    rel = torch.as_tensor((offsets - center) * dil, device=st.indices.device)
+    coords = st.indices.long()
+    q = coords[:, None, 1:] + rel[None]                          # (N, K, nd)
+    ok = _in_bounds(q, st.spatial_shape) & st.valid[:, None]
+    return _query(st, coords[:, 0:1], q, ok)
+
+
+def _decode_keys(keys, spatial_shape):
+    rem = keys
+    parts = []
+    for s in reversed([int(s) for s in spatial_shape]):
+        parts.append(rem % s)
+        rem = rem // s
+    parts.append(rem)                                            # batch
+    out = torch.stack(list(reversed(parts)), dim=1)
+    out = torch.where((keys == BIG_KEY)[:, None], torch.full_like(out, -1), out)
+    return out.to(torch.int32)
+
+
+def downsample_out_keys(st: SparseConvTensor, kernel_size, stride, padding,
+                        out_capacity=None):
+    """Output coordinates of a strided SparseConvNd: -> (out_indices (M, 1+nd)
+    int32, ascending keys, -1 padded; out_spatial)."""
+    nd = len(st.spatial_shape)
+    ks = _tuplify(kernel_size, nd)
+    dev = st.indices.device
+    s = torch.as_tensor(_tuplify(stride, nd), dtype=torch.int64, device=dev)
+    p = torch.as_tensor(_tuplify(padding, nd), dtype=torch.int64, device=dev)
+    out_spatial = out_spatial_shape(st.spatial_shape, kernel_size, stride,
+                                    padding)
+    m = out_capacity or st.capacity
+    # candidate outputs of input i per dim: floor((i+p)/s) - delta for
+    # delta < ceil(k/s), kept when the tap (i+p) - s*o lies inside the kernel
+    deltas = torch.as_tensor(list(itertools.product(
+        *[range((int(ks[d]) - 1) // int(_tuplify(stride, nd)[d]) + 1)
+          for d in range(nd)])), dtype=torch.int64, device=dev)
+    coords = st.indices.long()
+    ip = coords[:, None, 1:] + p                                 # (N, 1, nd)
+    o = torch.div(ip, s, rounding_mode="floor") - deltas[None]   # (N, Kc, nd)
+    tap = ip - o * s
+    hit = ((tap >= 0) & (tap < torch.as_tensor(ks, device=dev))).all(-1)
+    ok = hit & _in_bounds(o, out_spatial) & st.valid[:, None]
+    b = coords[:, None, 0:1].expand(*o.shape[:2], 1)
+    ckeys = linearize(torch.cat([b, o], -1).reshape(-1, 1 + nd), out_spatial)
+    ckeys = ckeys[ok.reshape(-1)]
+    uniq = torch.unique(ckeys)[:m]                               # ascending
+    out_keys = torch.full((m,), BIG_KEY, dtype=torch.int64, device=dev)
+    out_keys[:uniq.numel()] = uniq
+    return _decode_keys(out_keys, out_spatial), out_spatial
+
+
+def sparse_conv_downsample(st: SparseConvTensor, kernel_size, stride, padding,
+                           out_capacity=None):
+    """Output coordinates + rulebook of a strided SparseConvNd.
+
+    Returns (out_indices (M, 1+nd) int32, gather_idx (M, K) int32,
+    out_spatial tuple)."""
+    nd = len(st.spatial_shape)
+    out_indices, out_spatial = downsample_out_keys(
+        st, kernel_size, stride, padding, out_capacity)
+    offsets, _ = kernel_offsets(kernel_size, nd)
+    dev = st.indices.device
+    s = torch.as_tensor(_tuplify(stride, nd), dtype=torch.int64, device=dev)
+    p = torch.as_tensor(_tuplify(padding, nd), dtype=torch.int64, device=dev)
+    oc = out_indices.long()
+    # input of output o at offset k: i = o*s - p + k
+    icoord = oc[:, None, 1:] * s - p + torch.as_tensor(offsets, device=dev)[None]
+    ok = _in_bounds(icoord, st.spatial_shape) & (oc[:, 0:1] >= 0)
+    return out_indices, _query(st, oc[:, 0:1], icoord, ok), out_spatial
+
+
+def gather_conv(features, gather_idx, weight, out_scale=None, out_valid=None):
+    """Plain PyTorch sparse conv: features (N, Cin), gather_idx (M, K) with
+    misses outside [0, N), weight (K, Cin, Cout) -> (M, Cout).
+
+    out[m] = (sum_k f[idx[m, k]] @ W[k]) * out_scale * out_valid[m], as one
+    (M, K*Cin) @ (K*Cin, Cout) GEMM.  Float inputs accumulate in f32 and
+    return the input dtype; s8 inputs accumulate exactly (f64 holds every
+    s8 x s8 sum of this size exactly) and return f32, like the s32 kernel."""
+    n, cin = features.shape
+    m, k = gather_idx.shape
+    acc = torch.float64 if features.dtype == torch.int8 else torch.float32
+    padded = torch.cat([features.to(acc), features.new_zeros((1, cin), dtype=acc)])
+    idx = gather_idx.long()
+    idx = torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))
+    g = padded[idx.reshape(-1)].reshape(m, k * cin)
+    out = (g @ weight.to(acc).reshape(k * cin, -1)).float()
+    if out_scale is not None:
+        out = out * out_scale.reshape(-1)
+    if out_valid is not None:
+        out = out * out_valid.reshape(-1, 1).float()
+    return out.to(torch.float32 if features.dtype == torch.int8
+                  else features.dtype)
