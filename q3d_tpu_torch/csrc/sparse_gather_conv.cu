@@ -10,181 +10,402 @@
 //     out[m, :] = (sum_k f[idx[m, k], :] @ W[k]) * out_scale * out_valid[m]
 //
 // with idx outside [0, N) (the rulebook's miss value N) read as a zero row.
+// f32 and bf16 accumulate in f32; s8 x s8 accumulates in s32 (exact) and the
+// epilogue runs in f32, in the plain version's order (scale, then valid).
 //
-// Design: one block owns a tile of BM output rows x BN output channels.
-// For each tap k it stages the tile's row ids in shared memory, skips the
-// tap when no row of the tile hits (sparse rulebooks miss most taps), then
-// walks Cin in BK-wide slices: the gathered rows f[idx[m,k], c0:c0+BK] and
-// the weight slice W[k, c0:c0+BK, n0:n0+BN] go to shared memory, and each
-// thread accumulates a TM x TN register tile (f32 for f32/bf16, s32 for s8).
-// The epilogue applies out_scale and out_valid and writes the output type
-// (f32 / bf16 for float inputs, f32 for s8 inputs).
+// What bounds it on the H100.  At the CenterPoint backbone's widths
+// (Cin, Cout <= 128) a conv moves a few tens of MB (the rows its book uses,
+// the book, the weights, the output) and does at most ~40 GFLOP on the
+// present taps, so the least time is set by bytes at every width (within
+// 2.5x of the operations only at 128 -> 128).  What a kernel actually runs
+// into is the latency of gathering scattered rows, the per-tap overhead on
+// the narrow convs, and -- once the product is on tensor cores -- the shared
+// memory reads that feed them.
 //
-// Bound on the card: at the CenterPoint backbone's widths (Cin, Cout <= 128)
-// the arithmetic intensity per gathered byte is low, so the ideal is set by
-// the bytes of the present taps' rows plus the output; this first version
-// computes on CUDA cores (no tensor cores yet), so its compute rate, not the
-// memory, is what it runs into.  wgmma/TMA are for a later version.
+// Design, per block of BM = 128 output rows x all of Cout (no column
+// blocks, so every row is gathered once and W[k] is read once per 128 rows):
+//   1. the tile's (BM, K) block of the book is loaded once into shared
+//      memory, coalesced; out-of-range entries become -1.  Warp ballots give
+//      each warp's 16-row tap mask; the block walks only the taps some row
+//      hits, and a warp skips the product of a tap none of its rows hits;
+//   2. a step is (tap, Cin slice of at most 128 bytes).  Its gathered rows
+//      (16-byte cp.async, zero-fill for misses) and its W[k] slice (16-byte
+//      cp.async of a plain 2-D tile) go into a 3-stage shared-memory ring, so
+//      two steps are in flight while one multiplies.  Rows are padded by 16
+//      bytes, which makes every ldmatrix phase (8 rows x 16 bytes) hit 8
+//      distinct 16-byte bank groups at every Cin and Cout from 16 to 128;
+//   3. bf16 runs mma.sync.m16n8k16 (f32 accumulators), s8 runs
+//      mma.sync.m16n8k32 (s32 accumulators, bit-exact).  Each warp owns 16
+//      rows x Cout.  A fragments come from ldmatrix, B fragments from
+//      ldmatrix.trans on the (Cin, Cout) weight tile; for s8 the 16-bit
+//      transpose pairs are re-sorted with byte permutes into k-contiguous
+//      fragments of an even and an odd column tile.  mma.sync rather than
+//      wgmma: the kernel is bytes- and latency-bound, and mma.sync's rate is
+//      more than 10x what the work needs, while it keeps per-warp tap
+//      skipping and a 16-row warp tile;
+//   4. f32 has no exact tensor-core path (TF32 breaks the f32 tolerance), so
+//      f32 keeps the same tile, book, ring and epilogue and multiplies on
+//      CUDA cores (an explicit dtype branch, not a fallback);
+//   5. the epilogue scales and masks in f32, stages the tile through shared
+//      memory and stores 16 bytes a thread.  (A fused bias/BN/residual/ReLU/
+//      requant epilogue would slot in at this point.)
+// Instances: Cin, Cout in {16, 32, 64, 128}; K <= 27 at run time (27 for
+// the 3x3x3 convs, 3 for conv_out).  Built once per dtype (-DQ3D_GC_<DT>)
+// so the three builds run in parallel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int BM = 64;        // output rows per block
-constexpr int BK = 16;        // input channels per shared-memory slice
-constexpr int THREADS = 256;
+constexpr int BM = 128;          // output rows per block
+constexpr int WARPS = 8;         // each warp owns 16 rows x all of Cout
+constexpr int THREADS = 32 * WARPS;
+constexpr int KMAX = 27;         // most taps a book row may have
+constexpr int NSTAGE = 3;        // cp.async ring depth
+constexpr int PAD = 16;          // bytes added to every shared-memory row
 
-template <typename T> struct AccOf { using type = float; };
-template <> struct AccOf<int8_t> { using type = int32_t; };
+template <typename T, int CIN, int COUT>
+struct Cfg {
+  static constexpr int ES = sizeof(T);
+  static constexpr bool TC = !std::is_same<T, float>::value;   // tensor cores
+  using Out = std::conditional_t<std::is_same<T, __nv_bfloat16>::value,
+                                 __nv_bfloat16, float>;
+  using Acc = std::conditional_t<std::is_same<T, int8_t>::value, int, float>;
+  static constexpr int KC = CIN * ES > 128 ? 128 / ES : CIN;   // Cin per step
+  static constexpr int NSL = CIN / KC;                          // steps per tap
+  // mma depth is 32 bytes: s8 at Cin 16 pads its 16-byte rows with zeros
+  static constexpr int KCP = (TC && KC * ES < 32) ? 32 / ES : KC;
+  static constexpr int A_PITCH = KCP * ES + PAD;
+  static constexpr int W_PITCH = COUT * ES + PAD;
+  static constexpr int A_BYTES = BM * A_PITCH;
+  static constexpr int STAGE_BYTES = A_BYTES + KCP * W_PITCH;
+  static constexpr int O_PITCH = COUT * (int)sizeof(Out) + PAD;
+  static constexpr int BOOK_BYTES = BM * KMAX * 4;
+  static constexpr int RING_BYTES = NSTAGE * STAGE_BYTES > BM * O_PITCH
+                                        ? NSTAGE * STAGE_BYTES : BM * O_PITCH;
+  static constexpr int SMEM = BOOK_BYTES + RING_BYTES;
+  static_assert(CIN % 16 == 0 && COUT % 16 == 0 && (KC * ES) % 16 == 0, "");
+};
 
-__device__ __forceinline__ float load_acc(const float* p) { return *p; }
-__device__ __forceinline__ float load_acc(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ int32_t load_acc(const int8_t* p) {
-  return static_cast<int32_t>(*p);
+
+// 16-byte async copy; src_bytes 0 zero-fills (src must still be valid)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+                   "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma(int (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <typename T, typename OutT, int BN>
+template <typename T, int CIN, int COUT>
 __global__ void __launch_bounds__(THREADS)
 gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
                    const T* __restrict__ w, const float* __restrict__ scale,
-                   const uint8_t* __restrict__ valid, OutT* __restrict__ out,
-                   int N, int M, int K, int Cin, int Cout) {
-  using Acc = typename AccOf<T>::type;
-  constexpr int TX = 16;                      // threads along the columns
-  constexpr int TY = THREADS / TX;            // 16 threads along the rows
-  constexpr int TN = BN / TX;                 // columns per thread
-  constexpr int TM = BM / TY;                 // rows per thread (4)
+                   const uint8_t* __restrict__ valid,
+                   typename Cfg<T, CIN, COUT>::Out* __restrict__ out,
+                   int N, int M, int K) {
+  using C = Cfg<T, CIN, COUT>;
+  using Out = typename C::Out;
+  using Acc = typename C::Acc;
+  constexpr int ES = C::ES, KC = C::KC, NSL = C::NSL;
 
-  __shared__ int rows[BM];
-  __shared__ Acc As[BK][BM + 1];              // gathered rows, transposed
-  __shared__ Acc Bs[BK][BN];
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint32_t warp_mask[WARPS];
+  __shared__ int taps[32];
+  __shared__ int ntaps;
+  int* book = reinterpret_cast<int*>(smem);
+  unsigned char* ring = smem + C::BOOK_BYTES;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX, ty = tid / TX;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  const int rows = min(BM, M - m0);
 
-  Acc acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = Acc(0);
-
-  for (int k = 0; k < K; ++k) {
-    int hit = 0;
-    if (tid < BM) {
-      const int m = m0 + tid;
-      int r = (m < M) ? idx[(size_t)m * K + k] : -1;
-      if (r < 0 || r >= N) r = -1;
-      rows[tid] = r;
-      hit = r >= 0;
-    }
-    if (!__syncthreads_or(hit)) continue;    // no row of the tile uses tap k
-
-    for (int c0 = 0; c0 < Cin; c0 += BK) {
-      for (int e = tid; e < BM * BK; e += THREADS) {
-        const int r = e / BK, c = e % BK;
-        const int src = rows[r];
-        As[c][r] = src >= 0 ? load_acc(feat + (size_t)src * Cin + c0 + c) : Acc(0);
-      }
-      for (int e = tid; e < BK * BN; e += THREADS) {
-        const int kk = e / BN, n = e % BN;
-        Bs[kk][n] = load_acc(w + ((size_t)k * Cin + c0 + kk) * Cout + n0 + n);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        Acc a[TM], b[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + TX * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] += a[i] * b[j];
-      }
-      __syncthreads();
-    }
+  // 1. the tile's book, once and coalesced; misses become -1
+  const int32_t* gidx = idx + (size_t)m0 * K;
+  for (int e = tid; e < BM * K; e += THREADS) {
+    int r = e < rows * K ? gidx[e] : -1;
+    book[e] = (r >= 0 && r < N) ? r : -1;
   }
+  if (C::TC && C::KCP != KC) {     // zero the depth padding once (s8, Cin 16)
+    for (int e = tid; e < C::RING_BYTES / 16; e += THREADS)
+      reinterpret_cast<int4*>(ring)[e] = make_int4(0, 0, 0, 0);
+  }
+  __syncthreads();
+  uint32_t my_mask = 0;
+  for (int k = 0; k < K; ++k) {
+    const int r = book[(warp * 16 + (lane & 15)) * K + k];
+    if (__ballot_sync(0xffffffffu, r >= 0)) my_mask |= 1u << k;
+  }
+  if (lane == 0) warp_mask[warp] = my_mask;
+  __syncthreads();
+  if (tid == 0) {
+    uint32_t any = 0;
+    for (int i = 0; i < WARPS; ++i) any |= warp_mask[i];
+    int n = 0;
+    for (int k = 0; k < K; ++k)
+      if (any >> k & 1) taps[n++] = k;
+    ntaps = n;
+  }
+  __syncthreads();
+  const int nsteps = ntaps * NSL;
+
+  // 2. one step = (tap, Cin slice): gathered rows + the W[k] slice
+  auto issue = [&](int s) {
+    unsigned char* sa = ring + (s % NSTAGE) * C::STAGE_BYTES;
+    unsigned char* sw = sa + C::A_BYTES;
+    const int tap = taps[s / NSL], c0 = (s % NSL) * KC;
+    constexpr int ACH = KC * ES / 16;
+    for (int e = tid; e < BM * ACH; e += THREADS) {
+      const int r = e / ACH, c = e % ACH;
+      const int src = book[r * K + tap];
+      const unsigned char* g = reinterpret_cast<const unsigned char*>(feat);
+      if (src >= 0) g += ((size_t)src * CIN + c0) * ES + c * 16;
+      cp_async16(sa + r * C::A_PITCH + c * 16, g, src >= 0 ? 16 : 0);
+    }
+    constexpr int WCH = COUT * ES / 16;
+    const unsigned char* wk = reinterpret_cast<const unsigned char*>(w)
+                              + ((size_t)tap * CIN + c0) * COUT * ES;
+    for (int e = tid; e < KC * WCH; e += THREADS) {
+      const int r = e / WCH, c = e % WCH;
+      cp_async16(sw + r * C::W_PITCH + c * 16, wk + (size_t)r * COUT * ES + c * 16,
+                 16);
+    }
+  };
+
+  // accumulators: tensor cores keep (Cout/8 tiles) x 4 per thread; the f32
+  // CUDA-core path keeps 8 rows x Cout/16 columns per thread
+  constexpr int NT = C::TC ? COUT / 8 : 8;
+  constexpr int NJ = C::TC ? 4 : COUT / 16;
+  Acc acc[NT][NJ];
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = Acc(0);
 
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= M) continue;
-    const float keep = (valid == nullptr || valid[m]) ? 1.f : 0.f;
+  for (int s = 0; s < NSTAGE - 1; ++s) {
+    if (s < nsteps) issue(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait<NSTAGE - 2>();
+    __syncthreads();
+    if (my_mask >> taps[s / NSL] & 1) {
+      const unsigned char* sa = ring + (s % NSTAGE) * C::STAGE_BYTES;
+      const unsigned char* sw = sa + C::A_BYTES;
+      if constexpr (C::TC) {
+        // 3. tensor cores: per 32-byte depth step, one A fragment (16 rows)
+        //    and Cout/16 B fragment pairs
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + TX * j;
-      float v = static_cast<float>(acc[i][j]);
-      if (scale != nullptr) v *= scale[n];
-      v *= keep;
-      store_out(out + (size_t)m * Cout + n, v);
+        for (int ks = 0; ks < C::KCP * ES / 32; ++ks) {
+          uint32_t a[4];
+          ldsm_x4(a, sa + (warp * 16 + (lane & 15)) * C::A_PITCH + ks * 32
+                         + (lane >> 4) * 16);
+#pragma unroll
+          for (int p = 0; p < COUT / 16; ++p) {
+            uint32_t b[4];
+            if constexpr (std::is_same<T, int8_t>::value) {
+              // k rows {0,1,4,5,..} and {2,3,6,7,..} (+16 for b1): each
+              // 16-bit transpose pair holds 2 k x 2 columns; permute bytes
+              // into k-contiguous fragments of columns 2j (even) and 2j+1
+              const int q = lane >> 3, r = lane & 7;
+              const int kr = ks * 32 + (q & 1) * 2 + (r >> 1) * 4 + (r & 1)
+                             + (q >> 1) * 16;
+              ldsm_x4_t(b, sw + kr * C::W_PITCH + p * 16);
+              mma(acc[2 * p], a, __byte_perm(b[0], b[1], 0x6420),
+                  __byte_perm(b[2], b[3], 0x6420));
+              mma(acc[2 * p + 1], a, __byte_perm(b[0], b[1], 0x7531),
+                  __byte_perm(b[2], b[3], 0x7531));
+            } else {
+              const int kr = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+              ldsm_x4_t(b, sw + kr * C::W_PITCH + p * 32 + (lane >> 4) * 16);
+              mma(acc[2 * p], a, b[0], b[1]);
+              mma(acc[2 * p + 1], a, b[2], b[3]);
+            }
+          }
+        }
+      } else {
+        // 4. f32 on CUDA cores: thread (ty, tx) owns rows ty*8.. and
+        //    columns tx + 16 j (ty's 8 rows lie in the warp's 16)
+        const float* A = reinterpret_cast<const float*>(sa);
+        const float* W = reinterpret_cast<const float*>(sw);
+        const int tx = tid & 15, ty = tid >> 4;
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk) {
+          float av[NT], bv[NJ];
+#pragma unroll
+          for (int i = 0; i < NT; ++i)
+            av[i] = A[(ty * 8 + i) * (C::A_PITCH / 4) + kk];
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+            bv[j] = W[kk * (C::W_PITCH / 4) + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < NT; ++i)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
+      }
     }
+    if (s + NSTAGE - 1 < nsteps) issue(s + NSTAGE - 1);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // 5. epilogue: scale, then valid, in f32; stage the tile in shared memory
+  Out* so = reinterpret_cast<Out*>(ring);
+  constexpr int OP = C::O_PITCH / (int)sizeof(Out);
+  auto emit = [&](int r, int n, Acc a) {
+    float v = static_cast<float>(a);
+    if (scale != nullptr) v *= scale[n];
+    const int m = m0 + r;
+    v *= (m >= M || valid == nullptr || valid[m]) ? 1.f : 0.f;
+    put(so + r * OP + n, v);
+  };
+  if constexpr (C::TC) {
+    const int g = lane >> 2, t = lane & 3, r0 = warp * 16 + g;
+#pragma unroll
+    for (int p = 0; p < COUT / 16; ++p) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {          // rows g and g + 8
+        const int r = r0 + 8 * h;
+        if constexpr (std::is_same<T, int8_t>::value) {
+          // even tile: columns 16p + 4t, +2; odd tile: 16p + 4t + 1, +3
+          emit(r, 16 * p + 4 * t, acc[2 * p][2 * h]);
+          emit(r, 16 * p + 4 * t + 1, acc[2 * p + 1][2 * h]);
+          emit(r, 16 * p + 4 * t + 2, acc[2 * p][2 * h + 1]);
+          emit(r, 16 * p + 4 * t + 3, acc[2 * p + 1][2 * h + 1]);
+        } else {
+          emit(r, 16 * p + 2 * t, acc[2 * p][2 * h]);
+          emit(r, 16 * p + 2 * t + 1, acc[2 * p][2 * h + 1]);
+          emit(r, 16 * p + 8 + 2 * t, acc[2 * p + 1][2 * h]);
+          emit(r, 16 * p + 8 + 2 * t + 1, acc[2 * p + 1][2 * h + 1]);
+        }
+      }
+    }
+  } else {
+    const int tx = tid & 15, ty = tid >> 4;
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) emit(ty * 8 + i, tx + 16 * j, acc[i][j]);
+  }
+  __syncthreads();
+  constexpr int OCH = COUT * (int)sizeof(Out) / 16;
+  unsigned char* gout = reinterpret_cast<unsigned char*>(out)
+                        + (size_t)m0 * COUT * sizeof(Out);
+  for (int e = tid; e < rows * OCH; e += THREADS) {
+    const int r = e / OCH, c = e % OCH;
+    *reinterpret_cast<int4*>(gout + (size_t)r * COUT * sizeof(Out) + c * 16) =
+        *reinterpret_cast<const int4*>(ring + r * C::O_PITCH + c * 16);
   }
 }
 
-template <typename T, typename OutT>
-int launch(const void* feat, const void* idx, const void* w, const void* scale,
-           const void* valid, void* out, int N, int M, int K, int Cin, int Cout,
-           void* stream) {
-  if (M == 0) return 0;
-  const dim3 block(THREADS);
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* f = static_cast<const T*>(feat);
-  const auto* ix = static_cast<const int32_t*>(idx);
-  const auto* wt = static_cast<const T*>(w);
-  const auto* sc = static_cast<const float*>(scale);
-  const auto* vd = static_cast<const uint8_t*>(valid);
-  auto* o = static_cast<OutT*>(out);
-  const unsigned gx = (M + BM - 1) / BM;
-  if (Cout % 64 == 0) {
-    gather_conv_kernel<T, OutT, 64><<<dim3(gx, Cout / 64), block, 0, s>>>(
-        f, ix, wt, sc, vd, o, N, M, K, Cin, Cout);
-  } else if (Cout % 32 == 0) {
-    gather_conv_kernel<T, OutT, 32><<<dim3(gx, Cout / 32), block, 0, s>>>(
-        f, ix, wt, sc, vd, o, N, M, K, Cin, Cout);
-  } else {
-    gather_conv_kernel<T, OutT, 16><<<dim3(gx, Cout / 16), block, 0, s>>>(
-        f, ix, wt, sc, vd, o, N, M, K, Cin, Cout);
-  }
+template <typename T, int CIN, int COUT>
+int launch_one(const void* feat, const void* idx, const void* w,
+               const void* scale, const void* valid, void* out, int N, int M,
+               int K, cudaStream_t stream) {
+  using C = Cfg<T, CIN, COUT>;
+  auto* kern = gather_conv_kernel<T, CIN, COUT>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<(M + BM - 1) / BM, THREADS, C::SMEM, stream>>>(
+      static_cast<const T*>(feat), static_cast<const int32_t*>(idx),
+      static_cast<const T*>(w), static_cast<const float*>(scale),
+      static_cast<const uint8_t*>(valid),
+      static_cast<typename C::Out*>(out), N, M, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* feat, const void* idx, const void* w, const void* scale,
+           const void* valid, void* out, int N, int M, int K, int Cin,
+           int Cout, void* stream) {
+  if (M == 0) return 0;
+  if (K < 1 || K > KMAX) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+#define Q3D_GC_CASE(CI, CO)                                                  \
+  if (Cin == CI && Cout == CO)                                               \
+    return launch_one<T, CI, CO>(feat, idx, w, scale, valid, out, N, M, K, s);
+#define Q3D_GC_ROW(CI) \
+  Q3D_GC_CASE(CI, 16) Q3D_GC_CASE(CI, 32) Q3D_GC_CASE(CI, 64) Q3D_GC_CASE(CI, 128)
+  Q3D_GC_ROW(16) Q3D_GC_ROW(32) Q3D_GC_ROW(64) Q3D_GC_ROW(128)
+#undef Q3D_GC_ROW
+#undef Q3D_GC_CASE
+  return static_cast<int>(cudaErrorInvalidValue);   // no instance
 }
 
 }  // namespace
 
-// Pointers are device pointers; scale (Cout,) f32 and valid (M,) u8 may be
-// null.  Requires Cin % 16 == 0 and Cout % 16 == 0 (the wrapper checks).
-// Returns the cudaError_t of the launch.
-extern "C" int q3d_sparse_gather_conv_f32(
-    const void* feat, const void* idx, const void* w, const void* scale,
-    const void* valid, void* out, int N, int M, int K, int Cin, int Cout,
-    void* stream) {
-  return launch<float, float>(feat, idx, w, scale, valid, out, N, M, K, Cin,
-                              Cout, stream);
-}
+// Pointers are device pointers, feat / w / out 16-byte aligned; scale (Cout,)
+// f32 and valid (M,) u8 may be null.  Cin, Cout in {16, 32, 64, 128} and
+// 1 <= K <= 27 (the wrapper checks).  Returns the cudaError_t of the launch.
+#define Q3D_GC_EXPORT(SUFFIX, T)                                             \
+  extern "C" int q3d_sparse_gather_conv_##SUFFIX(                            \
+      const void* feat, const void* idx, const void* w, const void* scale,   \
+      const void* valid, void* out, int N, int M, int K, int Cin, int Cout,  \
+      void* stream) {                                                        \
+    return launch<T>(feat, idx, w, scale, valid, out, N, M, K, Cin, Cout,    \
+                     stream);                                                \
+  }
 
-extern "C" int q3d_sparse_gather_conv_bf16(
-    const void* feat, const void* idx, const void* w, const void* scale,
-    const void* valid, void* out, int N, int M, int K, int Cin, int Cout,
-    void* stream) {
-  return launch<__nv_bfloat16, __nv_bfloat16>(feat, idx, w, scale, valid, out,
-                                              N, M, K, Cin, Cout, stream);
-}
-
-extern "C" int q3d_sparse_gather_conv_s8(
-    const void* feat, const void* idx, const void* w, const void* scale,
-    const void* valid, void* out, int N, int M, int K, int Cin, int Cout,
-    void* stream) {
-  return launch<int8_t, float>(feat, idx, w, scale, valid, out, N, M, K, Cin,
-                               Cout, stream);
-}
+#if !defined(Q3D_GC_BF16) && !defined(Q3D_GC_S8) && !defined(Q3D_GC_F32)
+#define Q3D_GC_BF16
+#define Q3D_GC_S8
+#define Q3D_GC_F32
+#endif
+#ifdef Q3D_GC_F32
+Q3D_GC_EXPORT(f32, float)
+#endif
+#ifdef Q3D_GC_BF16
+Q3D_GC_EXPORT(bf16, __nv_bfloat16)
+#endif
+#ifdef Q3D_GC_S8
+Q3D_GC_EXPORT(s8, int8_t)
+#endif

@@ -1,16 +1,18 @@
 """Build the port's CUDA kernels with ``nvcc`` at first use; bind with ctypes.
 
 Each ``csrc/*.cu`` file has a plain ``extern "C"`` interface and is compiled
-on its own into a shared library:
+into a shared library, once per variant (a source may split its instances
+across variants with ``-D`` flags, so that their builds run in parallel):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o <lib>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v [variant flags] -o <lib>.so csrc/<name>.cu
 
-The library lands in ``.torch_ext_build/`` at the repo root (git-ignored),
-named by a hash of its source and flags, so an edited source rebuilds and an
-unchanged one is reused.  ``build_all`` starts one ``nvcc`` per missing
-library, all at once, and waits for every one.  A build or load failure
-raises: no caller falls back to a plain version because a kernel is missing.
+The libraries land in ``.torch_ext_build/`` at the repo root (git-ignored),
+named by a hash of the source, every ``csrc/*.cuh`` header and the flags, so
+an edited source or header rebuilds and an unchanged one is reused.
+``build_all`` starts one ``nvcc`` per missing library, all at once, and waits
+for every one.  A build or load failure raises: no caller falls back to a
+plain version because a kernel is missing.
 """
 
 import ctypes
@@ -38,63 +40,88 @@ def _nvcc():
 
 
 class CudaLibrary:
-    """One ``csrc`` source: its build, its ctypes handle, and the launch count
-    of its kernel.  ``signatures`` maps each exported C function to its
-    ctypes argtypes; every function returns the ``cudaError_t`` of its launch.
+    """One ``csrc`` source: its builds, its ctypes handles, and the launch
+    count of its kernel.  ``signatures`` maps each exported C function to its
+    ctypes argtypes; every function returns the ``cudaError_t`` of its
+    launch.  ``variants`` holds one tuple of extra ``nvcc`` flags per build
+    of the source; a function is bound from whichever build exports it.
 
     ``launches`` is a plain counter: the op's wrapper adds one where it
     launches the kernel, and nowhere else."""
 
-    def __init__(self, source, signatures):
+    def __init__(self, source, signatures, variants=((),)):
         self.source = CSRC / source
         self.signatures = signatures
+        self.variants = tuple(tuple(v) for v in variants)
         self.launches = 0
-        self._lib = None
+        self._fns = None
 
     @property
-    def so_path(self):
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"{self.source.stem}-{digest}.so"
+    def so_paths(self):
+        """One library path per variant, named by the content hash."""
+        text = self.source.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        paths = []
+        for i, extra in enumerate(self.variants):
+            flags = " ".join(NVCC_FLAGS + extra).encode()
+            digest = hashlib.sha256(text + flags).hexdigest()[:16]
+            tag = f"-v{i}" if len(self.variants) > 1 else ""
+            paths.append(BUILD_DIR / f"{self.source.stem}{tag}-{digest}.so")
+        return paths
 
     def start_build(self):
-        """Start ``nvcc`` for this library -> (Popen, tmp path), or None when
-        the library is already built."""
-        so = self.so_path
-        if so.exists():
-            return None
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        return proc, tmp
+        """Start ``nvcc`` for each variant not built yet -> list of
+        (Popen, tmp path, library path)."""
+        started = []
+        for so, extra in zip(self.so_paths, self.variants):
+            if so.exists():
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+            cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(self.source)]
+            started.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True),
+                            tmp, so))
+        return started
 
     def finish_build(self, started):
-        proc, tmp = started
-        log, _ = proc.communicate()
-        so = self.so_path
-        so.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {self.source.name} "
-                               f"(exit {proc.returncode}):\n{log}")
-        os.replace(tmp, so)
+        """Wait for every started ``nvcc``; raise if any failed."""
+        errors = []
+        for proc, tmp, so in started:
+            log, _ = proc.communicate()
+            so.with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {so.name} "
+                              f"(exit {proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, so)
+        if errors:
+            raise RuntimeError("\n".join(errors))
 
     def lib(self):
-        """The loaded library, building it first when needed."""
-        if self._lib is None:
+        """The bound C functions by name, building the libraries first when
+        needed."""
+        if self._fns is None:
             build_all([self])
-            lib = ctypes.CDLL(str(self.so_path))
-            for name, argtypes in self.signatures.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            self._lib = lib
-        return self._lib
+            fns = {}
+            for so in self.so_paths:
+                lib = ctypes.CDLL(str(so))
+                for name, argtypes in self.signatures.items():
+                    fn = getattr(lib, name, None)
+                    if fn is not None and name not in fns:
+                        fn.argtypes = argtypes
+                        fn.restype = ctypes.c_int
+                        fns[name] = fn
+            missing = set(self.signatures) - set(fns)
+            if missing:
+                raise RuntimeError(f"{self.source.name}: no build exports "
+                                   f"{sorted(missing)}")
+            self._fns = fns
+        return self._fns
 
     def call(self, name, *args):
         """Launch through C function ``name``; raises on a launch error."""
-        err = getattr(self.lib(), name)(*args)
+        err = self.lib()[name](*args)
         if err != 0:
             raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
@@ -106,8 +133,6 @@ def build_all(libraries):
     started = [(lib, lib.start_build()) for lib in libraries]
     errors = []
     for lib, s in started:
-        if s is None:
-            continue
         try:
             lib.finish_build(s)
         except RuntimeError as e:        # wait for every nvcc before raising

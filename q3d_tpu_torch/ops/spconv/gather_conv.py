@@ -7,11 +7,14 @@ Replaces the TPU kernel ``q3d_tpu/ops/spconv/pallas_conv.py:274``
     out[m] = (sum_k f[idx[m, k]] @ W[k]) * out_scale * out_valid[m]
 
 over a direct (M, K) rulebook whose misses lie outside [0, N).  The kernel
-is ``csrc/sparse_gather_conv.cu``; its plain PyTorch version is
-``engine.gather_conv`` (gather + one GEMM in the accumulation dtype).
+is ``csrc/sparse_gather_conv.cu`` (cp.async row gathers into a shared-memory
+ring, ``mma.sync`` tensor cores for bf16 and s8); its plain PyTorch version
+is ``engine.gather_conv`` (gather + one GEMM in the accumulation dtype).
 
 Dtypes: f32 and bf16 inputs accumulate in f32 and return the input dtype;
-s8 x s8 accumulates in s32 and returns f32 after ``out_scale``.
+s8 x s8 accumulates in s32 and returns f32 after ``out_scale``.  The kernel
+has instances for Cin, Cout in {16, 32, 64, 128} and books of K <= 27 taps;
+the wrapper raises on any other shape.
 """
 
 import ctypes
@@ -23,10 +26,14 @@ from .engine import gather_conv as gather_conv_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "s8"}
+# one build per dtype (16 width instances each), compiled in parallel
 KERNEL = CudaLibrary(
     "sparse_gather_conv.cu",
     {f"q3d_sparse_gather_conv_{s}": [_P] * 6 + [_I] * 5 + [_P]
-     for s in _SUFFIX.values()})
+     for s in _SUFFIX.values()},
+    variants=[(f"-DQ3D_GC_{s.upper()}",) for s in _SUFFIX.values()])
+WIDTHS = (16, 32, 64, 128)
+MAX_TAPS = 27
 
 
 def _require(cond, msg):
@@ -53,8 +60,12 @@ def gather_conv_cuda(features, gather_idx, weight, out_scale=None,
              "weight must be a contiguous (K, Cin, Cout) tensor of the "
              "features' dtype and device")
     cout = weight.shape[2]
-    _require(cin % 16 == 0 and cout % 16 == 0,
-             f"Cin and Cout must be multiples of 16 (got {cin}, {cout})")
+    _require(cin in WIDTHS and cout in WIDTHS,
+             f"no kernel instance for Cin={cin}, Cout={cout} "
+             f"(widths {WIDTHS})")
+    _require(1 <= k <= MAX_TAPS, f"books of 1..{MAX_TAPS} taps (got {k})")
+    _require(features.data_ptr() % 16 == 0 and weight.data_ptr() % 16 == 0,
+             "features and weight must be 16-byte aligned (cp.async)")
     if out_scale is not None:
         out_scale = out_scale.reshape(-1)
         _require(out_scale.dtype == torch.float32 and out_scale.numel() == cout

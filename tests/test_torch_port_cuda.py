@@ -8,7 +8,8 @@ runs where only the port is installed:
         tests/test_torch_port_cuda.py
 
 Tolerances: the f32 conv differs from the plain gather + GEMM in summation
-order only (rtol 1e-5, atol 1e-4); s8 sums and greedy keep masks are exact.
+order only (rtol 1e-5, atol 1e-4); bf16 by one bf16 rounding of f32 sums
+taken in another order (rtol 2^-7); s8 sums and greedy keep masks are exact.
 """
 
 from pathlib import Path
@@ -38,35 +39,66 @@ def card():
     return torch.device("cuda")
 
 
-def test_gather_conv_kernel_matches_plain(card):
-    rng = np.random.RandomState(0)
-    n, m, cin, cout = 3000, 2500, 32, 64
-    book = rng.randint(0, n + 1, size=(m, 27)).astype(np.int32)
-    book[rng.rand(m, 27) < 0.7] = n                  # mostly misses
-    idx = torch.from_numpy(book).to(card)
+# every (Cin, Cout) of the sparse backbone
+BACKBONE_WIDTHS = [(16, 16), (16, 32), (32, 32), (32, 64), (64, 64),
+                   (64, 128), (128, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "s8"])
+@pytest.mark.parametrize("k", [27, 3])
+@pytest.mark.parametrize("cin,cout", BACKBONE_WIDTHS)
+def test_gather_conv_kernel_matches_plain(card, cin, cout, k, dtype):
+    """M = 1000 is no multiple of the kernel's 128-row tile; rows 128-255
+    (one whole tile) miss every tap; besides the book's own miss value N,
+    some entries are negative or above N."""
+    rng = np.random.RandomState(cin * 1000 + cout * 10 + k)
+    n, m = 3000, 1000
+    book = rng.randint(0, n, size=(m, k)).astype(np.int64)
+    book[rng.rand(m, k) < 0.7] = n                   # mostly misses
+    odd = rng.rand(m, k) < 0.05
+    book[odd] = rng.choice([-1, -5, n + 1, 2 ** 31 - 1], size=int(odd.sum()))
+    book[128:256] = n
+    idx = torch.from_numpy(book.astype(np.int32)).to(card)
     valid = torch.from_numpy(rng.rand(m) > 0.1).to(card)
-    for dt in (torch.float32, torch.bfloat16):
-        f = torch.from_numpy(rng.randn(n, cin).astype(np.float32)).to(card, dt)
-        w = torch.from_numpy(rng.randn(27, cin, cout).astype(np.float32)) \
-            .to(card, dt)
-        k = gather_conv.sparse_gather_conv(f, idx, w, out_valid=valid)
-        p = gather_conv.sparse_gather_conv(f, idx, w, out_valid=valid,
-                                           impl="plain")
-        assert k.dtype == dt
-        if dt == torch.float32:
-            torch.testing.assert_close(k, p, rtol=1e-5, atol=1e-4)
-        else:                                        # one bf16 rounding apart
-            torch.testing.assert_close(k.float(), p.float(), rtol=2 ** -7,
-                                       atol=1e-2)
-    fq = torch.from_numpy(rng.randint(-127, 128, (n, cin)).astype(np.int8))
-    wq = torch.from_numpy(rng.randint(-127, 128, (27, cin, cout))
-                          .astype(np.int8))
-    fq, wq = fq.to(card), wq.to(card)
-    scale = torch.rand(cout, device=card)
+    scale = torch.from_numpy(rng.rand(cout).astype(np.float32)).to(card)
+    if dtype == "s8":
+        f = torch.from_numpy(rng.randint(-127, 128, (n, cin)).astype(np.int8))
+        w = torch.from_numpy(rng.randint(-127, 128, (k, cin, cout))
+                             .astype(np.int8))
+    else:
+        dt = torch.float32 if dtype == "f32" else torch.bfloat16
+        f = torch.from_numpy(rng.randn(n, cin).astype(np.float32)).to(dt)
+        w = torch.from_numpy(rng.randn(k, cin, cout).astype(np.float32)).to(dt)
+    f, w = f.to(card), w.to(card)
     for kw in ({}, {"out_scale": scale, "out_valid": valid}):
-        assert torch.equal(
-            gather_conv.sparse_gather_conv(fq, idx, wq, **kw),
-            gather_conv.sparse_gather_conv(fq, idx, wq, impl="plain", **kw))
+        launches = gather_conv.KERNEL.launches
+        out_k = gather_conv.sparse_gather_conv(f, idx, w, **kw)
+        out_p = gather_conv.sparse_gather_conv(f, idx, w, impl="plain", **kw)
+        torch.cuda.synchronize()
+        assert gather_conv.KERNEL.launches == launches + 1
+        assert out_k.dtype == out_p.dtype and out_k.shape == (m, cout)
+        assert not out_k[128:256].any()              # the all-miss tile
+        if dtype == "s8":
+            assert torch.equal(out_k, out_p)
+        elif dtype == "f32":
+            torch.testing.assert_close(out_k, out_p, rtol=1e-5, atol=1e-4)
+        else:                                        # one bf16 rounding apart
+            torch.testing.assert_close(out_k.float(), out_p.float(),
+                                       rtol=2 ** -7, atol=1e-2)
+
+
+def test_gather_conv_wrapper_raises_on_what_no_instance_takes(card):
+    book = torch.zeros((64, 27), dtype=torch.int32, device=card)
+    w = torch.zeros((27, 16, 16), dtype=torch.bfloat16, device=card)
+    buf = torch.zeros(64 * 16 + 1, dtype=torch.bfloat16, device=card)
+    f = buf[1:].view(64, 16)                         # 2 bytes off alignment
+    assert f.is_contiguous() and f.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gather_conv.gather_conv_cuda(f, book, w)
+    with pytest.raises(ValueError, match="no kernel instance"):
+        gather_conv.gather_conv_cuda(
+            torch.zeros((64, 48), dtype=torch.bfloat16, device=card), book,
+            torch.zeros((27, 48, 16), dtype=torch.bfloat16, device=card))
 
 
 def test_greedy_nms_kernel_matches_plain(card):

@@ -3,7 +3,9 @@ function (the sparse gather-conv that ``pallas_conv.py`` runs on the TPU).
 
 Rulebooks are integer tables and must be exactly equal.  The gather-conv is
 held against the Pallas kernel in interpret mode and against the reference's
-chunked gather path: f32 within 1e-5 (summation order only), s8 exact.
+chunked gather path: f32 within 1e-5 (summation order only), s8 exact, bf16
+within one bf16 ulp (2^-7 relative: both round an f32 sum, taken in another
+order, to bf16 once).
 """
 
 from pathlib import Path
@@ -159,7 +161,12 @@ def _chunk_refs(st, w, **kw):
     return np.asarray(ref), np.asarray(pal)
 
 
-@pytest.mark.parametrize("seed,n_active,capacity,cin,cout", RANDOM_CASES)
+# the backbone's real stage widths (16 -> 32, 32 -> 64) beside the narrow ones
+WIDE_CASES = [(3, 300, 384, 16, 32), (4, 300, 384, 32, 64)]
+
+
+@pytest.mark.parametrize("seed,n_active,capacity,cin,cout",
+                         RANDOM_CASES + WIDE_CASES)
 def test_gather_conv_matches_pallas_kernel_f32(seed, n_active, capacity, cin,
                                                cout):
     rng = np.random.RandomState(seed)
@@ -172,6 +179,26 @@ def test_gather_conv_matches_pallas_kernel_f32(seed, n_active, capacity, cin,
     assert out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), pal, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+def test_gather_conv_matches_pallas_kernel_bf16():
+    rng = np.random.RandomState(8)
+    st, _ = _sorted_sparse(rng, 2, (4, 10, 16), 300, 16, 384)
+    f = jnp.asarray(np.asarray(st.features), jnp.bfloat16)
+    st = st.replace(features=f)
+    w = jnp.asarray(rng.randn(27, 16, 32).astype(np.float32) * 0.1,
+                    jnp.bfloat16)
+    ref, pal = _chunk_refs(st, w)
+    pst = _port_tensor(st.replace(features=f.astype(jnp.float32)))
+    out = gather_conv.sparse_gather_conv(
+        pst.features.to(torch.bfloat16), engine.subm_gather_indices(pst, 3),
+        torch.from_numpy(np.array(w.astype(jnp.float32))).to(torch.bfloat16))
+    assert out.dtype == torch.bfloat16
+    out = out.float().numpy()
+    for r in (ref, pal):
+        r = np.asarray(r, np.float32)
+        assert np.abs(r).max() > 0.1
+        np.testing.assert_allclose(out, r, rtol=2.0 ** -7, atol=1e-6)
 
 
 def test_gather_conv_int8_with_scale_and_valid_exact():
