@@ -20,29 +20,36 @@
 // 2.5x of the operations only at 128 -> 128).  What a kernel actually runs
 // into is the latency of gathering scattered rows, the per-tap overhead on
 // the narrow convs, and -- once the product is on tensor cores -- the shared
-// memory reads that feed them.
+// memory reads that feed them.  Measured on the H100 (PERF.md): the whole
+// backbone's 21 convs take about 8x their bound; at 128 -> 128 s8, with
+// half the shared-memory bytes per multiply, runs about 1.6x faster than
+// bf16, so there the ldmatrix reads (and one 121 KB block per SM) bound the
+// kernel, and at the narrow widths the per-step latency does.
 //
 // Design, per block of BM = 128 output rows x all of Cout (no column
 // blocks, so every row is gathered once and W[k] is read once per 128 rows):
 //   1. the tile's (BM, K) block of the book is loaded once into shared
 //      memory, coalesced; out-of-range entries become -1.  Warp ballots give
-//      each warp's 16-row tap mask; the block walks only the taps some row
-//      hits, and a warp skips the product of a tap none of its rows hits;
+//      each warp's tap mask over its rows; the block walks only the taps
+//      some row hits, and a warp skips the product of a tap none of its rows
+//      hits;
 //   2. a step is (tap, Cin slice of at most 128 bytes).  Its gathered rows
 //      (16-byte cp.async, zero-fill for misses) and its W[k] slice (16-byte
 //      cp.async of a plain 2-D tile) go into a 3-stage shared-memory ring, so
-//      two steps are in flight while one multiplies.  Rows are padded by 16
-//      bytes, which makes every ldmatrix phase (8 rows x 16 bytes) hit 8
-//      distinct 16-byte bank groups at every Cin and Cout from 16 to 128;
+//      two steps are in flight while one multiplies.  Rows are padded to an
+//      odd number of 16-byte units, which makes every ldmatrix phase (8 rows
+//      x 16 bytes) hit 8 distinct 16-byte bank groups at every Cin and Cout
+//      from 16 to 128;
 //   3. bf16 runs mma.sync.m16n8k16 (f32 accumulators), s8 runs
-//      mma.sync.m16n8k32 (s32 accumulators, bit-exact).  Each warp owns 16
-//      rows x Cout.  A fragments come from ldmatrix, B fragments from
+//      mma.sync.m16n8k32 (s32 accumulators, bit-exact).  A warp owns 16
+//      rows x Cout, or 32 rows x Cout/2 at Cout >= 64, so that B fragments
+//      are read once per 32 rows.  A fragments come from ldmatrix, B from
 //      ldmatrix.trans on the (Cin, Cout) weight tile; for s8 the 16-bit
 //      transpose pairs are re-sorted with byte permutes into k-contiguous
 //      fragments of an even and an odd column tile.  mma.sync rather than
 //      wgmma: the kernel is bytes- and latency-bound, and mma.sync's rate is
 //      more than 10x what the work needs, while it keeps per-warp tap
-//      skipping and a 16-row warp tile;
+//      skipping and a 16- or 32-row warp tile;
 //   4. f32 has no exact tensor-core path (TF32 breaks the f32 tolerance), so
 //      f32 keeps the same tile, book, ring and epilogue and multiplies on
 //      CUDA cores (an explicit dtype branch, not a fallback);
@@ -61,11 +68,10 @@
 namespace {
 
 constexpr int BM = 128;          // output rows per block
-constexpr int WARPS = 8;         // each warp owns 16 rows x all of Cout
+constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int KMAX = 27;         // most taps a book row may have
 constexpr int NSTAGE = 3;        // cp.async ring depth
-constexpr int PAD = 16;          // bytes added to every shared-memory row
 
 template <typename T, int CIN, int COUT>
 struct Cfg {
@@ -78,11 +84,19 @@ struct Cfg {
   static constexpr int NSL = CIN / KC;                          // steps per tap
   // mma depth is 32 bytes: s8 at Cin 16 pads its 16-byte rows with zeros
   static constexpr int KCP = (TC && KC * ES < 32) ? 32 / ES : KC;
-  static constexpr int A_PITCH = KCP * ES + PAD;
-  static constexpr int W_PITCH = COUT * ES + PAD;
+  // warp tile: 16 rows x Cout, or (tensor cores, Cout >= 64) 32 rows x
+  // Cout/2, where two A fragments share each B fragment: a fifth to a
+  // third fewer ldmatrix reads of shared memory per mma
+  static constexpr int WC = (TC && COUT >= 64) ? 2 : 1;   // warps across Cout
+  static constexpr int RW = BM * WC / WARPS;               // rows per warp
+  static constexpr int MT = RW / 16, CW = COUT / WC;
+  // an odd number of 16-byte units per row: 8 consecutive rows fall in 8
+  // distinct 16-byte bank groups
+  static constexpr int A_PITCH = ((KCP * ES / 16) | 1) * 16;
+  static constexpr int W_PITCH = ((COUT * ES / 16) | 1) * 16;
   static constexpr int A_BYTES = BM * A_PITCH;
   static constexpr int STAGE_BYTES = A_BYTES + KCP * W_PITCH;
-  static constexpr int O_PITCH = COUT * (int)sizeof(Out) + PAD;
+  static constexpr int O_PITCH = ((COUT * (int)sizeof(Out) / 16) | 1) * 16;
   static constexpr int BOOK_BYTES = BM * KMAX * 4;
   static constexpr int RING_BYTES = NSTAGE * STAGE_BYTES > BM * O_PITCH
                                         ? NSTAGE * STAGE_BYTES : BM * O_PITCH;
@@ -137,6 +151,17 @@ __device__ __forceinline__ void mma(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// shared-memory row of weight row k.  s8 keeps each 32-row depth step as
+// k = {0,1,4,5,..,12,13}, {2,3,6,7,..,14,15}, then the same + 16, so that
+// every ldmatrix.trans phase of its B fragments reads 8 consecutive rows
+template <typename T>
+__device__ __forceinline__ int w_row(int k) {
+  if constexpr (std::is_same<T, int8_t>::value)
+    return (k & ~15) | ((k >> 1) & 1) << 3 | ((k >> 2) & 3) << 1 | (k & 1);
+  else
+    return k;
+}
+
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
@@ -162,6 +187,8 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
   unsigned char* ring = smem + C::BOOK_BYTES;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rb = warp / C::WC * C::RW;        // the warp's first row
+  const int pb = warp % C::WC * C::CW / 16;   // its first 16-column block
   const int m0 = blockIdx.x * BM;
   const int rows = min(BM, M - m0);
 
@@ -178,7 +205,7 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
   __syncthreads();
   uint32_t my_mask = 0;
   for (int k = 0; k < K; ++k) {
-    const int r = book[(warp * 16 + (lane & 15)) * K + k];
+    const int r = book[(rb + lane % C::RW) * K + k];
     if (__ballot_sync(0xffffffffu, r >= 0)) my_mask |= 1u << k;
   }
   if (lane == 0) warp_mask[warp] = my_mask;
@@ -212,20 +239,23 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
                               + ((size_t)tap * CIN + c0) * COUT * ES;
     for (int e = tid; e < KC * WCH; e += THREADS) {
       const int r = e / WCH, c = e % WCH;
-      cp_async16(sw + r * C::W_PITCH + c * 16, wk + (size_t)r * COUT * ES + c * 16,
-                 16);
+      cp_async16(sw + w_row<T>(r) * C::W_PITCH + c * 16,
+                 wk + (size_t)r * COUT * ES + c * 16, 16);
     }
   };
 
-  // accumulators: tensor cores keep (Cout/8 tiles) x 4 per thread; the f32
-  // CUDA-core path keeps 8 rows x Cout/16 columns per thread
-  constexpr int NT = C::TC ? COUT / 8 : 8;
+  // accumulators: tensor cores keep MT x (CW/8 tiles) x 4 per thread; the
+  // f32 CUDA-core path keeps 8 rows x Cout/16 columns per thread
+  constexpr int MT = C::TC ? C::MT : 1;
+  constexpr int NT = C::TC ? C::CW / 8 : 8;
   constexpr int NJ = C::TC ? 4 : COUT / 16;
-  Acc acc[NT][NJ];
+  Acc acc[MT][NT][NJ];
 #pragma unroll
-  for (int i = 0; i < NT; ++i)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = Acc(0);
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[mt][i][j] = Acc(0);
 
 #pragma unroll
   for (int s = 0; s < NSTAGE - 1; ++s) {
@@ -239,33 +269,42 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
       const unsigned char* sa = ring + (s % NSTAGE) * C::STAGE_BYTES;
       const unsigned char* sw = sa + C::A_BYTES;
       if constexpr (C::TC) {
-        // 3. tensor cores: per 32-byte depth step, one A fragment (16 rows)
-        //    and Cout/16 B fragment pairs
+        // 3. tensor cores: per 32-byte depth step, MT A fragments (16 rows
+        //    each) and CW/16 B fragment pairs
 #pragma unroll
         for (int ks = 0; ks < C::KCP * ES / 32; ++ks) {
-          uint32_t a[4];
-          ldsm_x4(a, sa + (warp * 16 + (lane & 15)) * C::A_PITCH + ks * 32
-                         + (lane >> 4) * 16);
+          uint32_t a[MT][4];
 #pragma unroll
-          for (int p = 0; p < COUT / 16; ++p) {
+          for (int mt = 0; mt < MT; ++mt)
+            ldsm_x4(a[mt], sa + (rb + mt * 16 + (lane & 15)) * C::A_PITCH
+                               + ks * 32 + (lane >> 4) * 16);
+#pragma unroll
+          for (int p = 0; p < C::CW / 16; ++p) {
+            const int pc = pb + p;
             uint32_t b[4];
             if constexpr (std::is_same<T, int8_t>::value) {
-              // k rows {0,1,4,5,..} and {2,3,6,7,..} (+16 for b1): each
-              // 16-bit transpose pair holds 2 k x 2 columns; permute bytes
-              // into k-contiguous fragments of columns 2j (even) and 2j+1
-              const int q = lane >> 3, r = lane & 7;
-              const int kr = ks * 32 + (q & 1) * 2 + (r >> 1) * 4 + (r & 1)
-                             + (q >> 1) * 16;
-              ldsm_x4_t(b, sw + kr * C::W_PITCH + p * 16);
-              mma(acc[2 * p], a, __byte_perm(b[0], b[1], 0x6420),
-                  __byte_perm(b[2], b[3], 0x6420));
-              mma(acc[2 * p + 1], a, __byte_perm(b[0], b[1], 0x7531),
-                  __byte_perm(b[2], b[3], 0x7531));
+              // matrices of k rows {0,1,4,5,..}, {2,3,6,7,..} (+16 for b1),
+              // stored consecutively (w_row): each 16-bit transpose pair
+              // holds 2 k x 2 columns; byte permutes make k-contiguous
+              // fragments of columns 2j (even tile) and 2j+1 (odd tile)
+              ldsm_x4_t(b, sw + (ks * 32 + lane) * C::W_PITCH + pc * 16);
+              const uint32_t e0 = __byte_perm(b[0], b[1], 0x6420);
+              const uint32_t e1 = __byte_perm(b[2], b[3], 0x6420);
+              const uint32_t o0 = __byte_perm(b[0], b[1], 0x7531);
+              const uint32_t o1 = __byte_perm(b[2], b[3], 0x7531);
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt) {
+                mma(acc[mt][2 * p], a[mt], e0, e1);
+                mma(acc[mt][2 * p + 1], a[mt], o0, o1);
+              }
             } else {
               const int kr = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-              ldsm_x4_t(b, sw + kr * C::W_PITCH + p * 32 + (lane >> 4) * 16);
-              mma(acc[2 * p], a, b[0], b[1]);
-              mma(acc[2 * p + 1], a, b[2], b[3]);
+              ldsm_x4_t(b, sw + kr * C::W_PITCH + pc * 32 + (lane >> 4) * 16);
+#pragma unroll
+              for (int mt = 0; mt < MT; ++mt) {
+                mma(acc[mt][2 * p], a[mt], b[0], b[1]);
+                mma(acc[mt][2 * p + 1], a[mt], b[2], b[3]);
+              }
             }
           }
         }
@@ -287,7 +326,8 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
 #pragma unroll
           for (int i = 0; i < NT; ++i)
 #pragma unroll
-            for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+            for (int j = 0; j < NJ; ++j)
+              acc[0][i][j] = fmaf(av[i], bv[j], acc[0][i][j]);
         }
       }
     }
@@ -308,23 +348,29 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
     put(so + r * OP + n, v);
   };
   if constexpr (C::TC) {
-    const int g = lane >> 2, t = lane & 3, r0 = warp * 16 + g;
+    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int p = 0; p < COUT / 16; ++p) {
+    for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {          // rows g and g + 8
-        const int r = r0 + 8 * h;
-        if constexpr (std::is_same<T, int8_t>::value) {
-          // even tile: columns 16p + 4t, +2; odd tile: 16p + 4t + 1, +3
-          emit(r, 16 * p + 4 * t, acc[2 * p][2 * h]);
-          emit(r, 16 * p + 4 * t + 1, acc[2 * p + 1][2 * h]);
-          emit(r, 16 * p + 4 * t + 2, acc[2 * p][2 * h + 1]);
-          emit(r, 16 * p + 4 * t + 3, acc[2 * p + 1][2 * h + 1]);
-        } else {
-          emit(r, 16 * p + 2 * t, acc[2 * p][2 * h]);
-          emit(r, 16 * p + 2 * t + 1, acc[2 * p][2 * h + 1]);
-          emit(r, 16 * p + 8 + 2 * t, acc[2 * p + 1][2 * h]);
-          emit(r, 16 * p + 8 + 2 * t + 1, acc[2 * p + 1][2 * h + 1]);
+      for (int p = 0; p < C::CW / 16; ++p) {
+        const int n = 16 * (pb + p);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {          // rows g and g + 8
+          const int r = rb + mt * 16 + g + 8 * h;
+          const Acc* ev = acc[mt][2 * p];
+          const Acc* od = acc[mt][2 * p + 1];
+          if constexpr (std::is_same<T, int8_t>::value) {
+            // even tile: columns 4t, 4t + 2; odd tile: 4t + 1, 4t + 3
+            emit(r, n + 4 * t, ev[2 * h]);
+            emit(r, n + 4 * t + 1, od[2 * h]);
+            emit(r, n + 4 * t + 2, ev[2 * h + 1]);
+            emit(r, n + 4 * t + 3, od[2 * h + 1]);
+          } else {
+            emit(r, n + 2 * t, ev[2 * h]);
+            emit(r, n + 2 * t + 1, ev[2 * h + 1]);
+            emit(r, n + 8 + 2 * t, od[2 * h]);
+            emit(r, n + 8 + 2 * t + 1, od[2 * h + 1]);
+          }
         }
       }
     }
@@ -333,7 +379,7 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
 #pragma unroll
     for (int i = 0; i < NT; ++i)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) emit(ty * 8 + i, tx + 16 * j, acc[i][j]);
+      for (int j = 0; j < NJ; ++j) emit(ty * 8 + i, tx + 16 * j, acc[0][i][j]);
   }
   __syncthreads();
   constexpr int OCH = COUT * (int)sizeof(Out) / 16;
