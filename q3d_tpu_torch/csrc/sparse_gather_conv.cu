@@ -57,8 +57,9 @@
 //      memory and stores 16 bytes a thread.  (A fused bias/BN/residual/ReLU/
 //      requant epilogue would slot in at this point.)
 // Instances: Cin, Cout in {16, 32, 64, 128}; K <= 27 at run time (27 for
-// the 3x3x3 convs, 3 for conv_out).  Built once per dtype (-DQ3D_GC_<DT>)
-// so the three builds run in parallel.
+// the 3x3x3 convs, 3 for conv_out).  Built once per dtype: -DQ3D_GC_F32,
+// -DQ3D_GC_BF16 or -DQ3D_GC_S8 selects the function a build exports, so the
+// three builds run in parallel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -441,11 +442,6 @@ int launch(const void* feat, const void* idx, const void* w, const void* scale,
                      stream);                                                \
   }
 
-#if !defined(Q3D_GC_BF16) && !defined(Q3D_GC_S8) && !defined(Q3D_GC_F32)
-#define Q3D_GC_BF16
-#define Q3D_GC_S8
-#define Q3D_GC_F32
-#endif
 #ifdef Q3D_GC_F32
 Q3D_GC_EXPORT(f32, float)
 #endif

@@ -8,8 +8,8 @@ across variants with ``-D`` flags, so that their builds run in parallel):
          -Xcompiler -fPIC -Xptxas -v [variant flags] -o <lib>.so csrc/<name>.cu
 
 The libraries land in ``.torch_ext_build/`` at the repo root (git-ignored),
-named by a hash of the source, every ``csrc/*.cuh`` header and the flags, so
-an edited source or header rebuilds and an unchanged one is reused.
+named by a hash of the source and the flags, so an edited source rebuilds
+and an unchanged one is reused.
 ``build_all`` starts one ``nvcc`` per missing library, all at once, and waits
 for every one.  A build or load failure raises: no caller falls back to a
 plain version because a kernel is missing.
@@ -59,8 +59,7 @@ class CudaLibrary:
     @property
     def so_paths(self):
         """One library path per variant, named by the content hash."""
-        text = self.source.read_bytes() + b"".join(
-            h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        text = self.source.read_bytes()
         paths = []
         for i, extra in enumerate(self.variants):
             flags = " ".join(NVCC_FLAGS + extra).encode()
