@@ -54,7 +54,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12, "s8": 1979e12}
 CONV_DESIGN = ("128-row x all-Cout tiles; book loaded once, ballot tap masks; "
-               "16-byte cp.async gathers into a 3-stage ring; mma.sync "
+               "16-byte cp.async gathers into a 2-3 stage ring; mma.sync "
                "m16n8k16 bf16 / m16n8k32 s8 (f32 on CUDA cores)")
 
 

@@ -23,8 +23,8 @@
 // memory reads that feed them.  Measured on the H100 (PERF.md): the whole
 // backbone's 21 convs take about 8x their bound; at 128 -> 128 s8, with
 // half the shared-memory bytes per multiply, runs about 1.6x faster than
-// bf16, so there the ldmatrix reads (and one 121 KB block per SM) bound the
-// kernel, and at the narrow widths the per-step latency does.
+// bf16, so there the ldmatrix reads bound the kernel, and at the narrow
+// widths the per-step latency does.
 //
 // Design, per block of BM = 128 output rows x all of Cout (no column
 // blocks, so every row is gathered once and W[k] is read once per 128 rows):
@@ -35,11 +35,13 @@
 //      hits;
 //   2. a step is (tap, Cin slice of at most 128 bytes).  Its gathered rows
 //      (16-byte cp.async, zero-fill for misses) and its W[k] slice (16-byte
-//      cp.async of a plain 2-D tile) go into a 3-stage shared-memory ring, so
-//      two steps are in flight while one multiplies.  Rows are padded to an
-//      odd number of 16-byte units, which makes every ldmatrix phase (8 rows
-//      x 16 bytes) hit 8 distinct 16-byte bank groups at every Cin and Cout
-//      from 16 to 128;
+//      cp.async of a plain 2-D tile) go into a shared-memory ring of 3
+//      stages (2 where 3 would leave room for one block per SM, as at
+//      128 -> 128); each step's copies are issued NSTAGE - 1 steps ahead,
+//      right before an earlier step multiplies, so they overlap it.  Rows
+//      are padded to an odd number of 16-byte units, which makes every
+//      ldmatrix phase (8 rows x 16 bytes) hit 8 distinct 16-byte bank groups
+//      at every Cin and Cout from 16 to 128;
 //   3. bf16 runs mma.sync.m16n8k16 (f32 accumulators), s8 runs
 //      mma.sync.m16n8k32 (s32 accumulators, bit-exact).  A warp owns 16
 //      rows x Cout, or 32 rows x Cout/2 at Cout >= 64, so that B fragments
@@ -72,7 +74,7 @@ constexpr int BM = 128;          // output rows per block
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int KMAX = 27;         // most taps a book row may have
-constexpr int NSTAGE = 3;        // cp.async ring depth
+constexpr int SMEM_PER_SM = 228 * 1024;   // shared memory per SM
 
 template <typename T, int CIN, int COUT>
 struct Cfg {
@@ -99,6 +101,10 @@ struct Cfg {
   static constexpr int STAGE_BYTES = A_BYTES + KCP * W_PITCH;
   static constexpr int O_PITCH = ((COUT * (int)sizeof(Out) / 16) | 1) * 16;
   static constexpr int BOOK_BYTES = BM * KMAX * 4;
+  // cp.async ring depth: 3 stages, or 2 where 3 would leave room for only
+  // one block per SM (no other block to hide a step's barrier behind)
+  static constexpr int NSTAGE =
+      2 * (BOOK_BYTES + 3 * STAGE_BYTES + 1024) <= SMEM_PER_SM ? 3 : 2;
   static constexpr int RING_BYTES = NSTAGE * STAGE_BYTES > BM * O_PITCH
                                         ? NSTAGE * STAGE_BYTES : BM * O_PITCH;
   static constexpr int SMEM = BOOK_BYTES + RING_BYTES;
@@ -224,7 +230,7 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
 
   // 2. one step = (tap, Cin slice): gathered rows + the W[k] slice
   auto issue = [&](int s) {
-    unsigned char* sa = ring + (s % NSTAGE) * C::STAGE_BYTES;
+    unsigned char* sa = ring + (s % C::NSTAGE) * C::STAGE_BYTES;
     unsigned char* sw = sa + C::A_BYTES;
     const int tap = taps[s / NSL], c0 = (s % NSL) * KC;
     constexpr int ACH = KC * ES / 16;
@@ -259,15 +265,18 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
       for (int j = 0; j < NJ; ++j) acc[mt][i][j] = Acc(0);
 
 #pragma unroll
-  for (int s = 0; s < NSTAGE - 1; ++s) {
+  for (int s = 0; s < C::NSTAGE - 1; ++s) {
     if (s < nsteps) issue(s);
     cp_async_commit();
   }
   for (int s = 0; s < nsteps; ++s) {
-    cp_async_wait<NSTAGE - 2>();
+    cp_async_wait<C::NSTAGE - 2>();
     __syncthreads();
+    // the stage this fills was read in the previous step, before the barrier
+    if (s + C::NSTAGE - 1 < nsteps) issue(s + C::NSTAGE - 1);
+    cp_async_commit();
     if (my_mask >> taps[s / NSL] & 1) {
-      const unsigned char* sa = ring + (s % NSTAGE) * C::STAGE_BYTES;
+      const unsigned char* sa = ring + (s % C::NSTAGE) * C::STAGE_BYTES;
       const unsigned char* sw = sa + C::A_BYTES;
       if constexpr (C::TC) {
         // 3. tensor cores: per 32-byte depth step, MT A fragments (16 rows
@@ -332,8 +341,6 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
         }
       }
     }
-    if (s + NSTAGE - 1 < nsteps) issue(s + NSTAGE - 1);
-    cp_async_commit();
   }
   cp_async_wait<0>();
   __syncthreads();
