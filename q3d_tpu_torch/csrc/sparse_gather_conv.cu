@@ -37,7 +37,7 @@
 //      (16-byte cp.async, zero-fill for misses) and its W[k] slice (16-byte
 //      cp.async of a plain 2-D tile) go into a shared-memory ring of 3
 //      stages (2 where 3 would leave room for one block per SM, as at
-//      128 -> 128); each step's copies are issued NSTAGE - 1 steps ahead,
+//      128 -> 128); each step's copies start NSTAGE - 1 steps ahead,
 //      right before an earlier step multiplies, so they overlap it.  Rows
 //      are padded to an odd number of 16-byte units, which makes every
 //      ldmatrix phase (8 rows x 16 bytes) hit 8 distinct 16-byte bank groups
@@ -229,7 +229,7 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
   const int nsteps = ntaps * NSL;
 
   // 2. one step = (tap, Cin slice): gathered rows + the W[k] slice
-  auto issue = [&](int s) {
+  auto load_step = [&](int s) {
     unsigned char* sa = ring + (s % C::NSTAGE) * C::STAGE_BYTES;
     unsigned char* sw = sa + C::A_BYTES;
     const int tap = taps[s / NSL], c0 = (s % NSL) * KC;
@@ -266,14 +266,14 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
 
 #pragma unroll
   for (int s = 0; s < C::NSTAGE - 1; ++s) {
-    if (s < nsteps) issue(s);
+    if (s < nsteps) load_step(s);
     cp_async_commit();
   }
   for (int s = 0; s < nsteps; ++s) {
     cp_async_wait<C::NSTAGE - 2>();
     __syncthreads();
     // the stage this fills was read in the previous step, before the barrier
-    if (s + C::NSTAGE - 1 < nsteps) issue(s + C::NSTAGE - 1);
+    if (s + C::NSTAGE - 1 < nsteps) load_step(s + C::NSTAGE - 1);
     cp_async_commit();
     if (my_mask >> taps[s / NSL] & 1) {
       const unsigned char* sa = ring + (s % C::NSTAGE) * C::STAGE_BYTES;
