@@ -11,11 +11,19 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
                 the main path's real shapes: the sparse gather-conv on the
                 rulebooks of all 21 backbone convs of the first
                 centerpoint_ref batch-2 request (f32 and bf16 within stated
-                tolerances, s8 with out_scale/out_valid bit-exact), greedy
-                NMS exactly equal on that request's 6 IoU matrices and on
-                random K = 128 / 1024 ones; median CUDA-event times of the
-                kernel, its plain version and the nearest library call,
-                per conv and summed per (Cin, Cout, K) group;
+                tolerances, s8 with out_scale/out_valid bit-exact), per
+                conv and summed per (Cin, Cout, K) group; greedy NMS in
+                both forms: the IoU form's keep masks exactly equal on that
+                request's 6 IoU matrices and on random K = 128 / 1024 /
+                2048 ones; the boxes form's keep masks exactly equal on
+                that request's 6 candidate sets and on random crowded boxes
+                (K = 128 / 1024, thresh 0.2 / 0.5 / 0.9), its IoU bit-equal
+                to boxes_iou_bev at every pair it evaluated and the plain
+                IoU exactly 0 at every needed pair it skipped.  Median
+                CUDA-event times of each kernel, its plain version and the
+                nearest library call; for NMS also candidate_iou (the old
+                path's IoU matrix) and each bound's bytes, operations and
+                latency terms;
   4. serving  — CenterPoint at centerpoint_ref (full width, seeded random
                 weights, BN statistics calibrated on the first request),
                 batch 2, bf16 inputs, 4 requests covering the dataset's 8
@@ -24,13 +32,14 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
                 launch counts are zeroed just before and read just after;
   5. stages   — CUDA-event time of each stage of one bf16 forward (VFE,
                 sparse backbone, BEV map, 2D backbone, head convs, decode +
-                NMS), median of 5;
+                NMS, and the head's decode and NMS apart), median of 5;
   6. model    — one request in f32 with TF32 off and cuDNN deterministic
                 (as in phase 3 and the BN calibration; the timed bf16
                 phases 4-5 run with PyTorch's own settings), through the
                 kernels and through the plain versions: BEV maps, every
                 head map and the final detections compared; NMS keep masks
-                on identical candidates must be equal;
+                (both forms) and the head's final detections on identical
+                candidates must be equal;
   7. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises and exits nonzero without the last line.  Without
@@ -53,6 +62,9 @@ SEED = 0
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12, "s8": 1979e12}
+# f32 operations of one rotated BEV IoU and of one circle test, counted from
+# the formula in q3d_tpu_torch/csrc/greedy_nms.cu
+IOU_OPS, IOU_CIRCLE_OPS = 821, 8
 CONV_DESIGN = ("128-row x all-Cout tiles; book loaded once, ballot tap masks; "
                "16-byte cp.async gathers into a 2-3 stage ring; mma.sync "
                "m16n8k16 bf16 / m16n8k32 s8 (f32 on CUDA cores)")
@@ -69,13 +81,17 @@ def check(cond, msg):
 
 def time_ms(fn, reps=10, flush=None):
     """Median CUDA-event time of ``fn`` in ms; ``flush`` (run outside the
-    timed region before each rep) evicts the 50 MB L2."""
+    timed region before each rep) evicts the 50 MB L2.  A ~100 us spin
+    kernel ahead of the first event keeps the card busy while the host
+    enqueues ``fn``, so that a short launch is timed on the device and not
+    by the host's Python around it."""
     import torch
     fn()
     times = []
     for _ in range(reps):
         if flush is not None:
             flush()
+        torch.cuda._sleep(200_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -84,6 +100,28 @@ def time_ms(fn, reps=10, flush=None):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def kernel_device_us(fn, names, flush, reps=10):
+    """Mean device time in us of each CUDA kernel whose name contains one of
+    ``names``, per call of ``fn`` (torch.profiler; L2 flushed before each
+    call) -> {name: us}, or "not measured" if the trace has no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0.0)
+        for n in names:
+            if n in ev.key and us > 0:
+                out[n] = out.get(n, 0.0) + us / reps
+    return out or "not measured"
 
 
 def main():
@@ -103,7 +141,7 @@ def main():
     from q3d_tpu_torch.datasets.synthetic_dataset import make_scene
     from q3d_tpu_torch.models import build_network, load_data_to_device
     from q3d_tpu_torch.ops import kernel_build
-    from q3d_tpu_torch.ops.iou3d_nms import candidate_iou
+    from q3d_tpu_torch.ops.iou3d_nms import boxes_iou_bev, candidate_iou
     from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as nms_mod
     from q3d_tpu_torch.ops.spconv import gather_conv
     from q3d_tpu_torch.ops.spconv.modules import (SubMConv3d, SparseConv3d,
@@ -353,40 +391,169 @@ def main():
     pre = int(cfg.MODEL.DENSE_HEAD.POST_PROCESSING.NMS_CONFIG.NMS_PRE_MAXSIZE)
     thresh = float(cfg.MODEL.DENSE_HEAD.POST_PROCESSING.NMS_CONFIG.NMS_THRESH)
     kc = min(pre, sb.shape[1])
-    iou, iou_valid = candidate_iou(sb[:, :kc], sv[:, :kc])
+    cand, cand_valid = sb[:, :kc].contiguous(), sv[:, :kc].contiguous()
+    # the IoU form (the TPU kernel's own function) on the shared sweep
+    iou, iou_valid = candidate_iou(cand, cand_valid)
     keep_k = nms_mod.greedy_nms(iou, iou_valid, thresh, impl="cuda")
     keep_p = nms_mod.greedy_nms(iou, iou_valid, thresh, impl="plain")
     check(torch.equal(keep_k, keep_p), "greedy_nms: ref-decode keep masks differ")
     g = torch.Generator(device=dev).manual_seed(SEED)
-    for s, kk in ((6, 128), (6, 1024)):
+    for s, kk in ((6, 128), (6, 1024), (6, 2048)):
         r_iou = torch.rand((s, kk, kk), generator=g, device=dev)
         r_valid = torch.rand((s, kk), generator=g, device=dev) > 0.1
         for th in (0.2, 0.5, 0.9):
             check(torch.equal(nms_mod.greedy_nms(r_iou, r_valid, th, impl="cuda"),
                               nms_mod.greedy_nms(r_iou, r_valid, th, impl="plain")),
                   f"greedy_nms: random K={kk} thresh={th} keep masks differ")
+
+    def check_boxes_form(boxes, valid, th, what):
+        """The boxes form against its plain version (boxes_iou_bev, then the
+        plain sweep): keep masks equal; the kernel's IoU bit-equal at every
+        pair it evaluated; every needed pair (j < i, both valid) it skipped
+        has a plain IoU of exactly 0.  -> (pairs evaluated, pairs needed,
+        the most pairs evaluated in one 64 x 64 tile)."""
+        s_, k_ = valid.shape
+        corners, areas = nms_mod.bev_corners_areas(boxes)
+        iou_k = torch.full((s_, k_, k_), float("nan"), device=dev)
+        keep_k = nms_mod.greedy_suppress_boxes_cuda(corners, areas, valid, th,
+                                                    iou_out=iou_k)
+        iou_p = boxes_iou_bev(boxes[..., :7], boxes[..., :7])
+        keep_p = nms_mod.greedy_suppress_plain(iou_p, valid, th)
+        diff = (keep_k != keep_p).nonzero()
+        check(len(diff) == 0, f"greedy_nms_boxes {what} thresh={th}: "
+                              f"{len(diff)} keep flags differ, first (set, "
+                              f"row) {diff[:1].tolist()}")
+        need = valid[:, :, None] & valid[:, None, :] & torch.ones(
+            (k_, k_), dtype=torch.bool, device=dev).triu(1)
+        done = ~torch.isnan(iou_k)
+        stray = (done & ~need).nonzero()
+        check(len(stray) == 0, f"greedy_nms_boxes {what}: evaluated pairs "
+                               f"outside j < i, both valid: {stray[:3].tolist()}")
+        for bad, why in (
+                (done & (iou_k.view(torch.int32) != iou_p.view(torch.int32)),
+                 "kernel IoU != plain IoU"),
+                (need & ~done & (iou_p != 0), "skipped pair has plain IoU != 0")):
+            at = bad.nonzero()
+            if len(at):
+                s0, j0, i0 = at[0].tolist()
+                check(False, f"greedy_nms_boxes {what} thresh={th}: {len(at)} "
+                             f"pairs: {why}; first set {s0} (j={j0}, i={i0}): "
+                             f"kernel {float(iou_k[s0, j0, i0])!r}, plain "
+                             f"{float(iou_p[s0, j0, i0])!r}")
+        kt = -(-k_ // 64)
+        tiles = torch.nn.functional.pad(
+            done, (0, 64 * kt - k_, 0, 64 * kt - k_)).reshape(
+            s_, kt, 64, kt, 64).sum((2, 4))
+        return int(done.sum()), int(need.sum()), int(tiles.max())
+
+    near_pairs, cand_pairs, near_max_tile = check_boxes_form(
+        cand, cand_valid, thresh, "ref decode")
+    rng = np.random.RandomState(SEED)
+    for kk in (128, 1024):
+        rb_ = np.zeros((6, kk, 7), np.float32)      # crowded, with duplicates
+        rb_[..., 0:2] = rng.uniform(-0.4, 0.4, (6, kk, 2)) * np.sqrt(kk)
+        rb_[..., 3:6] = rng.uniform(0.5, 4.5, (6, kk, 3))
+        rb_[..., 6] = rng.uniform(-np.pi, np.pi, (6, kk))
+        rb_[:, 10:20] = rb_[:, 0:10]
+        rb_[:, 20:30, :6] = rb_[:, 30:40, :6]
+        r_boxes = torch.from_numpy(rb_).to(dev)
+        r_valid = torch.from_numpy(rng.rand(6, kk) > 0.1).to(dev)
+        for th in (0.2, 0.5, 0.9):
+            check_boxes_form(r_boxes, r_valid, th, f"random K={kk}")
+
+    # times of the old path's pieces (candidate_iou, then the IoU form) and
+    # the new one's, all on the ref decode's candidates, L2 flushed
+    corners, areas = nms_mod.bev_corners_areas(cand)
     s, kp, _ = iou.shape
-    # the function reads iou[j, i] only for j < i with both valid (the
-    # strict upper triangle of each set's valid candidates), reads valid
-    # and writes keep once, and does one compare per pair read
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+
+    def bound(terms):
+        """The largest term in ms, and its name."""
+        name = max(terms, key=terms.get)
+        return terms[name], name
+    # IoU form: the entries iou[j, i] the function needs (j < i, both valid)
+    # read once, one compare each, valid read and keep written once; the
+    # sweep's chain of K steps at >= 4 cycles each
     n_cand = iou_valid.sum(1).double()
     pairs = float((n_cand * (n_cand - 1) / 2).sum())
-    nms_bytes_ms = 1e3 * (pairs * 4 + 2 * s * kp) / HBM_BYTES_PER_S
-    nms_ops_ms = 1e3 * pairs / PEAK_OPS_PER_S["f32"]
-    nms_row = {
-        "sets": s, "K": kp, "candidate_pairs": pairs, "kept": int(keep_k.sum()),
-        "ms": time_ms(lambda: nms_mod.greedy_suppress_cuda(iou, iou_valid, thresh),
-                      flush=flush),
+    iou_terms = {"bytes": 1e3 * (pairs * 4 + 2 * s * kp) / HBM_BYTES_PER_S,
+                 "operations": 1e3 * pairs / PEAK_OPS_PER_S["f32"],
+                 "latency": 1e3 * kp * 4 / (clock_mhz * 1e6)}
+    # boxes form: corners, areas and valid read once, keep written once; the
+    # circle test of every needed pair and the IoU of each near pair
+    # (csrc/greedy_nms.cu counts the operations); the same chain
+    box_terms = {"bytes": 1e3 * s * kc * (32 + 4 + 1 + 1) / HBM_BYTES_PER_S,
+                 "operations": 1e3 * (cand_pairs * IOU_CIRCLE_OPS
+                                      + near_pairs * IOU_OPS)
+                 / PEAK_OPS_PER_S["f32"],
+                 "latency": 1e3 * kc * 4 / (clock_mhz * 1e6)}
+    iou_form = {
+        "entry": "q3d_greedy_nms", "sets": s, "K": kp,
+        "candidate_pairs": pairs,
+        "ms": time_ms(lambda: nms_mod.greedy_suppress_cuda(iou, iou_valid,
+                                                           thresh), flush=flush),
         "plain_ms": time_ms(lambda: nms_mod.greedy_suppress_plain(
             iou, iou_valid, thresh), reps=5, flush=flush),
-        "bound_ms": max(nms_bytes_ms, nms_ops_ms),
-        "bound_by": "bytes" if nms_bytes_ms >= nms_ops_ms else "operations"}
-    emit("kernel_nms", **nms_row, max_abs_err=0,
-         tolerance="keep masks exactly equal (ref decode + random K=128/1024)")
+        "candidate_iou_ms": time_ms(lambda: candidate_iou(cand, cand_valid),
+                                    reps=5, flush=flush),
+        **{f"{k}_ms": v for k, v in iou_terms.items()}}
+    iou_form["bound_ms"], iou_form["bound_by"] = bound(iou_terms)
+    boxes_form = {
+        "entry": "q3d_greedy_nms_boxes", "sets": s, "K": kc,
+        "candidate_pairs": cand_pairs, "near_pairs": near_pairs,
+        "near_pairs_most_in_a_tile": near_max_tile,
+        "kept": int(nms_mod.greedy_nms_boxes(cand, cand_valid, thresh).sum()),
+        "ms": time_ms(lambda: nms_mod.greedy_suppress_boxes_cuda(
+            corners, areas, cand_valid, thresh), flush=flush),
+        "with_corners_ms": time_ms(lambda: nms_mod.greedy_nms_boxes(
+            cand, cand_valid, thresh, impl="cuda"), flush=flush),
+        "plain_ms": time_ms(lambda: nms_mod.greedy_suppress_boxes_plain(
+            cand, cand_valid, thresh), reps=5, flush=flush),
+        **{f"{k}_ms": v for k, v in box_terms.items()},
+        "operations_all_pairs_ms": 1e3 * cand_pairs * IOU_OPS
+        / PEAK_OPS_PER_S["f32"]}
+    boxes_form["bound_ms"], boxes_form["bound_by"] = bound(box_terms)
+    iou_form["kernel_us"] = kernel_device_us(
+        lambda: nms_mod.greedy_suppress_cuda(iou, iou_valid, thresh),
+        ("nms_iou_mask_kernel", "nms_sweep_kernel"), flush)
+    boxes_form["kernel_us"] = kernel_device_us(
+        lambda: nms_mod.greedy_suppress_boxes_cuda(corners, areas, cand_valid,
+                                                   thresh),
+        ("nms_box_pairs_kernel", "nms_box_iou_kernel", "nms_sweep_kernel"),
+        flush)
+    # the sweep's cost per row of the chain: its device time at three K on
+    # random IoU matrices (its code does the same work whatever the data)
+    sweep_us = {}
+    for kk in (512, 1024, 2048):
+        r_iou = torch.rand((s, kk, kk), generator=g, device=dev)
+        r_valid = torch.ones((s, kk), dtype=torch.bool, device=dev)
+        us = kernel_device_us(lambda: nms_mod.greedy_suppress_cuda(
+            r_iou, r_valid, thresh), ("nms_sweep_kernel",), flush)
+        sweep_us[kk] = us if isinstance(us, str) else us["nms_sweep_kernel"]
+    if not any(isinstance(v, str) for v in sweep_us.values()):
+        iou_form["sweep_us_by_K"] = sweep_us
+        iou_form["sweep_cycles_per_row"] = (sweep_us[2048] - sweep_us[512]) \
+            * clock_mhz / (2048 - 512)
+    old_path_ms = iou_form["candidate_iou_ms"] + iou_form["ms"]
+    emit("kernel_nms", form="iou", **iou_form, kept=int(keep_k.sum()),
+         max_abs_err=0, tolerance="keep masks exactly equal (ref decode + "
+         "random K=128/1024/2048)", clock_max_sm_mhz=clock_mhz)
+    emit("kernel_nms", form="boxes", **boxes_form, max_abs_err=0,
+         old_path_ms=old_path_ms, under_old_path=boxes_form["ms"] < old_path_ms,
+         tolerance="keep masks exactly equal, IoU bit-equal at every "
+         "evaluated pair, plain IoU exactly 0 at every skipped needed pair "
+         "(ref decode + random K=128/1024 x thresh 0.2/0.5/0.9)",
+         clock_max_sm_mhz=clock_mhz)
+    check(boxes_form["ms"] < old_path_ms,
+          f"boxes form {boxes_form['ms']} ms is not under candidate_iou + the "
+          f"IoU form, {old_path_ms} ms")
 
     # -------------------------------------------------------------- serving
     strict_f32(False)
-    conv_k.launches = nms_k.launches = 0
+    conv_k.launches.clear()
+    nms_k.launches.clear()
     per_request = []
     for r in range(REQUESTS):
         raw, scene_ms, vox_ms = request(r)
@@ -408,10 +575,12 @@ def main():
                             "device_forward_ms": fwd_ms,
                             "valid_detections": n_valid})
         emit("serving_request", **per_request[-1])
-    launches = {"sparse_gather_conv": conv_k.launches,
-                "greedy_nms": nms_k.launches}
+    launches = {"sparse_gather_conv": sum(conv_k.launches.values()),
+                "greedy_nms_boxes": nms_k.launches["q3d_greedy_nms_boxes"],
+                "greedy_nms_iou": nms_k.launches["q3d_greedy_nms"]}
     check(launches["sparse_gather_conv"] == 21 * REQUESTS
-          and launches["greedy_nms"] == REQUESTS,
+          and launches["greedy_nms_boxes"] == REQUESTS
+          and launches["greedy_nms_iou"] == 0,
           f"main path launches {launches}")
     emit("serving", config=CFG.name, batch=BATCH, dtype="bf16",
          requests=REQUESTS, launches=launches, mode=mode(),
@@ -439,7 +608,20 @@ def main():
         for mod in (mods if isinstance(mods, list) else [mods]):
             hooks += [mod.register_forward_pre_hook(mark(name, 0)),
                       mod.register_forward_hook(mark(name, 1))]
-    stage_ms = {name: [] for name in stages}
+
+    def timed(name, fn):
+        """``fn`` between two events (the head's decode and NMS are methods,
+        not modules, so they get an instance attribute that shadows them)."""
+        def run(*args):
+            mark(name, 0)()
+            out = fn(*args)
+            mark(name, 1)()
+            return out
+        events[name] = []
+        return run
+    head._decode = timed("decode", head._decode)
+    head._nms = timed("nms", head._nms)
+    stage_ms = {name: [] for name in events}
     with torch.no_grad():
         for _ in range(5):
             for evs in events.values():
@@ -453,6 +635,7 @@ def main():
                                           for a, b in zip(starts, ends)))
     for h in hooks:
         h.remove()
+    del head._decode, head._nms
     stage_ms = {k: statistics.median(v) for k, v in stage_ms.items()}
     stage_ms["decode_nms"] = stage_ms["dense_head"] - stage_ms["head_convs"]
     emit("stages", dtype="bf16", batch=BATCH, mode=mode(), ms=stage_ms,
@@ -486,7 +669,13 @@ def main():
         iou, iou_valid = candidate_iou(cand[0][:, :kc], cand[3][:, :kc])
         check(torch.equal(nms_mod.greedy_nms(iou, iou_valid, thresh, impl="cuda"),
                           nms_mod.greedy_nms(iou, iou_valid, thresh, impl="plain")),
-              "model f32: NMS keep masks differ on identical candidates")
+              "model f32: NMS keep masks (IoU form) differ on identical "
+              "candidates")
+        bx, bv = cand[0][:, :kc].contiguous(), cand[3][:, :kc].contiguous()
+        check(torch.equal(nms_mod.greedy_nms_boxes(bx, bv, thresh, impl="cuda"),
+                          nms_mod.greedy_nms_boxes(bx, bv, thresh, impl="plain")),
+              "model f32: NMS keep masks (boxes form) differ on identical "
+              "candidates")
         finals = []
         for impl in ("cuda", "plain"):
             head.kernel_impl = impl
@@ -518,7 +707,8 @@ def main():
     check(frac >= 0.99, f"model f32: only {matched}/{total} detections matched")
     emit("model_check", dtype="f32", mode=mode(), map_max_abs_err=map_err,
          map_tolerance="max|k-p| <= 1e-4 * max(1, max|p|)",
-         nms_identical_inputs="keep masks and final detections equal",
+         nms_identical_inputs="keep masks (both forms) and final detections "
+         "(head._nms through the kernel and the plain version) equal",
          detections_matched=matched, detections=total, matched_fraction=frac)
     strict_f32(False)
 
@@ -537,11 +727,20 @@ def main():
         {"name": "greedy_nms", "route": "cuda",
          "source": "q3d_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "q3d_tpu/ops/iou3d_nms/pallas_nms.py:45",
-         "launches": launches["greedy_nms"], "max_abs_err": 0.0,
-         "ms": nms_row["ms"], "plain_ms": nms_row["plain_ms"],
-         "bound_ms": nms_row["bound_ms"], "bound_by": nms_row["bound_by"],
+         "entry": "q3d_greedy_nms_boxes",
+         "launches": launches["greedy_nms_boxes"], "max_abs_err": 0.0,
+         "ms": boxes_form["ms"], "plain_ms": boxes_form["plain_ms"],
+         "bound_ms": boxes_form["bound_ms"], "bound_by": boxes_form["bound_by"],
          "library_ms": None, "checks": "passed",
-         "times_cover": f"one forward's batched sweep ({s} sets, K={kp})"}]
+         "times_cover": f"one forward's NMS from BEV corners ({s} sets, "
+                        f"K={kc}); the IoU form from the padded IoU matrix "
+                        f"(K={kp})",
+         "entries": [
+             {"entry": f["entry"], "launches": launches[key], "ms": f["ms"],
+              "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+              "bound_by": f["bound_by"]}
+             for f, key in ((boxes_form, "greedy_nms_boxes"),
+                            (iou_form, "greedy_nms_iou"))]}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

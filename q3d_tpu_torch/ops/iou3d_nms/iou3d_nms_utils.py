@@ -4,14 +4,17 @@ Port of ``q3d_tpu/ops/iou3d_nms/iou3d_nms_utils.py`` (``boxes_iou_bev``
 and ``_nms_impl`` with its presorted path and cumsum compaction).  The
 intersection area is computed data-parallel over all pairs: each quad edge
 is interval-clipped to the other quad's half-planes (Liang-Barsky) and
-contributes its shoelace term.  Greedy suppression runs on
-``greedy_nms.greedy_nms`` (the CUDA kernel on the card).
+contributes its shoelace term.  Every 4-term sum and the mean are written
+out left to right, so that the CUDA kernel, which evaluates the same
+formula pair by pair, rounds exactly as this version does on the card.
+``nms_bev`` runs on ``greedy_nms.greedy_nms_boxes`` (on the card, the
+kernel computes the IoU itself and no (K, K) matrix is built).
 """
 
 import torch
 
 from ...utils import box_utils
-from .greedy_nms import greedy_nms
+from .greedy_nms import greedy_nms_boxes
 
 _EPS = 1e-8
 _BIAS = 1e-3   # collinear-boundary exclusion margin (scaled distance units)
@@ -44,7 +47,16 @@ def _clipped_edges_contrib(poly, clip, origin, bias):
     q1 = (p1 - o + t0[..., None] * e) * keepf
     q2 = (p1 - o + t1[..., None] * e) * keepf
     contrib = 0.5 * (q1[..., 0] * q2[..., 1] - q1[..., 1] * q2[..., 0])
-    return contrib.sum(dim=-1), (q2 - q1).sum(dim=-2)
+    net = q2 - q1
+    return (_sum4(contrib[..., 0], contrib[..., 1], contrib[..., 2],
+                  contrib[..., 3]),
+            _sum4(net[..., 0, :], net[..., 1, :], net[..., 2, :],
+                  net[..., 3, :]))
+
+
+def _sum4(a, b, c, d):
+    """a + b + c + d, left to right (a reduction's order is the library's)."""
+    return a + b + c + d
 
 
 def _rotated_overlap_quads(qa, qb):
@@ -52,12 +64,16 @@ def _rotated_overlap_quads(qa, qb):
     shape = torch.broadcast_shapes(qa.shape, qb.shape)
     qa = qa.expand(shape)
     qb = qb.expand(shape)
-    origin = qa.mean(dim=-2)
+    origin = _sum4(qa[..., 0, :], qa[..., 1, :], qa[..., 2, :],
+                   qa[..., 3, :]) * 0.25
     a1, v1 = _clipped_edges_contrib(qa, qb, origin, 0.0)
     a2, v2 = _clipped_edges_contrib(qb, qa, origin, _BIAS)
     v = v1 + v2
     closed = (v[..., 0].abs() + v[..., 1].abs()) < 1e-2
-    return torch.where(closed, (a1 + a2).clamp(min=0.0), 0.0)
+    area = a1 + a2
+    # max(area, 0) on a closed boundary; +0.0 where it is not (a clamp
+    # would leave the sign of a -0.0 to the library)
+    return torch.where(closed & (area > 0), area, 0.0)
 
 
 def boxes_iou_bev(boxes_a, boxes_b):
@@ -72,7 +88,8 @@ def boxes_iou_bev(boxes_a, boxes_b):
 
 def candidate_iou(boxes, valid):
     """(S, K, 7+) score-ordered candidates -> (iou (S, Kp, Kp), valid (S, Kp))
-    with K zero-padded to a multiple of 128, as the reference pads."""
+    with K zero-padded to a multiple of 128, as the reference pads: the
+    input of kernel 2's IoU form (``greedy_nms.greedy_nms``)."""
     k = boxes.shape[1]
     kp = -(-k // 128) * 128
     if kp != k:
@@ -109,8 +126,8 @@ def nms_bev(boxes, scores, thresh, pre_maxsize=4096, post_maxsize=500,
         top_boxes = boxes.gather(
             1, order[..., None].expand(-1, -1, boxes.shape[-1]))
         top_valid = top_scores > -1e9 / 2
-    iou, valid_p = candidate_iou(top_boxes, top_valid)
-    keep = greedy_nms(iou, valid_p, float(thresh), impl=impl)[:, :k]
+    keep = greedy_nms_boxes(top_boxes, top_valid.contiguous(), float(thresh),
+                            impl=impl)
     # rows are score-ordered, so a stable cumsum compaction selects the
     # first P kept rows in order
     p = min(int(post_maxsize), k)

@@ -15,6 +15,7 @@ for every one.  A build or load failure raises: no caller falls back to a
 plain version because a kernel is missing.
 """
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -42,18 +43,20 @@ def _nvcc():
 class CudaLibrary:
     """One ``csrc`` source: its builds, its ctypes handles, and the launch
     count of its kernel.  ``signatures`` maps each exported C function to its
-    ctypes argtypes; every function returns the ``cudaError_t`` of its
+    ctypes argtypes, or to (argtypes, restype) for a function that launches
+    nothing; a launching function returns the ``cudaError_t`` of its
     launch.  ``variants`` holds one tuple of extra ``nvcc`` flags per build
     of the source; a function is bound from whichever build exports it.
 
-    ``launches`` is a plain counter: the op's wrapper adds one where it
-    launches the kernel, and nowhere else."""
+    ``launches`` counts launches per exported function (a ``Counter``): the
+    op's wrapper adds one to its function's count where it launches the
+    kernel, and nowhere else."""
 
     def __init__(self, source, signatures, variants=((),)):
         self.source = CSRC / source
         self.signatures = signatures
         self.variants = tuple(tuple(v) for v in variants)
-        self.launches = 0
+        self.launches = collections.Counter()
         self._fns = None
 
     @property
@@ -105,11 +108,13 @@ class CudaLibrary:
             fns = {}
             for so in self.so_paths:
                 lib = ctypes.CDLL(str(so))
-                for name, argtypes in self.signatures.items():
+                for name, sig in self.signatures.items():
                     fn = getattr(lib, name, None)
                     if fn is not None and name not in fns:
+                        argtypes, restype = sig if isinstance(sig, tuple) \
+                            else (sig, ctypes.c_int)
                         fn.argtypes = argtypes
-                        fn.restype = ctypes.c_int
+                        fn.restype = restype
                         fns[name] = fn
             missing = set(self.signatures) - set(fns)
             if missing:

@@ -43,7 +43,8 @@ def _require(cond, msg):
 
 def gather_conv_cuda(features, gather_idx, weight, out_scale=None,
                      out_valid=None):
-    """Launch the CUDA kernel (one launch, counted in ``KERNEL.launches``)."""
+    """Launch the CUDA kernel (one launch, counted in ``KERNEL.launches``
+    under its dtype's function)."""
     dev = features.device
     _require(dev.type == "cuda", "features must be a CUDA tensor")
     _require(features.dtype in _SUFFIX, f"unsupported dtype {features.dtype}")
@@ -78,15 +79,16 @@ def gather_conv_cuda(features, gather_idx, weight, out_scale=None,
     out = torch.empty((m, cout), device=dev,
                       dtype=torch.float32 if features.dtype == torch.int8
                       else features.dtype)
+    entry = f"q3d_sparse_gather_conv_{_SUFFIX[features.dtype]}"
     with torch.cuda.device(dev):
-        KERNEL.call(f"q3d_sparse_gather_conv_{_SUFFIX[features.dtype]}",
+        KERNEL.call(entry,
                     features.data_ptr(), gather_idx.data_ptr(),
                     weight.data_ptr(),
                     None if out_scale is None else out_scale.data_ptr(),
                     None if out_valid is None else out_valid.data_ptr(),
                     out.data_ptr(), n, m, k, cin, cout,
                     torch.cuda.current_stream(dev).cuda_stream)
-    KERNEL.launches += 1
+    KERNEL.launches[entry] += 1
     return out
 
 

@@ -9,7 +9,9 @@ runs where only the port is installed:
 
 Tolerances: the f32 conv differs from the plain gather + GEMM in summation
 order only (rtol 1e-5, atol 1e-4); bf16 by one bf16 rounding of f32 sums
-taken in another order (rtol 2^-7); s8 sums and greedy keep masks are exact.
+taken in another order (rtol 2^-7); s8 sums and greedy keep masks are exact,
+and the IoU that greedy NMS's boxes form computes is bit-equal to the plain
+``boxes_iou_bev``.
 """
 
 from pathlib import Path
@@ -21,6 +23,7 @@ import torch
 from q3d_tpu_torch.config import cfg_from_yaml_file, EDict
 from q3d_tpu_torch.datasets import build_dataloader
 from q3d_tpu_torch.models import build_network, load_data_to_device
+from q3d_tpu_torch.ops.iou3d_nms import boxes_iou_bev
 from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as port_nms
 from q3d_tpu_torch.ops.spconv import gather_conv
 
@@ -71,11 +74,11 @@ def test_gather_conv_kernel_matches_plain(card, cin, cout, k, dtype):
         w = torch.from_numpy(rng.randn(k, cin, cout).astype(np.float32)).to(dt)
     f, w = f.to(card), w.to(card)
     for kw in ({}, {"out_scale": scale, "out_valid": valid}):
-        launches = gather_conv.KERNEL.launches
+        launches = sum(gather_conv.KERNEL.launches.values())
         out_k = gather_conv.sparse_gather_conv(f, idx, w, **kw)
         out_p = gather_conv.sparse_gather_conv(f, idx, w, impl="plain", **kw)
         torch.cuda.synchronize()
-        assert gather_conv.KERNEL.launches == launches + 1
+        assert sum(gather_conv.KERNEL.launches.values()) == launches + 1
         assert out_k.dtype == out_p.dtype and out_k.shape == (m, cout)
         assert not out_k[128:256].any()              # the all-miss tile
         if dtype == "s8":
@@ -102,8 +105,10 @@ def test_gather_conv_wrapper_raises_on_what_no_instance_takes(card):
 
 
 def test_greedy_nms_kernel_matches_plain(card):
+    """The IoU form, on the sweep it shares with the boxes form: one row
+    block, a ragged last block, and K = 2048 (all 32 mask words)."""
     rng = np.random.RandomState(0)
-    for k in (128, 200, 1024):
+    for k in (1, 65, 128, 200, 1024, 2048):
         iou = rng.rand(4, k, k).astype(np.float32) * (rng.rand(4, k, k) < 0.3)
         iou = torch.from_numpy(iou).to(card)
         valid = torch.from_numpy(rng.rand(4, k) > 0.1).to(card)
@@ -111,6 +116,46 @@ def test_greedy_nms_kernel_matches_plain(card):
             assert torch.equal(
                 port_nms.greedy_nms(iou, valid, thresh),
                 port_nms.greedy_nms(iou, valid, thresh, impl="plain"))
+
+
+@pytest.mark.parametrize("k", [128, 200, 1024])
+def test_greedy_nms_boxes_kernel_matches_plain(card, k):
+    """The boxes form: crowded boxes with identical and rotated duplicates
+    and invalid rows.  Keep masks equal the plain version's; the kernel's
+    IoU is bit-equal to ``boxes_iou_bev`` at every pair it evaluated, and
+    every valid pair j < i that it skipped has a plain IoU of exactly 0."""
+    rng = np.random.RandomState(k)
+    s = 4
+    b = np.zeros((s, k, 7), np.float32)
+    b[..., 0:2] = rng.uniform(-12, 12, (s, k, 2))
+    b[..., 3:6] = rng.uniform(0.5, 4.0, (s, k, 3))
+    b[..., 6] = rng.uniform(-np.pi, np.pi, (s, k))
+    b[:, 10:20] = b[:, 0:10]
+    b[:, 20:30, :6] = b[:, 30:40, :6]
+    boxes = torch.from_numpy(b).to(card)
+    valid = torch.from_numpy(rng.rand(s, k) > 0.15).to(card)
+    corners, areas = port_nms.bev_corners_areas(boxes)
+    iou_p = boxes_iou_bev(boxes, boxes)
+    need = valid[:, :, None] & valid[:, None, :] & torch.ones(
+        (k, k), dtype=torch.bool, device=card).triu(1)
+    for thresh in (0.1, 0.5):
+        iou_k = torch.full((s, k, k), float("nan"), device=card)
+        launches = port_nms.KERNEL.launches["q3d_greedy_nms_boxes"]
+        keep_k = port_nms.greedy_suppress_boxes_cuda(corners, areas, valid,
+                                                     thresh, iou_out=iou_k)
+        keep_p = port_nms.greedy_nms_boxes(boxes, valid, thresh, impl="plain")
+        torch.cuda.synchronize()
+        assert port_nms.KERNEL.launches["q3d_greedy_nms_boxes"] \
+            == launches + 1
+        assert torch.equal(keep_k, keep_p)
+        assert torch.equal(keep_k, port_nms.greedy_nms_boxes(boxes, valid,
+                                                             thresh))
+        done = ~torch.isnan(iou_k)
+        assert not (done & ~need).any()
+        assert int(done.sum()) > 0
+        assert torch.equal(iou_k[done].view(torch.int32),
+                           iou_p[done].view(torch.int32))
+        assert not (iou_p[need & ~done] != 0).any()
 
 
 def test_tiny_model_kernels_match_plain(card):
@@ -121,13 +166,16 @@ def test_tiny_model_kernels_match_plain(card):
                                      batch_size=2, training=False)
     model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=card)
     batch = load_data_to_device(next(iter(loader)), device=card)
-    conv_launches = gather_conv.KERNEL.launches
+    conv_launches = sum(gather_conv.KERNEL.launches.values())
+    nms_launches = port_nms.KERNEL.launches["q3d_greedy_nms_boxes"]
     with torch.no_grad():
         out_k = model(dict(batch))
         model.set_kernel_impl("plain")
         out_p = model(dict(batch))
         model.set_kernel_impl(None)
-    assert gather_conv.KERNEL.launches - conv_launches == 21
+    assert sum(gather_conv.KERNEL.launches.values()) - conv_launches == 21
+    assert port_nms.KERNEL.launches["q3d_greedy_nms_boxes"] \
+        - nms_launches == 1
     for key in ("spatial_features", "spatial_features_2d"):
         torch.testing.assert_close(out_k[key], out_p[key], rtol=1e-4,
                                    atol=1e-4)

@@ -1,5 +1,6 @@
 """PyTorch port vs the JAX package: rotated BEV IoU and kernel 2's function
-(greedy NMS suppression, which ``pallas_nms.py`` runs on the TPU).
+(greedy NMS suppression, which ``pallas_nms.py`` runs on the TPU), in both
+of the port's forms: from an IoU matrix and from the boxes.
 
 Keep masks and NMS selections must be exactly equal; the IoU agrees within
 1e-5 (the same float32 formula, evaluated by two libraries).
@@ -125,4 +126,94 @@ def test_greedy_nms_wrapper_rejects_what_the_kernel_does_not_take():
         port_nms.greedy_suppress_cuda(iou, valid, 0.5)
     with pytest.raises(ValueError, match="unknown impl"):
         port_nms.greedy_nms(iou, valid, 0.5, impl="xla")
+
+
+def _crowded_sets(rng, s, k):
+    """(S, K, 7) crowded boxes with identical and rotated duplicates, and a
+    valid mask with some invalid rows."""
+    boxes = np.stack([_random_boxes(rng, k, spread=4.0) for _ in range(s)])
+    boxes[:, 10:20] = boxes[:, 0:10]                  # identical duplicates
+    boxes[:, 20:30, :6] = boxes[:, 30:40, :6]         # same box, rotated
+    return boxes, rng.rand(s, k) > 0.15
+
+
+@pytest.mark.parametrize("thresh", [0.1, 0.3, 0.6])
+def test_greedy_nms_boxes_matches_reference(thresh):
+    """The boxes form (IoU computed inside kernel 2 on the card; here its
+    plain version) equals the JAX model's sweep over the JAX IoU: K = 200
+    candidates padded with zero boxes to 256."""
+    rng = np.random.RandomState(int(thresh * 100))
+    s, k, kp = 2, 200, 256
+    boxes, valid = _crowded_sets(rng, s, k)
+    boxes_p = np.zeros((s, kp, 7), np.float32)
+    boxes_p[:, :k] = boxes
+    valid_p = np.zeros((s, kp), bool)
+    valid_p[:, :k] = valid
+    keep = port_nms.greedy_nms_boxes(torch.from_numpy(boxes_p),
+                                     torch.from_numpy(valid_p), thresh)
+    assert keep.shape == (s, kp) and not keep[:, k:].any()
+    for i in range(s):
+        b = jnp.asarray(boxes[i])
+        ref = np.asarray(jax_iou._greedy_suppress_wavefront(
+            jax_iou.boxes_iou_bev(b, b), jnp.asarray(valid[i]), thresh))
+        np.testing.assert_array_equal(keep[i, :k].numpy(), ref)
+        # duplicates suppress each other, and not every valid box survives
+        assert 0 < int(keep[i].sum()) < int(valid[i].sum())
+
+
+def test_apart_circles_give_exactly_zero_iou():
+    """Kernel 2's boxes form skips a pair whose circumscribed circles,
+    each inflated by 0.05% + 5 mm, are apart: it relies on the formula
+    giving exactly 0 there.  Pairs just outside that distance, anywhere in
+    a +-60 m scene, at any size and heading."""
+    rng = np.random.RandomState(5)
+    n = 20000
+    a, b = np.zeros((n, 7), np.float32), np.zeros((n, 7), np.float32)
+    a[:, 0:2] = rng.uniform(-60, 60, (n, 2))
+    a[:, 3:5] = rng.uniform(0.2, 12.0, (n, 2))
+    b[:, 3:5] = rng.uniform(0.2, 12.0, (n, 2))
+    a[:, 6], b[:, 6] = rng.uniform(-np.pi, np.pi, (2, n))
+    reach = 0.5 * (np.hypot(a[:, 3], a[:, 4]) + np.hypot(b[:, 3], b[:, 4]))
+    dist = reach * 1.0005 + 0.01 + rng.choice([0.0, 1e-4, 1e-2], n)
+    angle = rng.uniform(0, 2 * np.pi, n)
+    b[:, 0] = a[:, 0] + dist * np.cos(angle)
+    b[:, 1] = a[:, 1] + dist * np.sin(angle)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    qa, qb = (port_iou.box_utils.boxes_to_corners_bev(t) for t in (ta, tb))
+
+    def circle(q):                  # as csrc/greedy_nms.cu's load_box
+        o = (q[:, 0] + q[:, 1] + q[:, 2] + q[:, 3]) * 0.25
+        r2 = ((q - o[:, None]) ** 2).sum(-1).amax(-1)
+        return o, r2.sqrt() * 1.0005 + 0.005
+    (oa, ra), (ob, rb) = circle(qa), circle(qb)
+    apart = ((ob - oa) ** 2).sum(-1) > (ra + rb) ** 2
+    assert int(apart.sum()) > n // 2
+    overlap = port_iou._rotated_overlap_quads(qa, qb)
+    iou = overlap / (ta[:, 3] * ta[:, 4] + tb[:, 3] * tb[:, 4]
+                     - overlap).clamp(min=1e-6)
+    assert int((overlap[apart] != 0).sum()) == 0
+    assert int((iou[apart] != 0).sum()) == 0
+
+
+def test_greedy_nms_boxes_wrapper_rejects_what_the_kernel_does_not_take():
+    boxes = torch.zeros(2, 8, 7)
+    valid = torch.ones(2, 8, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        port_nms.greedy_nms_boxes(boxes, valid, 0.5, impl="cuda")
+    corners, areas = port_nms.bev_corners_areas(boxes)
+    assert corners.shape == (2, 8, 4, 2) and areas.shape == (2, 8)
+    with pytest.raises(ValueError, match=r"corners must be .*\(S, K, 4, 2\)"):
+        port_nms.greedy_suppress_boxes_cuda(corners[..., :1, :].contiguous(),
+                                            areas, valid, 0.5)
+    with pytest.raises(ValueError, match="areas must be"):
+        port_nms.greedy_suppress_boxes_cuda(corners, areas[:, :4], valid, 0.5)
+    with pytest.raises(ValueError, match="valid must be"):
+        port_nms.greedy_suppress_boxes_cuda(corners, areas, valid[:1], 0.5)
+    with pytest.raises(ValueError, match="K must be"):
+        big = torch.zeros(1, 2049, 4, 2)
+        port_nms.greedy_suppress_boxes_cuda(
+            big, torch.zeros(1, 2049), torch.ones(1, 2049, dtype=torch.bool),
+            0.5)
+    with pytest.raises(ValueError, match="unknown impl"):
+        port_nms.greedy_nms_boxes(boxes, valid, 0.5, impl="xla")
 
