@@ -39,7 +39,7 @@
 // Sweep (one launch, two warps per set), one 64-row block b at a time:
 // warp 0's lane 0 resolves block b serially in registers (per row a bit
 // test and a conditional OR of its diagonal word mask[i, b]: the chain),
-// and in the chain's idle issue slots ORs the kept rows' words into word
+// and in the chain's idle cycles ORs the kept rows' words into word
 // b + 1, the one the next step needs.  Warp 1 meanwhile stages block b + 2
 // into shared memory (16-byte cp.async), ORs block b - 1's kept rows into
 // the later words and writes its keep flags.  One barrier per block.
@@ -410,7 +410,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // words, contiguous) are staged in shared memory two blocks ahead.  In
 // step b, warp 0's lane 0 resolves block b: removed word b, then per row a
 // bit test and a conditional OR of the row's diagonal word, the only chain
-// of the sweep; in the same pass, in the chain's idle issue slots, it ORs
+// of the sweep; in the same pass, in the chain's idle cycles, it ORs
 // the kept rows' words for word b + 1, which step b + 1 needs next.
 // Meanwhile warp 1 stages block b + 2, ORs block b - 1's kept rows into
 // words >= b + 1 and writes block b - 1's keep flags.
