@@ -40,13 +40,29 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
                 head map and the final detections compared; NMS keep masks
                 (both forms) and the head's final detections on identical
                 candidates must be equal;
-  7. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+  7. int8    — the int8 deploy path under the JAX package's bench recipe
+                (every sparse and BEV conv int8 with residency, the head
+                bf16), calibrated (method "max") on the first request:
+                ``kernel_conv_s8_requant``: each of the 21 residency convs'
+                fused s8 entry on its real int8 input and book, bit-equal
+                to its plain version, timed beside the unfused s8 entry +
+                torch epilogue, the plain version, gather + ``_int_mm``
+                and its bound; ``int8_conv2d``: each of the 12 BEV convs'
+                ``_int_mm`` s32 equal to the exact product, timed beside
+                cuDNN's bf16 conv; ``serving_int8``: 4 requests (launch
+                counts zeroed before, read after: 84 fused, 48 ``_int_mm``)
+                and bf16 / int8 forwards in turns; ``stages_int8``: the
+                stage split of both; ``model_int8``: bench and entry recipes,
+                one request through the kernels and the plain versions:
+                every int8 map, spatial_features and detections equal;
+  8. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises and exits nonzero without the last line.  Without
 CUDA, or outside a checkout of the repo, it exits 1 and prints no result.
 ``USE_APPROX_TOPK`` in the config is ignored: the port's top-K is exact.
 """
 
+import copy
 import json
 import statistics
 import subprocess
@@ -65,6 +81,8 @@ PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12, "s8": 1979e12}
 # f32 operations of one rotated BEV IoU and of one circle test, counted from
 # the formula in q3d_tpu_torch/csrc/greedy_nms.cu
 IOU_OPS, IOU_CIRCLE_OPS = 821, 8
+# the int8 recipe the JAX package's bench times (bench.py:281)
+BENCH_RECIPE = dict(quantize_first_conv=True, extra_no_list=("dense_head.*",))
 CONV_DESIGN = ("128-row x all-Cout tiles; book loaded once, ballot tap masks; "
                "16-byte cp.async gathers into a 2-3 stage ring; mma.sync "
                "m16n8k16 bf16 / m16n8k32 s8 (f32 on CUDA cores)")
@@ -124,6 +142,64 @@ def kernel_device_us(fn, names, flush, reps=10):
     return out or "not measured"
 
 
+def stage_times(model, batch, reps=5):
+    """CUDA-event time of each stage of one forward of ``model`` on
+    ``batch``, median of ``reps`` -> {stage: ms}.  The head's decode and NMS
+    are methods, not modules, so they are timed through instance attributes
+    that shadow them for the run."""
+    import torch
+    head = model.dense_head
+    stages = {"vfe": model.vfe, "backbone_3d": model.backbone_3d,
+              "map_to_bev": model.map_to_bev_module,
+              "backbone_2d": model.backbone_2d,
+              "head_convs": [head.shared_conv, head.shared_requant,
+                             *head.heads_list],
+              "dense_head": head}
+    events = {name: [] for name in (*stages, "decode", "nms")}
+
+    def mark(name, at):
+        def hook(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events[name].append((at, ev))
+        return hook
+    hooks = []
+    for name, mods in stages.items():
+        for mod in (mods if isinstance(mods, list) else [mods]):
+            hooks += [mod.register_forward_pre_hook(mark(name, 0)),
+                      mod.register_forward_hook(mark(name, 1))]
+
+    def timed(name, fn):
+        def run(*args):
+            mark(name, 0)()
+            out = fn(*args)
+            mark(name, 1)()
+            return out
+        return run
+    head._decode = timed("decode", head._decode)
+    head._nms = timed("nms", head._nms)
+    stage_ms = {name: [] for name in events}
+    try:
+        with torch.no_grad():
+            for _ in range(reps):
+                for evs in events.values():
+                    evs.clear()
+                model(dict(batch))
+                torch.cuda.synchronize()
+                for name, evs in events.items():
+                    starts = [e for at, e in evs if at == 0]
+                    ends = [e for at, e in evs if at == 1]
+                    stage_ms[name].append(sum(a.elapsed_time(b)
+                                              for a, b in zip(starts, ends)))
+    finally:
+        for h in hooks:
+            h.remove()
+        del head._decode, head._nms
+    stage_ms = {k: statistics.median(v) for k, v in stage_ms.items()}
+    stage_ms["decode_nms"] = stage_ms["dense_head"] - stage_ms["head_convs"]
+    return stage_ms
+
+
 def main():
     import numpy as np
     import torch
@@ -148,7 +224,12 @@ def main():
                                                   SparseBatchNorm,
                                                   subm_cache_key,
                                                   down_cache_key)
+    from q3d_tpu_torch.models import layers as dense_layers
     from q3d_tpu_torch.models.layers import BatchNorm
+    from q3d_tpu_torch.ops.spconv import modules as sp_modules
+    from q3d_tpu_torch.quant import api as quant_api
+    from q3d_tpu_torch.quant.tensor_quant import (TensorQuantizer,
+                                                  quantize_with_scale)
 
     conv_k, nms_k = gather_conv.KERNEL, nms_mod.KERNEL
     dev = torch.device("cuda")
@@ -590,56 +671,8 @@ def main():
     # ------------------------------------------------------------- stages
     # where one bf16 forward's time goes: CUDA events around each stage of
     # the last request, median of 5 forwards
-    stages = {"vfe": model.vfe, "backbone_3d": model.backbone_3d,
-              "map_to_bev": model.map_to_bev_module,
-              "backbone_2d": model.backbone_2d,
-              "head_convs": [head.shared_conv, *head.heads_list],
-              "dense_head": head}
-    events = {name: [] for name in stages}
-
-    def mark(name, at):
-        def hook(*_):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events[name].append((at, ev))
-        return hook
-    hooks = []
-    for name, mods in stages.items():
-        for mod in (mods if isinstance(mods, list) else [mods]):
-            hooks += [mod.register_forward_pre_hook(mark(name, 0)),
-                      mod.register_forward_hook(mark(name, 1))]
-
-    def timed(name, fn):
-        """``fn`` between two events (the head's decode and NMS are methods,
-        not modules, so they get an instance attribute that shadows them)."""
-        def run(*args):
-            mark(name, 0)()
-            out = fn(*args)
-            mark(name, 1)()
-            return out
-        events[name] = []
-        return run
-    head._decode = timed("decode", head._decode)
-    head._nms = timed("nms", head._nms)
-    stage_ms = {name: [] for name in events}
-    with torch.no_grad():
-        for _ in range(5):
-            for evs in events.values():
-                evs.clear()
-            model(dict(batch))
-            torch.cuda.synchronize()
-            for name, evs in events.items():
-                starts = [e for at, e in evs if at == 0]
-                ends = [e for at, e in evs if at == 1]
-                stage_ms[name].append(sum(a.elapsed_time(b)
-                                          for a, b in zip(starts, ends)))
-    for h in hooks:
-        h.remove()
-    del head._decode, head._nms
-    stage_ms = {k: statistics.median(v) for k, v in stage_ms.items()}
-    stage_ms["decode_nms"] = stage_ms["dense_head"] - stage_ms["head_convs"]
-    emit("stages", dtype="bf16", batch=BATCH, mode=mode(), ms=stage_ms,
-         sparse_conv_kernels_ms=totals["ms"])
+    emit("stages", dtype="bf16", batch=BATCH, mode=mode(),
+         ms=stage_times(model, batch), sparse_conv_kernels_ms=totals["ms"])
 
     # --------------------------------------------------- whole-model check
     strict_f32(True)
@@ -712,6 +745,279 @@ def main():
          detections_matched=matched, detections=total, matched_fraction=frac)
     strict_f32(False)
 
+    # ========================================================= int8 deploy
+    # the bench recipe (every sparse conv and BEV conv int8 with residency,
+    # the head bf16), calibrated with method "max" on the first request
+    # given twice, as the JAX package's bench calibrates
+    batch0 = load_data_to_device(raw0, device=dev, compute_dtype=torch.bfloat16)
+
+    def int8_model(recipe):
+        m8 = copy.deepcopy(model)
+        quant_api.prepare_int8_deploy(m8, [batch0, batch0],
+                                      recipe_kwargs=recipe)
+        return m8
+    t0 = time.perf_counter()
+    bench8 = int8_model(BENCH_RECIPE)
+    calib_s = time.perf_counter() - t0
+
+    # one forward with the fused entry's and the dense int8 conv's
+    # arguments recorded, call by call, under their module's name
+    fused_calls, dense_calls, current = [], [], [None]
+    names8 = {m: n for n, m in bench8.named_modules()}
+    real_rq, real_i8 = sp_modules.sparse_gather_conv_requant, \
+        dense_layers.int8_conv2d
+
+    def note(mod, args):
+        current[0] = names8[mod]
+
+    def rec_rq(*args, **kw):
+        fused_calls.append((current[0], args, kw))
+        return real_rq(*args, **kw)
+
+    def rec_i8(*args, **kw):
+        dense_calls.append((current[0], args, kw))
+        return real_i8(*args, **kw)
+    hooks = [m.register_forward_pre_hook(note) for m in bench8.modules()
+             if hasattr(m, "QUANT_KIND")]
+    sp_modules.sparse_gather_conv_requant = rec_rq
+    dense_layers.int8_conv2d = rec_i8
+    try:
+        with torch.no_grad():
+            bench8(dict(batch0))
+    finally:
+        sp_modules.sparse_gather_conv_requant = real_rq
+        dense_layers.int8_conv2d = real_i8
+        for h in hooks:
+            h.remove()
+    check(len(fused_calls) == 21,
+          f"bench int8: {len(fused_calls)} fused sparse convs, expected 21")
+    check(len(dense_calls) == 12,
+          f"bench int8: {len(dense_calls)} int8 BEV convs, expected 12")
+
+    # ----------------------------------------- kernels: the fused s8 entry
+    rq_totals = {k: 0.0 for k in ("ms", "unfused_ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bytes_ms", "ops_ms")}
+    with torch.no_grad():
+        for name, args, kw in fused_calls:
+            kw = {k: v for k, v in kw.items() if k != "impl"}
+            f, idx, wq, osc, kf, bf, s_rq = args
+            n, cin = f.shape
+            m, k = idx.shape
+            cout = wq.shape[2]
+            ident = kw["identity"]
+            q_k = gather_conv.gather_conv_requant_cuda(*args, **kw)
+            q_p = gather_conv.gather_conv_requant_plain(*args, **kw)
+            torch.cuda.synchronize()
+            ndiff = int((q_k != q_p).sum())
+            check(ndiff == 0, f"{name} fused s8 requant: {ndiff} of "
+                              f"{q_k.numel()} int8 outputs differ from plain")
+            present = (idx >= 0) & (idx < n)
+            n_present = int(present.sum())
+            rows_read = int(torch.unique(idx[present]).numel())
+
+            def unfused():
+                y = gather_conv.gather_conv_cuda(f, idx, wq, osc,
+                                                 kw["out_valid"])
+                return quantize_with_scale(gather_conv.epilogue_f32(
+                    y, kf, bf, kw["row_valid"], ident, kw["identity_scale"]), s_rq)
+            flatq = torch.cat([f, f.new_zeros((1, cin))])
+            safe = torch.where(present, idx.long(), n).reshape(-1)
+            wq2 = wq.reshape(k * cin, cout)
+            row = {"conv": name, "N": n, "M": m, "K": k, "Cin": cin,
+                   "Cout": cout, "present_taps": n_present,
+                   "identity": None if ident is None else str(ident.dtype),
+                   "ms": time_ms(lambda: gather_conv.gather_conv_requant_cuda(
+                       *args, **kw), flush=flush),
+                   "unfused_ms": time_ms(unfused, flush=flush),
+                   "plain_ms": time_ms(lambda: gather_conv.gather_conv_requant_plain(
+                       *args, **kw), reps=5, flush=flush),
+                   "library_ms": time_ms(lambda: torch._int_mm(
+                       flatq[safe].reshape(m, k * cin), wq2), flush=flush)}
+            # inputs read once (the rows the book uses, the book, the
+            # weights, the identity, the scale/fold vectors, the masks), the
+            # s8 output written once; the present taps' operations
+            nbytes = rows_read * cin + m * k * 4 + k * cin * cout + m * cout \
+                + (0 if ident is None else m * cout * ident.element_size()) \
+                + 3 * 4 * cout + 2 * m
+            row["bytes_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
+            row["ops_ms"] = 1e3 * 2.0 * n_present * cin * cout \
+                / PEAK_OPS_PER_S["s8"]
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            emit("kernel_conv_s8_requant", **row)
+            for key in rq_totals:
+                rq_totals[key] += row[key]
+    rq_totals["bound_by"] = "bytes" if rq_totals["bytes_ms"] \
+        >= rq_totals["ops_ms"] else "operations"
+    emit("kernel_conv_s8_requant_total", convs=len(fused_calls), **rq_totals,
+         calibration_s=calib_s, recipe="bench", mode=mode(),
+         tolerance="bit-exact (int8 outputs equal)", max_abs_err=0,
+         unfused="s8 entry (f32 rows) + the torch epilogue and requant",
+         library="gather + torch._int_mm (the conv without its epilogue)")
+
+    # --------------------------------------- the dense int8 conv (_int_mm)
+    i8_rows = []
+    with torch.no_grad():
+        for name, args, kw in dense_calls:
+            x, w8, stride, padding = args
+            o_k = real_i8(x, w8, stride, padding, impl="cuda")
+            o_p = real_i8(x, w8, stride, padding, impl="plain")
+            torch.cuda.synchronize()
+            check(torch.equal(o_k, o_p),
+                  f"{name} int8_conv2d: _int_mm s32 != the exact product")
+            a, _ = dense_layers._patches(x, w8.shape[2:], stride, padding)
+            wm = w8.permute(0, 2, 3, 1).reshape(w8.shape[0], -1)
+            xb = x.to(torch.bfloat16).contiguous()
+            wb = w8.to(torch.bfloat16)
+            mm, kk_, nn_ = a.shape[0], a.shape[1], wm.shape[0]
+            row = {"conv": name, "x": list(x.shape), "w": list(w8.shape),
+                   "stride": list(stride), "gemm_mkn": [mm, kk_, nn_],
+                   "ms": time_ms(lambda: real_i8(x, w8, stride, padding,
+                                                 impl="cuda"), flush=flush),
+                   "int_mm_ms": time_ms(lambda: torch._int_mm(a, wm.t()),
+                                        flush=flush),
+                   "cudnn_bf16_ms": time_ms(lambda: torch.nn.functional.conv2d(
+                       xb, wb, None, stride, padding), flush=flush)}
+            nbytes = x.numel() + w8.numel() + 4 * mm * nn_
+            row["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_PER_S, 2.0 * mm
+                                        * kk_ * nn_ / PEAK_OPS_PER_S["s8"])
+            emit("int8_conv2d", **row)
+            i8_rows.append(row)
+    emit("int8_conv2d_total", convs=len(i8_rows), mode=mode(),
+         tolerance="s32 exactly equal to the plain product",
+         **{k: sum(r[k] for r in i8_rows)
+            for k in ("ms", "int_mm_ms", "cudnn_bf16_ms", "bound_ms")})
+
+    # ------------------------------------------------------ serving, int8
+    conv_k.launches.clear()
+    nms_k.launches.clear()
+    dense_layers.INT_MM_CALLS.clear()
+    per_request = []
+    for r in range(REQUESTS):
+        raw, scene_ms, vox_ms = request(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = load_data_to_device(raw, device=dev, compute_dtype=torch.bfloat16)
+        with torch.no_grad():
+            out = bench8(batch)
+        n_valid = out["final_valid"].sum(dim=1).tolist()
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        check(all(torch.isfinite(out[k].float()).all() for k in
+                  ("spatial_features_2d", "final_boxes", "final_scores")),
+              f"int8 request {r}: non-finite outputs")
+        check(out["final_boxes"].shape == (BATCH, 3 * 83, 9),
+              f"int8 request {r}: final_boxes shape "
+              f"{tuple(out['final_boxes'].shape)}")
+        per_request.append({"request": r, "frames": [2 * r, 2 * r + 1],
+                            "scene_ms": scene_ms, "voxelize_ms": vox_ms,
+                            "device_forward_ms": fwd_ms,
+                            "valid_detections": n_valid})
+        emit("serving_int8_request", **per_request[-1])
+    launches8 = {
+        "sparse_gather_conv_s8_requant": conv_k.launches[gather_conv.REQUANT_ENTRY],
+        "sparse_gather_conv_other": sum(conv_k.launches.values())
+        - conv_k.launches[gather_conv.REQUANT_ENTRY],
+        "int_mm_conv2d": dense_layers.INT_MM_CALLS["int8_conv2d"],
+        "greedy_nms_boxes": nms_k.launches["q3d_greedy_nms_boxes"],
+        "greedy_nms_iou": nms_k.launches["q3d_greedy_nms"]}
+    check(launches8 == {"sparse_gather_conv_s8_requant": 21 * REQUESTS,
+                        "sparse_gather_conv_other": 0,
+                        "int_mm_conv2d": 12 * REQUESTS,
+                        "greedy_nms_boxes": REQUESTS, "greedy_nms_iou": 0},
+          f"int8 main path launches {launches8}")
+    # bf16 and int8 forwards of the same batch in turns, host clock around
+    # a forward that ends in a synchronize
+    fwd = {"bf16": [], "int8": []}
+    with torch.no_grad():
+        for _ in range(6):
+            for tag, mdl in (("bf16", model), ("int8", bench8)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mdl(dict(batch))
+                torch.cuda.synchronize()
+                fwd[tag].append((time.perf_counter() - t0) * 1e3)
+    fwd_med = {k: statistics.median(v[1:]) for k, v in fwd.items()}
+    emit("serving_int8", config=CFG.name, batch=BATCH, recipe="bench",
+         requests=REQUESTS, launches=launches8, mode=mode(),
+         steady_forward_ms=statistics.median(
+             p["device_forward_ms"] for p in per_request[1:]),
+         in_turns_forward_ms=fwd_med,
+         int8_vs_bf16=fwd_med["bf16"] / fwd_med["int8"])
+    st8 = stage_times(bench8, batch)
+    st16 = stage_times(model, batch)
+    emit("stages_int8", batch=BATCH, recipe="bench", mode=mode(),
+         ms_int8=st8, ms_bf16=st16,
+         bf16_over_int8={k: st16[k] / st8[k] for k in st8 if st8[k] > 0},
+         fused_conv_kernels_ms=rq_totals["ms"])
+
+    # --------------------------------------- whole-model check, int8 path
+    # one request through the kernels and through the plain versions with
+    # one set of calibrated scales, under both recipes: every int8 feature
+    # map a residency layer emits, spatial_features and the detections
+    # equal.  The entry recipe keeps conv_input float, and a float conv
+    # equals its plain version exactly only in f32 (bf16: within one
+    # rounding), so its request is the f32 one.
+    strict_f32(True)
+    recipes = {"bench": (bench8, batch0), "entry": (int8_model({}), batch_f32)}
+    model_int8 = {}
+    for tag, (m8, req) in recipes.items():
+        grabbed = {"cuda": [], "plain": []}
+        impl_now = [None]
+
+        def grab(mod, args, out):
+            t = out.features if hasattr(out, "features") else out[0]
+            if t.dtype == torch.int8:
+                grabbed[impl_now[0]].append((names_q[mod], t))
+        names_q = {mm: n for n, mm in m8.named_modules()}
+        sparse_names = {n for mm, n in names_q.items()
+                        if isinstance(mm, (SubMConv3d, SparseConv3d))}
+        watched = [mm for mm in m8.modules()
+                   if isinstance(mm, (SubMConv3d, SparseConv3d))
+                   or (isinstance(mm, TensorQuantizer)
+                       and not names_q[mm].endswith("weight_quant"))]
+        hooks = [mm.register_forward_hook(grab) for mm in watched]
+        outs, ms, fused = {}, {}, {}
+        try:
+            with torch.no_grad():
+                for impl in ("cuda", "plain"):
+                    impl_now[0] = impl
+                    m8.set_kernel_impl(impl)
+                    fused0 = conv_k.launches[gather_conv.REQUANT_ENTRY]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    outs[impl] = m8(dict(req))
+                    torch.cuda.synchronize()
+                    ms[impl] = (time.perf_counter() - t0) * 1e3
+                    fused[impl] = conv_k.launches[gather_conv.REQUANT_ENTRY] \
+                        - fused0
+        finally:
+            m8.set_kernel_impl(None)
+            for h in hooks:
+                h.remove()
+        n_sparse = 21 if tag == "bench" else 20      # entry: conv_input float
+        check(fused == {"cuda": n_sparse, "plain": 0},
+              f"model int8 {tag}: fused entry launches {fused}")
+        gk, gp = grabbed["cuda"], grabbed["plain"]
+        check(len(gk) == len(gp) > 0 and [n for n, _ in gk] == [n for n, _ in gp],
+              f"model int8 {tag}: int8 maps {len(gk)} vs {len(gp)}")
+        bad = [n for (n, a), (_, b) in zip(gk, gp) if not torch.equal(a, b)]
+        check(not bad, f"model int8 {tag}: int8 features differ at {bad[:5]}")
+        for key in ("spatial_features", "final_boxes", "final_scores",
+                    "final_labels", "final_valid"):
+            check(torch.equal(outs["cuda"][key], outs["plain"][key]),
+                  f"model int8 {tag}: {key} differs between kernels and plain")
+        model_int8[tag] = {
+            "request_dtype": str(req["voxels"].dtype),
+            "fused_launches": fused["cuda"],
+            "int8_maps_equal": len(gk),
+            "sparse_int8_maps": sum(n in sparse_names for n, _ in gk),
+            "valid_detections": outs["cuda"]["final_valid"].sum(1).tolist(),
+            "forward_ms": ms}
+    emit("model_int8", recipes=model_int8, mode=mode(), batch=BATCH,
+         equal="every int8 map a residency layer emits, spatial_features and "
+               "final boxes/scores/labels/valid, kernels vs plain (exact)")
+    strict_f32(False)
+
     # ---------------------------------------------------------- kernels line
     kernels = [
         {"name": "sparse_gather_conv", "route": "cuda",
@@ -724,6 +1030,17 @@ def main():
          else "operations", "library_ms": totals["library_ms"],
          "design": CONV_DESIGN,
          "checks": "passed", "times_cover": "one bf16 forward (21 convs)"},
+        {"name": "sparse_gather_conv_s8_requant", "route": "cuda",
+         "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
+         "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",
+         "entry": gather_conv.REQUANT_ENTRY,
+         "launches": launches8["sparse_gather_conv_s8_requant"],
+         "max_abs_err": 0.0, "ms": rq_totals["ms"],
+         "plain_ms": rq_totals["plain_ms"], "bound_ms": rq_totals["bound_ms"],
+         "bound_by": rq_totals["bound_by"],
+         "library_ms": rq_totals["library_ms"],
+         "unfused_ms": rq_totals["unfused_ms"], "checks": "passed",
+         "times_cover": "one int8 forward, bench recipe (21 residency convs)"},
         {"name": "greedy_nms", "route": "cuda",
          "source": "q3d_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "q3d_tpu/ops/iou3d_nms/pallas_nms.py:45",

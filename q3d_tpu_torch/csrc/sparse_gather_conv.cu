@@ -56,12 +56,21 @@
 //      f32 keeps the same tile, book, ring and epilogue and multiplies on
 //      CUDA cores (an explicit dtype branch, not a fallback);
 //   5. the epilogue scales and masks in f32, stages the tile through shared
-//      memory and stores 16 bytes a thread.  (A fused bias/BN/residual/ReLU/
-//      requant epilogue would slot in at this point.)
+//      memory and stores 16 bytes a thread;
+//   6. the s8 requant entry (int8 residency) stages the scaled f32 tile
+//      instead, and each thread then takes 16 consecutive outputs of a row:
+//      BN fold (y * k + b), the residual (an s8 identity times its scale,
+//      or an f32 one, read 16 at a time), ReLU, the row mask and the
+//      per-tensor requant clip(rint(y / s), -127, 127), then one 16-byte
+//      store.  That is q3d_tpu/ops/spconv/modules.py:397-416 op for op; the
+//      build has -fmad=false and IEEE division (nvcc's default), so the s8
+//      rows are bit-equal to the plain version's.  Fusing it keeps the f32
+//      rows (4 B an element, against 1) and five elementwise passes over
+//      them out of device memory.
 // Instances: Cin, Cout in {16, 32, 64, 128}; K <= 27 at run time (27 for
-// the 3x3x3 convs, 3 for conv_out).  Built once per dtype: -DQ3D_GC_F32,
-// -DQ3D_GC_BF16 or -DQ3D_GC_S8 selects the function a build exports, so the
-// three builds run in parallel.
+// the 3x3x3 convs, 3 for conv_out).  Built once per entry: -DQ3D_GC_F32,
+// -DQ3D_GC_BF16, -DQ3D_GC_S8 or -DQ3D_GC_S8_REQUANT selects the function a
+// build exports, so the four builds run in parallel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -76,12 +85,28 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int KMAX = 27;         // most taps a book row may have
 constexpr int SMEM_PER_SM = 228 * 1024;   // shared memory per SM
 
-template <typename T, int CIN, int COUT>
+// the requant entry's epilogue operands (all device pointers; a null
+// row_valid keeps every row, at most one of id_s8 / id_f32 is set)
+struct Epilogue {
+  const float* k;            // (Cout,) BN fold scale
+  const float* b;            // (Cout,) BN fold shift
+  const uint8_t* row_valid;  // (M,)
+  const int8_t* id_s8;       // (M, Cout) s8 identity ...
+  const float* id_scale;     // ... and its scale (one value)
+  const float* id_f32;       // (M, Cout) f32 identity
+  const float* s;            // the requant scale (one value)
+};
+
+template <typename T, int CIN, int COUT, bool RQ = false>
 struct Cfg {
   static constexpr int ES = sizeof(T);
   static constexpr bool TC = !std::is_same<T, float>::value;   // tensor cores
-  using Out = std::conditional_t<std::is_same<T, __nv_bfloat16>::value,
-                                 __nv_bfloat16, float>;
+  using Out = std::conditional_t<
+      RQ, int8_t,
+      std::conditional_t<std::is_same<T, __nv_bfloat16>::value, __nv_bfloat16,
+                         float>>;
+  // the epilogue stages the tile in the output type, or in f32 for requant
+  using Stage = std::conditional_t<RQ, float, Out>;
   using Acc = std::conditional_t<std::is_same<T, int8_t>::value, int, float>;
   static constexpr int KC = CIN * ES > 128 ? 128 / ES : CIN;   // Cin per step
   static constexpr int NSL = CIN / KC;                          // steps per tap
@@ -99,7 +124,7 @@ struct Cfg {
   static constexpr int W_PITCH = ((COUT * ES / 16) | 1) * 16;
   static constexpr int A_BYTES = BM * A_PITCH;
   static constexpr int STAGE_BYTES = A_BYTES + KCP * W_PITCH;
-  static constexpr int O_PITCH = ((COUT * (int)sizeof(Out) / 16) | 1) * 16;
+  static constexpr int O_PITCH = ((COUT * (int)sizeof(Stage) / 16) | 1) * 16;
   static constexpr int BOOK_BYTES = BM * KMAX * 4;
   // cp.async ring depth: 3 stages, or 2 where 3 would leave room for only
   // one block per SM (no other block to hide a step's barrier behind)
@@ -174,15 +199,16 @@ __device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <typename T, int CIN, int COUT>
+template <typename T, int CIN, int COUT, bool RQ>
 __global__ void __launch_bounds__(THREADS)
 gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
                    const T* __restrict__ w, const float* __restrict__ scale,
                    const uint8_t* __restrict__ valid,
-                   typename Cfg<T, CIN, COUT>::Out* __restrict__ out,
-                   int N, int M, int K) {
-  using C = Cfg<T, CIN, COUT>;
+                   typename Cfg<T, CIN, COUT, RQ>::Out* __restrict__ out,
+                   int N, int M, int K, Epilogue ep) {
+  using C = Cfg<T, CIN, COUT, RQ>;
   using Out = typename C::Out;
+  using Stage = typename C::Stage;
   using Acc = typename C::Acc;
   constexpr int ES = C::ES, KC = C::KC, NSL = C::NSL;
 
@@ -346,8 +372,8 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
   __syncthreads();
 
   // 5. epilogue: scale, then valid, in f32; stage the tile in shared memory
-  Out* so = reinterpret_cast<Out*>(ring);
-  constexpr int OP = C::O_PITCH / (int)sizeof(Out);
+  Stage* so = reinterpret_cast<Stage*>(ring);
+  constexpr int OP = C::O_PITCH / (int)sizeof(Stage);
   auto emit = [&](int r, int n, Acc a) {
     float v = static_cast<float>(a);
     if (scale != nullptr) v *= scale[n];
@@ -390,22 +416,55 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
       for (int j = 0; j < NJ; ++j) emit(ty * 8 + i, tx + 16 * j, acc[0][i][j]);
   }
   __syncthreads();
-  constexpr int OCH = COUT * (int)sizeof(Out) / 16;
-  unsigned char* gout = reinterpret_cast<unsigned char*>(out)
-                        + (size_t)m0 * COUT * sizeof(Out);
-  for (int e = tid; e < rows * OCH; e += THREADS) {
-    const int r = e / OCH, c = e % OCH;
-    *reinterpret_cast<int4*>(gout + (size_t)r * COUT * sizeof(Out) + c * 16) =
-        *reinterpret_cast<const int4*>(ring + r * C::O_PITCH + c * 16);
+  if constexpr (!RQ) {
+    constexpr int OCH = COUT * (int)sizeof(Out) / 16;
+    unsigned char* gout = reinterpret_cast<unsigned char*>(out)
+                          + (size_t)m0 * COUT * sizeof(Out);
+    for (int e = tid; e < rows * OCH; e += THREADS) {
+      const int r = e / OCH, c = e % OCH;
+      *reinterpret_cast<int4*>(gout + (size_t)r * COUT * sizeof(Out) + c * 16) =
+          *reinterpret_cast<const int4*>(ring + r * C::O_PITCH + c * 16);
+    }
+  } else {
+    // 6. the fused residency epilogue, 16 outputs of a row per thread, each
+    //    op rounded on its own in the plain version's order
+    constexpr int OCH = COUT / 16;
+    const float s = *ep.s;
+    const float ids = ep.id_s8 != nullptr ? *ep.id_scale : 0.f;
+    for (int e = tid; e < rows * OCH; e += THREADS) {
+      const int r = e / OCH, c0 = (e % OCH) * 16;
+      const size_t at = (size_t)(m0 + r) * COUT + c0;
+      const float* y = reinterpret_cast<const float*>(ring + r * C::O_PITCH) + c0;
+      const float rv =
+          (ep.row_valid == nullptr || ep.row_valid[m0 + r]) ? 1.f : 0.f;
+      alignas(16) int8_t id8[16];
+      if (ep.id_s8 != nullptr)
+        *reinterpret_cast<int4*>(id8) =
+            *reinterpret_cast<const int4*>(ep.id_s8 + at);
+      alignas(16) int8_t q[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float v = y[j] * ep.k[c0 + j];
+        v = v + ep.b[c0 + j];
+        if (ep.id_s8 != nullptr)
+          v = v + static_cast<float>(id8[j]) * ids;
+        else if (ep.id_f32 != nullptr)
+          v = v + ep.id_f32[at + j];
+        v = fmaxf(v, 0.f);
+        v = v * rv;
+        q[j] = static_cast<int8_t>(fminf(fmaxf(rintf(v / s), -127.f), 127.f));
+      }
+      *reinterpret_cast<int4*>(out + at) = *reinterpret_cast<const int4*>(q);
+    }
   }
 }
 
-template <typename T, int CIN, int COUT>
+template <typename T, int CIN, int COUT, bool RQ>
 int launch_one(const void* feat, const void* idx, const void* w,
                const void* scale, const void* valid, void* out, int N, int M,
-               int K, cudaStream_t stream) {
-  using C = Cfg<T, CIN, COUT>;
-  auto* kern = gather_conv_kernel<T, CIN, COUT>;
+               int K, const Epilogue& ep, cudaStream_t stream) {
+  using C = Cfg<T, CIN, COUT, RQ>;
+  auto* kern = gather_conv_kernel<T, CIN, COUT, RQ>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -413,20 +472,21 @@ int launch_one(const void* feat, const void* idx, const void* w,
       static_cast<const T*>(feat), static_cast<const int32_t*>(idx),
       static_cast<const T*>(w), static_cast<const float*>(scale),
       static_cast<const uint8_t*>(valid),
-      static_cast<typename C::Out*>(out), N, M, K);
+      static_cast<typename C::Out*>(out), N, M, K, ep);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool RQ>
 int launch(const void* feat, const void* idx, const void* w, const void* scale,
            const void* valid, void* out, int N, int M, int K, int Cin,
-           int Cout, void* stream) {
+           int Cout, const Epilogue& ep, void* stream) {
   if (M == 0) return 0;
   if (K < 1 || K > KMAX) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
 #define Q3D_GC_CASE(CI, CO)                                                  \
   if (Cin == CI && Cout == CO)                                               \
-    return launch_one<T, CI, CO>(feat, idx, w, scale, valid, out, N, M, K, s);
+    return launch_one<T, CI, CO, RQ>(feat, idx, w, scale, valid, out, N, M, \
+                                     K, ep, s);
 #define Q3D_GC_ROW(CI) \
   Q3D_GC_CASE(CI, 16) Q3D_GC_CASE(CI, 32) Q3D_GC_CASE(CI, 64) Q3D_GC_CASE(CI, 128)
   Q3D_GC_ROW(16) Q3D_GC_ROW(32) Q3D_GC_ROW(64) Q3D_GC_ROW(128)
@@ -445,8 +505,8 @@ int launch(const void* feat, const void* idx, const void* w, const void* scale,
       const void* feat, const void* idx, const void* w, const void* scale,   \
       const void* valid, void* out, int N, int M, int K, int Cin, int Cout,  \
       void* stream) {                                                        \
-    return launch<T>(feat, idx, w, scale, valid, out, N, M, K, Cin, Cout,    \
-                     stream);                                                \
+    return launch<T, false>(feat, idx, w, scale, valid, out, N, M, K, Cin,  \
+                            Cout, Epilogue{}, stream);                       \
   }
 
 #ifdef Q3D_GC_F32
@@ -457,4 +517,28 @@ Q3D_GC_EXPORT(bf16, __nv_bfloat16)
 #endif
 #ifdef Q3D_GC_S8
 Q3D_GC_EXPORT(s8, int8_t)
+#endif
+
+// The s8 conv with the residency epilogue fused: out (M, Cout) s8.  scale
+// (out_scale, (Cout,) f32) is required; k, b (Cout,) f32 and s (one f32)
+// too; row_valid (M,) u8, id_s8 (M, Cout) s8 with id_scale (one f32), and
+// id_f32 (M, Cout) f32 may be null (not both identities).
+#ifdef Q3D_GC_S8_REQUANT
+extern "C" int q3d_sparse_gather_conv_s8_requant(
+    const void* feat, const void* idx, const void* w, const void* scale,
+    const void* valid, void* out, int N, int M, int K, int Cin, int Cout,
+    const void* k, const void* b, const void* row_valid, const void* id_s8,
+    const void* id_scale, const void* id_f32, const void* s, void* stream) {
+  if (scale == nullptr || k == nullptr || b == nullptr || s == nullptr
+      || (id_s8 != nullptr && (id_scale == nullptr || id_f32 != nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Epilogue ep{static_cast<const float*>(k), static_cast<const float*>(b),
+                    static_cast<const uint8_t*>(row_valid),
+                    static_cast<const int8_t*>(id_s8),
+                    static_cast<const float*>(id_scale),
+                    static_cast<const float*>(id_f32),
+                    static_cast<const float*>(s)};
+  return launch<int8_t, true>(feat, idx, w, scale, valid, out, N, M, K, Cin,
+                              Cout, ep, stream);
+}
 #endif

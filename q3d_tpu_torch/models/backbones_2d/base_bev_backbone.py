@@ -1,11 +1,16 @@
 """Dense BEV conv pyramid + transposed-conv upsample concat (port of
 ``q3d_tpu/models/backbones_2d/base_bev_backbone.py::BaseBEVBackbone``).
-NCHW; module slots follow pcdet's ``blocks`` / ``deblocks`` Sequentials."""
+NCHW; module slots follow pcdet's ``blocks`` / ``deblocks`` Sequentials.
+Under an int8-residency deploy rule a block folds each BN into its conv's
+requant epilogue and passes int8 ``QTensor``s on, also to the next block;
+each block's output is dequantized (to the input map's dtype) for the
+deblocks."""
 
 import torch
 from torch import nn
 
-from ..layers import Conv2d, ConvTranspose2d, BatchNorm
+from ..layers import (Conv2d, ConvTranspose2d, BatchNorm, dequantize,
+                      requant_epilogue)
 
 
 class _Block(nn.Sequential):
@@ -22,6 +27,16 @@ class _Block(nn.Sequential):
             layers += [Conv2d(features, features, 3, 1, 1, bias=False),
                        BatchNorm(features), nn.ReLU()]
         super().__init__(*layers)
+
+    def forward(self, x):
+        conv0 = self[1]
+        if not conv0.residency:
+            return super().forward(dequantize(x))
+        spec = conv0.requant_spec
+        for j in range(1, len(self), 3):
+            conv, norm = self[j], self[j + 1]
+            x = requant_epilogue(conv, conv(x), *norm.fold(), spec)
+        return x                                    # QTensor
 
 
 class _Deblock(nn.Sequential):
@@ -64,8 +79,10 @@ class BaseBEVBackbone(nn.Module):
         ups = []
         for i, block in enumerate(self.blocks):
             x = block(x)
-            batch_dict[f"spatial_features_{spatial.shape[2] // x.shape[2]}x"] = x
-            ups.append(self.deblocks[i](x) if len(self.deblocks) else x)
+            # x may be a QTensor: the next block takes it as it is
+            xr = dequantize(x, spatial.dtype)
+            batch_dict[f"spatial_features_{spatial.shape[2] // xr.shape[2]}x"] = xr
+            ups.append(self.deblocks[i](xr) if len(self.deblocks) else xr)
         batch_dict["spatial_features_2d"] = torch.cat(ups, dim=1) \
             if len(ups) > 1 else ups[0]
         return batch_dict

@@ -1,10 +1,15 @@
 """VoxelResBackBone8x — the CenterPoint sparse 3D backbone.
 
-Port of ``q3d_tpu/models/backbones_3d/spconv_backbone.py`` (float path):
-conv_input, four residual stages (SparseBasicBlock pairs, strided
-downsamples between them) and the (3,1,1) z-compressing conv_out.  Module
-names follow pcdet's, so a pcdet-named state dict loads strictly.
-sparse_shape = [nz+1, ny, nx] like the reference's ``grid_size[::-1]+[1,0,0]``.
+Port of ``q3d_tpu/models/backbones_3d/spconv_backbone.py``: conv_input,
+four residual stages (SparseBasicBlock pairs, strided downsamples between
+them) and the (3,1,1) z-compressing conv_out.  Module names follow pcdet's,
+so a pcdet-named state dict loads strictly.  sparse_shape = [nz+1, ny, nx]
+like the reference's ``grid_size[::-1]+[1,0,0]``.
+
+Under an int8-residency deploy rule (``quant.api``) a block folds its BN
+into its conv's epilogue and the features stay int8 from conv to conv,
+each tensor carrying its ``feat_scale``; the output is dequantized (to
+bf16, as the reference does) before the BEV map.
 """
 
 import torch
@@ -13,6 +18,7 @@ from torch import nn
 
 from ...ops.spconv import (SparseConvTensor, SubMConv3d, SparseConv3d,
                            SparseBatchNorm)
+from ...ops.spconv.modules import Requant, dequantize_tensor
 
 # narrow VFE outputs (4-5 channels) are zero-padded to this many lanes, so
 # the conv_input weights the reference exports (I = 16) load unchanged; the
@@ -52,10 +58,14 @@ class _SparseConvBNReLU(nn.Sequential):
 
     def forward(self, st, cache, out_capacity=None):
         conv, norm = self[0], self[1]
+        requant = Requant(*norm.fold(), conv.requant_spec) \
+            if conv.residency else None
         if isinstance(conv, SparseConv3d):
-            st = conv(st, cache, out_capacity)
+            st = conv(st, cache, out_capacity, requant=requant)
         else:
-            st = conv(st, cache)
+            st = conv(st, cache, requant=requant)
+        if requant is not None:
+            return st
         st = norm(st)
         return st.replace(features=torch.relu(st.features))
 
@@ -73,6 +83,12 @@ class SparseBasicBlock(nn.Module):
         self.bn2 = SparseBatchNorm(channels)
 
     def forward(self, st, cache):
+        if self.conv1.residency:
+            spec = self.conv1.requant_spec
+            x = self.conv1(st, cache,
+                           requant=Requant(*self.bn1.fold(), spec))
+            return self.conv2(x, cache,
+                              requant=Requant(*self.bn2.fold(), spec, st))
         identity = st.features
         st = self.bn1(self.conv1(st, cache))
         st = st.replace(features=torch.relu(st.features))
@@ -140,6 +156,6 @@ class VoxelResBackBone8x(nn.Module):
             for blk in blocks:
                 x = blk(x, cache)
         out = self.conv_out(x, cache, caps["out"])
-        batch_dict["encoded_spconv_tensor"] = out
+        batch_dict["encoded_spconv_tensor"] = dequantize_tensor(out)
         batch_dict["encoded_spconv_tensor_stride"] = 8
         return batch_dict

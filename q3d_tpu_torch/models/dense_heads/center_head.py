@@ -12,7 +12,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..layers import Conv2d, BatchNorm
+from ..layers import Conv2d, BatchNorm, DenseRequant
 from ..model_utils import centernet_utils, model_nms_utils
 
 
@@ -61,6 +61,10 @@ class CenterHead(nn.Module):
         self.shared_conv = nn.Sequential(
             Conv2d(input_channels, ch, 3, 1, 1, bias=use_bias),
             BatchNorm(ch, eps=bn_eps), nn.ReLU())
+        # int8 residency (the reference's shared_requant): the shared map is
+        # quantized once and the int8 branch convs take it as it is; a
+        # no-op otherwise
+        self.shared_requant = DenseRequant()
         heads = []
         for names in self.class_names_each_head:
             head_dict = {k: dict(v) for k, v in cfg.SEPARATE_HEAD_CFG.HEAD_DICT.items()}
@@ -72,7 +76,8 @@ class CenterHead(nn.Module):
         self.kernel_impl = None
 
     def forward(self, batch_dict):
-        x = self.shared_conv(batch_dict["spatial_features_2d"])
+        x = self.shared_requant(
+            self.shared_conv(batch_dict["spatial_features_2d"]))
         pred_dicts = [head(x) for head in self.heads_list]
         batch_dict["pred_dicts"] = pred_dicts
         self._nms(batch_dict, *self._decode(pred_dicts))

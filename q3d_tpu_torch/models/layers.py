@@ -1,29 +1,119 @@
-"""Dense NCHW building blocks of the CenterPoint path (port of the float
-path of ``q3d_tpu/models/layers.py``).
+"""Dense NCHW building blocks of the CenterPoint path (port of
+``q3d_tpu/models/layers.py``: the float path and the int8 deploy path).
 
 Precision follows the reference (``layers.py:167-201``): the input stays in
 the compute dtype, weights are cast to it, and the convolution accumulates
 in f32 (cuDNN does so for bf16 inputs; f32 comparisons must turn TF32 off).
 The dense convs are library calls, as the reference leaves them to XLA.
+
+Under an int8 deploy rule a ``Conv2d`` quantizes first (per tensor; a
+``QTensor`` input is int8 already) and runs ``int8_conv2d``, an s8 x s8 ->
+s32 conv (im2col of the NHWC int8 map, then ``torch._int_mm`` on the card;
+the reference's is XLA's native s8 conv, not a Pallas kernel), then
+rescales by ``s_act * s_w``.  Under a residency rule it hands back the raw
+f32 (+ bias) for its block's ``requant_epilogue``, and blocks pass int8
+``QTensor``s from conv to conv.  The int8 maps are NCHW-shaped views of
+NHWC (channels-last) memory, the layout the patch GEMM reads and writes.
 """
 
+import collections
+import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..quant.tensor_quant import QuantLayer, rescale
+
+# int8_conv2d calls through torch._int_mm (a library GEMM, counted so that a
+# run can show the int8 path went through it)
+INT_MM_CALLS = collections.Counter()
+
+
+class QTensor(NamedTuple):
+    """Dense int8-residency carrier: ``data`` (int8, NCHW-shaped) with its
+    dequantization ``scale`` (f32; ``data * scale`` is the real value)."""
+    data: torch.Tensor
+    scale: torch.Tensor
+
+
+def dequantize(x, dtype=torch.bfloat16):
+    """Exit a dense int8-residency chain: real values again (bf16 by
+    default, as the reference's)."""
+    if isinstance(x, QTensor):
+        return (x.data.float() * x.scale).to(dtype)
+    return x
+
+
+def requant_epilogue(layer, y, k, b, act_spec, identity=None,
+                     name="out_quant"):
+    """The dense residency epilogue (reference :80-95): y * k + b (BN
+    fold), + identity, ReLU, then per-tensor int8 requant by ``layer``'s
+    quantizer ``name`` -> QTensor.  No row mask (dense maps have no pads)."""
+    c = (1, -1, 1, 1)
+    y = y.float() * k.reshape(c) + b.reshape(c)
+    if identity is not None:
+        y = y + dequantize(identity, torch.float32)
+    y = torch.relu(y)
+    return QTensor(*layer.quantize(name, act_spec, y))
+
+
+def _patches(x, kernel_size, stride, padding):
+    """im2col of an NCHW-shaped int8 map: (B*Ho*Wo, kh*kw*C), columns in
+    (kh, kw, C) order (the HWIO weight's), copied once from a strided
+    window view of the padded NHWC map (PyTorch's unfold has no int8
+    kernel)."""
+    (kh, kw), (sh, sw), (ph, pw) = kernel_size, stride, padding
+    xp = F.pad(x.permute(0, 2, 3, 1), (0, 0, pw, pw, ph, ph))
+    b, hp, wp, c = xp.shape
+    ho, wo = (hp - kh) // sh + 1, (wp - kw) // sw + 1
+    s_b, s_h, s_w, s_c = xp.stride()
+    win = xp.as_strided((b, ho, wo, kh, kw, c),
+                        (s_b, s_h * sh, s_w * sw, s_h, s_w, s_c))
+    return win.reshape(b * ho * wo, kh * kw * c), (b, ho, wo)
+
+
+def int8_conv2d(x, w, stride, padding, impl=None):
+    """s8 x s8 -> s32 conv: x (B, C, H, W) int8, w (O, C, kh, kw) int8 ->
+    (B, O, Ho, Wo) int32, an NCHW-shaped view of NHWC memory.
+
+    ``impl``: "cuda" (``torch._int_mm``), "plain" (an exact product: int32
+    on the CPU, f64 on the card, where |sum| <= kh*kw*C*127^2 < 2^53), or
+    None = by the tensors' device."""
+    if impl is None:
+        impl = "cuda" if x.is_cuda else "plain"
+    a, (b, ho, wo) = _patches(x, w.shape[2:], stride, padding)
+    wm = w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)        # (O, kh*kw*C)
+    if impl == "cuda":
+        if not (x.is_cuda and a.shape[0] > 16 and a.shape[1] % 8 == 0
+                and wm.shape[0] % 8 == 0):
+            raise ValueError(
+                f"int8_conv2d: _int_mm needs CUDA tensors, M > 16 and K, N "
+                f"multiples of 8 (got {tuple(a.shape)} x {tuple(wm.shape)})")
+        out = torch._int_mm(a, wm.t())
+        INT_MM_CALLS["int8_conv2d"] += 1
+    elif impl == "plain":
+        acc = torch.int32 if a.device.type == "cpu" else torch.float64
+        out = (a.to(acc) @ wm.t().to(acc)).to(torch.int32)
+    else:
+        raise ValueError(f"unknown impl {impl!r}")
+    return out.view(b, ho, wo, -1).permute(0, 3, 1, 2)
 
 
 def _pair(v):
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
 
 
-class Conv2d(nn.Module):
+class Conv2d(QuantLayer, nn.Module):
     """2D conv, OIHW weight; bias initialised to ``bias_init``."""
+    QUANT_KIND = "conv2d"
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, bias=True, bias_init=0.0):
         super().__init__()
+        self.kernel_impl = None
         kh, kw = _pair(kernel_size)
         self.stride = _pair(stride)
         self.padding = _pair(padding)
@@ -41,9 +131,40 @@ class Conv2d(nn.Module):
                 self.bias.fill_(self.bias_init)
 
     def forward(self, x):
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
-                        self.padding)
+        rule = self.rule                    # None, or an int8 deploy rule
+        if rule is None:
+            # float; a residency chain feeding an excluded layer is
+            # dequantized first
+            x = dequantize(x)
+            bias = None if self.bias is None else self.bias.to(x.dtype)
+            return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
+                            self.padding)
+        y = self._int8_conv(x)
+        if isinstance(x, QTensor) or rule.int8_residency:
+            # residency: the raw f32 for the caller's epilogue
+            return y if self.bias is None else y + self.bias.reshape(1, -1, 1, 1)
+        y = y.to(x.dtype)
+        if self.bias is not None:
+            y = y + self.bias.reshape(1, -1, 1, 1)
+        return y.to(x.dtype)
+
+    def _int8_conv(self, x):
+        """The reference's quantize-first ``_int8_conv`` (:237-253): int8
+        input (quantized here, or a QTensor), weight per output channel
+        from the f32 master, s32 conv, then out * (s_act * s_w) in f32."""
+        rule = self.rule
+        if isinstance(x, QTensor):
+            xq, s_act = x.data, x.scale
+        else:
+            xq, s_act = self.quantize("act_quant", rule.act, x)
+        # per output channel: axis 3 of the reference's HWIO, 0 of OIHW
+        wspec = dataclasses.replace(
+            rule.weight, axis=0 if rule.weight.axis is not None else None)
+        wq, s_w = self.quantize("weight_quant", wspec, self.weight)
+        out = int8_conv2d(xq, wq, self.stride, self.padding,
+                          impl=self.kernel_impl)
+        return out.float() * rescale(s_act, s_w, self.weight, wspec.axis,
+                                     self.fused).reshape(1, -1, 1, 1)
 
 
 class ConvTranspose2d(nn.Module):
@@ -75,11 +196,14 @@ class ConvTranspose2d(nn.Module):
 class BatchNorm(nn.Module):
     """Eval-mode BatchNorm2d over NCHW maps, computed as the reference's
     flax BatchNorm does, (x - mean) * (rsqrt(var + eps) * weight) + bias,
-    in f32 and returned in the input dtype."""
+    in f32 and returned in the input dtype, or in f32 when ``out_f32`` is
+    set (an int8 deploy model: flax promotes a bf16 input with its f32
+    parameters)."""
 
     def __init__(self, num_features, eps=1e-3):
         super().__init__()
         self.eps = eps
+        self.out_f32 = False
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -92,10 +216,32 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
-    def forward(self, x):
+    def _affine(self, x):
         def c(v):
             return v[None, :, None, None]
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - c(self.running_mean)) * c(mul) + c(self.bias)
-        return y.to(x.dtype)
+        return (x - c(self.running_mean)) * c(mul) + c(self.bias)
+
+    def forward(self, x):
+        y = self._affine(x.float())
+        return y if self.out_f32 else y.to(x.dtype)
+
+    def fold(self):
+        """The eval affine as (k, b), y = x * k + b, probed as the reference
+        does (:536-542): b = bn(0), k = bn(1) - b."""
+        probe = self.weight.new_zeros((1, self.weight.numel(), 1, 1))
+        b = self._affine(probe).reshape(-1)
+        return self._affine(probe + 1).reshape(-1) - b, b
+
+
+class DenseRequant(QuantLayer, nn.Module):
+    """Quantize a dense map once into a QTensor (reference :98-125): the
+    CenterHead's shared feature, so that its int8 branch convs start from
+    int8 data.  A no-op unless an int8-residency conv2d rule matches."""
+    QUANT_KIND = "conv2d"
+
+    def forward(self, x):
+        if not self.residency or isinstance(x, QTensor):
+            return x
+        return QTensor(*self.quantize("quant", self.rule.act, x))
 

@@ -15,23 +15,37 @@ Dtypes: f32 and bf16 inputs accumulate in f32 and return the input dtype;
 s8 x s8 accumulates in s32 and returns f32 after ``out_scale``.  The kernel
 has instances for Cin, Cout in {16, 32, 64, 128} and books of K <= 27 taps;
 the wrapper raises on any other shape.
+
+The s8 variant has a second entry for int8 residency,
+``sparse_gather_conv_requant``: the same conv with the residency epilogue
+of ``q3d_tpu/ops/spconv/modules.py:397-416`` fused (BN fold, residual,
+ReLU, row mask, per-tensor requant), so the conv emits s8 rows.  Its plain
+version is ``gather_conv_plain`` + ``epilogue_f32`` + ``quantize_with_scale``,
+op for op in the reference's order; the kernel is built without multiply-add
+contraction and with IEEE division, so the two are bit-equal.
 """
 
 import ctypes
 
 import torch
 
+from ...quant.tensor_quant import quantize_with_scale
 from ..kernel_build import CudaLibrary
 from .engine import gather_conv as gather_conv_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "s8"}
-# one build per dtype (16 width instances each), compiled in parallel
+REQUANT_ENTRY = "q3d_sparse_gather_conv_s8_requant"
+# one build per dtype (16 width instances each), and one for the fused
+# requant entry (-fmad=false: its epilogue rounds op by op as PyTorch
+# does), compiled in parallel
 KERNEL = CudaLibrary(
     "sparse_gather_conv.cu",
-    {f"q3d_sparse_gather_conv_{s}": [_P] * 6 + [_I] * 5 + [_P]
-     for s in _SUFFIX.values()},
-    variants=[(f"-DQ3D_GC_{s.upper()}",) for s in _SUFFIX.values()])
+    {**{f"q3d_sparse_gather_conv_{s}": [_P] * 6 + [_I] * 5 + [_P]
+        for s in _SUFFIX.values()},
+     REQUANT_ENTRY: [_P] * 6 + [_I] * 5 + [_P] * 8},
+    variants=[(f"-DQ3D_GC_{s.upper()}",) for s in _SUFFIX.values()]
+    + [("-DQ3D_GC_S8_REQUANT", "-fmad=false")])
 WIDTHS = (16, 32, 64, 128)
 MAX_TAPS = 27
 
@@ -41,10 +55,9 @@ def _require(cond, msg):
         raise ValueError(f"sparse_gather_conv: {msg}")
 
 
-def gather_conv_cuda(features, gather_idx, weight, out_scale=None,
-                     out_valid=None):
-    """Launch the CUDA kernel (one launch, counted in ``KERNEL.launches``
-    under its dtype's function)."""
+def _check_conv_args(features, gather_idx, weight, out_scale, out_valid):
+    """Validate the conv's inputs for the kernel -> (n, cin, m, k, cout,
+    out_scale as (Cout,) or None)."""
     dev = features.device
     _require(dev.type == "cuda", "features must be a CUDA tensor")
     _require(features.dtype in _SUFFIX, f"unsupported dtype {features.dtype}")
@@ -76,6 +89,30 @@ def gather_conv_cuda(features, gather_idx, weight, out_scale=None,
         _require(out_valid.dtype == torch.bool and out_valid.shape == (m,)
                  and out_valid.is_contiguous() and out_valid.device == dev,
                  "out_valid must be a contiguous (M,) bool tensor")
+    return n, cin, m, k, cout, out_scale
+
+
+def _f32_vector(x, name, cout, dev):
+    x = x.reshape(-1)
+    _require(x.dtype == torch.float32 and x.numel() == cout
+             and x.is_contiguous() and x.device == dev,
+             f"{name} must be a contiguous ({cout},) f32 tensor")
+    return x
+
+
+def _f32_scalar(x, name, dev):
+    _require(x.dtype == torch.float32 and x.numel() == 1 and x.device == dev,
+             f"{name} must be a one-element f32 tensor on the features' device")
+    return x.reshape(1).contiguous()
+
+
+def gather_conv_cuda(features, gather_idx, weight, out_scale=None,
+                     out_valid=None):
+    """Launch the CUDA kernel (one launch, counted in ``KERNEL.launches``
+    under its dtype's function)."""
+    n, cin, m, k, cout, out_scale = _check_conv_args(
+        features, gather_idx, weight, out_scale, out_valid)
+    dev = features.device
     out = torch.empty((m, cout), device=dev,
                       dtype=torch.float32 if features.dtype == torch.int8
                       else features.dtype)
@@ -106,3 +143,94 @@ def sparse_gather_conv(features, gather_idx, weight, out_scale=None,
         return gather_conv_plain(features, gather_idx, weight, out_scale,
                                  out_valid)
     raise ValueError(f"unknown impl {impl!r}")
+
+
+def epilogue_f32(y, k, b, row_valid=None, identity=None, identity_scale=None):
+    """The residency epilogue up to the requant, in the reference's order
+    (``modules.py:403-414``): y * k + b (BN fold), + identity (times its
+    scale when it is int8), ReLU, * row_valid (pads stay exactly zero)."""
+    y = y.float() * k + b
+    if identity is not None:
+        idf = identity.float()
+        if identity_scale is not None:
+            idf = idf * identity_scale
+        y = y + idf
+    y = torch.relu(y)
+    if row_valid is not None:
+        y = y * row_valid[:, None]
+    return y
+
+
+def gather_conv_requant_plain(features, gather_idx, weight, out_scale, k, b,
+                              scale, out_valid=None, row_valid=None,
+                              identity=None, identity_scale=None):
+    """Plain version of the fused entry: the s8 conv, the epilogue, then
+    clip(round(y / scale), -127, 127) -> (M, Cout) int8."""
+    y = gather_conv_plain(features, gather_idx, weight, out_scale, out_valid)
+    return quantize_with_scale(
+        epilogue_f32(y, k, b, row_valid, identity, identity_scale), scale)
+
+
+def gather_conv_requant_cuda(features, gather_idx, weight, out_scale, k, b,
+                             scale, out_valid=None, row_valid=None,
+                             identity=None, identity_scale=None):
+    """Launch the fused s8 entry (counted under ``REQUANT_ENTRY``).  The
+    identity is s8 with its one-element f32 scale, or float (a bf16 identity
+    is cast to f32, which is exact); nothing else is taken."""
+    _require(features.dtype == torch.int8, "the requant entry takes s8 features")
+    n, cin, m, k_taps, cout, out_scale = _check_conv_args(
+        features, gather_idx, weight, out_scale, out_valid)
+    _require(out_scale is not None, "the requant entry needs out_scale")
+    dev = features.device
+    k = _f32_vector(k, "k", cout, dev)
+    b = _f32_vector(b, "b", cout, dev)
+    scale = _f32_scalar(scale, "scale", dev)
+    if row_valid is not None:
+        _require(row_valid.dtype == torch.bool and row_valid.shape == (m,)
+                 and row_valid.is_contiguous() and row_valid.device == dev,
+                 "row_valid must be a contiguous (M,) bool tensor")
+    id_s8 = id_scale = id_f32 = None
+    if identity is not None:
+        _require(identity.shape == (m, cout) and identity.device == dev,
+                 "identity must be (M, Cout) on the features' device")
+        if identity.dtype == torch.int8:
+            _require(identity_scale is not None,
+                     "an s8 identity needs its scale")
+            id_s8 = identity.contiguous()
+            id_scale = _f32_scalar(identity_scale, "identity_scale", dev)
+        else:
+            _require(identity.dtype in (torch.float32, torch.bfloat16)
+                     and identity_scale is None,
+                     "a float identity is f32 or bf16, without a scale")
+            id_f32 = identity.float().contiguous()
+        _require((id_s8 if id_f32 is None else id_f32).data_ptr() % 16 == 0,
+                 "identity must be 16-byte aligned")
+    out = torch.empty((m, cout), device=dev, dtype=torch.int8)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        KERNEL.call(REQUANT_ENTRY,
+                    features.data_ptr(), gather_idx.data_ptr(),
+                    weight.data_ptr(), out_scale.data_ptr(), ptr(out_valid),
+                    out.data_ptr(), n, m, k_taps, cin, cout,
+                    k.data_ptr(), b.data_ptr(), ptr(row_valid), ptr(id_s8),
+                    ptr(id_scale), ptr(id_f32), scale.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
+    KERNEL.launches[REQUANT_ENTRY] += 1
+    return out
+
+
+def sparse_gather_conv_requant(features, gather_idx, weight, out_scale, k, b,
+                               scale, out_valid=None, row_valid=None,
+                               identity=None, identity_scale=None, impl=None):
+    """The s8 conv with the residency epilogue fused -> (M, Cout) int8.
+    ``impl`` as in ``sparse_gather_conv``."""
+    if impl is None:
+        impl = "cuda" if features.is_cuda else "plain"
+    fn = {"cuda": gather_conv_requant_cuda,
+          "plain": gather_conv_requant_plain}.get(impl)
+    if fn is None:
+        raise ValueError(f"unknown impl {impl!r}")
+    return fn(features, gather_idx, weight, out_scale, k, b, scale,
+              out_valid, row_valid, identity, identity_scale)

@@ -1,5 +1,5 @@
 """Sparse conv layers and the sparse BatchNorm (port of
-``q3d_tpu/ops/spconv/modules.py``, float path).
+``q3d_tpu/ops/spconv/modules.py``: the float path and the int8 deploy path).
 
 Weights are stored as (K, Cin, Cout) with K enumerating kernel offsets
 k0-major (x fastest), as ``engine.kernel_offsets`` does.  A per-forward
@@ -8,15 +8,28 @@ rulebook cache, keyed like the reference's ``subm_cache_key`` /
 every strided conv build its output coordinates once.  Every conv runs on
 ``gather_conv.sparse_gather_conv``; ``kernel_impl`` selects "cuda" or
 "plain" for the whole model (None = by the tensors' device).
+
+Under an int8 deploy rule (attached by ``quant.api.quantize_model``) a conv
+quantizes its features per tensor (or takes int8 residency features as
+they are) and its f32 master weight per output channel, runs the s8 GEMM
+and rescales by ``feat_scale * s_w`` (``_quantize``, reference :104-130).
+A block under a residency rule passes a ``Requant`` epilogue: the conv then
+emits int8 features with their ``feat_scale``, through the fused s8 entry
+``sparse_gather_conv_requant`` (or, while calibrating, through the unfused
+s8 conv and ``requant_epilogue``, whose quantizer needs the f32 values).
 """
 
+import dataclasses
 import math
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
+from ...quant.tensor_quant import QuantLayer, QuantSpec, rescale
 from . import engine
-from .gather_conv import sparse_gather_conv
+from .gather_conv import (epilogue_f32, sparse_gather_conv,
+                          sparse_gather_conv_requant)
 from .sparse_tensor import SparseConvTensor
 
 
@@ -36,7 +49,38 @@ def down_cache_key(spatial_shape, kernel_size, stride, padding,
            f"|{_fmt(padding)}|{out_capacity}"
 
 
-class _SparseConvBase(nn.Module):
+class Requant(NamedTuple):
+    """A residency block's epilogue for its conv: the BN fold (y * k + b),
+    the requant spec, and the residual input (or None)."""
+    k: torch.Tensor
+    b: torch.Tensor
+    act_spec: QuantSpec
+    identity: Optional[SparseConvTensor] = None
+
+
+def requant_epilogue(layer, st, requant, name="out_quant"):
+    """The residency epilogue in torch (reference ``requant_epilogue``,
+    :397-416): y * k + b, + identity, ReLU, * valid, then per-tensor int8
+    requant by ``layer``'s quantizer ``name``.  -> int8 tensor with its
+    feat_scale."""
+    ident = requant.identity
+    y = epilogue_f32(st.features, requant.k, requant.b, st.valid,
+                     None if ident is None else ident.features,
+                     None if ident is None else ident.feat_scale)
+    q, s = layer.quantize(name, requant.act_spec, y)
+    return st.replace(features=q, feat_scale=s)
+
+
+def dequantize_tensor(st: SparseConvTensor, dtype=torch.bfloat16):
+    """Exit an int8-residency chain: real-valued features again (bf16 by
+    default, as the reference's)."""
+    if st.features.dtype == torch.int8 and st.feat_scale is not None:
+        f = (st.features.float() * st.feat_scale).to(dtype)
+        return st.replace(features=f, feat_scale=None)
+    return st
+
+
+class _SparseConvBase(QuantLayer, nn.Module):
     ND = 3
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
@@ -62,29 +106,79 @@ class _SparseConvBase(nn.Module):
             if self.bias is not None:
                 self.bias.zero_()
 
-    def _conv(self, features, gather_idx, out_valid=None):
-        return sparse_gather_conv(features, gather_idx,
-                                  self.weight.to(features.dtype),
-                                  out_valid=out_valid, impl=self.kernel_impl)
+    def _quantize(self, st):
+        """-> (features, weight, out_scale (Cout,) | None): the reference's
+        ``_quantize`` deploy branch (:104-130, :177-188).  int8 residency
+        features skip the act quantizer; otherwise pad rows are masked
+        before the act amax.  The weight is quantized per output channel
+        from the f32 master, before any cast."""
+        rule = self.rule
+        features = st.features
+        if rule is None:
+            if features.dtype == torch.int8 and st.feat_scale is not None:
+                # excluded layer fed by a residency chain: dequantize
+                features = (features.float() * st.feat_scale).to(torch.bfloat16)
+            return features, self.weight.to(features.dtype), None
+        if features.dtype == torch.int8 and st.feat_scale is not None:
+            s_act = st.feat_scale
+        else:
+            features, s_act = self.quantize(
+                "act_quant", rule.act, features * st.valid[:, None])
+        wspec = dataclasses.replace(
+            rule.weight, axis=2 if rule.weight.axis is not None else None)
+        wq, s_w = self.quantize("weight_quant", wspec, self.weight)
+        return features, wq, rescale(s_act, s_w, self.weight, wspec.axis,
+                                     self.fused)
+
+    def _run(self, st, gather_idx, out_st, out_valid=None, requant=None):
+        """The conv of ``st`` over ``gather_idx`` into the coordinates of
+        ``out_st``; with ``requant``, the residency epilogue too."""
+        feats, w, out_scale = self._quantize(st)
+        if requant is None:
+            out = sparse_gather_conv(feats, gather_idx, w, out_scale,
+                                     out_valid, impl=self.kernel_impl)
+            if self.bias is not None:
+                bias = self.bias.to(out.dtype)
+                out = out + (bias if out_valid is None
+                             else bias * out_valid[:, None])
+            return out_st.replace(features=out, feat_scale=None)
+        if self.bias is not None:
+            raise NotImplementedError("conv bias under int8 residency")
+        ident = requant.identity
+        if self.calibrating:
+            # the quantizer records the f32 values, so the unfused conv
+            y = sparse_gather_conv(feats, gather_idx, w, out_scale, out_valid,
+                                   impl=self.kernel_impl)
+            return requant_epilogue(self, out_st.replace(features=y), requant)
+        s = self.quantizer("out_quant", requant.act_spec, feats).scale()
+        q = sparse_gather_conv_requant(
+            feats, gather_idx, w, out_scale, requant.k, requant.b, s,
+            out_valid=out_valid, row_valid=out_st.valid,
+            identity=None if ident is None else ident.features,
+            identity_scale=None if ident is None else ident.feat_scale,
+            impl=self.kernel_impl)
+        return out_st.replace(features=q, feat_scale=s)
 
 
 class SubMConv3d(_SparseConvBase):
-    def forward(self, st: SparseConvTensor, rulebook_cache=None):
+    QUANT_KIND = "subm_conv3d"
+
+    def forward(self, st: SparseConvTensor, rulebook_cache=None,
+                requant=None):
         key = subm_cache_key(self.indice_key or "", st.spatial_shape,
                              self.kernel_size, self.dilation)
         cache = {} if rulebook_cache is None else rulebook_cache
         if key not in cache:
             cache[key] = engine.subm_gather_indices(st, self.kernel_size,
                                                     self.dilation)
-        out = self._conv(st.features, cache[key])
-        if self.bias is not None:
-            out = out + self.bias.to(out.dtype)
-        return st.replace(features=out)
+        return self._run(st, cache[key], st, requant=requant)
 
 
 class SparseConv3d(_SparseConvBase):
+    QUANT_KIND = "sparse_conv3d"
+
     def forward(self, st: SparseConvTensor, rulebook_cache=None,
-                out_capacity=None):
+                out_capacity=None, requant=None):
         """out_capacity: static output voxel capacity (None = the input's);
         on overflow the highest-key voxels are dropped."""
         key = down_cache_key(st.spatial_shape, self.kernel_size, self.stride,
@@ -94,23 +188,25 @@ class SparseConv3d(_SparseConvBase):
             cache[key] = engine.sparse_conv_downsample(
                 st, self.kernel_size, self.stride, self.padding, out_capacity)
         out_indices, gather_idx, out_spatial = cache[key]
-        out_valid = out_indices[:, 0] >= 0
-        out = self._conv(st.features, gather_idx, out_valid=out_valid)
-        if self.bias is not None:
-            out = out + self.bias.to(out.dtype) * out_valid[:, None]
-        return SparseConvTensor(features=out, indices=out_indices,
-                                spatial_shape=out_spatial,
-                                batch_size=st.batch_size, sorted_rows=True)
+        out_st = SparseConvTensor(features=st.features[:0],
+                                  indices=out_indices,
+                                  spatial_shape=out_spatial,
+                                  batch_size=st.batch_size, sorted_rows=True)
+        return self._run(st, gather_idx, out_st,
+                         out_valid=out_indices[:, 0] >= 0, requant=requant)
 
 
 class SparseBatchNorm(nn.Module):
     """Eval-mode BatchNorm1d over sparse features:
     y = (x - mean) * rsqrt(var + eps) * weight + bias, in f32, returned in
-    the features' dtype.  Padding rows are transformed too and stay unread."""
+    the features' dtype, or in f32 when ``out_f32`` is set (an int8 deploy
+    model: the reference's BN promotes a bf16 input with its f32
+    parameters).  Padding rows are transformed too and stay unread."""
 
     def __init__(self, num_features, eps=1e-3):
         super().__init__()
         self.eps = eps
+        self.out_f32 = False
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -127,4 +223,10 @@ class SparseBatchNorm(nn.Module):
         x = st.features
         y = (x.float() - self.running_mean) \
             * torch.rsqrt(self.running_var + self.eps) * self.weight + self.bias
-        return st.replace(features=y.to(x.dtype))
+        return st.replace(features=y if self.out_f32 else y.to(x.dtype))
+
+    def fold(self):
+        """The eval affine as (k, b), y = x * k + b, for a conv epilogue
+        (reference fold mode, :500-502)."""
+        k = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return k, self.bias - self.running_mean * k

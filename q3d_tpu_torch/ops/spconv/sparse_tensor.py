@@ -33,6 +33,9 @@ class SparseConvTensor:
     batch_size: int
     # rows are stored in ascending linearized-key order (pads last)
     sorted_rows: bool = False
+    # int8 residency: the per-tensor dequantization scale of int8 features
+    # (features * feat_scale is the real value); None for float features
+    feat_scale: Optional[torch.Tensor] = None
     # (sorted keys, row ids) for lookup, built once per coordinate set
     _hash: Optional[Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
         default=None, repr=False, compare=False)
@@ -69,7 +72,7 @@ class SparseConvTensor:
         return SparseConvTensor(
             features=self.features[perm], indices=self.indices[perm],
             spatial_shape=self.spatial_shape, batch_size=self.batch_size,
-            sorted_rows=True)
+            sorted_rows=True, feat_scale=self.feat_scale)
 
     def lookup(self, query_keys):
         """query_keys: (...,) int64 -> int32 row index in [0, N] (N = miss)."""

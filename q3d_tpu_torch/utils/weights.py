@@ -8,9 +8,15 @@ tensors in the port's layouts:
 
   * dense conv (kh, kw, I, O) -> OIHW; transposed conv (kh, kw, O, I) -> IOHW;
   * sparse conv (K, I, O) stays (K, Cin, Cout), K k0-major;
-  * BN scale/bias/mean/var -> weight/bias/running_mean/running_var.
+  * BN scale/bias/mean/var -> weight/bias/running_mean/running_var;
+  * the ``quant`` collection's amax leaves -> the quantizer buffers of an
+    int8 model (``quant.api``): a conv's ``act_quant`` / ``weight_quant``
+    stay on the conv, a block's ``out_quant{i}`` goes to the conv ``conv{i}``
+    it requantizes, ``shared_requant/quant`` to the head's DenseRequant.
 
 ``model.load_state_dict(state_dict_from_jax(v), strict=True)`` loads them.
+``reference_module_path`` is the inverse for the quantizable modules: the
+reference's dotted path, by which quantization rules match.
 """
 
 import re
@@ -55,6 +61,8 @@ def _module_rules(module, toks):
     if module == "dense_head":
         if t == "shared_conv":
             return "shared_conv.0"
+        if t == "shared_requant":
+            return "shared_requant"
         if t == "shared_norm":
             return "shared_conv.1"
         m = re.fullmatch(r"heads_list_(\d+)\.([a-z_]+?)_(\d+)", t)
@@ -101,6 +109,8 @@ def pcdet_name(path, out_index):
     if len(path) < 3:
         return None
     coll, module, *mod_toks, leaf = path
+    if coll == "quant":
+        return _quant_name(module, mod_toks, leaf, out_index)
     if coll not in ("params", "batch_stats") or leaf not in _LEAF:
         return None
     r = _module_rules(module, [t for t in mod_toks if t != "bn"])
@@ -112,6 +122,53 @@ def pcdet_name(path, out_index):
     return f"{module}.{r}.{_LEAF[leaf]}"
 
 
+def _quant_name(module, mod_toks, leaf, out_index):
+    """quant/<module>/.../<quantizer>/amax -> the port's buffer name."""
+    if leaf != "amax" or not mod_toks:
+        return None
+    *toks, qname = mod_toks
+    m = re.fullmatch(r"out_quant(\d*)", qname)
+    if m:                    # a block's requant: owned by the conv it follows
+        toks, qname = toks + [f"conv{m.group(1)}"], "out_quant"
+    elif qname not in ("act_quant", "weight_quant", "quant"):
+        return None
+    r = _module_rules(module, toks)
+    if r is None:
+        return None
+    if isinstance(r, tuple):
+        _, head, branch = r
+        r = f"heads_list.{head}.{branch}.{out_index(head, branch)}"
+    return f"{module}.{r}.{qname}.amax"
+
+
+# port module path -> reference module path (the quantizable modules)
+_REFERENCE_PATHS = (
+    (r"backbone_3d\.conv_(input|out)\.0", "backbone_3d.conv_{0}.conv"),
+    (r"backbone_3d\.conv(\d)\.(\d+)\.0", "backbone_3d.conv{0}_{1}.conv"),
+    (r"backbone_3d\.conv(\d)\.(\d+)\.(conv1|conv2)",
+     "backbone_3d.conv{0}_{1}.{2}"),
+    (r"dense_head\.shared_conv\.0", "dense_head.shared_conv"),
+    (r"dense_head\.shared_requant", "dense_head.shared_requant"),
+    (r"dense_head\.heads_list\.(\d+)\.([a-z_]+)\.(\d+)\.0",
+     "dense_head.heads_list_{0}.{1}_{2}"),
+    (r"dense_head\.heads_list\.(\d+)\.([a-z_]+)\.\d+",
+     "dense_head.heads_list_{0}.{1}_out"),
+)
+
+
+def reference_module_path(name):
+    """Port module name -> the reference's dotted module path (inverse of
+    ``_module_rules`` for convs and the head's DenseRequant), or None."""
+    m = re.fullmatch(r"backbone_2d\.blocks\.(\d+)\.(\d+)", name)
+    if m and (int(m.group(2)) - 1) % 3 == 0:
+        return f"backbone_2d.blocks_{m.group(1)}.conv{(int(m.group(2)) - 1) // 3}"
+    for pat, fmt in _REFERENCE_PATHS:
+        m = re.fullmatch(pat, name)
+        if m:
+            return fmt.format(*m.groups())
+    return None
+
+
 def to_port_layout(arr, torch_leaf):
     """Reference array -> the port's layout (see the module docstring)."""
     a = np.asarray(arr)
@@ -121,8 +178,9 @@ def to_port_layout(arr, torch_leaf):
 
 
 def state_dict_from_jax(variables):
-    """Reference variables (nested dicts of numpy arrays) -> {pcdet name:
-    tensor} in the port's layouts.  Raises on a leaf with no naming rule."""
+    """Reference variables (nested dicts of numpy arrays; ``params``,
+    ``batch_stats`` and optionally ``quant``) -> {pcdet name: tensor} in the
+    port's layouts.  Raises on a leaf with no naming rule."""
     flat = _flatten(variables)
     out_index = _out_index(list(flat))
     state = {}

@@ -156,8 +156,9 @@ def test_ref_width_state_dict_loads_strictly():
 
 
 def test_package_never_imports_jax():
-    """Import every module of the port (and chip_smoke.py) in a fresh
-    interpreter: neither jax, flax nor the JAX package gets loaded."""
+    """Import every module of the port, the quant package included (and
+    chip_smoke.py), in a fresh interpreter: neither jax, flax nor the JAX
+    package gets loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import q3d_tpu_torch\n"
@@ -169,7 +170,8 @@ def test_package_never_imports_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'q3d_tpu'))\n"
         "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 30 else 0)\n")
+        "quant = [m for m in mods if m.startswith('q3d_tpu_torch.quant.')]\n"
+        "sys.exit(1 if bad or len(mods) < 45 or len(quant) < 3 else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr

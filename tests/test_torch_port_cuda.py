@@ -104,6 +104,102 @@ def test_gather_conv_wrapper_raises_on_what_no_instance_takes(card):
             torch.zeros((27, 48, 16), dtype=torch.bfloat16, device=card))
 
 
+WIDTHS = (16, 32, 64, 128)
+
+
+@pytest.mark.parametrize("identity", ["none", "s8", "f32", "bf16"])
+@pytest.mark.parametrize("k", [27, 3])
+@pytest.mark.parametrize("cout", WIDTHS)
+@pytest.mark.parametrize("cin", WIDTHS)
+def test_gather_conv_requant_kernel_matches_plain(card, cin, cout, k,
+                                                  identity):
+    """The fused s8 entry (conv, BN fold, residual, ReLU, row mask, requant)
+    against ``gather_conv_requant_plain``, bit for bit, with and without a
+    row mask.  Scales are drawn so that y / s spans the int8 range and
+    clips at the top; a bf16 identity is taken as f32."""
+    rng = np.random.RandomState(cin * 1000 + cout * 10 + k)
+    n, m = 3000, 1000
+    book = rng.randint(0, n, size=(m, k)).astype(np.int64)
+    book[rng.rand(m, k) < 0.7] = n
+    book[128:256] = n
+    idx = torch.from_numpy(book.astype(np.int32)).to(card)
+    f = torch.from_numpy(rng.randint(-127, 128, (n, cin)).astype(np.int8))
+    w = torch.from_numpy(rng.randint(-127, 128, (k, cin, cout)).astype(np.int8))
+    f, w = f.to(card), w.to(card)
+    out_scale = torch.from_numpy(
+        (rng.uniform(0.5, 1.5, cout) / (127.0 ** 2 * np.sqrt(0.3 * k * cin)))
+        .astype(np.float32)).to(card)
+    kf = torch.from_numpy(rng.uniform(0.5, 1.5, cout).astype(np.float32)).to(card)
+    bf = torch.from_numpy(rng.randn(cout).astype(np.float32) * 0.3).to(card)
+    out_valid = torch.from_numpy(rng.rand(m) > 0.1).to(card)
+    row_valid = out_valid & torch.from_numpy(rng.rand(m) > 0.1).to(card)
+    ident, id_scale = None, None
+    if identity == "s8":
+        ident = torch.from_numpy(rng.randint(-127, 128, (m, cout))
+                                 .astype(np.int8)).to(card)
+        id_scale = torch.tensor(0.01, device=card)
+    elif identity != "none":
+        ident = torch.from_numpy(rng.randn(m, cout).astype(np.float32)).to(card)
+        ident = ident.to(getattr(torch, {"f32": "float32",
+                                         "bf16": "bfloat16"}[identity]))
+    for rv in (None, row_valid):
+        y = gather_conv.epilogue_f32(
+            gather_conv.gather_conv_plain(f, idx, w, out_scale, out_valid),
+            kf, bf, rv, ident, id_scale)
+        s = (y.abs().amax() * 0.8 / 127).reshape(())
+        args = (f, idx, w, out_scale, kf, bf, s)
+        kw = dict(out_valid=out_valid, row_valid=rv, identity=ident,
+                  identity_scale=id_scale)
+        launches = gather_conv.KERNEL.launches[gather_conv.REQUANT_ENTRY]
+        q_k = gather_conv.sparse_gather_conv_requant(*args, **kw)
+        q_p = gather_conv.sparse_gather_conv_requant(*args, impl="plain", **kw)
+        torch.cuda.synchronize()
+        assert gather_conv.KERNEL.launches[gather_conv.REQUANT_ENTRY] \
+            == launches + 1
+        assert q_k.dtype == torch.int8 and q_k.shape == (m, cout)
+        assert int(q_p.eq(127).sum()) > 0 and int(q_p.ne(0).sum()) > m
+        assert torch.equal(q_k, q_p)
+
+
+def test_gather_conv_requant_wrapper_raises(card):
+    f = torch.zeros((64, 16), dtype=torch.int8, device=card)
+    book = torch.zeros((64, 27), dtype=torch.int32, device=card)
+    w = torch.zeros((27, 16, 16), dtype=torch.int8, device=card)
+    v = torch.ones(16, device=card)
+    s = torch.tensor(0.1, device=card)
+    with pytest.raises(ValueError, match="needs out_scale"):
+        gather_conv.gather_conv_requant_cuda(f, book, w, None, v, v, s)
+    with pytest.raises(ValueError, match="takes s8"):
+        gather_conv.gather_conv_requant_cuda(f.float(), book, w.float(), v, v,
+                                             v, s)
+    with pytest.raises(ValueError, match="needs its scale"):
+        gather_conv.gather_conv_requant_cuda(f, book, w, v, v, v, s,
+                                             identity=f)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        gather_conv.gather_conv_requant_cuda(
+            f, book, w, v, v, v, s, identity=f.to(torch.float16))
+
+
+def test_int8_conv2d_int_mm_matches_exact_product(card):
+    """The dense int8 conv through ``torch._int_mm`` (a 3x3 conv of a ref
+    BEV width, stride 1 and 2) equals the exact int32 product."""
+    from q3d_tpu_torch.models.layers import INT_MM_CALLS, int8_conv2d
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randint(-127, 128, (2, 128, 45, 47))
+                         .astype(np.int8)).to(card)
+    w = torch.from_numpy(rng.randint(-127, 128, (256, 128, 3, 3))
+                         .astype(np.int8)).to(card)
+    for stride in ((1, 1), (2, 2)):
+        calls = INT_MM_CALLS["int8_conv2d"]
+        out_k = int8_conv2d(x, w, stride, (1, 1))
+        out_p = int8_conv2d(x, w, stride, (1, 1), impl="plain")
+        assert INT_MM_CALLS["int8_conv2d"] == calls + 1
+        assert out_k.dtype == torch.int32 and torch.equal(out_k, out_p)
+        ref = torch.nn.functional.conv2d(x.double().cpu(), w.double().cpu(),
+                                         stride=stride, padding=1)
+        assert torch.equal(out_p.cpu(), ref.to(torch.int32))
+
+
 def test_greedy_nms_kernel_matches_plain(card):
     """The IoU form, on the sweep it shares with the boxes form: one row
     block, a ragged last block, and K = 2048 (all 32 mask words)."""
@@ -180,3 +276,47 @@ def test_tiny_model_kernels_match_plain(card):
         torch.testing.assert_close(out_k[key], out_p[key], rtol=1e-4,
                                    atol=1e-4)
     assert torch.equal(out_k["final_valid"], out_p["final_valid"])
+
+
+def test_tiny_model_int8_kernels_match_plain(card):
+    """centerpoint_tiny under the bench int8 recipe, calibrated on the card:
+    through the kernels (the fused s8 entry, ``_int_mm``) and through the
+    plain versions, the same int8 features at every residency conv and the
+    same detections."""
+    from q3d_tpu_torch.models.layers import INT_MM_CALLS
+    from q3d_tpu_torch.quant import api as quant_api
+    cfg = cfg_from_yaml_file(str(CFG), EDict())
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
+                                     batch_size=2, training=False)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=card)
+    batch = load_data_to_device(next(iter(loader)), device=card)
+    quant_api.prepare_int8_deploy(model, [batch, batch], recipe_kwargs=dict(
+        quantize_first_conv=True, extra_no_list=("dense_head.*",)))
+    feats = {}
+
+    def keep(impl):
+        def hook(mod, args, out):
+            feats.setdefault(impl, []).append(out.features)
+        return hook
+    convs = [m for m in model.backbone_3d.modules() if hasattr(m, "QUANT_KIND")]
+    outs = {}
+    for impl in ("cuda", "plain"):
+        hooks = [c.register_forward_hook(keep(impl)) for c in convs]
+        launches = gather_conv.KERNEL.launches[gather_conv.REQUANT_ENTRY]
+        mm_calls = INT_MM_CALLS["int8_conv2d"]
+        model.set_kernel_impl(impl)
+        with torch.no_grad():
+            outs[impl] = model(dict(batch))
+        for h in hooks:
+            h.remove()
+        fused = gather_conv.KERNEL.launches[gather_conv.REQUANT_ENTRY] - launches
+        assert fused == (21 if impl == "cuda" else 0)
+        assert INT_MM_CALLS["int8_conv2d"] - mm_calls == (6 if impl == "cuda"
+                                                          else 0)
+    model.set_kernel_impl(None)
+    assert len(feats["cuda"]) == len(feats["plain"]) == 21
+    for a, b in zip(feats["cuda"], feats["plain"]):
+        assert a.dtype == torch.int8 and torch.equal(a, b)
+    for key in ("spatial_features", "final_boxes", "final_scores",
+                "final_labels", "final_valid"):
+        assert torch.equal(outs["cuda"][key], outs["plain"][key]), key

@@ -255,4 +255,11 @@ def test_gather_conv_wrapper_rejects_what_the_kernel_does_not_take():
         gather_conv.gather_conv_cuda(f, book, w)
     with pytest.raises(ValueError, match="unknown impl"):
         gather_conv.sparse_gather_conv(f, book, w, impl="xla")
-
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gather_conv.gather_conv_requant_cuda(
+            f.to(torch.int8), book, w.to(torch.int8), torch.ones(16),
+            torch.ones(16), torch.zeros(16), torch.tensor(0.1))
+    with pytest.raises(ValueError, match="unknown impl"):
+        gather_conv.sparse_gather_conv_requant(
+            f.to(torch.int8), book, w.to(torch.int8), torch.ones(16),
+            torch.ones(16), torch.zeros(16), torch.tensor(0.1), impl="xla")
