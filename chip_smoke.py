@@ -52,7 +52,9 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
                 cuDNN's bf16 conv; ``serving_int8``: 4 requests (launch
                 counts zeroed before, read after: 84 fused, 48 ``_int_mm``)
                 and bf16 / int8 forwards in turns; ``stages_int8``: the
-                stage split of both; ``model_int8``: bench and entry recipes,
+                stage split of both; ``forward_trace``: device operations
+                per forward and the card's busy and idle share, bf16 and
+                int8 (torch.profiler); ``model_int8``: bench and entry recipes,
                 one request through the kernels and the plain versions:
                 every int8 map, spatial_features and detections equal;
   8. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
@@ -140,6 +142,38 @@ def kernel_device_us(fn, names, flush, reps=10):
             if n in ev.key and us > 0:
                 out[n] = out.get(n, 0.0) + us / reps
     return out or "not measured"
+
+
+def forward_trace(model, batch, reps=3):
+    """Device operations (kernels, copies, fills) per forward of ``model``
+    on ``batch``, the card's busy time per forward (their summed device
+    time; one stream, so they do not overlap) against the host clock around
+    the forwards, the idle share, and the ten operations with the most
+    device time -> dict, or "not measured" if the trace has no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad():
+        model(dict(batch))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                model(dict(batch))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    evs = [e for e in prof.key_averages()
+           if getattr(e, "device_time_total", 0.0) > 0]
+    if not evs:
+        return "not measured"
+    busy_ms = sum(e.device_time_total for e in evs) / 1e3 / reps
+    top = sorted(evs, key=lambda e: -e.device_time_total)[:10]
+    return {"device_ops": sum(e.count for e in evs) / reps,
+            "device_busy_ms": busy_ms, "traced_forward_ms": wall_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms,
+            "top_ops": [{"op": e.key[:120], "per_forward": e.count / reps,
+                         "ms": e.device_time_total / 1e3 / reps}
+                        for e in top]}
 
 
 def stage_times(model, batch, reps=5):
@@ -949,6 +983,8 @@ def main():
          ms_int8=st8, ms_bf16=st16,
          bf16_over_int8={k: st16[k] / st8[k] for k in st8 if st8[k] > 0},
          fused_conv_kernels_ms=rq_totals["ms"])
+    emit("forward_trace", batch=BATCH, recipe="bench", mode=mode(),
+         bf16=forward_trace(model, batch), int8=forward_trace(bench8, batch))
 
     # --------------------------------------- whole-model check, int8 path
     # one request through the kernels and through the plain versions with

@@ -32,7 +32,7 @@ class _Block(nn.Sequential):
         conv0 = self[1]
         if not conv0.residency:
             return super().forward(dequantize(x))
-        spec = conv0.requant_spec
+        spec = conv0.rule.act
         for j in range(1, len(self), 3):
             conv, norm = self[j], self[j + 1]
             x = requant_epilogue(conv, conv(x), *norm.fold(), spec)

@@ -58,7 +58,7 @@ class _SparseConvBNReLU(nn.Sequential):
 
     def forward(self, st, cache, out_capacity=None):
         conv, norm = self[0], self[1]
-        requant = Requant(*norm.fold(), conv.requant_spec) \
+        requant = Requant(*norm.fold(), conv.rule.act) \
             if conv.residency else None
         if isinstance(conv, SparseConv3d):
             st = conv(st, cache, out_capacity, requant=requant)
@@ -84,7 +84,7 @@ class SparseBasicBlock(nn.Module):
 
     def forward(self, st, cache):
         if self.conv1.residency:
-            spec = self.conv1.requant_spec
+            spec = self.conv1.rule.act
             x = self.conv1(st, cache,
                            requant=Requant(*self.bn1.fold(), spec))
             return self.conv2(x, cache,

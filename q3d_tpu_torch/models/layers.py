@@ -6,14 +6,16 @@ the compute dtype, weights are cast to it, and the convolution accumulates
 in f32 (cuDNN does so for bf16 inputs; f32 comparisons must turn TF32 off).
 The dense convs are library calls, as the reference leaves them to XLA.
 
-Under an int8 deploy rule a ``Conv2d`` quantizes first (per tensor; a
-``QTensor`` input is int8 already) and runs ``int8_conv2d``, an s8 x s8 ->
-s32 conv (im2col of the NHWC int8 map, then ``torch._int_mm`` on the card;
-the reference's is XLA's native s8 conv, not a Pallas kernel), then
-rescales by ``s_act * s_w``.  Under a residency rule it hands back the raw
-f32 (+ bias) for its block's ``requant_epilogue``, and blocks pass int8
-``QTensor``s from conv to conv.  The int8 maps are NCHW-shaped views of
-NHWC (channels-last) memory, the layout the patch GEMM reads and writes.
+Under an int8-residency deploy rule a ``Conv2d`` quantizes first (per
+tensor; a ``QTensor`` input is int8 already) and runs ``int8_conv2d``, an
+s8 x s8 -> s32 conv (im2col of the NHWC int8 map, then ``torch._int_mm`` on
+the card; the reference's is XLA's native s8 conv, not a Pallas kernel),
+rescales by ``s_act * s_w`` and hands back the raw f32 (+ bias) for its
+block's ``requant_epilogue``; blocks pass int8 ``QTensor``s from conv to
+conv.  The quantized weight, the rescale and the BN folds are computed once
+per calibrated model (``quant.tensor_quant.memo``).  The int8 maps are
+NCHW-shaped views of NHWC (channels-last) memory, the layout the patch GEMM
+reads and writes.
 """
 
 import collections
@@ -25,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..quant.tensor_quant import QuantLayer, rescale
+from ..quant.tensor_quant import QuantLayer, memo, rescale
 
 # int8_conv2d calls through torch._int_mm (a library GEMM, counted so that a
 # run can show the int8 path went through it)
@@ -131,40 +133,35 @@ class Conv2d(QuantLayer, nn.Module):
                 self.bias.fill_(self.bias_init)
 
     def forward(self, x):
-        rule = self.rule                    # None, or an int8 deploy rule
-        if rule is None:
+        if self.rule is None:
             # float; a residency chain feeding an excluded layer is
             # dequantized first
             x = dequantize(x)
             bias = None if self.bias is None else self.bias.to(x.dtype)
             return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
                             self.padding)
+        # int8 residency: the raw f32 (+ bias) for the caller's epilogue
         y = self._int8_conv(x)
-        if isinstance(x, QTensor) or rule.int8_residency:
-            # residency: the raw f32 for the caller's epilogue
-            return y if self.bias is None else y + self.bias.reshape(1, -1, 1, 1)
-        y = y.to(x.dtype)
-        if self.bias is not None:
-            y = y + self.bias.reshape(1, -1, 1, 1)
-        return y.to(x.dtype)
+        return y if self.bias is None else y + self.bias.reshape(1, -1, 1, 1)
 
     def _int8_conv(self, x):
         """The reference's quantize-first ``_int8_conv`` (:237-253): int8
         input (quantized here, or a QTensor), weight per output channel
-        from the f32 master, s32 conv, then out * (s_act * s_w) in f32."""
-        rule = self.rule
+        (axis 3 of the reference's HWIO, 0 of OIHW) from the f32 master, s32
+        conv, then out * (s_act * s_w) in f32."""
         if isinstance(x, QTensor):
             xq, s_act = x.data, x.scale
         else:
-            xq, s_act = self.quantize("act_quant", rule.act, x)
-        # per output channel: axis 3 of the reference's HWIO, 0 of OIHW
-        wspec = dataclasses.replace(
-            rule.weight, axis=0 if rule.weight.axis is not None else None)
-        wq, s_w = self.quantize("weight_quant", wspec, self.weight)
+            xq, s_act = self.quantize("act_quant", self.rule.act, x)
+        wspec = dataclasses.replace(self.rule.weight, axis=0)
+        wq = self.constant("wq", (self.weight,), lambda: self.quantize(
+            "weight_quant", wspec, self.weight)[0])
+        out_scale = self.constant("out_scale", (s_act, self.weight),
+                                  lambda: rescale(s_act, self.weight, 0,
+                                                  not self.eager))
         out = int8_conv2d(xq, wq, self.stride, self.padding,
                           impl=self.kernel_impl)
-        return out.float() * rescale(s_act, s_w, self.weight, wspec.axis,
-                                     self.fused).reshape(1, -1, 1, 1)
+        return out.float() * out_scale.reshape(1, -1, 1, 1)
 
 
 class ConvTranspose2d(nn.Module):
@@ -228,10 +225,14 @@ class BatchNorm(nn.Module):
 
     def fold(self):
         """The eval affine as (k, b), y = x * k + b, probed as the reference
-        does (:536-542): b = bn(0), k = bn(1) - b."""
-        probe = self.weight.new_zeros((1, self.weight.numel(), 1, 1))
-        b = self._affine(probe).reshape(-1)
-        return self._affine(probe + 1).reshape(-1) - b, b
+        does (:536-542): b = bn(0), k = bn(1) - b; computed once per set of
+        BN parameters."""
+        def compute():
+            probe = self.weight.new_zeros((1, self.weight.numel(), 1, 1))
+            b = self._affine(probe).reshape(-1)
+            return self._affine(probe + 1).reshape(-1) - b, b
+        return memo(self, "fold", (self.running_var, self.weight, self.bias,
+                                   self.running_mean), compute)
 
 
 class DenseRequant(QuantLayer, nn.Module):

@@ -9,14 +9,16 @@ every strided conv build its output coordinates once.  Every conv runs on
 ``gather_conv.sparse_gather_conv``; ``kernel_impl`` selects "cuda" or
 "plain" for the whole model (None = by the tensors' device).
 
-Under an int8 deploy rule (attached by ``quant.api.quantize_model``) a conv
-quantizes its features per tensor (or takes int8 residency features as
-they are) and its f32 master weight per output channel, runs the s8 GEMM
-and rescales by ``feat_scale * s_w`` (``_quantize``, reference :104-130).
-A block under a residency rule passes a ``Requant`` epilogue: the conv then
-emits int8 features with their ``feat_scale``, through the fused s8 entry
-``sparse_gather_conv_requant`` (or, while calibrating, through the unfused
-s8 conv and ``requant_epilogue``, whose quantizer needs the f32 values).
+Under an int8-residency deploy rule (attached by
+``quant.api.quantize_model``) a conv quantizes its features per tensor (or
+takes int8 residency features as they are) and its f32 master weight per
+output channel, runs the s8 GEMM and rescales by ``feat_scale * s_w``
+(``_quantize``, reference :104-130).  Its block passes a ``Requant``
+epilogue, and the conv emits int8 features with their ``feat_scale``,
+through the fused s8 entry ``sparse_gather_conv_requant`` (or, while
+calibrating, through the unfused s8 conv and ``requant_epilogue``, whose
+quantizer needs the f32 values).  The quantized weight and the rescale are
+computed once per calibrated model (``QuantLayer.constant``).
 """
 
 import dataclasses
@@ -26,7 +28,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from ...quant.tensor_quant import QuantLayer, QuantSpec, rescale
+from ...quant.tensor_quant import QuantLayer, QuantSpec, memo, rescale
 from . import engine
 from .gather_conv import (epilogue_f32, sparse_gather_conv,
                           sparse_gather_conv_requant)
@@ -107,52 +109,55 @@ class _SparseConvBase(QuantLayer, nn.Module):
                 self.bias.zero_()
 
     def _quantize(self, st):
-        """-> (features, weight, out_scale (Cout,) | None): the reference's
-        ``_quantize`` deploy branch (:104-130, :177-188).  int8 residency
-        features skip the act quantizer; otherwise pad rows are masked
-        before the act amax.  The weight is quantized per output channel
-        from the f32 master, before any cast."""
-        rule = self.rule
-        features = st.features
-        if rule is None:
-            if features.dtype == torch.int8 and st.feat_scale is not None:
-                # excluded layer fed by a residency chain: dequantize
-                features = (features.float() * st.feat_scale).to(torch.bfloat16)
-            return features, self.weight.to(features.dtype), None
-        if features.dtype == torch.int8 and st.feat_scale is not None:
-            s_act = st.feat_scale
+        """-> (int8 features, int8 weight, out_scale (Cout,)): the
+        reference's ``_quantize`` deploy branch (:104-130, :177-188).  int8
+        residency features skip the act quantizer; otherwise pad rows are
+        masked before the act amax.  The weight is quantized per output
+        channel (axis 2 of (K, Cin, Cout)) from the f32 master, before any
+        cast."""
+        if st.features.dtype == torch.int8 and st.feat_scale is not None:
+            features, s_act = st.features, st.feat_scale
         else:
             features, s_act = self.quantize(
-                "act_quant", rule.act, features * st.valid[:, None])
-        wspec = dataclasses.replace(
-            rule.weight, axis=2 if rule.weight.axis is not None else None)
-        wq, s_w = self.quantize("weight_quant", wspec, self.weight)
-        return features, wq, rescale(s_act, s_w, self.weight, wspec.axis,
-                                     self.fused)
+                "act_quant", self.rule.act, st.features * st.valid[:, None])
+        wspec = dataclasses.replace(self.rule.weight, axis=2)
+        wq = self.constant("wq", (self.weight,), lambda: self.quantize(
+            "weight_quant", wspec, self.weight)[0])
+        out_scale = self.constant("out_scale", (s_act, self.weight),
+                                  lambda: rescale(s_act, self.weight, 2,
+                                                  not self.eager))
+        return features, wq, out_scale
 
     def _run(self, st, gather_idx, out_st, out_valid=None, requant=None):
         """The conv of ``st`` over ``gather_idx`` into the coordinates of
-        ``out_st``; with ``requant``, the residency epilogue too."""
-        feats, w, out_scale = self._quantize(st)
-        if requant is None:
-            out = sparse_gather_conv(feats, gather_idx, w, out_scale,
+        ``out_st``: float without a rule (a residency input is dequantized
+        first), else int8 with ``requant``, its block's residency
+        epilogue."""
+        if self.rule is None:
+            feats = dequantize_tensor(st).features
+            out = sparse_gather_conv(feats, gather_idx,
+                                     self.weight.to(feats.dtype), None,
                                      out_valid, impl=self.kernel_impl)
             if self.bias is not None:
                 bias = self.bias.to(out.dtype)
                 out = out + (bias if out_valid is None
                              else bias * out_valid[:, None])
             return out_st.replace(features=out, feat_scale=None)
+        if requant is None:
+            raise ValueError("an int8 sparse conv runs in a residency block, "
+                             "which passes its Requant epilogue")
         if self.bias is not None:
             raise NotImplementedError("conv bias under int8 residency")
+        feats, wq, out_scale = self._quantize(st)
         ident = requant.identity
         if self.calibrating:
             # the quantizer records the f32 values, so the unfused conv
-            y = sparse_gather_conv(feats, gather_idx, w, out_scale, out_valid,
+            y = sparse_gather_conv(feats, gather_idx, wq, out_scale, out_valid,
                                    impl=self.kernel_impl)
             return requant_epilogue(self, out_st.replace(features=y), requant)
         s = self.quantizer("out_quant", requant.act_spec, feats).scale()
         q = sparse_gather_conv_requant(
-            feats, gather_idx, w, out_scale, requant.k, requant.b, s,
+            feats, gather_idx, wq, out_scale, requant.k, requant.b, s,
             out_valid=out_valid, row_valid=out_st.valid,
             identity=None if ident is None else ident.features,
             identity_scale=None if ident is None else ident.feat_scale,
@@ -227,6 +232,10 @@ class SparseBatchNorm(nn.Module):
 
     def fold(self):
         """The eval affine as (k, b), y = x * k + b, for a conv epilogue
-        (reference fold mode, :500-502)."""
-        k = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return k, self.bias - self.running_mean * k
+        (reference fold mode, :500-502), computed once per set of BN
+        parameters."""
+        def compute():
+            k = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return k, self.bias - self.running_mean * k
+        return memo(self, "fold", (self.running_var, self.weight, self.bias,
+                                   self.running_mean), compute)

@@ -1,8 +1,8 @@
 """The int8 deploy workflow (port of ``q3d_tpu/quant/api.py``: the deploy
-recipe, ``quantize_model``, ``collect_stats``, ``compute_amax`` and
-``prepare_int8_deploy``).
+recipe with int8 residency, ``quantize_model``, ``collect_stats``,
+``compute_amax`` with method "max", and ``prepare_int8_deploy``).
 
-    rules = prepare_int8_deploy(model, [batch, batch], residency=True)
+    rules = prepare_int8_deploy(model, [batch, batch])
     out = model(batch)                      # int8 from here on
 
 In PyTorch idiom the model is changed in place: ``quantize_model`` resolves
@@ -10,53 +10,42 @@ each quantizable layer's rule once, by its path in the reference's naming
 (``utils.weights.reference_module_path``), and attaches it; quantizers are
 created on first use in a calibration pass, as the reference creates its
 quantizer variables in ``model.init``; ``model.state_dict()`` then carries
-every committed amax.
+every committed amax.  Only the reference's int8-residency deploy rules are
+ported (static per-tensor activation scales from the histogram calibrator,
+dynamic per-channel weight scales); fake-quant, SmoothQuant and the other
+amax methods are not.
 
 Like the reference, whose ``quantize_model`` calls ``model.init`` on the
 example batch with the calibration state mutable, the statistics start
 with one calibration pass of the example batch through the model as
-initialised (random weights, identity BNs).  With the histogram calibrator
-that pass fixes the first bin width, and so moves the committed amax by up
-to one bin; ``seed_weights`` lets a caller give that pass the reference's
-own initial weights.
+initialised (random weights, identity BNs): that pass fixes the histogram's
+first bin width, and so moves the committed amax by up to one bin.
 """
 
 import copy
 
 import torch
 
-from .rules import LayerRule, QuantRules, SmoothQuantCfg
+from .rules import LayerRule, QuantRules
 from .tensor_quant import QuantSpec, TensorQuantizer
 
 
-def int8_deploy_recipe(sq=False, alpha=0.5, static=False, extra_no_list=(),
-                       residency=False, quantize_first_conv=False):
-    """True-int8 execution for every backbone conv (sparse 3D + dense 2D):
-    per-out-channel weight scales, int8 GEMMs with int32 accumulation.
-    Heads + first sparse conv stay FP unless ``quantize_first_conv``.
-
-    residency=True (implies static): features stay int8 across the sparse
-    and BEV backbones, with BN/ReLU/requant folded into conv epilogues.
-    Needs calibration first (collect_stats -> compute_amax)."""
-    static = static or residency
-    dynamic = not static
-    calib = "histogram" if static else "max"
+def int8_deploy_recipe(extra_no_list=(), quantize_first_conv=False):
+    """True-int8 execution with int8 residency for every backbone conv
+    (sparse 3D + dense 2D): per-out-channel weight scales, int8 GEMMs with
+    int32 accumulation, and features that stay int8 from conv to conv, with
+    BN/ReLU/requant folded into the conv epilogues (the reference's recipe
+    with ``residency=True``).  Heads + first sparse conv stay FP unless
+    ``quantize_first_conv``.  Needs calibration first (collect_stats ->
+    compute_amax)."""
+    act = QuantSpec(8, axis=None, dynamic=False, calibrator="histogram")
+    weight = QuantSpec(8, axis=0, dynamic=True)
     sparse_rule = LayerRule(
         layer_kinds=("subm_conv3d", "sparse_conv3d", "subm_conv2d",
                      "sparse_conv2d"),
-        weight=QuantSpec(8, axis=0, dynamic=True),
-        act=QuantSpec(8, axis=None, dynamic=dynamic, calibrator=calib),
-        deploy_int8=True,
-        int8_residency=residency,
-    )
-    conv2d_rule = LayerRule(
-        layer_kinds=("conv2d",),
-        weight=QuantSpec(8, axis=0, dynamic=True),
-        act=QuantSpec(8, axis=None, dynamic=dynamic, calibrator=calib),
-        smoothquant=SmoothQuantCfg(alpha=alpha, dynamic=True) if sq else None,
-        deploy_int8=True,
-        int8_residency=residency and not sq,
-    )
+        weight=weight, act=act, deploy_int8=True, int8_residency=True)
+    conv2d_rule = LayerRule(layer_kinds=("conv2d",), weight=weight, act=act,
+                            deploy_int8=True, int8_residency=True)
     no_list = (
         "dense_head.heads_list_*.*_out",
         "dense_head.heads_list_*.hm_*",
@@ -74,24 +63,38 @@ def quantizable_modules(model):
 
 
 def _check_rule(rule, path):
+    """Only the int8-residency deploy rule is ported: static per-tensor act
+    scales, dynamic per-channel weight scales, no SmoothQuant."""
     if rule is None:
         return
-    if not rule.deploy_int8 or rule.smoothquant is not None:
+    if not (rule.deploy_int8 and rule.int8_residency) \
+            or rule.smoothquant is not None:
         raise NotImplementedError(
-            f"{path}: only int8 deploy rules are ported (fake-quant and "
-            f"SmoothQuant are not)")
-    if rule.act is None or rule.act.axis is not None:
-        raise ValueError(f"{path}: int8 deploy needs per-tensor act scales")
+            f"{path}: only int8-residency deploy rules are ported (fake-quant, "
+            f"SmoothQuant and int8 without residency are not)")
+    if rule.act is None or rule.act.axis is not None or rule.act.dynamic:
+        raise ValueError(f"{path}: int8 residency needs static per-tensor "
+                         f"act scales")
+    if rule.weight is None or rule.weight.axis is None \
+            or not rule.weight.dynamic:
+        raise ValueError(f"{path}: int8 deploy quantizes the weight per output "
+                         f"channel, dynamically")
 
 
-def quantize_model(model, rules, example_batch, seed_weights=None):
+def _seed_state(model):
+    """The weights of the seed calibration pass: the port's seeded init."""
+    from ..models.builder import INIT_SEED
+    init = copy.deepcopy(model).cpu()
+    init.init_weights(torch.Generator().manual_seed(INIT_SEED))
+    return init.state_dict()
+
+
+def quantize_model(model, rules, example_batch):
     """Attach each quantizable layer's rule (None = stays float), make every
     BN return f32 as the reference's do (flax promotes a bf16 input with
     its f32 parameters), and run the seed calibration pass of
-    ``example_batch`` through the model as initialised.  ``seed_weights``:
-    a state dict for that pass (None = the port's seeded init).  Changes
-    ``model`` in place and returns it."""
-    from ..models.builder import INIT_SEED
+    ``example_batch`` through the model as initialised.  Changes ``model``
+    in place and returns it."""
     from ..models.layers import BatchNorm
     from ..ops.spconv.modules import SparseBatchNorm
     from ..utils.weights import reference_module_path
@@ -108,12 +111,8 @@ def quantize_model(model, rules, example_batch, seed_weights=None):
             mod.out_f32 = True
 
     float_state = {k: v.clone() for k, v in model.state_dict().items()}
-    if seed_weights is None:
-        init = copy.deepcopy(model).cpu()
-        init.init_weights(torch.Generator().manual_seed(INIT_SEED))
-        seed_weights = init.state_dict()
-    model.load_state_dict(seed_weights, strict=True)
-    _calibration_pass(model, example_batch, mode="eager")
+    model.load_state_dict(_seed_state(model), strict=True)
+    _calibration_pass(model, example_batch, eager=True)
     res = model.load_state_dict(float_state, strict=False)
     if res.unexpected_keys or any(not k.endswith(".amax")
                                   for k in res.missing_keys):
@@ -121,18 +120,18 @@ def quantize_model(model, rules, example_batch, seed_weights=None):
     return model
 
 
-def _calibration_pass(model, batch, mode=True):
-    """One forward with every quantizer recording (``mode`` True, or
-    "eager" to round as the reference's un-jitted ``model.init`` does)."""
+def _calibration_pass(model, batch, eager=False):
+    """One forward with every quantizer recording (``eager``: rounding as
+    the reference's un-jitted ``model.init`` does)."""
     mods = [m for _, m in quantizable_modules(model)]
     for m in mods:
-        m.calibrating = mode
+        m.calibrating, m.eager = True, eager
     try:
         with torch.no_grad():
             model(dict(batch))
     finally:
         for m in mods:
-            m.calibrating = False
+            m.calibrating, m.eager = False, False
 
 
 def collect_stats(model, batches, num_batches=200):
@@ -147,22 +146,23 @@ def collect_stats(model, batches, num_batches=200):
     return model
 
 
-def compute_amax(model, method="max"):
-    """Commit every quantizer's amax from its calibration state."""
+def compute_amax(model):
+    """Commit every quantizer's amax from its calibration state (the
+    reference's method "max")."""
     for mod in model.modules():
         if isinstance(mod, TensorQuantizer):
-            mod.commit_amax(method)
+            mod.commit_amax()
     return model
 
 
-def prepare_int8_deploy(model, example_batches, residency=True, method="max",
-                        recipe_kwargs=None, seed_weights=None):
-    """One-call int8 deployment prep: rules, calibration, committed amax.
-    ``example_batches``: device-ready batch dicts (one representative batch
-    given twice is enough for max calibration).  Quantizes ``model`` in
-    place and returns the rules."""
-    rules = int8_deploy_recipe(residency=residency, **(recipe_kwargs or {}))
-    quantize_model(model, rules, example_batches[0], seed_weights)
+def prepare_int8_deploy(model, example_batches, recipe_kwargs=None):
+    """One-call int8 deployment prep: the residency recipe
+    (``recipe_kwargs`` for ``int8_deploy_recipe``), calibration, committed
+    amax.  ``example_batches``: device-ready batch dicts (one representative
+    batch given twice is enough for max calibration).  Quantizes ``model``
+    in place and returns the rules."""
+    rules = int8_deploy_recipe(**(recipe_kwargs or {}))
+    quantize_model(model, rules, example_batches[0])
     collect_stats(model, example_batches, num_batches=len(example_batches))
-    compute_amax(model, method=method)
+    compute_amax(model)
     return rules

@@ -10,8 +10,8 @@ The reference runs two ways, and the port follows both (``fused``):
   reciprocal, keeps a bf16 batch's scale and quotient in f32, and computes
   a conv's rescale ``s_in * s_w`` as ``(s_in * (1/127)) * amax_w``
   (``rescale``); ``x / scale`` stays a true division;
-* eager (the one pass of ``quantize_model``, whose ``model.init`` runs op by
-  op): a true division by 127, every op rounded in its own dtype (a bf16
+* eager (the seed pass of ``quantize_model``, whose ``model.init`` runs op
+  by op): a true division by 127, every op rounded in its own dtype (a bf16
   batch stays bf16), ``s_in * s_w`` as written.
 
 PyTorch would keep a dimensioned bf16 tensor in bf16 against a 0-dim f32
@@ -24,7 +24,12 @@ state (running absmax; for ``calibrator="histogram"`` also the reference's
 non-persistent buffers.  A quantizer's owner passes ``calibrating``; while
 calibrating, it records the batch and quantizes with the batch's own amax
 (``tensor_quant.py:141-158``).  ``commit_amax`` resolves the committed amax
-(method "max" only: the histogram's top filled bin, else the running absmax).
+as the reference's method "max" does: the histogram's top filled bin, else
+the running absmax.
+
+Outside calibration a layer's int8 constants (its quantized weight, its
+rescale, the committed scales, the BN folds) are fixed, so ``memo`` keeps
+each until one of the tensors it was computed from changes.
 """
 
 import dataclasses
@@ -75,6 +80,22 @@ def _broadcast_amax(amax, x, axis):
     shape = [1] * x.dim()
     shape[axis % x.dim()] = -1
     return amax.reshape(shape)
+
+
+def memo(owner, name, sources, fn):
+    """``fn()``, kept on ``owner`` under ``name`` until one of ``sources``
+    changes: becomes another tensor, moves to other storage (``.to``), or is
+    written in place (``load_state_dict`` and ``commit_amax`` copy in place,
+    which bumps the tensor's version).  The memo holds its sources, so their
+    storage cannot be reused by another tensor while it lives."""
+    key = tuple((t, 0 if t.is_inference() else t._version, t.data_ptr())
+                for t in sources)
+    cache = owner.__dict__.setdefault("_memo", {})
+    hit = cache.get(name)
+    if hit is None or len(hit[0]) != len(key) or any(
+            a[0] is not b[0] or a[1:] != b[1:] for a, b in zip(hit[0], key)):
+        hit = cache[name] = (key, fn())
+    return hit[1]
 
 
 def quantize_with_scale(x, scale):
@@ -150,13 +171,14 @@ class TensorQuantizer(nn.Module):
 
     def scale(self):
         """The committed scale, max(amax, 1e-12) / 127 (f32; see
-        ``amax_to_scale``)."""
+        ``amax_to_scale``), computed once per committed amax."""
         if not self.calibrated:
             raise RuntimeError(
                 "a static quantizer has no calibrated amax: run "
                 "collect_stats and compute_amax, or load a calibrated "
                 "state dict, first")
-        return amax_to_scale(self.amax, self.spec.bound)
+        return memo(self, "scale", (self.amax,),
+                    lambda: amax_to_scale(self.amax, self.spec.bound))
 
     def _update_histogram(self, abs_vals, batch_max):
         """The reference's ``_update_histogram`` (tensor_quant.py:176-198):
@@ -181,12 +203,9 @@ class TensorQuantizer(nn.Module):
             0, idx, torch.ones_like(idx, dtype=rebinned.dtype))
         self.bin_width = new_width
 
-    def commit_amax(self, method="max"):
+    def commit_amax(self):
         """Resolve the calibration state into ``amax`` (the reference's
         ``resolve_amax`` with ``compute_amax_from_hist(method="max")``)."""
-        if method != "max":
-            raise NotImplementedError(
-                f"amax method {method!r} is not ported (only 'max')")
         if self.spec.calibrator == "histogram":
             nz = torch.nonzero(self.hist).reshape(-1)
             top = float((int(nz[-1]) + 1) * float(self.bin_width)) \
@@ -203,48 +222,43 @@ class TensorQuantizer(nn.Module):
             self.calibrated = bool((self.amax > 0).all())
 
 
-def rescale(s_in, s_w, w, axis, fused=True):
-    """A conv's output rescale s_in * s_w (Cout,), s_in the input's scale and
+def rescale(s_in, w, axis, fused=True):
+    """A conv's output rescale s_in * s_w (Cout,): s_in the input's scale,
     s_w = max(amax_w, 1e-12) / 127 the weight's per output channel
-    (``axis``): fused, as XLA reassociates it, (s_in * (1/127)) * amax_w."""
-    if not fused:
-        return (s_in * s_w).reshape(-1)
+    (``axis``).  Fused, as XLA reassociates it: (s_in * (1/127)) * amax_w."""
     amax_w = _reduce_amax(w, axis).clamp_min(1e-12)
+    if not fused:
+        return s_in * (amax_w / 127.0)
     return (s_in.float() * (1.0 / 127.0)) * amax_w
 
 
 class QuantLayer:
-    """Mixin of a quantizable layer: the rule ``quant.api.quantize_model``
-    attached (None = the layer stays float), the calibration flag its
-    calibration passes set (True, or "eager" for the seed pass), and its
-    quantizers, created as child modules on first use while calibrating (as
-    the reference declares its quantizer variables in ``model.init``)."""
+    """Mixin of a quantizable layer: the int8-residency deploy rule
+    ``quant.api.quantize_model`` attached (None = the layer stays float),
+    the flags its calibration passes set (``calibrating``; ``eager`` in the
+    seed pass, which rounds as the reference's un-jitted ``model.init``
+    does), and its quantizers, created as child modules on first use while
+    calibrating (as the reference declares its quantizer variables in
+    ``model.init``)."""
     rule = None
     calibrating = False
-
-    @property
-    def fused(self):
-        """Round as the reference's jitted steps do (False in the eager
-        seed pass)."""
-        return self.calibrating != "eager"
+    eager = False
 
     @property
     def residency(self):
-        """True under an int8-residency deploy rule."""
-        r = self.rule
-        return (r is not None and r.deploy_int8 and r.int8_residency
-                and r.smoothquant is None)
-
-    @property
-    def requant_spec(self):
-        """The per-tensor spec of the output requant a residency block
-        applies after this layer."""
-        return dataclasses.replace(self.rule.act, axis=None)
+        """True under an int8-residency deploy rule (the only rules
+        ``quantize_model`` attaches)."""
+        return self.rule is not None
 
     def quantize(self, name, spec, x):
         """(int8, scale) from quantizer ``name`` (created while calibrating)."""
-        return self.quantizer(name, spec, x)(x, bool(self.calibrating),
-                                             self.fused)
+        return self.quantizer(name, spec, x)(x, self.calibrating,
+                                             not self.eager)
+
+    def constant(self, name, sources, fn):
+        """An int8 constant of this layer: ``fn()`` while calibrating (the
+        quantizers record), else kept by ``memo``."""
+        return fn() if self.calibrating else memo(self, name, sources, fn)
 
     def quantizer(self, name, spec, like):
         q = self._modules.get(name)

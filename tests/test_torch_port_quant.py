@@ -1,7 +1,8 @@
 """PyTorch port vs the JAX package: the int8 deploy path, bench recipe.
 
 ``int8_deploy_recipe(residency=True, quantize_first_conv=True,
-extra_no_list=("dense_head.*",))`` (the recipe ``bench.py`` times): every
+extra_no_list=("dense_head.*",))`` (the recipe ``bench.py`` times; the
+port's recipe is always the residency one): every
 sparse conv, the first included, and every BEV conv run int8 with int8
 residency; the CenterHead stays float.  On centerpoint_tiny with the trained
 fixture, batch 2 (``torch_port_quant_common``):
@@ -120,7 +121,7 @@ def test_histogram_calibrator_matches_reference():
             jnp.abs(jnp.asarray(b)), hist, width)
     np.testing.assert_array_equal(q.hist.numpy(), np.asarray(hist))
     assert float(q.bin_width) == float(width)
-    q.commit_amax("max")
+    q.commit_amax()
     want = np.float32(jax_tq.compute_amax_from_hist(hist, width, "max"))
     assert float(q.amax) == float(want)
     assert float(q.absmax) == max(float(np.abs(b).max()) for b in batches)

@@ -1,7 +1,8 @@
 """PyTorch port vs the JAX package: the int8 deploy path, entry recipe.
 
 ``prepare_int8_deploy(model, vars, [batch], residency=True)`` with default
-kwargs (the recipe ``__graft_entry__.py`` runs): conv_input stays float, so
+kwargs (the recipe ``__graft_entry__.py`` runs; the port's
+``prepare_int8_deploy(model, [batch, batch])``): conv_input stays float, so
 the first residual block's identity is float; every other sparse conv and
 every BEV conv is int8 with residency, and so are the head's shared conv
 and its hidden branch convs, fed through the DenseRequant.  On
@@ -9,9 +10,14 @@ centerpoint_tiny with the trained fixture, batch 2
 (``torch_port_quant_common``):
 
 (a) the port quantizes exactly the reference's layers (65 quantizers);
-(c) with the reference's amax loaded, each of the 26 residency layers fed
-    the reference's own int8 input gives its int8 output, but at <= 0.1% of
-    elements, each off by exactly 1.
+(c) with the reference's amax loaded, each of the 27 residency layers fed
+    the reference's own input gives its int8 output, but at <= 0.1% of
+    elements, each off by exactly 1: 20 sparse convs, 6 BEV convs, and the
+    head's shared conv -> BN -> ReLU -> DenseRequant; and each int8 hidden
+    branch conv of the head (fed the reference's int8 shared map) gives the
+    reference's raw f32 output within 1e-6 of its largest magnitude, which
+    leaves room for the rescale's association (below) and for nothing
+    else: a wrong scale would be off by at least 1/127.
 
 (b) and (d) are held at looser tolerances than the bench recipe's, for a
 reason measured here: in this model XLA computes several convs' rescale
@@ -60,7 +66,14 @@ def test_same_amax(calibrated):
 
 def test_residency_layers_int8(with_ref_amax):
     ref, model, _ = with_ref_amax
-    common.check_residency_layers(model, ref, expected_layers=20 + 6)
+    common.check_residency_layers(model, ref, expected_layers=20 + 6 + 1)
+
+
+def test_head_branch_convs(with_ref_amax):
+    ref, model, _ = with_ref_amax
+    # 2 heads x the 4 int8 hidden convs (center, center_z, dim, rot)
+    common.check_head_branch_convs(model, ref, expected_layers=2 * 4,
+                                   rtol=1e-6)
 
 
 def test_end_to_end(with_ref_amax):

@@ -8,10 +8,12 @@ twice) -> ``compute_amax(method="max")``, and applies it once while
 recording every residency layer's int8 input and output.  The port is
 calibrated on the same batch by its own ``quant.api``, with the reference's
 initial weights for the seed pass (the reference's ``quantize_model`` runs
-``model.init``, whose pass fixes the histogram's first bin width).
+``model.init``, whose pass fixes the histogram's first bin width; the port's
+``quant.api._seed_state`` is replaced for that).
 """
 
 import copy
+from unittest import mock
 
 import flax
 import flax.linen as fnn
@@ -53,7 +55,7 @@ ENTRY = {}
 OFF_BY_ONE_SHARE = 1e-3
 _RECORDED = (jax_spmodules.SubMConv3d, jax_spmodules.SparseConv3d,
              jax_sparse._SparseConvBNReLU, jax_sparse.SparseBasicBlock,
-             jax_layers.Conv2d, jax_bev._Block)
+             jax_layers.Conv2d, jax_layers.DenseRequant, jax_bev._Block)
 
 
 def _np(tree):
@@ -135,8 +137,10 @@ def port(ref, recipe):
     model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device="cpu")
     model.load_state_dict(state_dict_from_jax(ref["float"]), strict=True)
     batch = load_data_to_device(next(iter(loader)), device="cpu")
-    port_quant.prepare_int8_deploy(model, [batch, batch], recipe_kwargs=recipe,
-                                   seed_weights=state_dict_from_jax(ref["init"]))
+    seed = state_dict_from_jax(ref["init"])
+    with mock.patch.object(port_quant, "_seed_state", lambda _: seed):
+        port_quant.prepare_int8_deploy(model, [batch, batch],
+                                       recipe_kwargs=recipe)
     return model, batch
 
 
@@ -169,9 +173,11 @@ def _dense(rec):
 
 
 def residency_layers(model, ref):
-    """Each residency layer fed the reference's own int8 input -> list of
-    (name, port int8 output, reference int8 output) as numpy (NHWC for the
-    dense maps)."""
+    """Each residency layer fed the reference's own input (int8, or the
+    float map a chain starts from) -> list of (name, port int8 output,
+    reference int8 output) as numpy (NHWC for the dense maps).  The head's
+    shared conv -> BN -> ReLU -> DenseRequant counts as one layer, whose
+    int8 output is the DenseRequant's."""
     layers = ref["layers"]
     bb3 = model.backbone_3d
     caps = _capacity_schedule(bb3.model_cfg, 2 * int(
@@ -191,7 +197,7 @@ def residency_layers(model, ref):
                 if hasattr(blk, "conv1"):                 # SparseBasicBlock
                     if not blk.conv1.residency:
                         continue
-                    spec = blk.conv1.requant_spec
+                    spec = blk.conv1.rule.act
                     x1 = layers[f"{path}.conv2"][0]
                     y1 = blk.conv1(_st(x_in), {},
                                    requant=Requant(*blk.bn1.fold(), spec))
@@ -212,7 +218,7 @@ def residency_layers(model, ref):
             conv0 = blk[1]
             if not conv0.residency:
                 continue
-            spec = conv0.requant_spec
+            spec = conv0.rule.act
             for j in range(1, len(blk), 3):
                 c = (j - 1) // 3
                 path = f"backbone_2d.blocks_{b}.conv{c}"
@@ -223,7 +229,49 @@ def residency_layers(model, ref):
                                      *blk[j + 1].fold(), spec)
                 results.append((path, y.data.permute(0, 2, 3, 1).numpy(),
                                 want["data"]))
+        head = model.dense_head
+        if head.shared_requant.residency:
+            x = _dense(layers["dense_head.shared_conv"][0])
+            y = head.shared_requant(head.shared_conv(x))
+            results.append(("dense_head.shared_requant",
+                            y.data.permute(0, 2, 3, 1).numpy(),
+                            layers["dense_head.shared_requant"][1]["data"]))
     return results
+
+
+def head_branch_convs(model, ref):
+    """Each int8 hidden conv of the head's branches fed the reference's own
+    input (the int8 shared map) -> list of (path, port f32 output,
+    reference f32 output), NHWC: a residency Conv2d hands back its raw f32
+    (+ bias) for the float BN after it."""
+    layers = ref["layers"]
+    results = []
+    with torch.no_grad():
+        for h, sep in enumerate(model.dense_head.heads_list):
+            for name in sep.names:
+                for k, blk in enumerate(getattr(sep, name)[:-1]):
+                    if blk[0].rule is None:
+                        continue
+                    path = f"dense_head.heads_list_{h}.{name}_{k}"
+                    x_in, y_out = layers[path]
+                    y = blk[0](_dense(x_in))
+                    results.append((path, y.permute(0, 2, 3, 1).numpy(),
+                                    y_out))
+    return results
+
+
+def check_head_branch_convs(model, ref, expected_layers, rtol):
+    """Every int8 hidden branch conv's f32 output within ``rtol`` of the
+    reference's largest magnitude."""
+    results = head_branch_convs(model, ref)
+    assert len(results) == expected_layers, [r[0] for r in results]
+    worst = 0.0
+    for name, ours, theirs in results:
+        assert ours.dtype == np.float32 and ours.shape == theirs.shape, name
+        err = float(np.abs(ours - theirs).max() / np.abs(theirs).max())
+        assert err <= rtol, (name, err)
+        worst = max(worst, err)
+    return worst
 
 
 def with_reference_amax(model, ref):
