@@ -57,7 +57,25 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
                 int8 (torch.profiler); ``model_int8``: bench and entry recipes,
                 one request through the kernels and the plain versions:
                 every int8 map, spatial_features and detections equal;
-  8. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+  8. eval_gates / eval_plain — the four gates of
+                tests/test_accuracy_regression.py on the card: the trained
+                centerpoint_tiny fixture (read without JAX), 16 test frames
+                at batch 2, f32 with TF32 off; fp32, int8 deploy (full and
+                head float), dynamic SmoothQuant and static entropy,
+                calibrated as the test does, each through ``eval_one_epoch``
+                on the kernels (launch counts zeroed before, read after;
+                both kernels must have launched) and on the plain versions
+                (no launch): NDS, mAP, relative drop, infer_time_ms; fp32
+                NDS > 0.4 and mAP > 0.3, drops <= 1% / 1% / 2% / 3%; the
+                per-frame detections of the two runs compared (int8: equal;
+                fp32 and fake-quant: as sets, see FQ_*);
+  9. fakequant_ref — centerpoint_ref under dynamic SmoothQuant and static
+                entropy (calibrated on the first request), f32, one forward
+                through the kernels and the plain versions: every map and
+                the detections compared; forward and stage times; the 12
+                BEV SmoothQuant convs (im2col + fake-quant + matmul) beside
+                cuDNN's bf16 conv;
+ 10. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises and exits nonzero without the last line.  Without
 CUDA, or outside a checkout of the repo, it exits 1 and prints no result.
@@ -85,6 +103,25 @@ PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12, "s8": 1979e12}
 IOU_OPS, IOU_CIRCLE_OPS = 821, 8
 # the int8 recipe the JAX package's bench times (bench.py:281)
 BENCH_RECIPE = dict(quantize_first_conv=True, extra_no_list=("dense_head.*",))
+# the accuracy gates: tests/test_accuracy_regression.py's trained fixture
+TINY_CFG = ROOT / "tools" / "cfgs" / "synthetic_models" / "centerpoint_tiny.yaml"
+CKPT = ROOT / "tests" / "fixtures" / "centerpoint_tiny_trained.pkl"
+# recipe -> the largest relative NDS drop against fp32 it may show
+GATES = {"fp32": None, "int8_full": 0.01, "int8_head_bf16": 0.01,
+         "sq_dynamic": 0.02, "static_entropy": 0.03}
+# float fake-quant: kernel and plain versions sum in another order, which
+# moves the odd value across a rounding boundary of the next fake-quant (one
+# step of 1/127 of its amax), and a flipped rounding can move a detection
+# near a decision (the score threshold, an NMS overlap) in or out; the
+# detections are held as sets: at least FQ_MATCH_SHARE of those scoring at
+# least FQ_MIN_SCORE have a partner of the same frame and label within
+# FQ_BOX_TOL (m) and FQ_SCORE_TOL, the valid counts differ by at most
+# FQ_COUNT_SHARE of the larger, and the NDS by at most FQ_NDS_TOL
+FQ_MIN_SCORE, FQ_BOX_TOL, FQ_SCORE_TOL = 0.15, 0.1, 0.02
+FQ_MATCH_SHARE, FQ_COUNT_SHARE, FQ_NDS_TOL = 0.99, 0.05, 1e-3
+# fake-quant at centerpoint_ref: each map, kernels vs plain, within this
+# share of max(1, its largest magnitude) (flipped roundings, one step each)
+FQ_MAP_RTOL = 5e-2
 CONV_DESIGN = ("128-row x all-Cout tiles; book loaded once, ballot tap masks; "
                "16-byte cp.async gathers into a 2-3 stage ring; mma.sync "
                "m16n8k16 bf16 / m16n8k32 s8 (f32 on CUDA cores)")
@@ -232,6 +269,321 @@ def stage_times(model, batch, reps=5):
     stage_ms = {k: statistics.median(v) for k, v in stage_ms.items()}
     stage_ms["decode_nms"] = stage_ms["dense_head"] - stage_ms["head_convs"]
     return stage_ms
+
+
+def kernel_launches(conv_k, nms_k):
+    """Launch counts of both kernels, by entry."""
+    from q3d_tpu_torch.models import layers as dense_layers
+    from q3d_tpu_torch.ops.spconv import gather_conv
+    return {"sparse_gather_conv_f32": conv_k.launches["q3d_sparse_gather_conv_f32"],
+            "sparse_gather_conv_s8_requant":
+                conv_k.launches[gather_conv.REQUANT_ENTRY],
+            "sparse_gather_conv_other": sum(conv_k.launches.values())
+            - conv_k.launches["q3d_sparse_gather_conv_f32"]
+            - conv_k.launches[gather_conv.REQUANT_ENTRY],
+            "greedy_nms_boxes": nms_k.launches["q3d_greedy_nms_boxes"],
+            "greedy_nms_iou": nms_k.launches["q3d_greedy_nms"],
+            "int_mm_conv2d": dense_layers.INT_MM_CALLS["int8_conv2d"]}
+
+
+def clear_launches(conv_k, nms_k):
+    from q3d_tpu_torch.models import layers as dense_layers
+    conv_k.launches.clear()
+    nms_k.launches.clear()
+    dense_layers.INT_MM_CALLS.clear()
+
+
+def detections_near(a, b, min_score, box_tol, score_tol):
+    """Per-frame detections (lists of host dicts) -> (detections of either
+    run scoring >= min_score, those with a partner of the same frame and
+    label in the other run within box_tol and score_tol, worst box and
+    score differences over the partnered ones)."""
+    import numpy as np
+    n = matched = 0
+    worst = [0.0, 0.0]
+    for x, y in ((a, b), (b, a)):
+        for fx, fy in zip(x, y):
+            for i in range(fx["final_valid"].shape[0]):
+                vx, vy = fx["final_valid"][i], fy["final_valid"][i]
+                for box, label, score in zip(fx["final_boxes"][i][vx],
+                                             fx["final_labels"][i][vx],
+                                             fx["final_scores"][i][vx]):
+                    if score < min_score:
+                        continue
+                    n += 1
+                    same = fy["final_labels"][i][vy] == label
+                    if not same.any():
+                        continue
+                    db = np.abs(fy["final_boxes"][i][vy][same] - box).max(-1)
+                    ds = np.abs(fy["final_scores"][i][vy][same] - score)
+                    k = int(np.argmin(db))
+                    if db[k] <= box_tol and ds[k] <= score_tol:
+                        matched += 1
+                        worst = [max(worst[0], float(db[k])),
+                                 max(worst[1], float(ds[k]))]
+    return n, matched, worst
+
+
+def eval_gates(dev, conv_k, nms_k, mode):
+    """Phases ``eval_gates`` and ``eval_plain``: the four gates of
+    tests/test_accuracy_regression.py on the card.  The trained
+    centerpoint_tiny fixture (read without JAX), its 16 test frames at
+    batch 2 in f32, each recipe calibrated as the test calibrates it, then
+    ``eval_one_epoch`` through the kernels (launch counts zeroed before and
+    read after: kernel 1 and kernel 2 must have launched) and, on the same
+    calibrated model, through the plain versions; the per-frame detections
+    of the two are compared.  -> {recipe: summary}; raises if a gate or a
+    comparison fails."""
+    import numpy as np
+    from q3d_tpu_torch.config import cfg_from_yaml_file, EDict
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.eval_utils import eval_one_epoch
+    from q3d_tpu_torch.models import build_network, load_data_to_device
+    from q3d_tpu_torch.quant import api as quant_api
+    from q3d_tpu_torch.utils.checkpoint import load_flax_checkpoint
+    from q3d_tpu_torch.utils.weights import state_dict_from_jax
+
+    cfg = cfg_from_yaml_file(str(TINY_CFG), EDict())
+    cfg.MODEL.POST_PROCESSING.EVAL_METRIC = "nuscenes"
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
+                                     batch_size=BATCH, training=False)
+    names = list(cfg.CLASS_NAMES)
+    state = state_dict_from_jax(load_flax_checkpoint(str(CKPT))[0])
+    batch = load_data_to_device(next(iter(loader)), device=dev)
+
+    def int8(extra):
+        return lambda m: quant_api.prepare_int8_deploy(
+            m, [batch, batch], recipe_kwargs=dict(quantize_first_conv=True,
+                                                  extra_no_list=extra))
+
+    def static_entropy(m):
+        quant_api.quantize_model(m, quant_api.centerpoint_recipe(
+            sq=False, static=True), batch)
+        quant_api.collect_stats(m, [batch] * 3, num_batches=3)
+        quant_api.compute_amax(m, method="entropy")
+    recipes = {
+        "fp32": lambda m: None,
+        "int8_full": int8(()),
+        "int8_head_bf16": int8(("dense_head.*",)),
+        "sq_dynamic": lambda m: quant_api.quantize_model(
+            m, quant_api.centerpoint_recipe(sq=True, alpha=0.5, static=False),
+            batch),
+        "static_entropy": static_entropy}
+    n_batches = len(loader)
+    results = {}
+    for tag, prepare in recipes.items():
+        m = build_network(cfg.MODEL, len(names), ds, device=dev)
+        m.load_state_dict(state, strict=True)
+        t0 = time.perf_counter()
+        prepare(m)
+        calib_s = time.perf_counter() - t0
+        runs = {}
+        for impl in ("cuda", "plain"):
+            m.set_kernel_impl(impl)
+            clear_launches(conv_k, nms_k)
+            frames = []
+            t0 = time.perf_counter()
+            res = eval_one_epoch(m, loader, ds, names, cfg, device=dev,
+                                 per_frame=frames)
+            runs[impl] = {"res": res, "frames": frames,
+                          "launches": kernel_launches(conv_k, nms_k),
+                          "eval_s": time.perf_counter() - t0}
+        m.set_kernel_impl(None)
+        results[tag] = {"calibration_s": calib_s, **runs}
+
+    fp = {impl: results["fp32"][impl]["res"] for impl in ("cuda", "plain")}
+    summary, failed = {}, []
+    for tag, r in results.items():
+        row = {"calibration_s": r["calibration_s"]}
+        for impl in ("cuda", "plain"):
+            res = r[impl]["res"]
+            drop = (fp[impl]["NDS"] - res["NDS"]) / max(fp[impl]["NDS"], 1e-9)
+            row[impl] = {"NDS": res["NDS"], "mAP": res["mAP"],
+                         "rel_nds_drop": drop,
+                         "infer_time_ms": res["infer_time_ms"],
+                         "eval_s": r[impl]["eval_s"],
+                         "launches": r[impl]["launches"]}
+            limit = GATES[tag]
+            if tag == "fp32" and not (res["NDS"] > 0.4 and res["mAP"] > 0.3):
+                failed.append(f"{tag} {impl}: NDS {res['NDS']} mAP {res['mAP']}")
+            if limit is not None and drop > limit:
+                failed.append(f"{tag} {impl}: NDS drop {drop} > {limit}")
+        lk, lp = r["cuda"]["launches"], r["plain"]["launches"]
+        conv_entry = "sparse_gather_conv_s8_requant" if tag.startswith("int8") \
+            else "sparse_gather_conv_f32"
+        if lk[conv_entry] != 21 * n_batches \
+                or lk["greedy_nms_boxes"] != n_batches:
+            failed.append(f"{tag}: kernel launches {lk}")
+        if any(lp.values()):
+            failed.append(f"{tag}: the plain run launched {lp}")
+        fk, fpl = r["cuda"]["frames"], r["plain"]["frames"]
+        if tag.startswith("int8"):
+            # the s8 kernels are bit-exact, the float layers identical
+            same = all(np.array_equal(a[k], b[k]) for a, b in zip(fk, fpl)
+                       for k in a)
+            row["plain_vs_kernels"] = {"tolerance": "every final array equal",
+                                       "equal": same}
+            if not same:
+                failed.append(f"{tag}: detections differ, kernels vs plain")
+        else:
+            fq = tag != "fp32"
+            tol = (FQ_MIN_SCORE, FQ_BOX_TOL, FQ_SCORE_TOL) if fq \
+                else (0.0, 1e-3, 1e-4)
+            n, matched, worst = detections_near(fk, fpl, *tol)
+            counts = [sum(int(f["final_valid"].sum()) for f in x)
+                      for x in (fk, fpl)]
+            row["plain_vs_kernels"] = {
+                "min_score": tol[0], "box_tol": tol[1], "score_tol": tol[2],
+                "detections": n, "matched": matched, "worst": worst,
+                "valid_counts": counts,
+                "nds_diff": r["cuda"]["res"]["NDS"] - r["plain"]["res"]["NDS"]}
+            if fq:
+                ok = matched >= FQ_MATCH_SHARE * n \
+                    and abs(counts[0] - counts[1]) <= FQ_COUNT_SHARE * max(counts) \
+                    and abs(row["plain_vs_kernels"]["nds_diff"]) <= FQ_NDS_TOL
+            else:
+                ok = matched >= 0.99 * n
+            if not ok:
+                failed.append(f"{tag}: kernels vs plain {row['plain_vs_kernels']}")
+        summary[tag] = row
+        common = dict(recipe=tag, gate=GATES[tag], mode=mode(),
+                      config=TINY_CFG.name, frames=len(ds), batch=BATCH,
+                      calibration_s=row["calibration_s"])
+        emit("eval_gates", **common, **row["cuda"])
+        emit("eval_plain", **common, **row["plain"],
+             plain_vs_kernels=row["plain_vs_kernels"])
+    check(not failed, "eval gates: " + "; ".join(failed))
+    return summary
+
+
+def fakequant_ref(model, batch, conv_k, nms_k, mode, flush):
+    """Phase ``fakequant_ref``: centerpoint_ref (seeded weights, BN
+    calibrated) under dynamic SmoothQuant and under static entropy
+    (calibrated on ``batch``), one forward each through the kernels and
+    through the plain versions: spatial_features, every head map and the
+    detections compared; CUDA-event times of each forward and each stage;
+    the 12 BEV SmoothQuant convs timed beside cuDNN's bf16 conv."""
+    import torch
+    from q3d_tpu_torch.eval_utils import to_host
+    from q3d_tpu_torch.models.layers import Conv2d
+    from q3d_tpu_torch.quant import api as quant_api
+
+    models = {}
+    m = copy.deepcopy(model)
+    quant_api.quantize_model(m, quant_api.centerpoint_recipe(
+        sq=True, alpha=0.5, static=False), batch)
+    models["sq_dynamic"] = (m, 0.0)
+    m = copy.deepcopy(model)
+    quant_api.quantize_model(m, quant_api.centerpoint_recipe(
+        sq=False, static=True), batch)
+    quant_api.collect_stats(m, [batch], num_batches=1)
+    t0 = time.perf_counter()
+    quant_api.compute_amax(m, method="entropy")
+    models["static_entropy"] = (m, time.perf_counter() - t0)
+    out = {}
+    for tag, (m, amax_s) in models.items():
+        outs, launches, fwd_ms = {}, {}, {}
+        with torch.no_grad():
+            for impl in ("cuda", "plain"):
+                m.set_kernel_impl(impl)
+                clear_launches(conv_k, nms_k)
+                outs[impl] = m(dict(batch))
+                torch.cuda.synchronize()
+                launches[impl] = kernel_launches(conv_k, nms_k)
+                fwd_ms[impl] = time_ms(lambda: m(dict(batch)), reps=5)
+        check(launches["cuda"]["sparse_gather_conv_f32"] == 21
+              and launches["cuda"]["greedy_nms_boxes"] == 1
+              and launches["cuda"]["sparse_gather_conv_s8_requant"] == 0,
+              f"fakequant_ref {tag}: kernel launches {launches['cuda']}")
+        check(not any(launches["plain"].values()),
+              f"fakequant_ref {tag}: the plain run launched {launches['plain']}")
+        ok_, op = outs["cuda"], outs["plain"]
+        maps = {"spatial_features": (ok_["spatial_features"],
+                                     op["spatial_features"]),
+                "spatial_features_2d": (ok_["spatial_features_2d"],
+                                        op["spatial_features_2d"])}
+        for h, (pk, pp) in enumerate(zip(ok_["pred_dicts"], op["pred_dicts"])):
+            for key in pk:
+                maps[f"head{h}.{key}"] = (pk[key], pp[key])
+        map_err = {}
+        for key, (a, b) in maps.items():
+            check(bool(torch.isfinite(a).all()), f"fakequant_ref {tag}: {key} "
+                                                  f"not finite")
+            err = (a - b).abs()
+            mag = float(b.abs().max())
+            map_err[key] = {"max_abs": float(err.max()), "scale": mag,
+                            "share_over_1e-3": float(
+                                (err > 1e-3 * max(mag, 1e-30)).float().mean())}
+            check(float(err.max()) <= FQ_MAP_RTOL * max(mag, 1.0),
+                  f"fakequant_ref {tag}: {key} kernels vs plain {map_err[key]}")
+        hk, hp = to_host(ok_), to_host(op)
+        n, matched, worst = detections_near([hk], [hp], FQ_MIN_SCORE,
+                                            FQ_BOX_TOL, FQ_SCORE_TOL)
+        counts = [int(hk["final_valid"].sum()), int(hp["final_valid"].sum())]
+        check(matched >= FQ_MATCH_SHARE * n and abs(counts[0] - counts[1])
+              <= FQ_COUNT_SHARE * max(counts),
+              f"fakequant_ref {tag}: detections kernels vs plain: {matched}/"
+              f"{n} matched, counts {counts}")
+        m.set_kernel_impl(None)
+        stages = stage_times(m, batch)
+        # cuDNN's deterministic f32 algorithms (this phase's mode) against
+        # its own choice, TF32 still off: the float convs of static PTQ
+        # are cuDNN's
+        torch.backends.cudnn.deterministic = False
+        with torch.no_grad():
+            fwd_ms["cuda_cudnn_any_algorithm"] = time_ms(
+                lambda: m(dict(batch)), reps=5)
+        torch.backends.cudnn.deterministic = True
+        out[tag] = {"forward_ms": fwd_ms, "stages_ms": stages,
+                    "launches": launches["cuda"], "map_err": map_err,
+                    "map_tolerance": f"max|k-p| <= {FQ_MAP_RTOL} * max(1, "
+                                     f"max|p|)",
+                    "detections": n, "matched": matched, "worst": worst,
+                    "valid_counts": counts, "entropy_amax_s": amax_s}
+        emit("fakequant_ref", recipe=tag, config=CFG.name, batch=BATCH,
+             dtype="f32", mode=mode(), **out[tag])
+
+    # the 12 BEV SmoothQuant convs: im2col + fake-quant + torch.matmul (f32),
+    # beside cuDNN's bf16 conv at the same shapes
+    m = models["sq_dynamic"][0]
+    seen = []
+    hooks = [c.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args[0])))
+        for c in m.backbone_2d.modules() if isinstance(c, Conv2d)]
+    with torch.no_grad():
+        m(dict(batch))
+    for h in hooks:
+        h.remove()
+    n_bev = sum(isinstance(c, Conv2d) for c in m.backbone_2d.modules())
+    check(len(seen) == n_bev > 0, f"fakequant_ref: {len(seen)} of {n_bev} BEV "
+                                  f"SQ convs ran")
+    rows = []
+    with torch.no_grad():
+        for conv, x in seen:
+            xb = x.to(torch.bfloat16).contiguous()
+            wb = conv.weight.to(torch.bfloat16)
+            o, c_in, kh, kw = conv.weight.shape
+            b_, _, h_, w_ = x.shape
+            ho = (h_ + 2 * conv.padding[0] - kh) // conv.stride[0] + 1
+            wo = (w_ + 2 * conv.padding[1] - kw) // conv.stride[1] + 1
+            mm, kk = b_ * ho * wo, c_in * kh * kw
+            row = {"x": list(x.shape), "w": list(conv.weight.shape),
+                   "stride": list(conv.stride), "gemm_mkn": [mm, kk, o],
+                   "sq_f32_ms": time_ms(lambda: conv._smoothquant_conv(x),
+                                        reps=5, flush=flush),
+                   "cudnn_bf16_ms": time_ms(lambda: torch.nn.functional.conv2d(
+                       xb, wb, None, conv.stride, conv.padding), flush=flush)}
+            # the f32 im2col GEMM's bound: the map read once, the patches
+            # written and read, the output written; its f32 operations
+            nbytes = 4 * (x.numel() + 2 * mm * kk + kk * o + mm * o)
+            row["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_PER_S, 2.0 * mm * kk
+                                        * o / PEAK_OPS_PER_S["f32"])
+            rows.append(row)
+            emit("sq_conv2d", **row)
+    emit("sq_conv2d_total", convs=len(rows), mode=mode(),
+         **{k: sum(r[k] for r in rows)
+            for k in ("sq_f32_ms", "cudnn_bf16_ms", "bound_ms")})
+    return out
 
 
 def main():
@@ -922,9 +1274,7 @@ def main():
             for k in ("ms", "int_mm_ms", "cudnn_bf16_ms", "bound_ms")})
 
     # ------------------------------------------------------ serving, int8
-    conv_k.launches.clear()
-    nms_k.launches.clear()
-    dense_layers.INT_MM_CALLS.clear()
+    clear_launches(conv_k, nms_k)
     per_request = []
     for r in range(REQUESTS):
         raw, scene_ms, vox_ms = request(r)
@@ -1054,6 +1404,16 @@ def main():
                "final boxes/scores/labels/valid, kernels vs plain (exact)")
     strict_f32(False)
 
+    # ================================= the accuracy gates and fake-quant
+    # both in f32 with TF32 off, as the reference's eval_one_epoch runs
+    strict_f32(True)
+    gates = eval_gates(dev, conv_k, nms_k, mode)
+    fakequant_ref(model, batch_f32, conv_k, nms_k, mode, flush)
+    strict_f32(False)
+
+    def per_recipe(key):
+        return {tag: g["cuda"]["launches"][key] for tag, g in gates.items()}
+
     # ---------------------------------------------------------- kernels line
     kernels = [
         {"name": "sparse_gather_conv", "route": "cuda",
@@ -1065,6 +1425,7 @@ def main():
          "bound_by": "bytes" if totals["bytes_ms"] >= totals["ops_ms"]
          else "operations", "library_ms": totals["library_ms"],
          "design": CONV_DESIGN,
+         "eval_launches_f32_entry": per_recipe("sparse_gather_conv_f32"),
          "checks": "passed", "times_cover": "one bf16 forward (21 convs)"},
         {"name": "sparse_gather_conv_s8_requant", "route": "cuda",
          "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
@@ -1075,7 +1436,9 @@ def main():
          "plain_ms": rq_totals["plain_ms"], "bound_ms": rq_totals["bound_ms"],
          "bound_by": rq_totals["bound_by"],
          "library_ms": rq_totals["library_ms"],
-         "unfused_ms": rq_totals["unfused_ms"], "checks": "passed",
+         "unfused_ms": rq_totals["unfused_ms"],
+         "eval_launches": per_recipe("sparse_gather_conv_s8_requant"),
+         "checks": "passed",
          "times_cover": "one int8 forward, bench recipe (21 residency convs)"},
         {"name": "greedy_nms", "route": "cuda",
          "source": "q3d_tpu_torch/csrc/greedy_nms.cu",
@@ -1085,6 +1448,7 @@ def main():
          "ms": boxes_form["ms"], "plain_ms": boxes_form["plain_ms"],
          "bound_ms": boxes_form["bound_ms"], "bound_by": boxes_form["bound_by"],
          "library_ms": None, "checks": "passed",
+         "eval_launches": per_recipe("greedy_nms_boxes"),
          "times_cover": f"one forward's NMS from BEV corners ({s} sets, "
                         f"K={kc}); the IoU form from the padded IoU matrix "
                         f"(K={kp})",

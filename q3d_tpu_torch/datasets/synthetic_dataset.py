@@ -4,6 +4,9 @@ Port of ``q3d_tpu/datasets/synthetic_dataset.py`` (single-frame mode): a
 ground plane of radial scan rings plus random rotated boxes with
 surface-sampled points.  Frame ``i`` is drawn from
 ``np.random.RandomState(SEED + i)``, so both packages see the same points.
+``evaluation`` scores detections against the generative ground truth with
+the nuScenes-protocol evaluator (``EVAL_METRIC: nuscenes``) or the quick
+BEV-IoU mAP.
 """
 
 import numpy as np
@@ -111,3 +114,41 @@ class SyntheticDataset(DatasetTemplate):
             "frame_id": int(index),
         }
         return self.prepare_data(data_dict=input_dict)
+
+    def generate_prediction_dicts(self, batch_dict, pred_arrays, class_names):
+        """pred_arrays: host numpy final_boxes/scores/labels/valid -> one
+        annotation dict per frame."""
+        annos = []
+        for b in range(pred_arrays["final_boxes"].shape[0]):
+            v = pred_arrays["final_valid"][b].astype(bool)
+            annos.append({
+                "frame_id": batch_dict["frame_id"][b],
+                "boxes_lidar": pred_arrays["final_boxes"][b][v],
+                "score": pred_arrays["final_scores"][b][v],
+                "pred_labels": pred_arrays["final_labels"][b][v],
+                "name": np.asarray([class_names[int(i) - 1]
+                                    for i in pred_arrays["final_labels"][b][v]]),
+            })
+        return annos
+
+    def evaluation(self, det_annos, class_names, **kwargs):
+        """Score against the generative ground truth: ``eval_metric=
+        "nuscenes"`` runs the nuScenes-protocol evaluator (NDS, mAP over
+        distance thresholds, TP errors); otherwise the quick BEV-IoU mAP.
+        -> (result string, metrics dict)."""
+        gts = []
+        for anno in det_annos:
+            rng = np.random.RandomState(self.base_seed + int(anno["frame_id"]))
+            _, gt_boxes, gt_names = make_scene(rng, self.point_cloud_range,
+                                               **self.scene_kwargs)
+            gts.append({"boxes": gt_boxes, "names": gt_names})
+        if kwargs.get("eval_metric") == "nuscenes":
+            from .nuscenes.nuscenes_eval import nuscenes_eval
+            dets = [{"boxes": np.asarray(d["boxes_lidar"]),
+                     "names": np.asarray(d["name"]),
+                     "scores": np.asarray(d["score"])} for d in det_annos]
+            return nuscenes_eval(dets, gts, list(class_names))
+        from ..utils.simple_eval import simple_map
+        ap_dict = simple_map(det_annos, gts, class_names)
+        result_str = "\n".join(f"{k}: {v:.4f}" for k, v in ap_dict.items())
+        return result_str, ap_dict

@@ -1,11 +1,16 @@
 """Dense NCHW building blocks of the CenterPoint path (port of
-``q3d_tpu/models/layers.py``: the float path and the int8 deploy path).
+``q3d_tpu/models/layers.py``: the float path, the fake-quant and SmoothQuant
+paths, and the int8 deploy path).
 
 Precision follows the reference (``layers.py:167-201``): the input stays in
 the compute dtype, weights are cast to it, and the convolution accumulates
 in f32 (cuDNN does so for bf16 inputs; f32 comparisons must turn TF32 off).
 The dense convs are library calls, as the reference leaves them to XLA.
 
+Under a fake-quant rule a ``Conv2d`` quantize-dequantizes its weight (per
+output channel) and its input (per tensor) and runs the float conv; with
+SmoothQuant it runs ``_smoothquant_conv`` (im2col, per-column scale
+migration, fake-quant, ``torch.matmul``).
 Under an int8-residency deploy rule a ``Conv2d`` quantizes first (per
 tensor; a ``QTensor`` input is int8 already) and runs ``int8_conv2d``, an
 s8 x s8 -> s32 conv (im2col of the NHWC int8 map, then ``torch._int_mm`` on
@@ -133,16 +138,72 @@ class Conv2d(QuantLayer, nn.Module):
                 self.bias.fill_(self.bias_init)
 
     def forward(self, x):
-        if self.rule is None:
-            # float; a residency chain feeding an excluded layer is
-            # dequantized first
+        if self.rule is None or self.fake:
+            # float (a residency chain feeding a float layer is dequantized
+            # first), on fake-quantized inputs under a fake-quant rule
             x = dequantize(x)
+            if self.fake and self.rule.smoothquant is not None:
+                y = self._smoothquant_conv(x)
+                y = y if self.bias is None else y + self.bias.reshape(1, -1, 1, 1)
+                return y.to(x.dtype)
+            w = self.weight
+            if self.fake:
+                wspec = self.rule.weight
+                if wspec is not None and wspec.axis is not None:
+                    wspec = dataclasses.replace(wspec, axis=0)
+                w = self.fake_quantize("weight_quant", wspec, w)
+                x = self.fake_quantize("act_quant", self.rule.act, x)
             bias = None if self.bias is None else self.bias.to(x.dtype)
-            return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
-                            self.padding)
+            return F.conv2d(x, w.to(x.dtype), bias, self.stride, self.padding)
         # int8 residency: the raw f32 (+ bias) for the caller's epilogue
         y = self._int8_conv(x)
         return y if self.bias is None else y + self.bias.reshape(1, -1, 1, 1)
+
+    def _smoothquant_conv(self, x):
+        """im2col + SmoothQuant scale migration + fake-quant + GEMM (the
+        reference's ``_smoothquant_conv``, :265-308): the columns of
+        ``F.unfold`` are in (cin, kh, kw) order, as the reference's patches;
+        per column, scale = max(act_amax^alpha / w_amax^(1-alpha), 1e-5),
+        with act_amax the batch's (dynamic) or the calibrated
+        ``sq_act_amax`` (static); then the act is fake-quantized per tensor,
+        the weight per output channel, and one f32 GEMM (the reference's
+        ``einsum``, outside any Pallas kernel) -> (B, O, Ho, Wo)."""
+        o, _, kh, kw = self.weight.shape
+        b, _, h, w_ = x.shape
+        (sh, sw), (ph, pw) = self.stride, self.padding
+        ho, wo = (h + 2 * ph - kh) // sh + 1, (w_ + 2 * pw - kw) // sw + 1
+        patches = F.unfold(x, (kh, kw), padding=self.padding,
+                           stride=self.stride).transpose(1, 2)   # (B, L, K)
+        w2d = self.weight.reshape(o, -1).t()                      # (K, O)
+        sq = self.rule.smoothquant
+        w_amax = w2d.abs().amax(1).clamp_min(1e-5)
+        if sq.dynamic:
+            a_amax = patches.abs().amax((0, 1)).clamp_min(1e-5)
+        else:
+            if self.calibrating:
+                if not hasattr(self, "sq_act_amax"):
+                    # the reference's quant/sq_act_amax (ones until
+                    # committed) and calib/sq_act_absmax
+                    self.register_buffer("sq_act_amax", torch.ones(
+                        w2d.shape[0], device=x.device))
+                    self.register_buffer("sq_act_absmax", torch.zeros(
+                        w2d.shape[0], device=x.device), persistent=False)
+                self.sq_act_absmax = torch.maximum(
+                    self.sq_act_absmax, patches.detach().abs().amax((0, 1)))
+            elif not hasattr(self, "sq_act_amax"):
+                raise RuntimeError("a static SmoothQuant conv was never "
+                                   "calibrated: run quant.api.quantize_model")
+            a_amax = self.sq_act_amax.clamp_min(1e-5)
+        scale = torch.clamp_min(torch.pow(a_amax, sq.alpha)
+                                / torch.pow(w_amax, 1.0 - sq.alpha),
+                                1e-5).detach()
+        p = self.fake_quantize("act_quant", self.rule.act, patches / scale)
+        wspec = self.rule.weight
+        if wspec is not None and wspec.axis is not None:
+            wspec = dataclasses.replace(wspec, axis=1)
+        wq = self.fake_quantize("weight_quant", wspec, w2d * scale[:, None])
+        y = torch.matmul(p, wq.to(p.dtype))                       # (B, L, O)
+        return y.transpose(1, 2).reshape(b, o, ho, wo)
 
     def _int8_conv(self, x):
         """The reference's quantize-first ``_int8_conv`` (:237-253): int8

@@ -1,7 +1,7 @@
 """Rotated BEV IoU and rotated greedy NMS, batched over candidate sets.
 
-Port of ``q3d_tpu/ops/iou3d_nms/iou3d_nms_utils.py`` (``boxes_iou_bev``
-and ``_nms_impl`` with its presorted path and cumsum compaction).  The
+Port of ``q3d_tpu/ops/iou3d_nms/iou3d_nms_utils.py`` (``boxes_iou_bev``,
+``boxes_iou3d`` and ``_nms_impl`` with its presorted path and cumsum compaction).  The
 intersection area is computed data-parallel over all pairs: each quad edge
 is interval-clipped to the other quad's half-planes (Liang-Barsky) and
 contributes its shoelace term.  Every 4-term sum and the mean are written
@@ -78,12 +78,37 @@ def _rotated_overlap_quads(qa, qb):
 
 def boxes_iou_bev(boxes_a, boxes_b):
     """Rotated BEV IoU. (..., N, 7), (..., M, 7) -> (..., N, M)."""
-    qa = box_utils.boxes_to_corners_bev(boxes_a)[..., :, None, :, :]
-    qb = box_utils.boxes_to_corners_bev(boxes_b)[..., None, :, :, :]
-    overlap = _rotated_overlap_quads(qa, qb)
+    overlap = boxes_bev_overlap(boxes_a, boxes_b)
     area_a = (boxes_a[..., 3] * boxes_a[..., 4])[..., :, None]
     area_b = (boxes_b[..., 3] * boxes_b[..., 4])[..., None, :]
     return overlap / (area_a + area_b - overlap).clamp(min=1e-6)
+
+
+def boxes_bev_overlap(boxes_a, boxes_b):
+    """Rotated BEV intersection area. (..., N, 7), (..., M, 7) -> (..., N, M)."""
+    qa = box_utils.boxes_to_corners_bev(boxes_a)[..., :, None, :, :]
+    qb = box_utils.boxes_to_corners_bev(boxes_b)[..., None, :, :, :]
+    return _rotated_overlap_quads(qa, qb)
+
+
+def _height_overlap(boxes_a, boxes_b):
+    za1 = boxes_a[..., 2] - boxes_a[..., 5] / 2
+    za2 = boxes_a[..., 2] + boxes_a[..., 5] / 2
+    zb1 = boxes_b[..., 2] - boxes_b[..., 5] / 2
+    zb2 = boxes_b[..., 2] + boxes_b[..., 5] / 2
+    return (torch.minimum(za2[..., :, None], zb2[..., None, :])
+            - torch.maximum(za1[..., :, None], zb1[..., None, :])).clamp(min=0)
+
+
+def boxes_iou3d(boxes_a, boxes_b):
+    """3D IoU (reference ``boxes_iou3d``, :117-126): the BEV overlap times
+    the height overlap over the union of the volumes.
+    (..., N, 7), (..., M, 7) -> (..., N, M)."""
+    overlap_3d = boxes_bev_overlap(boxes_a, boxes_b) \
+        * _height_overlap(boxes_a, boxes_b)
+    vol_a = (boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5])[..., :, None]
+    vol_b = (boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5])[..., None, :]
+    return overlap_3d / (vol_a + vol_b - overlap_3d).clamp(min=1e-6)
 
 
 def candidate_iou(boxes, valid):

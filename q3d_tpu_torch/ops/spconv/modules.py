@@ -1,5 +1,6 @@
 """Sparse conv layers and the sparse BatchNorm (port of
-``q3d_tpu/ops/spconv/modules.py``: the float path and the int8 deploy path).
+``q3d_tpu/ops/spconv/modules.py``: the float path, the fake-quant path and
+the int8 deploy path).
 
 Weights are stored as (K, Cin, Cout) with K enumerating kernel offsets
 k0-major (x fastest), as ``engine.kernel_offsets`` does.  A per-forward
@@ -9,7 +10,9 @@ every strided conv build its output coordinates once.  Every conv runs on
 ``gather_conv.sparse_gather_conv``; ``kernel_impl`` selects "cuda" or
 "plain" for the whole model (None = by the tensors' device).
 
-Under an int8-residency deploy rule (attached by
+Under a fake-quant rule a conv quantize-dequantizes its masked features and
+its weight and runs the float conv on them, on the same kernel as the float
+path (``_fake_quantize``).  Under an int8-residency deploy rule (attached by
 ``quant.api.quantize_model``) a conv quantizes its features per tensor (or
 takes int8 residency features as they are) and its f32 master weight per
 output channel, runs the s8 GEMM and rescales by ``feat_scale * s_w``
@@ -128,15 +131,32 @@ class _SparseConvBase(QuantLayer, nn.Module):
                                                   not self.eager))
         return features, wq, out_scale
 
+    def _fake_quantize(self, features, valid):
+        """-> (features, f32 weight) quantize-dequantized: the reference's
+        ``_quantize`` fake-quant branch (:130, :189-197).  Pad rows are
+        masked before the act amax; the act is quantized per tensor, or per
+        input channel under an ``axis=1`` spec (SmoothQuant recipes), the
+        weight per output channel (axis 2 of (K, Cin, Cout))."""
+        feats = self.fake_quantize("act_quant", self.rule.act,
+                                   features * valid[:, None])
+        wspec = self.rule.weight
+        if wspec is not None and wspec.axis is not None:
+            wspec = dataclasses.replace(wspec, axis=2)
+        return feats, self.fake_quantize("weight_quant", wspec, self.weight)
+
     def _run(self, st, gather_idx, out_st, out_valid=None, requant=None):
         """The conv of ``st`` over ``gather_idx`` into the coordinates of
         ``out_st``: float without a rule (a residency input is dequantized
-        first), else int8 with ``requant``, its block's residency
+        first), float on fake-quantized features and weight under a
+        fake-quant rule, else int8 with ``requant``, its block's residency
         epilogue."""
-        if self.rule is None:
+        if self.rule is None or self.fake:
             feats = dequantize_tensor(st).features
+            weight = self.weight
+            if self.fake:
+                feats, weight = self._fake_quantize(feats, st.valid)
             out = sparse_gather_conv(feats, gather_idx,
-                                     self.weight.to(feats.dtype), None,
+                                     weight.to(feats.dtype), None,
                                      out_valid, impl=self.kernel_impl)
             if self.bias is not None:
                 bias = self.bias.to(out.dtype)

@@ -1,7 +1,9 @@
-"""Post-training quantization for the int8 deploy path (port of the deploy
-part of ``q3d_tpu/quant/``)."""
+"""Post-training quantization (port of ``q3d_tpu/quant/``): fake-quant and
+SmoothQuant recipes with static calibration, the int8 deploy path, and the
+sensitivity tooling."""
 
-from .api import (collect_stats, compute_amax, int8_deploy_recipe,  # noqa: F401
-                  prepare_int8_deploy, quantize_model)
+from .api import (centerpoint_recipe, collect_stats,  # noqa: F401
+                  compute_amax, int8_deploy_recipe, prepare_int8_deploy,
+                  quantize_model)
 from .rules import LayerRule, QuantRules, SmoothQuantCfg  # noqa: F401
-from .tensor_quant import QuantSpec, TensorQuantizer  # noqa: F401
+from .tensor_quant import QuantSpec, TensorQuantizer, fake_quant  # noqa: F401

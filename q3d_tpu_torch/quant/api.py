@@ -1,19 +1,25 @@
-"""The int8 deploy workflow (port of ``q3d_tpu/quant/api.py``: the deploy
-recipe with int8 residency, ``quantize_model``, ``collect_stats``,
-``compute_amax`` with method "max", and ``prepare_int8_deploy``).
+"""The PTQ workflow (port of ``q3d_tpu/quant/api.py``: the CenterPoint
+fake-quant recipe and the int8 deploy recipe with int8 residency,
+``quantize_model``, single-stream ``collect_stats``, ``compute_amax`` with
+the reference's amax methods, and ``prepare_int8_deploy``).
 
-    rules = prepare_int8_deploy(model, [batch, batch])
-    out = model(batch)                      # int8 from here on
+    quantize_model(model, centerpoint_recipe(sq=True), batch)  # dynamic PTQ
+    quantize_model(model, centerpoint_recipe(sq=False, static=True), batch)
+    collect_stats(model, batches)                              # static PTQ
+    compute_amax(model, method="entropy")
+    out = model(batch)                      # quantized from here on
+
+    rules = prepare_int8_deploy(model, [batch, batch])         # true int8
 
 In PyTorch idiom the model is changed in place: ``quantize_model`` resolves
 each quantizable layer's rule once, by its path in the reference's naming
 (``utils.weights.reference_module_path``), and attaches it; quantizers are
 created on first use in a calibration pass, as the reference creates its
 quantizer variables in ``model.init``; ``model.state_dict()`` then carries
-every committed amax.  Only the reference's int8-residency deploy rules are
-ported (static per-tensor activation scales from the histogram calibrator,
-dynamic per-channel weight scales); fake-quant, SmoothQuant and the other
-amax methods are not.
+every committed amax (and each static SmoothQuant conv's
+``sq_act_amax``).  Not ported (``_check_rule`` raises, naming
+``ROADMAP.md``): int8 deploy without residency or with SmoothQuant, the
+sparse gather-view SmoothQuant (VoxelNeXt), group quantization.
 
 Like the reference, whose ``quantize_model`` calls ``model.init`` on the
 example batch with the calibration state mutable, the statistics start
@@ -26,8 +32,37 @@ import copy
 
 import torch
 
-from .rules import LayerRule, QuantRules
+from .rules import LayerRule, QuantRules, SmoothQuantCfg
 from .tensor_quant import QuantSpec, TensorQuantizer
+
+
+def centerpoint_recipe(w_bits=8, act_bits=8, sq=True, alpha=0.5,
+                       static=False, extra_no_list=()):
+    """The reference's ``quant_centerpoint.py:74-131`` semantics:
+    - sparse 3D convs -> per-out-channel weights + per-IN-channel acts when
+      sq ('cw' flag), skipping the first conv (backbone_3d.conv_input);
+    - Conv2d -> SmoothQuant(alpha) (or plain fake-quant when sq=False),
+      skipping every detection-head output conv and the hm branches."""
+    dynamic = not static
+    calib = "histogram" if static else "max"
+    sparse_rule = LayerRule(
+        layer_kinds=("subm_conv3d", "sparse_conv3d"),
+        weight=QuantSpec(w_bits, axis=0, dynamic=True),
+        act=QuantSpec(act_bits, axis=1 if sq else None, dynamic=dynamic,
+                      calibrator="max" if sq else calib),
+    )
+    conv2d_rule = LayerRule(
+        layer_kinds=("conv2d",),
+        weight=QuantSpec(w_bits, axis=0, dynamic=True),
+        act=QuantSpec(act_bits, axis=None, dynamic=dynamic, calibrator=calib),
+        smoothquant=SmoothQuantCfg(alpha=alpha, dynamic=dynamic) if sq else None,
+    )
+    no_list = (
+        "backbone_3d.conv_input*",
+        "dense_head.heads_list_*.*_out",   # every branch's output conv
+        "dense_head.heads_list_*.hm_*",    # full-precision heatmap branch
+    ) + tuple(extra_no_list)
+    return QuantRules(rules=(sparse_rule, conv2d_rule), no_list=no_list)
 
 
 def int8_deploy_recipe(extra_no_list=(), quantize_first_conv=False):
@@ -62,16 +97,26 @@ def quantizable_modules(model):
     return [(n, m) for n, m in model.named_modules() if hasattr(m, "QUANT_KIND")]
 
 
-def _check_rule(rule, path):
-    """Only the int8-residency deploy rule is ported: static per-tensor act
-    scales, dynamic per-channel weight scales, no SmoothQuant."""
+def _check_rule(rule, path, kind):
+    """The rules ported: fake-quant (SmoothQuant on dense convs only) and
+    int8 deploy with residency (static per-tensor act scales, dynamic
+    per-channel weight scales, no SmoothQuant)."""
     if rule is None:
         return
-    if not (rule.deploy_int8 and rule.int8_residency) \
-            or rule.smoothquant is not None:
+    for spec in (rule.act, rule.weight):
+        if spec is not None and spec.group_size:
+            raise NotImplementedError(
+                f"{path}: group quantization is not ported (ROADMAP.md)")
+    if not rule.deploy_int8:
+        if rule.smoothquant is not None and kind != "conv2d":
+            raise NotImplementedError(
+                f"{path}: the sparse gather-view SmoothQuant (VoxelNeXt) is "
+                f"not ported (ROADMAP.md)")
+        return
+    if not rule.int8_residency or rule.smoothquant is not None:
         raise NotImplementedError(
-            f"{path}: only int8-residency deploy rules are ported (fake-quant, "
-            f"SmoothQuant and int8 without residency are not)")
+            f"{path}: int8 deploy is ported with int8 residency and without "
+            f"SmoothQuant only (ROADMAP.md)")
     if rule.act is None or rule.act.axis is not None or rule.act.dynamic:
         raise ValueError(f"{path}: int8 residency needs static per-tensor "
                          f"act scales")
@@ -104,7 +149,7 @@ def quantize_model(model, rules, example_batch):
         if path is None:
             raise KeyError(f"no reference path for quantizable module {name}")
         rule = rules.lookup(path, mod.QUANT_KIND)
-        _check_rule(rule, path)
+        _check_rule(rule, path, mod.QUANT_KIND)
         mod.rule = rule
     for mod in model.modules():
         if isinstance(mod, (BatchNorm, SparseBatchNorm)):
@@ -114,7 +159,7 @@ def quantize_model(model, rules, example_batch):
     model.load_state_dict(_seed_state(model), strict=True)
     _calibration_pass(model, example_batch, eager=True)
     res = model.load_state_dict(float_state, strict=False)
-    if res.unexpected_keys or any(not k.endswith(".amax")
+    if res.unexpected_keys or any(not k.endswith("amax")
                                   for k in res.missing_keys):
         raise RuntimeError(f"restoring the float weights: {res}")
     return model
@@ -136,9 +181,10 @@ def _calibration_pass(model, batch, eager=False):
 
 def collect_stats(model, batches, num_batches=200):
     """Run calibration batches (the reference's single-stream
-    ``collect_stats``): every quantizer records its inputs; int8 layers
-    quantize with each batch's own amax, so a layer's statistics are taken
-    on the int8 output of the layers before it."""
+    ``collect_stats``): every quantizer records its inputs.  Fake-quant
+    layers pass their inputs through unquantized; int8 layers quantize with
+    each batch's own amax, so a layer's statistics are taken on the int8
+    output of the layers before it."""
     for i, batch in enumerate(batches):
         if i >= num_batches:
             break
@@ -146,12 +192,18 @@ def collect_stats(model, batches, num_batches=200):
     return model
 
 
-def compute_amax(model):
+def compute_amax(model, method="max", **kwargs):
     """Commit every quantizer's amax from its calibration state (the
-    reference's method "max")."""
+    reference's ``compute_amax`` / ``resolve_amax``): a histogram quantizer
+    by ``method`` ("max", "percentile", "mse" or "entropy"; ``kwargs`` go
+    to ``calib.compute_amax_from_hist``), a max-only one by its running
+    absmax, and each static SmoothQuant conv's per-column ``sq_act_amax``
+    by its running ``sq_act_absmax``."""
     for mod in model.modules():
         if isinstance(mod, TensorQuantizer):
-            mod.commit_amax()
+            mod.commit_amax(method, **kwargs)
+        elif "sq_act_absmax" in getattr(mod, "_buffers", {}):
+            mod.sq_act_amax.copy_(mod.sq_act_absmax)
     return model
 
 

@@ -1,5 +1,13 @@
-"""Integer quantization and its calibration state (port of the int path of
+"""Fake and integer quantization and their calibration state (port of
 ``q3d_tpu/quant/tensor_quant.py``).
+
+``fake_quant`` is the reference's quantize-dequantize (:78-95), op for op:
+``scale = bound / max(amax, 1e-12)`` (a true division: PyTorch's
+``scalar / tensor`` would multiply by the reciprocal),
+``clip(round_half_even(x * scale), min_bound, bound) / scale``, then the
+straight-through form ``x + (deq - x).detach()``.  The reference's jitted
+steps round it exactly as its eager ops do (pinned by
+``tests/test_torch_port_fakequant.py``), so it has no fused form.
 
 ``quantize_to_int`` divides by ``scale = max(amax, 1e-12) / 127`` and rounds
 half to even, as the reference does, and rounds where the reference does.
@@ -37,6 +45,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from .calib import compute_amax_from_hist
 
 NUM_HIST_BINS = 2048
 
@@ -98,6 +108,21 @@ def memo(owner, name, sources, fn):
     return hit[1]
 
 
+def fake_quant(x, amax, num_bits=8, unsigned=False, narrow_range=False,
+               axis=None):
+    """Quantize-dequantize with a straight-through gradient (reference
+    ``fake_quant``): symmetric range, round half to even, clamp to
+    [min_bound, bound]; any ``num_bits`` (the sweeps use 2..16)."""
+    bound = (2.0 ** num_bits - 1.0) if unsigned \
+        else (2.0 ** (num_bits - 1) - 1.0)
+    min_bound = (1.0 - bound) if (not unsigned and narrow_range) \
+        else (-bound if not unsigned else 0.0)
+    amax_b = _broadcast_amax(amax, x, axis).clamp_min(1e-12)
+    scale = torch.div(amax_b.new_tensor(bound), amax_b)
+    deq = torch.clamp(torch.round(x * scale), min_bound, bound) / scale
+    return x + (deq - x).detach()
+
+
 def quantize_with_scale(x, scale):
     """clip(round(x / scale), -127, 127) as int8, computed in the promotion
     of x's and scale's dtypes."""
@@ -124,19 +149,34 @@ def quantize_to_int(x, amax, num_bits=8, axis=None, fused=True):
 
 
 class TensorQuantizer(nn.Module):
-    """int-mode quantizer: ``forward(x, calibrating) -> (int8, scale)``.
+    """A quantizer with its committed ``amax`` and calibration state.
 
-    A dynamic spec quantizes with each batch's amax.  A static spec
-    quantizes with the committed ``amax`` and raises if it was never
-    calibrated (the reference would quantize with amax 0 and give
-    garbage)."""
+    ``mode="int"``: ``forward(x, calibrating) -> (int8, scale)``.  A dynamic
+    spec quantizes with each batch's amax; while calibrating it records the
+    batch and quantizes with the batch's amax.  A static spec quantizes with
+    the committed ``amax`` and raises if it was never calibrated (the
+    reference would quantize with amax 0 and give garbage).
 
-    def __init__(self, spec: QuantSpec, amax_shape=(), device=None):
+    ``mode="fake"`` (reference :104-173): ``forward(x, calibrating) -> x``
+    quantize-dequantized.  A dynamic spec takes each batch's amax (per
+    tensor or per ``axis``); while calibrating every spec records the batch
+    and passes ``x`` through unquantized; a static spec takes the committed
+    ``amax``, and passes ``x`` through while that is 0 (never calibrated)."""
+
+    def __init__(self, spec: QuantSpec, amax_shape=(), device=None,
+                 mode="int"):
         super().__init__()
-        if spec.group_size or spec.unsigned or spec.narrow_range:
+        if spec.group_size:
             raise NotImplementedError(
-                "group, unsigned and narrow-range quantizers are not ported")
+                "group quantization (GQConv3d) is not ported; see ROADMAP.md")
+        if mode == "int" and (spec.unsigned or spec.narrow_range
+                              or spec.num_bits != 8):
+            raise NotImplementedError(
+                "int mode is signed 8-bit, full range")
+        if mode not in ("int", "fake"):
+            raise ValueError(f"unknown quantizer mode {mode!r}")
         self.spec = spec
+        self.mode = mode
         self.register_buffer("amax", torch.zeros(amax_shape, device=device))
         self.register_buffer("absmax", torch.zeros(amax_shape, device=device),
                              persistent=False)
@@ -153,21 +193,47 @@ class TensorQuantizer(nn.Module):
         self.calibrated = False
 
     def forward(self, x, calibrating=False, fused=True):
+        if self.mode == "fake":
+            return self._fake(x, calibrating)
         spec = self.spec
         if spec.dynamic and not calibrating:
             return quantize_to_int(x, _reduce_amax(x, spec.axis), spec.num_bits,
                                    spec.axis, fused)
         if calibrating:
-            batch_amax = _reduce_amax(x, spec.axis)
-            self.absmax = torch.maximum(self.absmax, batch_amax.float())
-            if spec.calibrator == "histogram":
-                self._update_histogram(x.abs().reshape(-1), batch_amax.float())
+            batch_amax = self._record(x)
             if fused:          # XLA keeps a bf16 batch's amax in f32
                 batch_amax = batch_amax.float()
             return quantize_to_int(x, batch_amax.clamp_min(1e-12),
                                    spec.num_bits, spec.axis, fused)
         scale = _broadcast_amax(self.scale(), x, spec.axis)
         return quantize_with_scale(x, scale), scale
+
+    def _fake(self, x, calibrating):
+        spec = self.spec
+        if not spec.enabled:
+            return x
+        if spec.dynamic and not calibrating:
+            return fake_quant(x, _reduce_amax(x, spec.axis).detach(),
+                              spec.num_bits, spec.unsigned, spec.narrow_range,
+                              spec.axis)
+        if calibrating:
+            self._record(x)
+            return x
+        if not memo(self, "committed", (self.amax,),
+                    lambda: bool((self.amax > 0).all())):
+            return x
+        return fake_quant(x, self.amax, spec.num_bits, spec.unsigned,
+                          spec.narrow_range, spec.axis)
+
+    def _record(self, x):
+        """Fold a calibration batch into the running absmax (and the
+        histogram) -> the batch's amax, in x's dtype."""
+        batch_amax = _reduce_amax(x, self.spec.axis).detach()
+        self.absmax = torch.maximum(self.absmax, batch_amax.float())
+        if self.spec.calibrator == "histogram":
+            self._update_histogram(x.detach().abs().reshape(-1),
+                                   batch_amax.float())
+        return batch_amax
 
     def scale(self):
         """The committed scale, max(amax, 1e-12) / 127 (f32; see
@@ -203,14 +269,15 @@ class TensorQuantizer(nn.Module):
             0, idx, torch.ones_like(idx, dtype=rebinned.dtype))
         self.bin_width = new_width
 
-    def commit_amax(self):
+    def commit_amax(self, method="max", **kwargs):
         """Resolve the calibration state into ``amax`` (the reference's
-        ``resolve_amax`` with ``compute_amax_from_hist(method="max")``)."""
+        ``resolve_amax``): a histogram quantizer by
+        ``calib.compute_amax_from_hist(method, **kwargs)``, a max-only one
+        by its running absmax."""
         if self.spec.calibrator == "histogram":
-            nz = torch.nonzero(self.hist).reshape(-1)
-            top = float((int(nz[-1]) + 1) * float(self.bin_width)) \
-                if len(nz) else 0.0
-            amax = torch.tensor(top, dtype=torch.float32)
+            amax = torch.tensor(compute_amax_from_hist(
+                self.hist.cpu().numpy(), float(self.bin_width), method=method,
+                **kwargs), dtype=torch.float32)
         else:
             amax = self.absmax
         self.amax.copy_(amax.reshape(self.amax.shape))
@@ -233,34 +300,47 @@ def rescale(s_in, w, axis, fused=True):
 
 
 class QuantLayer:
-    """Mixin of a quantizable layer: the int8-residency deploy rule
-    ``quant.api.quantize_model`` attached (None = the layer stays float),
-    the flags its calibration passes set (``calibrating``; ``eager`` in the
-    seed pass, which rounds as the reference's un-jitted ``model.init``
-    does), and its quantizers, created as child modules on first use while
-    calibrating (as the reference declares its quantizer variables in
-    ``model.init``)."""
+    """Mixin of a quantizable layer: the rule ``quant.api.quantize_model``
+    attached (None = the layer stays float; a fake-quant rule, with or
+    without SmoothQuant; or an int8-residency deploy rule), the flags its
+    calibration passes set (``calibrating``; ``eager`` in the seed pass,
+    which rounds as the reference's un-jitted ``model.init`` does), and its
+    quantizers, created as child modules on first use while calibrating (as
+    the reference declares its quantizer variables in ``model.init``)."""
     rule = None
     calibrating = False
     eager = False
 
     @property
     def residency(self):
-        """True under an int8-residency deploy rule (the only rules
-        ``quantize_model`` attaches)."""
-        return self.rule is not None
+        """True under an int8-residency deploy rule."""
+        return self.rule is not None and self.rule.deploy_int8 \
+            and self.rule.int8_residency
+
+    @property
+    def fake(self):
+        """True under a fake-quant rule (no int8 deploy)."""
+        return self.rule is not None and not self.rule.deploy_int8
 
     def quantize(self, name, spec, x):
-        """(int8, scale) from quantizer ``name`` (created while calibrating)."""
+        """(int8, scale) from int-mode quantizer ``name`` (created while
+        calibrating)."""
         return self.quantizer(name, spec, x)(x, self.calibrating,
                                              not self.eager)
+
+    def fake_quantize(self, name, spec, x):
+        """``x`` quantize-dequantized by fake-mode quantizer ``name`` (None
+        spec: ``x`` as it is)."""
+        if spec is None:
+            return x
+        return self.quantizer(name, spec, x, "fake")(x, self.calibrating)
 
     def constant(self, name, sources, fn):
         """An int8 constant of this layer: ``fn()`` while calibrating (the
         quantizers record), else kept by ``memo``."""
         return fn() if self.calibrating else memo(self, name, sources, fn)
 
-    def quantizer(self, name, spec, like):
+    def quantizer(self, name, spec, like, mode="int"):
         q = self._modules.get(name)
         if q is None:
             if not self.calibrating:
@@ -268,6 +348,6 @@ class QuantLayer:
                     f"{type(self).__name__}.{name} was never calibrated: run "
                     f"quant.api.quantize_model (and collect_stats) first")
             shape = () if spec.axis is None else (like.shape[spec.axis % like.dim()],)
-            q = TensorQuantizer(spec, shape, like.device)
+            q = TensorQuantizer(spec, shape, like.device, mode)
             self.add_module(name, q)
         return q

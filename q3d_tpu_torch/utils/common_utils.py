@@ -31,3 +31,22 @@ def mask_points_by_range(points, limit_range):
 def keep_arrays_by_name(gt_names, used_classes):
     inds = [i for i, name in enumerate(gt_names) if name in used_classes]
     return np.array(inds, dtype=np.int64)
+
+
+class AverageMeter:
+    """Running mean of a host-side measurement."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.val = 0.0
+        self.avg = 0.0
+        self.sum = 0.0
+        self.count = 0
+
+    def update(self, val, n=1):
+        self.val = val
+        self.sum += val * n
+        self.count += n
+        self.avg = self.sum / max(self.count, 1)

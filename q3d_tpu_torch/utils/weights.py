@@ -12,7 +12,8 @@ tensors in the port's layouts:
   * the ``quant`` collection's amax leaves -> the quantizer buffers of an
     int8 model (``quant.api``): a conv's ``act_quant`` / ``weight_quant``
     stay on the conv, a block's ``out_quant{i}`` goes to the conv ``conv{i}``
-    it requantizes, ``shared_requant/quant`` to the head's DenseRequant.
+    it requantizes, ``shared_requant/quant`` to the head's DenseRequant,
+    a static SmoothQuant conv's ``sq_act_amax`` to that conv.
 
 ``model.load_state_dict(state_dict_from_jax(v), strict=True)`` loads them.
 ``reference_module_path`` is the inverse for the quantizable modules: the
@@ -113,17 +114,25 @@ def pcdet_name(path, out_index):
         return _quant_name(module, mod_toks, leaf, out_index)
     if coll not in ("params", "batch_stats") or leaf not in _LEAF:
         return None
-    r = _module_rules(module, [t for t in mod_toks if t != "bn"])
-    if r is None:
-        return None
+    r = _port_module(module, [t for t in mod_toks if t != "bn"], out_index)
+    return None if r is None else f"{module}.{r}.{_LEAF[leaf]}"
+
+
+def _port_module(module, toks, out_index):
+    """``_module_rules`` with a branch's output conv resolved to its slot."""
+    r = _module_rules(module, toks)
     if isinstance(r, tuple):
         _, head, branch = r
         r = f"heads_list.{head}.{branch}.{out_index(head, branch)}"
-    return f"{module}.{r}.{_LEAF[leaf]}"
+    return r
 
 
 def _quant_name(module, mod_toks, leaf, out_index):
-    """quant/<module>/.../<quantizer>/amax -> the port's buffer name."""
+    """quant/<module>/.../<quantizer>/amax, or a static SmoothQuant conv's
+    quant/<module>/.../<conv>/sq_act_amax -> the port's buffer name."""
+    if leaf == "sq_act_amax" and mod_toks:
+        r = _port_module(module, mod_toks, out_index)
+        return None if r is None else f"{module}.{r}.sq_act_amax"
     if leaf != "amax" or not mod_toks:
         return None
     *toks, qname = mod_toks
@@ -132,13 +141,8 @@ def _quant_name(module, mod_toks, leaf, out_index):
         toks, qname = toks + [f"conv{m.group(1)}"], "out_quant"
     elif qname not in ("act_quant", "weight_quant", "quant"):
         return None
-    r = _module_rules(module, toks)
-    if r is None:
-        return None
-    if isinstance(r, tuple):
-        _, head, branch = r
-        r = f"heads_list.{head}.{branch}.{out_index(head, branch)}"
-    return f"{module}.{r}.{qname}.amax"
+    r = _port_module(module, toks, out_index)
+    return None if r is None else f"{module}.{r}.{qname}.amax"
 
 
 # port module path -> reference module path (the quantizable modules)

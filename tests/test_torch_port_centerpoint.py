@@ -157,8 +157,8 @@ def test_ref_width_state_dict_loads_strictly():
 
 def test_package_never_imports_jax():
     """Import every module of the port, the quant package included (and
-    chip_smoke.py), in a fresh interpreter: neither jax, flax nor the JAX
-    package gets loaded."""
+    chip_smoke.py), in a fresh interpreter: neither jax, flax, msgpack nor
+    the JAX package gets loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import q3d_tpu_torch\n"
@@ -168,7 +168,7 @@ def test_package_never_imports_jax():
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'q3d_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'msgpack', 'q3d_tpu'))\n"
         "print(len(mods), bad)\n"
         "quant = [m for m in mods if m.startswith('q3d_tpu_torch.quant.')]\n"
         "sys.exit(1 if bad or len(mods) < 45 or len(quant) < 3 else 0)\n")

@@ -13,6 +13,7 @@ initial weights for the seed pass (the reference's ``quantize_model`` runs
 """
 
 import copy
+import pickle
 from unittest import mock
 
 import flax
@@ -93,8 +94,29 @@ def _arrays(x):
 
 
 def reference(recipe):
-    """-> dict: float variables, initial variables, the committed quant
-    tree, per-layer records {path: (input, output)}, final outputs."""
+    """The int8 deploy recipe ``recipe`` (residency), calibrated on the
+    batch given twice, method "max" -> see ``_reference_run``."""
+    return _reference_run(
+        lambda: jax_quant.int8_deploy_recipe(residency=True, **recipe),
+        calib_batches=2, method="max")
+
+
+def reference_fake(recipe, calib_batches=0, method="max", jit_init=False):
+    """``centerpoint_recipe(**recipe)``, calibrated on the batch given
+    ``calib_batches`` times (0: dynamic, none) -> see ``_reference_run``.
+    ``jit_init``: build the quantized variables with a jitted
+    ``model.init`` under the rules instead of ``quantize_model``'s eager
+    one (the same tree; only the seed pass's calibration state may round
+    differently)."""
+    return _reference_run(lambda: jax_quant.centerpoint_recipe(**recipe),
+                          calib_batches, method, jit_init)
+
+
+def reference_model(template=True):
+    """The reference's centerpoint_tiny model with the trained fixture, its
+    first test batch (frames 0-1) and (``template``) its initial variables,
+    whose jitted ``model.init`` also gives ``load_checkpoint`` its tree;
+    without, the fixture is read by flax's ``msgpack_restore`` alone."""
     cfg = jax_cfg_from_yaml(str(CFG_DIR / "centerpoint_tiny.yaml"), JaxEDict())
     ds, loader, _ = jax_build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
                                          batch_size=2, training=False)
@@ -102,14 +124,40 @@ def reference(recipe):
                               dataset=ds)
     raw = next(iter(loader))
     batch = jax_load_data_to_device(raw)
+    ref = {"raw": raw, "cfg": cfg, "model": model, "batch": batch}
+    if not template:
+        with open(CKPT, "rb") as f:
+            variables = flax.serialization.msgpack_restore(
+                pickle.load(f)["model_state"])
+        return {**ref, "variables": variables, "float": _np(variables)}
     template = jax.jit(lambda k, b: model.init(k, b, train=False))(
         jax.random.PRNGKey(0), batch)
     variables, _, _, _ = load_checkpoint(str(CKPT), template)
-    rules = jax_quant.int8_deploy_recipe(residency=True, **recipe)
-    v8 = jax_quant.quantize_model(model, variables, rules, batch)
-    v8 = jax_quant.collect_stats(model, v8, rules, [batch] * 2, num_batches=2,
-                                 loader_to_device=lambda b: b)
-    v8 = jax_quant.compute_amax(v8, method="max")
+    return {**ref, "variables": variables,
+            "float": _np({k: variables[k] for k in ("params", "batch_stats")}),
+            "init": _np({k: template[k] for k in ("params", "batch_stats")})}
+
+
+def _reference_run(make_rules, calib_batches, method, jit_init=False):
+    """-> dict: float variables, initial variables, the committed quant
+    tree, per-layer records {path: (input, output)}, final outputs."""
+    ref = reference_model(template=not jit_init)
+    model, batch, variables = ref["model"], ref["batch"], ref.pop("variables")
+    rules = make_rules()
+    if jit_init:
+        with quant_rules_scope(rules):
+            v8 = dict(jax.jit(lambda k, b: model.init(k, b, train=False))(
+                jax.random.PRNGKey(0), batch))
+        ref["init"] = _np({k: v8[k] for k in ("params", "batch_stats")})
+        v8.update({k: variables[k] for k in ("params", "batch_stats")})
+    else:
+        v8 = jax_quant.quantize_model(model, variables, rules, batch)
+    if calib_batches:
+        v8 = jax_quant.collect_stats(model, v8, rules, [batch] * calib_batches,
+                                     num_batches=calib_batches,
+                                     loader_to_device=lambda b: b)
+        v8 = jax_quant.compute_amax(v8, method=method)
+    calib = _np(v8["calib"]) if calib_batches else None
     v8 = {k: v for k, v in v8.items() if k != "calib"}
 
     def apply(v, b):
@@ -121,9 +169,7 @@ def reference(recipe):
         return {k: out[k] for k in keep}, store
 
     out, store = jax.jit(apply)(v8, batch)
-    return {"raw": raw, "cfg": cfg,
-            "float": _np({k: variables[k] for k in ("params", "batch_stats")}),
-            "init": _np({k: template[k] for k in ("params", "batch_stats")}),
+    return {**ref, "calib": calib, "rules": rules, "vars": v8,
             "quant": _np(v8["quant"]),
             "layers": {p: (_arrays(i), _arrays(o)) for p, (i, o) in store.items()},
             "out": {k: np.asarray(v) for k, v in out.items()}}
@@ -131,16 +177,41 @@ def reference(recipe):
 
 def port(ref, recipe):
     """-> (port model calibrated by its own quant.api, its batch)."""
+    def prepare(model, batch):
+        port_quant.prepare_int8_deploy(model, [batch, batch],
+                                       recipe_kwargs=recipe)
+    return _port_run(ref, prepare)
+
+
+def port_fake(ref, recipe, calib_batches=0, method="max"):
+    """-> (port model under ``centerpoint_recipe(**recipe)``, calibrated by
+    its own quant.api as ``reference_fake`` calibrates, its batch)."""
+    def prepare(model, batch):
+        port_quant.quantize_model(model,
+                                  port_quant.centerpoint_recipe(**recipe), batch)
+        if calib_batches:
+            port_quant.collect_stats(model, [batch] * calib_batches,
+                                     calib_batches)
+            port_quant.compute_amax(model, method=method)
+    return _port_run(ref, prepare)
+
+
+def port_model(ref):
+    """-> (the port's float centerpoint_tiny with the reference's trained
+    weights, on the CPU, its first test batch)."""
     cfg = cfg_from_yaml_file(str(CFG_DIR / "centerpoint_tiny.yaml"), EDict())
     ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
                                      batch_size=2, training=False)
     model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device="cpu")
     model.load_state_dict(state_dict_from_jax(ref["float"]), strict=True)
-    batch = load_data_to_device(next(iter(loader)), device="cpu")
+    return model, load_data_to_device(next(iter(loader)), device="cpu")
+
+
+def _port_run(ref, prepare):
+    model, batch = port_model(ref)
     seed = state_dict_from_jax(ref["init"])
     with mock.patch.object(port_quant, "_seed_state", lambda _: seed):
-        port_quant.prepare_int8_deploy(model, [batch, batch],
-                                       recipe_kwargs=recipe)
+        prepare(model, batch)
     return model, batch
 
 
@@ -371,3 +442,115 @@ def check_detections_matched(out, jout, box_tol, score_tol):
                 (i, label, float(db[k]), float(ds[k]))
             worst = [max(worst[0], float(db[k])), max(worst[1], float(ds[k]))]
     return worst
+
+
+def _capacities(model, ref):
+    caps = _capacity_schedule(model.backbone_3d.model_cfg, 2 * int(
+        ref["raw"]["voxel_coords"].shape[1]))
+    return {"conv2_0": caps["x_conv2"], "conv3_0": caps["x_conv3"],
+            "conv4_0": caps["x_conv4"], "conv_out": caps["out"]}
+
+
+def conv_layers(model, ref):
+    """Every conv of the port (sparse and dense, quantized or not) fed the
+    reference's own input -> list of (reference path, quantized?, port
+    output, reference output), numpy, dense maps NHWC."""
+    from q3d_tpu_torch.models.layers import Conv2d
+    from q3d_tpu_torch.ops.spconv import SubMConv3d
+    from q3d_tpu_torch.utils.weights import reference_module_path
+
+    layers = ref["layers"]
+    caps = _capacities(model, ref)
+    results = []
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            path = reference_module_path(name)
+            if path not in layers:
+                continue
+            x, y = layers[path]
+            if isinstance(mod, SparseConv3d):
+                out = mod(_st(x), {}, caps[path.split(".")[1]]).features
+                want = y["features"]
+            elif isinstance(mod, SubMConv3d):
+                out, want = mod(_st(x), {}).features, y["features"]
+            elif isinstance(mod, Conv2d):
+                out, want = mod(_dense(x)).permute(0, 2, 3, 1), y
+            else:
+                continue
+            results.append((path, mod.rule is not None, out.numpy(), want))
+    return results
+
+
+def check_conv_layers(model, ref, expected, sparse_rtol, dense_rtol):
+    """Each conv fed the reference's own input: sparse convs and float
+    dense convs within ``sparse_rtol`` of the output's largest magnitude
+    (f32 summation order), quantized dense convs within ``dense_rtol`` ->
+    {path: relative max error}."""
+    results = conv_layers(model, ref)
+    assert len(results) == expected, [r[0] for r in results]
+    report = {}
+    for path, quantized, ours, theirs in results:
+        assert ours.shape == theirs.shape, path
+        err = float(np.abs(ours - theirs).max() / np.abs(theirs).max())
+        tol = dense_rtol if quantized and path.startswith(
+            ("backbone_2d", "dense_head")) else sparse_rtol
+        assert err <= tol, (path, err, tol)
+        report[path] = err
+    return report
+
+
+def check_detections_near(out, jout, box_tol, score_tol, min_score,
+                          max_count_diff, min_share):
+    """(d), as sets, for recipes whose float fake-quant flips roundings:
+    the valid counts differ by at most ``max_count_diff``, and at least
+    ``min_share`` of the valid detections of either run scoring >=
+    ``min_score`` have a partner of the same frame and label in the other
+    within ``box_tol`` and ``score_tol`` -> (matched share, worst box
+    diff, worst score diff)."""
+    assert abs(int(out["final_valid"].sum()) - int(jout["final_valid"].sum())) \
+        <= max_count_diff
+    worst = [0.0, 0.0]
+    n = matched = 0
+    for a, b in ((jout, out), (out, jout)):
+        for i in range(a["final_valid"].shape[0]):
+            va, vb = a["final_valid"][i], b["final_valid"][i]
+            for box, label, score in zip(a["final_boxes"][i][va],
+                                         a["final_labels"][i][va],
+                                         a["final_scores"][i][va]):
+                if score < min_score:
+                    continue
+                n += 1
+                same = b["final_labels"][i][vb] == label
+                if not same.any():
+                    continue
+                db = np.abs(b["final_boxes"][i][vb][same] - box).max(-1)
+                ds = np.abs(b["final_scores"][i][vb][same] - score)
+                k = int(np.argmin(db))
+                if db[k] <= box_tol and ds[k] <= score_tol:
+                    matched += 1
+                    worst = [max(worst[0], float(db[k])),
+                             max(worst[1], float(ds[k]))]
+    assert n > 10 and matched >= min_share * n, (matched, n)
+    return matched / n, *worst
+
+
+def float_copy(model):
+    """A copy of a quantized port model with every rule detached (float)."""
+    m = copy.deepcopy(model)
+    for _, mod in port_quant.quantizable_modules(m):
+        mod.rule = None
+    return m
+
+
+def reference_l1_rows(ref):
+    """The reference's ``layer_l1_diff`` rows on its quantized variables
+    and batch (its captures jitted, as its eval step is)."""
+    from q3d_tpu.quant import sensitivity as jax_sens
+    capture = jax_sens.capture_layer_outputs
+    jitted = jax.jit(lambda v, b, rules: capture(ref["model"], v, b,
+                                                 rules=rules),
+                     static_argnums=2)
+    with mock.patch.object(jax_sens, "capture_layer_outputs",
+                           lambda m, v, b, rules=None: jitted(v, b, rules)):
+        return jax_sens.layer_l1_diff(ref["model"], ref["vars"], ref["batch"],
+                                      ref["rules"], top=1000)
