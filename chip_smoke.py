@@ -75,7 +75,24 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
                 the detections compared; forward and stage times; the 12
                 BEV SmoothQuant convs (im2col + fake-quant + matmul) beside
                 cuDNN's bf16 conv;
- 10. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+ 10. deploy_int8 / kernel_conv_s8 — centerpoint_ref under the int8 deploy
+                recipes without residency: ``int8_deploy_recipe()``
+                (dynamic), ``(sq=True)`` and ``(static=True)`` (calibrated
+                on the first request given twice, entropy amax): launches of
+                one forward per entry, held to the recipe's layer counts;
+                kernels vs plain on the f32 request (every int8 map,
+                spatial_features and the detections equal); int8 and bf16
+                forwards in turns; device operations (``forward_trace``).
+                Then kernel 1's unfused s8 entry on the dynamic recipe's
+                real inputs, bit-equal to plain, beside its plain version,
+                gather + ``_int_mm`` and its bound;
+ 11. driver_tiny — the port's PTQ driver on the trained tiny fixture with
+                ``--deploy_int8`` and ``--deploy_int8 --no_sq``: fp32 NDS
+                equal to eval_gates', the quantized scores within the JAX
+                package's bound (mean |fp - q| < 0.05), NDS / mAP / drop;
+                eval_plain also names the first layer where a float run
+                differs between kernels and plain versions;
+ 12. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises and exits nonzero without the last line.  Without
 CUDA, or outside a checkout of the repo, it exits 1 and prints no result.
@@ -272,18 +289,21 @@ def stage_times(model, batch, reps=5):
 
 
 def kernel_launches(conv_k, nms_k):
-    """Launch counts of both kernels, by entry."""
+    """Launch counts of both kernels, by entry (and the int8 convs'
+    ``_int_mm`` calls, a library GEMM)."""
     from q3d_tpu_torch.models import layers as dense_layers
     from q3d_tpu_torch.ops.spconv import gather_conv
-    return {"sparse_gather_conv_f32": conv_k.launches["q3d_sparse_gather_conv_f32"],
-            "sparse_gather_conv_s8_requant":
-                conv_k.launches[gather_conv.REQUANT_ENTRY],
-            "sparse_gather_conv_other": sum(conv_k.launches.values())
-            - conv_k.launches["q3d_sparse_gather_conv_f32"]
-            - conv_k.launches[gather_conv.REQUANT_ENTRY],
-            "greedy_nms_boxes": nms_k.launches["q3d_greedy_nms_boxes"],
+    entries = {"sparse_gather_conv_f32": "q3d_sparse_gather_conv_f32",
+               "sparse_gather_conv_bf16": "q3d_sparse_gather_conv_bf16",
+               "sparse_gather_conv_s8": "q3d_sparse_gather_conv_s8",
+               "sparse_gather_conv_s8_requant": gather_conv.REQUANT_ENTRY}
+    out = {k: conv_k.launches[e] for k, e in entries.items()}
+    out["sparse_gather_conv_other"] = sum(conv_k.launches.values()) \
+        - sum(out.values())
+    return {**out, "greedy_nms_boxes": nms_k.launches["q3d_greedy_nms_boxes"],
             "greedy_nms_iou": nms_k.launches["q3d_greedy_nms"],
-            "int_mm_conv2d": dense_layers.INT_MM_CALLS["int8_conv2d"]}
+            "int_mm_conv2d": dense_layers.INT_MM_CALLS["int8_conv2d"],
+            "int_mm_conv2d_sq": dense_layers.INT_MM_CALLS["int8_conv2d_sq"]}
 
 
 def clear_launches(conv_k, nms_k):
@@ -322,6 +342,62 @@ def detections_near(a, b, min_score, box_tol, score_tol):
                         worst = [max(worst[0], float(db[k])),
                                  max(worst[1], float(ds[k]))]
     return n, matched, worst
+
+
+def first_difference(model, batch):
+    """One forward of ``model`` on ``batch`` through the kernels and through
+    the plain versions, every conv, BN and quantizer output recorded in
+    order -> the first one that differs (None if none does): its name,
+    whether its inputs were equal, the share of elements that differ, the
+    largest absolute difference, and that difference over the output's
+    largest magnitude, also in units in the last place of that magnitude
+    (an f32 sum taken in another order differs by a few of those; an
+    element's own ulps mean nothing where its sum cancels to near 0)."""
+    import torch
+    from q3d_tpu_torch.models.layers import BatchNorm, Conv2d
+    from q3d_tpu_torch.ops.spconv.modules import (SparseBatchNorm,
+                                                  SparseConv3d, SubMConv3d)
+    from q3d_tpu_torch.quant.tensor_quant import TensorQuantizer
+
+    def tensor(x):
+        x = x[0] if isinstance(x, tuple) else x
+        return (x.features if hasattr(x, "features") else x).detach().clone()
+    names = {m: n for n, m in model.named_modules()}
+    runs = {}
+    for impl in ("cuda", "plain"):
+        rec = []
+        hooks = [m.register_forward_hook(
+            lambda mod, args, out: rec.append(
+                (names[mod], tensor(args[0]), tensor(out))))
+            for m in model.modules()
+            if isinstance(m, (SubMConv3d, SparseConv3d, SparseBatchNorm,
+                              Conv2d, BatchNorm, TensorQuantizer))]
+        model.set_kernel_impl(impl)
+        try:
+            with torch.no_grad():
+                model(dict(batch))
+            torch.cuda.synchronize()
+        finally:
+            model.set_kernel_impl(None)
+            for h in hooks:
+                h.remove()
+        runs[impl] = rec
+    for (name, xk, yk), (_, xp, yp) in zip(runs["cuda"], runs["plain"]):
+        if torch.equal(yk, yp):
+            continue
+        a, b = yk.double(), yp.double()
+        diff = (a - b).abs()
+        row = {"layer": name, "inputs_equal": torch.equal(xk, xp),
+               "share_differing": float((diff > 0).double().mean()),
+               "max_abs": float(diff.max()),
+               "max_rel_to_scale": float(diff.max() / b.abs().max().clamp_min(
+                   1e-30))}
+        if yp.dtype == torch.float32:
+            top = yp.abs().max()
+            ulp = torch.nextafter(top, top.new_tensor(float("inf"))) - top
+            row["ulps_of_scale"] = float(diff.max() / ulp.double())
+        return row
+    return None
 
 
 def eval_gates(dev, conv_k, nms_k, mode):
@@ -377,7 +453,9 @@ def eval_gates(dev, conv_k, nms_k, mode):
         t0 = time.perf_counter()
         prepare(m)
         calib_s = time.perf_counter() - t0
-        runs = {}
+        # where the float runs first part, kernels against plain versions
+        runs = {} if tag.startswith("int8") \
+            else {"first_difference": first_difference(m, batch)}
         for impl in ("cuda", "plain"):
             m.set_kernel_impl(impl)
             clear_launches(conv_k, nms_k)
@@ -395,6 +473,8 @@ def eval_gates(dev, conv_k, nms_k, mode):
     summary, failed = {}, []
     for tag, r in results.items():
         row = {"calibration_s": r["calibration_s"]}
+        if "first_difference" in r:
+            row["first_difference"] = r["first_difference"]
         for impl in ("cuda", "plain"):
             res = r[impl]["res"]
             drop = (fp[impl]["NDS"] - res["NDS"]) / max(fp[impl]["NDS"], 1e-9)
@@ -451,7 +531,8 @@ def eval_gates(dev, conv_k, nms_k, mode):
                       calibration_s=row["calibration_s"])
         emit("eval_gates", **common, **row["cuda"])
         emit("eval_plain", **common, **row["plain"],
-             plain_vs_kernels=row["plain_vs_kernels"])
+             plain_vs_kernels=row["plain_vs_kernels"],
+             **{k: row[k] for k in ("first_difference",) if k in row})
     check(not failed, "eval gates: " + "; ".join(failed))
     return summary
 
@@ -583,6 +664,318 @@ def fakequant_ref(model, batch, conv_k, nms_k, mode, flush):
     emit("sq_conv2d_total", convs=len(rows), mode=mode(),
          **{k: sum(r[k] for r in rows)
             for k in ("sq_f32_ms", "cudnn_bf16_ms", "bound_ms")})
+    return out
+
+
+def sq_int8_conv2d(m, req, flush, mode):
+    """The BEV backbone's SmoothQuant int8 convs of ``m`` on their real
+    inputs of ``req``: each conv (f32 im2col, column scales, quantize,
+    ``_int_mm``, rescale) timed beside its ``_int_mm`` alone and beside
+    cuDNN's bf16 conv at its shapes, with the bound of its s8 GEMM ->
+    totals."""
+    import torch
+    from q3d_tpu_torch.models.layers import Conv2d
+    seen = []
+    convs = [c for c in m.backbone_2d.modules() if isinstance(c, Conv2d)]
+    hooks = [c.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args[0]))) for c in convs]
+    with torch.no_grad():
+        m(dict(req))
+    for h in hooks:
+        h.remove()
+    check(len(seen) == len(convs) > 0, f"sq_int8_conv2d: {len(seen)} of "
+                                       f"{len(convs)} BEV convs ran")
+    rows = []
+    with torch.no_grad():
+        for conv, x in seen:
+            o, c_in, kh, kw = conv.weight.shape
+            patches, (b_, ho, wo) = conv._unfold(x)
+            mm, kk = b_ * ho * wo, c_in * kh * kw
+            a8 = torch.randint(-127, 128, (mm, kk), dtype=torch.int8,
+                               device=x.device)
+            w8 = torch.randint(-127, 128, (o, kk), dtype=torch.int8,
+                               device=x.device)
+            xb = x.to(torch.bfloat16).contiguous()
+            wb = conv.weight.to(torch.bfloat16)
+            row = {"x": list(x.shape), "x_dtype": str(x.dtype),
+                   "w": list(conv.weight.shape), "stride": list(conv.stride),
+                   "gemm_mkn": [mm, kk, o],
+                   "ms": time_ms(lambda: conv._smoothquant_int8_conv(x),
+                                 reps=5, flush=flush),
+                   "int_mm_ms": time_ms(lambda: torch._int_mm(a8, w8.t()),
+                                        flush=flush),
+                   "cudnn_bf16_ms": time_ms(lambda: torch.nn.functional.conv2d(
+                       xb, wb, None, conv.stride, conv.padding), flush=flush)}
+            # the s8 GEMM's bound: its operands read once, the s32 written
+            nbytes = mm * kk + kk * o + 4 * mm * o
+            row["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_PER_S, 2.0 * mm * kk
+                                        * o / PEAK_OPS_PER_S["s8"])
+            rows.append(row)
+            emit("sq_int8_conv2d", **row)
+    total = {k: sum(r[k] for r in rows)
+             for k in ("ms", "int_mm_ms", "cudnn_bf16_ms", "bound_ms")}
+    emit("sq_int8_conv2d_total", convs=len(rows), mode=mode(), **total)
+    return total
+
+
+def deploy_int8(model, req16, req32, conv_k, nms_k, mode, strict_f32, flush):
+    """Phase ``deploy_int8``: centerpoint_ref (``model``: seeded weights, BN
+    calibrated) under the three int8 deploy recipes without residency:
+    ``int8_deploy_recipe()`` (dynamic, what tools/test.py --quant int8
+    runs), ``(sq=True)`` (the PTQ driver's --deploy_int8) and
+    ``(static=True)`` (calibrated on ``req16`` given twice, entropy amax).
+    Per recipe: one forward of the bf16 request with the launch counts zeroed
+    before and read after, held to the count of each entry the recipe's
+    layers give; the f32 request (TF32 off) through the kernels and through
+    the plain versions, every int8 map a quantizer emits, spatial_features
+    and the detections equal; forwards of the int8 and the bf16 model in
+    turns (CUDA events, the first round dropped); the device operations of
+    a forward (``forward_trace``).  -> (per-recipe summary, the unfused s8
+    entry's calls of one dynamic forward: (conv name, args))."""
+    import torch
+    from q3d_tpu_torch.models.layers import Conv2d
+    from q3d_tpu_torch.ops.spconv import modules as sp_modules
+    from q3d_tpu_torch.ops.spconv.modules import SparseConv3d, SubMConv3d
+    from q3d_tpu_torch.quant import api as quant_api
+    from q3d_tpu_torch.quant.tensor_quant import TensorQuantizer
+
+    recipes = {"dynamic": {}, "sq": {"sq": True}, "static": {"static": True}}
+    summary, s8_calls = {}, []
+    for tag, kw in recipes.items():
+        m = copy.deepcopy(model)
+        t0 = time.perf_counter()
+        quant_api.quantize_model(m, quant_api.int8_deploy_recipe(**kw), req16)
+        if kw.get("static"):
+            quant_api.collect_stats(m, [req16, req16], num_batches=2)
+            quant_api.compute_amax(m, method="entropy")
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        sparse = [c for c in m.modules()
+                  if isinstance(c, (SubMConv3d, SparseConv3d))]
+        dense8 = [c for c in m.modules() if isinstance(c, Conv2d)
+                  and c.rule is not None]
+        n_s8 = sum(c.rule is not None for c in sparse)
+        expected = {"sparse_gather_conv_s8": n_s8,
+                    "sparse_gather_conv_bf16": len(sparse) - n_s8,
+                    "greedy_nms_boxes": 1,
+                    "int_mm_conv2d_sq" if kw.get("sq") else "int_mm_conv2d":
+                        len(dense8)}
+        clear_launches(conv_k, nms_k)
+        with torch.no_grad():
+            out = m(dict(req16))
+        torch.cuda.synchronize()
+        launches = kernel_launches(conv_k, nms_k)
+        check({k: v for k, v in launches.items() if v}
+              == {k: v for k, v in expected.items() if v},
+              f"deploy_int8 {tag}: launches {launches}, expected {expected}")
+        check(all(torch.isfinite(out[k].float()).all() for k in
+                  ("spatial_features_2d", "final_boxes", "final_scores")),
+              f"deploy_int8 {tag}: non-finite outputs")
+        valid = out["final_valid"].sum(1).tolist()
+        if tag == "dynamic":
+            # the unfused s8 entry's calls, by conv, for kernel_conv_s8
+            names = {c: n for n, c in m.named_modules()}
+            current = [None]
+            real = sp_modules.sparse_gather_conv
+
+            def rec(*args, **kwargs):
+                if args[0].dtype == torch.int8:
+                    s8_calls.append((current[0], args))
+                return real(*args, **kwargs)
+            hooks = [c.register_forward_pre_hook(
+                lambda mod, a: current.__setitem__(0, names[mod]))
+                for c in sparse]
+            sp_modules.sparse_gather_conv = rec
+            try:
+                with torch.no_grad():
+                    m(dict(req16))
+            finally:
+                sp_modules.sparse_gather_conv = real
+                for h in hooks:
+                    h.remove()
+            check(len(s8_calls) == n_s8, f"deploy_int8: {len(s8_calls)} s8 "
+                                         f"calls recorded, expected {n_s8}")
+
+        # kernels vs plain on the f32 request: exact
+        strict_f32(True)
+        grabbed = {"cuda": [], "plain": []}
+        impl_now = [None]
+        qnames = {q: n for n, q in m.named_modules()
+                  if isinstance(q, TensorQuantizer)}
+        hooks = [q.register_forward_hook(
+            lambda mod, a, o: grabbed[impl_now[0]].append((qnames[mod], o)))
+            for q, n in qnames.items() if not n.endswith("weight_quant")]
+        outs, plain_launches = {}, None
+        try:
+            with torch.no_grad():
+                for impl in ("cuda", "plain"):
+                    impl_now[0] = impl
+                    m.set_kernel_impl(impl)
+                    clear_launches(conv_k, nms_k)
+                    outs[impl] = m(dict(req32))
+                    torch.cuda.synchronize()
+                    plain_launches = kernel_launches(conv_k, nms_k)
+        finally:
+            m.set_kernel_impl(None)
+            for h in hooks:
+                h.remove()
+        strict_f32(False)
+        check(not any(plain_launches.values()),
+              f"deploy_int8 {tag}: the plain run launched {plain_launches}")
+        gk, gp = grabbed["cuda"], grabbed["plain"]
+        check(len(gk) == len(gp) > 0 and [n for n, _ in gk] == [n for n, _ in gp]
+              and all(o[0].dtype == torch.int8 for _, o in gk),
+              f"deploy_int8 {tag}: int8 maps {len(gk)} vs {len(gp)}")
+        bad = [n for (n, a), (_, b) in zip(gk, gp)
+               if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))]
+        check(not bad, f"deploy_int8 {tag}: int8 maps differ at {bad[:5]}")
+        for key in ("spatial_features", "final_boxes", "final_scores",
+                    "final_labels", "final_valid"):
+            check(torch.equal(outs["cuda"][key], outs["plain"][key]),
+                  f"deploy_int8 {tag}: {key} differs, kernels vs plain")
+
+        sq_total = sq_int8_conv2d(m, req16, flush, mode) if kw.get("sq") \
+            else None
+
+        # the int8 and the bf16 model in turns, CUDA events
+        fwd = {"int8": [], "bf16": []}
+        with torch.no_grad():
+            for _ in range(6):
+                for t_, mdl in (("int8", m), ("bf16", model)):
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    torch.cuda.synchronize()
+                    a.record()
+                    mdl(dict(req16))
+                    b.record()
+                    torch.cuda.synchronize()
+                    fwd[t_].append(a.elapsed_time(b))
+        med = {k: statistics.median(v[1:]) for k, v in fwd.items()}
+        args = ", ".join(f"{k}={v}" for k, v in kw.items())
+        summary[tag] = {"recipe": f"int8_deploy_recipe({args})",
+                        "prepare_s": prep_s, "launches": launches,
+                        "expected_launches": expected,
+                        "int8_maps_equal": len(gk), "forward_ms": med["int8"],
+                        "bf16_forward_ms": med["bf16"],
+                        "int8_vs_bf16": med["bf16"] / med["int8"],
+                        "valid_detections": valid,
+                        "trace": forward_trace(m, req16),
+                        **({} if sq_total is None
+                           else {"bev_sq_int8_conv2d": sq_total})}
+        emit("deploy_int8", config=CFG.name, batch=BATCH, mode=mode(),
+             equal="every int8 map a quantizer emits, spatial_features and "
+                   "final boxes/scores/labels/valid, kernels vs plain (f32 "
+                   "request, exact)", timed="bf16 request, in turns",
+             **summary[tag])
+        del m
+    return summary, s8_calls
+
+
+def kernel_conv_s8(s8_calls, flush, mode):
+    """Phase ``kernel_conv_s8``: kernel 1's unfused s8 entry on the real
+    int8 features, books, weights, rescales and row masks of one forward
+    under ``int8_deploy_recipe()``: bit-equal to its plain version, and
+    timed beside it, beside the library form (gather + ``torch._int_mm``,
+    the s32 sums without the rescale) and beside its bound.  -> totals."""
+    import torch
+    from q3d_tpu_torch.ops.spconv import gather_conv
+    totals = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bytes_ms", "ops_ms")}
+    with torch.no_grad():
+        for name, (f, idx, wq, osc, valid) in s8_calls:
+            n, cin = f.shape
+            m, k = idx.shape
+            cout = wq.shape[2]
+            y_k = gather_conv.gather_conv_cuda(f, idx, wq, osc, valid)
+            y_p = gather_conv.gather_conv_plain(f, idx, wq, osc, valid)
+            torch.cuda.synchronize()
+            check(torch.equal(y_k, y_p), f"{name} s8: kernel != plain")
+            present = (idx >= 0) & (idx < n)
+            n_present = int(present.sum())
+            rows_read = int(torch.unique(idx[present]).numel())
+            flatq = torch.cat([f, f.new_zeros((1, cin))])
+            safe = torch.where(present, idx.long(), n).reshape(-1)
+            wq2 = wq.reshape(k * cin, cout)
+            row = {"conv": name, "N": n, "M": m, "K": k, "Cin": cin,
+                   "Cout": cout, "present_taps": n_present,
+                   "ms": time_ms(lambda: gather_conv.gather_conv_cuda(
+                       f, idx, wq, osc, valid), flush=flush),
+                   "plain_ms": time_ms(lambda: gather_conv.gather_conv_plain(
+                       f, idx, wq, osc, valid), reps=5, flush=flush),
+                   "library_ms": time_ms(lambda: torch._int_mm(
+                       flatq[safe].reshape(m, k * cin), wq2), flush=flush)}
+            # inputs read once (the rows the book uses, the book, the
+            # weights, the rescale, the row mask), the f32 output written
+            # once; the present taps' operations
+            nbytes = rows_read * cin + m * k * 4 + k * cin * cout \
+                + 4 * cout + m + 4 * m * cout
+            row["bytes_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
+            row["ops_ms"] = 1e3 * 2.0 * n_present * cin * cout \
+                / PEAK_OPS_PER_S["s8"]
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            emit("kernel_conv_s8", **row)
+            for key in totals:
+                totals[key] += row[key]
+    totals["bound_by"] = "bytes" if totals["bytes_ms"] >= totals["ops_ms"] \
+        else "operations"
+    emit("kernel_conv_s8_total", convs=len(s8_calls), **totals,
+         recipe="int8_deploy_recipe()", mode=mode(), max_abs_err=0,
+         tolerance="bit-exact (f32 outputs of exact s32 sums, equal)",
+         library="gather + torch._int_mm (the s32 sums without the rescale)")
+    return totals
+
+
+def driver_tiny(conv_k, nms_k, mode, fp32_nds):
+    """Phase ``driver_tiny``: the port's PTQ driver
+    (``q3d_tpu_torch.tools.quant_driver``) on the trained centerpoint_tiny
+    fixture on the card, nuScenes metric, with ``--deploy_int8`` and with
+    ``--deploy_int8 --no_sq``: fp32 and quantized NDS / mAP and the relative
+    drop; fp32 NDS equal to this run's ``eval_gates`` fp32 NDS within 1e-6;
+    the quantized final scores within the JAX package's bound for the
+    recipe (``tests/test_quant_model_e2e.py:72``: mean |fp - q| < 0.05);
+    launches counted over the run (fp32 eval, the seed pass, the quantized
+    eval)."""
+    import numpy as np
+    from q3d_tpu_torch.tools import quant_driver
+    out = {}
+    for tag, extra in (("deploy_int8", []), ("deploy_int8_no_sq", ["--no_sq"])):
+        frames = {}
+        clear_launches(conv_k, nms_k)
+        t0 = time.perf_counter()
+        fp, q = quant_driver.run(argv=[
+            "--cfg_file", str(TINY_CFG), "--ckpt", str(CKPT), "--deploy_int8",
+            *extra, "--device", "cuda",
+            "--set", "MODEL.POST_PROCESSING.EVAL_METRIC", "nuscenes"],
+            frames=frames)
+        run_s = time.perf_counter() - t0
+        launches = kernel_launches(conv_k, nms_k)
+        n = len(frames["fp"])
+        score_diff = float(np.mean([
+            np.abs(a["final_scores"] - b["final_scores"]).mean()
+            for a, b in zip(frames["fp"], frames["quant"])]))
+        row = {"fp32": {"NDS": fp["NDS"], "mAP": fp["mAP"]},
+               "quant": {"NDS": q["NDS"], "mAP": q["mAP"],
+                         "infer_time_ms": q["infer_time_ms"]},
+               "rel_nds_drop": (fp["NDS"] - q["NDS"]) / fp["NDS"],
+               "mean_abs_score_diff": score_diff, "batches": n,
+               "launches": launches, "run_s": run_s,
+               "eval_gates_fp32_nds": fp32_nds}
+        # fp32 eval: 21 f32 convs a batch; the seed pass and the quantized
+        # eval: conv_input in f32, 20 s8 convs; one NMS a forward
+        want = {"sparse_gather_conv_f32": 21 * n + 1 + n,
+                "sparse_gather_conv_s8": 20 * (n + 1),
+                "greedy_nms_boxes": 2 * n + 1}
+        check({k: launches[k] for k in want} == want,
+              f"driver_tiny {tag}: launches {launches}, expected {want}")
+        check(abs(fp["NDS"] - fp32_nds) <= 1e-6,
+              f"driver_tiny {tag}: fp32 NDS {fp['NDS']} != eval_gates "
+              f"{fp32_nds}")
+        check(score_diff < 0.05, f"driver_tiny {tag}: mean |fp - q| score "
+                                 f"{score_diff} >= 0.05")
+        out[tag] = row
+        emit("driver_tiny", recipe=tag, config=TINY_CFG.name, mode=mode(),
+             score_bound="mean |fp - q| final_scores < 0.05 "
+                         "(tests/test_quant_model_e2e.py:72)", **row)
     return out
 
 
@@ -1404,11 +1797,19 @@ def main():
                "final boxes/scores/labels/valid, kernels vs plain (exact)")
     strict_f32(False)
 
+    # ============================== int8 deploy without residency
+    # the PTQ driver's and tools/test.py's recipes: dynamic, SmoothQuant and
+    # static, each sparse conv on kernel 1's unfused s8 entry
+    deploy, s8_calls = deploy_int8(model, batch0, batch_f32, conv_k, nms_k,
+                                   mode, strict_f32, flush)
+    s8_totals = kernel_conv_s8(s8_calls, flush, mode)
+
     # ================================= the accuracy gates and fake-quant
     # both in f32 with TF32 off, as the reference's eval_one_epoch runs
     strict_f32(True)
     gates = eval_gates(dev, conv_k, nms_k, mode)
     fakequant_ref(model, batch_f32, conv_k, nms_k, mode, flush)
+    driver = driver_tiny(conv_k, nms_k, mode, gates["fp32"]["cuda"]["NDS"])
     strict_f32(False)
 
     def per_recipe(key):
@@ -1440,6 +1841,22 @@ def main():
          "eval_launches": per_recipe("sparse_gather_conv_s8_requant"),
          "checks": "passed",
          "times_cover": "one int8 forward, bench recipe (21 residency convs)"},
+        {"name": "sparse_gather_conv_s8", "route": "cuda",
+         "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
+         "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",
+         "entry": "q3d_sparse_gather_conv_s8",
+         "launches": deploy["dynamic"]["launches"]["sparse_gather_conv_s8"],
+         "max_abs_err": 0.0, "ms": s8_totals["ms"],
+         "plain_ms": s8_totals["plain_ms"], "bound_ms": s8_totals["bound_ms"],
+         "bound_by": s8_totals["bound_by"],
+         "library_ms": s8_totals["library_ms"],
+         "launches_by_recipe": {tag: d["launches"]["sparse_gather_conv_s8"]
+                                for tag, d in deploy.items()},
+         "driver_launches": {tag: d["launches"]["sparse_gather_conv_s8"]
+                             for tag, d in driver.items()},
+         "checks": "passed",
+         "times_cover": "one int8 forward, int8_deploy_recipe() "
+                        f"({len(s8_calls)} convs)"},
         {"name": "greedy_nms", "route": "cuda",
          "source": "q3d_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "q3d_tpu/ops/iou3d_nms/pallas_nms.py:45",

@@ -55,12 +55,13 @@ def to_host(out):
 
 
 def eval_one_epoch(model, dataloader, dataset, class_names, cfg,
-                   device=None, per_frame=None):
+                   device=None, per_frame=None, compute_dtype=None):
     """Evaluate ``model`` over ``dataloader`` -> metrics dict (recall,
     the dataset's metrics, ``infer_time_ms``).  Runs on the card unless
     ``device="cpu"``; ``infer_time_ms`` is the host clock around a forward
     that ends in ``torch.cuda.synchronize()`` on the card.  ``per_frame``
-    (a list) receives each batch's host arrays, in order."""
+    (a list) receives each batch's host arrays, in order;
+    ``compute_dtype`` (e.g. bf16) casts the float inputs."""
     device = resolve_device(device)
     metric = {"gt_num": 0}
     thresh_list = list(cfg.MODEL.POST_PROCESSING.get("RECALL_THRESH_LIST",
@@ -76,7 +77,8 @@ def eval_one_epoch(model, dataloader, dataset, class_names, cfg,
     time_meter = AverageMeter()
     n_batches = len(dataloader)
     for i, raw in enumerate(dataloader):
-        batch = load_data_to_device(raw, device=device)
+        batch = load_data_to_device(raw, device=device,
+                                    compute_dtype=compute_dtype)
         sync()
         t0 = time.perf_counter()
         with torch.no_grad():

@@ -1,9 +1,11 @@
 """Dense BEV conv pyramid + transposed-conv upsample concat (port of
 ``q3d_tpu/models/backbones_2d/base_bev_backbone.py::BaseBEVBackbone``).
 NCHW; module slots follow pcdet's ``blocks`` / ``deblocks`` Sequentials.
-Under an int8-residency deploy rule a block folds each BN into its conv's
-requant epilogue and passes int8 ``QTensor``s on, also to the next block;
-each block's output is dequantized (to the input map's dtype) for the
+Under an int8 deploy rule without residency (SmoothQuant or not) each conv
+is int8 and returns its input's dtype to the float BN and ReLU after it.
+Under an int8-residency rule a block folds each BN into its conv's requant
+epilogue and passes int8 ``QTensor``s on, also to the next block; each
+block's output is dequantized (to the input map's dtype) for the
 deblocks."""
 
 import torch

@@ -6,10 +6,12 @@ them) and the (3,1,1) z-compressing conv_out.  Module names follow pcdet's,
 so a pcdet-named state dict loads strictly.  sparse_shape = [nz+1, ny, nx]
 like the reference's ``grid_size[::-1]+[1,0,0]``.
 
-Under an int8-residency deploy rule (``quant.api``) a block folds its BN
-into its conv's epilogue and the features stay int8 from conv to conv,
-each tensor carrying its ``feat_scale``; the output is dequantized (to
-bf16, as the reference does) before the BEV map.
+Under an int8 deploy rule without residency (``quant.api``) each conv is
+int8 and hands its f32 output to the block's float BN and ReLU.  Under an
+int8-residency rule a block folds its BN into its conv's epilogue and the
+features stay int8 from conv to conv, each tensor carrying its
+``feat_scale``; the output is dequantized (to bf16, as the reference does)
+before the BEV map.
 """
 
 import torch

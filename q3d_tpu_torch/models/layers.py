@@ -82,35 +82,48 @@ def _patches(x, kernel_size, stride, padding):
     return win.reshape(b * ho * wo, kh * kw * c), (b, ho, wo)
 
 
+def int8_matmul(a, b, impl=None, tag="int8_conv2d"):
+    """s8 (M, K) x s8 (K, N) -> s32 (M, N).
+
+    ``impl``: "cuda" (``torch._int_mm``, counted in ``INT_MM_CALLS[tag]``),
+    "plain" (an exact product: int32 on the CPU, f64 on the card, where
+    |sum| <= K*127^2 < 2^53), or None = by the tensors' device."""
+    if impl is None:
+        impl = "cuda" if a.is_cuda else "plain"
+    if impl == "cuda":
+        if not (a.is_cuda and a.shape[0] > 16 and a.shape[1] % 8 == 0
+                and b.shape[1] % 8 == 0):
+            raise ValueError(
+                f"int8_matmul: _int_mm needs CUDA tensors, M > 16 and K, N "
+                f"multiples of 8 (got {tuple(a.shape)} x {tuple(b.shape)})")
+        INT_MM_CALLS[tag] += 1
+        return torch._int_mm(a, b)
+    if impl == "plain":
+        acc = torch.int32 if a.device.type == "cpu" else torch.float64
+        return (a.to(acc) @ b.to(acc)).to(torch.int32)
+    raise ValueError(f"unknown impl {impl!r}")
+
+
 def int8_conv2d(x, w, stride, padding, impl=None):
     """s8 x s8 -> s32 conv: x (B, C, H, W) int8, w (O, C, kh, kw) int8 ->
-    (B, O, Ho, Wo) int32, an NCHW-shaped view of NHWC memory.
-
-    ``impl``: "cuda" (``torch._int_mm``), "plain" (an exact product: int32
-    on the CPU, f64 on the card, where |sum| <= kh*kw*C*127^2 < 2^53), or
-    None = by the tensors' device."""
-    if impl is None:
-        impl = "cuda" if x.is_cuda else "plain"
+    (B, O, Ho, Wo) int32, an NCHW-shaped view of NHWC memory: the im2col of
+    ``_patches``, then ``int8_matmul`` (``impl`` as there)."""
     a, (b, ho, wo) = _patches(x, w.shape[2:], stride, padding)
     wm = w.permute(0, 2, 3, 1).reshape(w.shape[0], -1)        # (O, kh*kw*C)
-    if impl == "cuda":
-        if not (x.is_cuda and a.shape[0] > 16 and a.shape[1] % 8 == 0
-                and wm.shape[0] % 8 == 0):
-            raise ValueError(
-                f"int8_conv2d: _int_mm needs CUDA tensors, M > 16 and K, N "
-                f"multiples of 8 (got {tuple(a.shape)} x {tuple(wm.shape)})")
-        out = torch._int_mm(a, wm.t())
-        INT_MM_CALLS["int8_conv2d"] += 1
-    elif impl == "plain":
-        acc = torch.int32 if a.device.type == "cpu" else torch.float64
-        out = (a.to(acc) @ wm.t().to(acc)).to(torch.int32)
-    else:
-        raise ValueError(f"unknown impl {impl!r}")
+    out = int8_matmul(a, wm.t(), impl)
     return out.view(b, ho, wo, -1).permute(0, 3, 1, 2)
 
 
 def _pair(v):
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+def smoothquant_scale(a_amax, w_amax, alpha):
+    """SmoothQuant's per-column scale migration,
+    max(act_amax^alpha / w_amax^(1-alpha), 1e-5), from the clamped column
+    amaxes of the patches and of the (K, O) weight."""
+    return torch.clamp_min(torch.pow(a_amax, alpha)
+                           / torch.pow(w_amax, 1.0 - alpha), 1e-5).detach()
 
 
 class Conv2d(QuantLayer, nn.Module):
@@ -138,26 +151,54 @@ class Conv2d(QuantLayer, nn.Module):
                 self.bias.fill_(self.bias_init)
 
     def forward(self, x):
-        if self.rule is None or self.fake:
-            # float (a residency chain feeding a float layer is dequantized
-            # first), on fake-quantized inputs under a fake-quant rule
+        rule = self.rule
+        if isinstance(x, QTensor) and not (
+                rule is not None and rule.deploy_int8
+                and rule.smoothquant is None):
+            # a residency chain feeding a float, fake-quant or SmoothQuant
+            # layer: real values first
             x = dequantize(x)
-            if self.fake and self.rule.smoothquant is not None:
+        if rule is None or self.fake:
+            # float, on fake-quantized inputs under a fake-quant rule
+            if self.fake and rule.smoothquant is not None:
                 y = self._smoothquant_conv(x)
                 y = y if self.bias is None else y + self.bias.reshape(1, -1, 1, 1)
                 return y.to(x.dtype)
             w = self.weight
             if self.fake:
-                wspec = self.rule.weight
+                wspec = rule.weight
                 if wspec is not None and wspec.axis is not None:
                     wspec = dataclasses.replace(wspec, axis=0)
                 w = self.fake_quantize("weight_quant", wspec, w)
-                x = self.fake_quantize("act_quant", self.rule.act, x)
+                x = self.fake_quantize("act_quant", rule.act, x)
             bias = None if self.bias is None else self.bias.to(x.dtype)
             return F.conv2d(x, w.to(x.dtype), bias, self.stride, self.padding)
-        # int8 residency: the raw f32 (+ bias) for the caller's epilogue
-        y = self._int8_conv(x)
-        return y if self.bias is None else y + self.bias.reshape(1, -1, 1, 1)
+        if rule.smoothquant is not None:
+            y = self._smoothquant_int8_conv(x)
+        else:
+            y = self._int8_conv(x)
+            if isinstance(x, QTensor) or rule.int8_residency:
+                # int8 residency: the raw f32 (+ bias) for the caller's
+                # epilogue
+                return y if self.bias is None \
+                    else y + self.bias.reshape(1, -1, 1, 1)
+        # without residency the input's dtype, cast before and after the
+        # (f32) bias as the reference casts
+        y = y.to(x.dtype)
+        if self.bias is not None:
+            y = (y + self.bias.reshape(1, -1, 1, 1)).to(x.dtype)
+        return y
+
+    def _unfold(self, x):
+        """im2col of a float NCHW map -> ((B, L, C*kh*kw) patches, columns
+        in (cin, kh, kw) order as the reference's, (B, Ho, Wo))."""
+        _, _, kh, kw = self.weight.shape
+        b, _, h, w_ = x.shape
+        (sh, sw), (ph, pw) = self.stride, self.padding
+        ho, wo = (h + 2 * ph - kh) // sh + 1, (w_ + 2 * pw - kw) // sw + 1
+        patches = F.unfold(x, (kh, kw), padding=self.padding,
+                           stride=self.stride).transpose(1, 2)
+        return patches, (b, ho, wo)
 
     def _smoothquant_conv(self, x):
         """im2col + SmoothQuant scale migration + fake-quant + GEMM (the
@@ -168,12 +209,8 @@ class Conv2d(QuantLayer, nn.Module):
         ``sq_act_amax`` (static); then the act is fake-quantized per tensor,
         the weight per output channel, and one f32 GEMM (the reference's
         ``einsum``, outside any Pallas kernel) -> (B, O, Ho, Wo)."""
-        o, _, kh, kw = self.weight.shape
-        b, _, h, w_ = x.shape
-        (sh, sw), (ph, pw) = self.stride, self.padding
-        ho, wo = (h + 2 * ph - kh) // sh + 1, (w_ + 2 * pw - kw) // sw + 1
-        patches = F.unfold(x, (kh, kw), padding=self.padding,
-                           stride=self.stride).transpose(1, 2)   # (B, L, K)
+        o = self.weight.shape[0]
+        patches, (b, ho, wo) = self._unfold(x)                    # (B, L, K)
         w2d = self.weight.reshape(o, -1).t()                      # (K, O)
         sq = self.rule.smoothquant
         w_amax = w2d.abs().amax(1).clamp_min(1e-5)
@@ -194,9 +231,7 @@ class Conv2d(QuantLayer, nn.Module):
                 raise RuntimeError("a static SmoothQuant conv was never "
                                    "calibrated: run quant.api.quantize_model")
             a_amax = self.sq_act_amax.clamp_min(1e-5)
-        scale = torch.clamp_min(torch.pow(a_amax, sq.alpha)
-                                / torch.pow(w_amax, 1.0 - sq.alpha),
-                                1e-5).detach()
+        scale = smoothquant_scale(a_amax, w_amax, sq.alpha)
         p = self.fake_quantize("act_quant", self.rule.act, patches / scale)
         wspec = self.rule.weight
         if wspec is not None and wspec.axis is not None:
@@ -223,6 +258,32 @@ class Conv2d(QuantLayer, nn.Module):
         out = int8_conv2d(xq, wq, self.stride, self.padding,
                           impl=self.kernel_impl)
         return out.float() * out_scale.reshape(1, -1, 1, 1)
+
+    def _smoothquant_int8_conv(self, x):
+        """The reference's SmoothQuant ``_int8_conv`` (:213-236, :255-260):
+        the float im2col (``_unfold``), the per-column scale of
+        ``smoothquant_scale`` from the batch's column amax, patches divided
+        by it and the weight multiplied by it; then the patches quantized
+        per tensor, the weight per output channel, an s8 x s8 -> s32 GEMM
+        (``int8_matmul``, the reference's ``dot_general`` outside any Pallas
+        kernel) and * (s_act * s_w) -> f32 (B, O, Ho, Wo)."""
+        o = self.weight.shape[0]
+        patches, (b, ho, wo) = self._unfold(x)                    # (B, L, K)
+        w2d = self.weight.reshape(o, -1).t()                      # (K, O)
+        scale = smoothquant_scale(patches.abs().amax((0, 1)).clamp_min(1e-5),
+                                  w2d.abs().amax(1).clamp_min(1e-5),
+                                  self.rule.smoothquant.alpha)
+        pq, s_act = self.quantize("act_quant", self.rule.act, patches / scale)
+        w_s = w2d * scale[:, None]
+        wspec = dataclasses.replace(self.rule.weight, axis=1)
+        wq = self.quantize("weight_quant", wspec, w_s)[0]
+        out_scale = rescale(s_act, w_s, 1, not self.eager)
+        # A row-major, B column-major, the layouts int8_conv2d gives _int_mm
+        acc = int8_matmul(pq.reshape(-1, pq.shape[-1]).contiguous(),
+                          wq.t().contiguous().t(), self.kernel_impl,
+                          tag="int8_conv2d_sq")
+        y = acc.float() * out_scale.reshape(1, -1)
+        return y.view(b, ho, wo, o).permute(0, 3, 1, 2)
 
 
 class ConvTranspose2d(nn.Module):

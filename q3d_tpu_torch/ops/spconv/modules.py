@@ -12,13 +12,16 @@ every strided conv build its output coordinates once.  Every conv runs on
 
 Under a fake-quant rule a conv quantize-dequantizes its masked features and
 its weight and runs the float conv on them, on the same kernel as the float
-path (``_fake_quantize``).  Under an int8-residency deploy rule (attached by
-``quant.api.quantize_model``) a conv quantizes its features per tensor (or
-takes int8 residency features as they are) and its f32 master weight per
-output channel, runs the s8 GEMM and rescales by ``feat_scale * s_w``
-(``_quantize``, reference :104-130).  Its block passes a ``Requant``
-epilogue, and the conv emits int8 features with their ``feat_scale``,
-through the fused s8 entry ``sparse_gather_conv_requant`` (or, while
+path (``_fake_quantize``).  Under an int8 deploy rule (attached by
+``quant.api.quantize_model``) a conv quantizes its masked features per
+tensor, with the batch's amax or the calibrated one (or takes int8
+residency features as they are), and its f32 master weight per output
+channel, runs the s8 GEMM (kernel 1's unfused s8 entry) and rescales by
+``s_act * s_w`` (``_quantize``, reference :104-130, :177-190).  Without
+residency it hands the f32 result (+ bias) to its block's float BN and
+ReLU.  Under residency its block passes a ``Requant`` epilogue, and the
+conv emits int8 features with their ``feat_scale``, through the fused s8
+entry ``sparse_gather_conv_requant`` (or, while
 calibrating, through the unfused s8 conv and ``requant_epilogue``, whose
 quantizer needs the f32 values).  The quantized weight and the rescale are
 computed once per calibrated model (``QuantLayer.constant``).
@@ -148,24 +151,26 @@ class _SparseConvBase(QuantLayer, nn.Module):
         """The conv of ``st`` over ``gather_idx`` into the coordinates of
         ``out_st``: float without a rule (a residency input is dequantized
         first), float on fake-quantized features and weight under a
-        fake-quant rule, else int8 with ``requant``, its block's residency
-        epilogue."""
-        if self.rule is None or self.fake:
-            feats = dequantize_tensor(st).features
-            weight = self.weight
-            if self.fake:
-                feats, weight = self._fake_quantize(feats, st.valid)
-            out = sparse_gather_conv(feats, gather_idx,
-                                     weight.to(feats.dtype), None,
+        fake-quant rule, int8 with f32 output (+ bias) under an int8 deploy
+        rule without residency, else int8 with ``requant``, its block's
+        residency epilogue."""
+        if requant is None:
+            out_scale = None
+            if self.rule is None or self.fake:
+                feats = dequantize_tensor(st).features
+                weight = self.weight
+                if self.fake:
+                    feats, weight = self._fake_quantize(feats, st.valid)
+                weight = weight.to(feats.dtype)
+            else:
+                feats, weight, out_scale = self._quantize(st)
+            out = sparse_gather_conv(feats, gather_idx, weight, out_scale,
                                      out_valid, impl=self.kernel_impl)
             if self.bias is not None:
                 bias = self.bias.to(out.dtype)
                 out = out + (bias if out_valid is None
                              else bias * out_valid[:, None])
             return out_st.replace(features=out, feat_scale=None)
-        if requant is None:
-            raise ValueError("an int8 sparse conv runs in a residency block, "
-                             "which passes its Requant epilogue")
         if self.bias is not None:
             raise NotImplementedError("conv bias under int8 residency")
         feats, wq, out_scale = self._quantize(st)

@@ -1,7 +1,8 @@
 """The PTQ workflow (port of ``q3d_tpu/quant/api.py``: the CenterPoint
-fake-quant recipe and the int8 deploy recipe with int8 residency,
-``quantize_model``, single-stream ``collect_stats``, ``compute_amax`` with
-the reference's amax methods, and ``prepare_int8_deploy``).
+fake-quant recipe, the int8 deploy recipe (dynamic, static, SmoothQuant,
+residency), ``quantize_model``, single-stream ``collect_stats``,
+``compute_amax`` with the reference's amax methods, and
+``prepare_int8_deploy``).
 
     quantize_model(model, centerpoint_recipe(sq=True), batch)  # dynamic PTQ
     quantize_model(model, centerpoint_recipe(sq=False, static=True), batch)
@@ -9,7 +10,8 @@ the reference's amax methods, and ``prepare_int8_deploy``).
     compute_amax(model, method="entropy")
     out = model(batch)                      # quantized from here on
 
-    rules = prepare_int8_deploy(model, [batch, batch])         # true int8
+    quantize_model(model, int8_deploy_recipe(sq=True), batch)  # true int8
+    rules = prepare_int8_deploy(model, [batch, batch])   # int8 residency
 
 In PyTorch idiom the model is changed in place: ``quantize_model`` resolves
 each quantizable layer's rule once, by its path in the reference's naming
@@ -18,8 +20,8 @@ created on first use in a calibration pass, as the reference creates its
 quantizer variables in ``model.init``; ``model.state_dict()`` then carries
 every committed amax (and each static SmoothQuant conv's
 ``sq_act_amax``).  Not ported (``_check_rule`` raises, naming
-``ROADMAP.md``): int8 deploy without residency or with SmoothQuant, the
-sparse gather-view SmoothQuant (VoxelNeXt), group quantization.
+``ROADMAP.md``): the sparse gather-view SmoothQuant (VoxelNeXt), sharded
+calibration and the other models' recipes.
 
 Like the reference, whose ``quantize_model`` calls ``model.init`` on the
 example batch with the calibration state mutable, the statistics start
@@ -65,22 +67,31 @@ def centerpoint_recipe(w_bits=8, act_bits=8, sq=True, alpha=0.5,
     return QuantRules(rules=(sparse_rule, conv2d_rule), no_list=no_list)
 
 
-def int8_deploy_recipe(extra_no_list=(), quantize_first_conv=False):
-    """True-int8 execution with int8 residency for every backbone conv
-    (sparse 3D + dense 2D): per-out-channel weight scales, int8 GEMMs with
-    int32 accumulation, and features that stay int8 from conv to conv, with
-    BN/ReLU/requant folded into the conv epilogues (the reference's recipe
-    with ``residency=True``).  Heads + first sparse conv stay FP unless
-    ``quantize_first_conv``.  Needs calibration first (collect_stats ->
-    compute_amax)."""
-    act = QuantSpec(8, axis=None, dynamic=False, calibrator="histogram")
+def int8_deploy_recipe(sq=False, alpha=0.5, static=False, extra_no_list=(),
+                       residency=False, quantize_first_conv=False):
+    """True-int8 execution for every backbone conv (sparse 3D + dense 2D):
+    per-tensor act scales (dynamic, or calibrated when ``static``),
+    per-out-channel weight scales, int8 GEMMs with int32 accumulation.
+    Heads + first sparse conv stay FP unless ``quantize_first_conv``.
+
+    ``sq``: the dense convs migrate scale per im2col column first
+    (SmoothQuant, its column amax taken from each batch).
+    ``residency`` (implies static): features stay int8 from conv to conv,
+    with BN/ReLU/requant folded into the conv epilogues; the dense convs
+    keep it only without ``sq``.  A static recipe needs calibration first
+    (quantize_model -> collect_stats -> compute_amax)."""
+    static = static or residency
+    calib = "histogram" if static else "max"
+    act = QuantSpec(8, axis=None, dynamic=not static, calibrator=calib)
     weight = QuantSpec(8, axis=0, dynamic=True)
     sparse_rule = LayerRule(
         layer_kinds=("subm_conv3d", "sparse_conv3d", "subm_conv2d",
                      "sparse_conv2d"),
-        weight=weight, act=act, deploy_int8=True, int8_residency=True)
-    conv2d_rule = LayerRule(layer_kinds=("conv2d",), weight=weight, act=act,
-                            deploy_int8=True, int8_residency=True)
+        weight=weight, act=act, deploy_int8=True, int8_residency=residency)
+    conv2d_rule = LayerRule(
+        layer_kinds=("conv2d",), weight=weight, act=act,
+        smoothquant=SmoothQuantCfg(alpha=alpha, dynamic=True) if sq else None,
+        deploy_int8=True, int8_residency=residency and not sq)
     no_list = (
         "dense_head.heads_list_*.*_out",
         "dense_head.heads_list_*.hm_*",
@@ -98,32 +109,31 @@ def quantizable_modules(model):
 
 
 def _check_rule(rule, path, kind):
-    """The rules ported: fake-quant (SmoothQuant on dense convs only) and
-    int8 deploy with residency (static per-tensor act scales, dynamic
-    per-channel weight scales, no SmoothQuant)."""
+    """The rules ported: fake-quant (group quantization included;
+    SmoothQuant on dense convs only) and int8 deploy (per-tensor act scales,
+    dynamic or static; dynamic per-channel weight scales; SmoothQuant on
+    dense convs, without residency; residency with static act scales)."""
     if rule is None:
         return
-    for spec in (rule.act, rule.weight):
-        if spec is not None and spec.group_size:
-            raise NotImplementedError(
-                f"{path}: group quantization is not ported (ROADMAP.md)")
-    if not rule.deploy_int8:
-        if rule.smoothquant is not None and kind != "conv2d":
-            raise NotImplementedError(
-                f"{path}: the sparse gather-view SmoothQuant (VoxelNeXt) is "
-                f"not ported (ROADMAP.md)")
-        return
-    if not rule.int8_residency or rule.smoothquant is not None:
+    if rule.smoothquant is not None and kind != "conv2d":
         raise NotImplementedError(
-            f"{path}: int8 deploy is ported with int8 residency and without "
-            f"SmoothQuant only (ROADMAP.md)")
-    if rule.act is None or rule.act.axis is not None or rule.act.dynamic:
-        raise ValueError(f"{path}: int8 residency needs static per-tensor "
-                         f"act scales")
+            f"{path}: the sparse gather-view SmoothQuant (VoxelNeXt) is not "
+            f"ported (ROADMAP.md)")
+    if not rule.deploy_int8:
+        return
+    if any(spec is not None and spec.group_size
+           for spec in (rule.act, rule.weight)):
+        raise ValueError(f"{path}: group quantization is fake-quant only")
+    if rule.act is None or rule.act.axis is not None:
+        raise ValueError(f"{path}: int8 deploy needs per-tensor act scales")
     if rule.weight is None or rule.weight.axis is None \
             or not rule.weight.dynamic:
         raise ValueError(f"{path}: int8 deploy quantizes the weight per output "
                          f"channel, dynamically")
+    if rule.int8_residency and (rule.act.dynamic
+                                or rule.smoothquant is not None):
+        raise ValueError(f"{path}: int8 residency needs static act scales and "
+                         f"no SmoothQuant")
 
 
 def _seed_state(model):
@@ -209,11 +219,11 @@ def compute_amax(model, method="max", **kwargs):
 
 def prepare_int8_deploy(model, example_batches, recipe_kwargs=None):
     """One-call int8 deployment prep: the residency recipe
-    (``recipe_kwargs`` for ``int8_deploy_recipe``), calibration, committed
-    amax.  ``example_batches``: device-ready batch dicts (one representative
-    batch given twice is enough for max calibration).  Quantizes ``model``
-    in place and returns the rules."""
-    rules = int8_deploy_recipe(**(recipe_kwargs or {}))
+    (``int8_deploy_recipe(residency=True, **recipe_kwargs)``), calibration,
+    committed amax (method "max").  ``example_batches``: device-ready batch
+    dicts (one representative batch given twice is enough for max
+    calibration).  Quantizes ``model`` in place and returns the rules."""
+    rules = int8_deploy_recipe(residency=True, **(recipe_kwargs or {}))
     quantize_model(model, rules, example_batches[0])
     collect_stats(model, example_batches, num_batches=len(example_batches))
     compute_amax(model)

@@ -123,6 +123,21 @@ def fake_quant(x, amax, num_bits=8, unsigned=False, narrow_range=False,
     return x + (deq - x).detach()
 
 
+def fake_quant_groups(x, spec):
+    """Group quantization (the reference's grouped dynamic branch,
+    ``tensor_quant.py:122-131``, its GQConv3d): the rows of ``x`` are
+    zero-padded to a multiple of ``spec.group_size``, split into groups of
+    that many rows, and each group is fake-quantized with its own amax."""
+    g, n = spec.group_size, x.shape[0]
+    pad = (-n) % g
+    xp = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))]) if pad else x
+    grouped = xp.reshape((n + pad) // g, -1)
+    amax = grouped.detach().abs().amax(1, keepdim=True).clamp_min(1e-12)
+    q = fake_quant(grouped, amax, spec.num_bits, spec.unsigned,
+                   spec.narrow_range, axis=0)
+    return q.reshape(xp.shape)[:n]
+
+
 def quantize_with_scale(x, scale):
     """clip(round(x / scale), -127, 127) as int8, computed in the promotion
     of x's and scale's dtypes."""
@@ -159,20 +174,18 @@ class TensorQuantizer(nn.Module):
 
     ``mode="fake"`` (reference :104-173): ``forward(x, calibrating) -> x``
     quantize-dequantized.  A dynamic spec takes each batch's amax (per
-    tensor or per ``axis``); while calibrating every spec records the batch
+    tensor, per ``axis``, or per group of ``group_size`` rows); while
+    calibrating every spec records the batch
     and passes ``x`` through unquantized; a static spec takes the committed
     ``amax``, and passes ``x`` through while that is 0 (never calibrated)."""
 
     def __init__(self, spec: QuantSpec, amax_shape=(), device=None,
                  mode="int"):
         super().__init__()
-        if spec.group_size:
-            raise NotImplementedError(
-                "group quantization (GQConv3d) is not ported; see ROADMAP.md")
         if mode == "int" and (spec.unsigned or spec.narrow_range
-                              or spec.num_bits != 8):
+                              or spec.num_bits != 8 or spec.group_size):
             raise NotImplementedError(
-                "int mode is signed 8-bit, full range")
+                "int mode is signed 8-bit, full range, without groups")
         if mode not in ("int", "fake"):
             raise ValueError(f"unknown quantizer mode {mode!r}")
         self.spec = spec
@@ -212,6 +225,8 @@ class TensorQuantizer(nn.Module):
         spec = self.spec
         if not spec.enabled:
             return x
+        if spec.group_size and spec.dynamic and not calibrating:
+            return fake_quant_groups(x, spec)
         if spec.dynamic and not calibrating:
             return fake_quant(x, _reduce_amax(x, spec.axis).detach(),
                               spec.num_bits, spec.unsigned, spec.narrow_range,

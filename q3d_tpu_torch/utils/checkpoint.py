@@ -1,4 +1,5 @@
-"""Read the reference's native checkpoints without JAX, flax or msgpack.
+"""Read checkpoints without JAX, flax or msgpack: the reference's native
+ones, and pcdet ``.pth`` state dicts.
 
 The reference's ``save_checkpoint`` (``q3d_tpu/utils/checkpoint.py``)
 pickles a plain dict whose ``model_state`` is flax's msgpack encoding of
@@ -10,6 +11,14 @@ ext type 1 (an ndarray as ``(shape, dtype name, C-order bytes)``) and type
 3 (a numpy scalar, the same form) decode to numpy; type 2 (a complex
 number) and chunked arrays raise.  ``utils.weights.state_dict_from_jax``
 takes the result.
+
+``load_pth_file`` reads a pcdet ``.pth`` with ``torch.load(...,
+weights_only=True)``, whose unpickler takes tensors and plain containers and
+refuses every other class, and ``import_torch_state_dict`` maps its model
+state onto the port's state dict (port of
+``q3d_tpu/utils/checkpoint.py:107-263``): the port's names are pcdet's, so
+each key is looked up by name first, then by the longest suffix of its
+module path whose tensor adapts to the port's shape (``adapt_torch_tensor``).
 """
 
 import io
@@ -17,6 +26,7 @@ import pickle
 import struct
 
 import numpy as np
+import torch
 
 
 class _NoClassUnpickler(pickle.Unpickler):
@@ -157,3 +167,105 @@ def load_flax_checkpoint(path):
         raise ValueError(f"{path}: not a checkpoint dict")
     variables = flax_msgpack_restore(blob["model_state"])
     return variables, blob.get("epoch", 0), blob.get("it", 0)
+
+
+def adapt_torch_tensor(t, target_shape):
+    """A pcdet tensor -> the port's layout of ``target_shape``, or
+    ValueError.  Dense convs (OIHW), transposed convs (IOHW), BN and bias
+    vectors have the port's shapes already; a sparse conv weight is
+    spconv2's (O, kd, kh, kw, I) or spconv1's (kd, kh, kw, I, O), which
+    becomes the kernel's (K, Cin, Cout), K k0-major; a reference-shaped
+    first conv (I below the port's ``MIN_INPUT_LANES``) is zero-padded on
+    its input rows (the pad lanes see only zeros)."""
+    a = t.detach().cpu() if isinstance(t, torch.Tensor) \
+        else torch.from_numpy(np.asarray(t))
+    ts = tuple(target_shape)
+    if tuple(a.shape) == ts:
+        return a
+    if a.dim() == 5 and len(ts) == 3:
+        o, kd, kh, kw, i = a.shape
+        cands = (a.reshape(o, kd * kh * kw, i).permute(1, 2, 0),   # spconv2
+                 a.reshape(o * kd * kh, kw, i))                     # spconv1
+        for cand in cands:
+            if cand.shape[0] == ts[0] and cand.shape[2] == ts[2] \
+                    and cand.shape[1] <= ts[1]:
+                return torch.nn.functional.pad(
+                    cand, (0, 0, 0, ts[1] - cand.shape[1])).contiguous()
+    raise ValueError(f"cannot adapt torch tensor {tuple(a.shape)} -> {ts}")
+
+
+def import_torch_state_dict(state_dict, model, strict=False, logger=None):
+    """Map a pcdet ``state_dict`` onto the port ``model``'s tensors -> a
+    state dict for ``model.load_state_dict``.
+
+    Each target key takes the pcdet tensor of the same name when it adapts
+    to the target's shape, else the first unused tensor whose name ends in
+    the longest suffix of the key's module path (down to the bare leaf
+    name) and adapts, as the reference's partial loader matches
+    (``detector3d_template.py:361-384``).  Keys matched by neither keep the
+    model's value, or raise under ``strict``."""
+    target = model.state_dict()
+    source = {k: v for k, v in state_dict.items()
+              if isinstance(v, (torch.Tensor, np.ndarray))}
+    used, out, missing = set(), {}, []
+    for key, leaf in target.items():
+        if key in source:
+            try:
+                out[key] = adapt_torch_tensor(source[key], leaf.shape).to(
+                    leaf.dtype)
+                used.add(key)
+            except ValueError:
+                pass
+    for key, leaf in target.items():
+        if key in out:
+            continue
+        *mod, name = key.split(".")
+        found = None
+        for start in range(len(mod) + 1):
+            suffix = ".".join(mod[start:] + [name])
+            for tname, arr in source.items():
+                if tname in used or not (tname == suffix
+                                         or tname.endswith("." + suffix)):
+                    continue
+                try:
+                    found = tname, adapt_torch_tensor(arr, leaf.shape)
+                    break
+                except ValueError:
+                    continue
+            if found:
+                break
+        if found:
+            used.add(found[0])
+            out[key] = found[1].to(leaf.dtype)
+        else:
+            missing.append(key)
+            out[key] = leaf
+    if missing and logger:
+        logger.warning(f"torch import: {len(missing)} tensors kept initialized "
+                       f"(first: {missing[:5]})")
+    if strict and missing:
+        raise KeyError(f"unmatched tensors: {missing}")
+    return out
+
+
+def load_pth_file(path):
+    """A pcdet ``.pth`` checkpoint -> its model state (on the CPU), read
+    with ``torch.load(weights_only=True)``: a pickle that asks for any other
+    class than tensors and plain containers is refused, not run."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    return blob.get("model_state", blob) if isinstance(blob, dict) else blob
+
+
+def load_params_from_file(model, path, logger=None):
+    """Load a checkpoint into ``model``: a pcdet ``.pth`` through
+    ``import_torch_state_dict`` (tensors it cannot match keep their values,
+    with a warning, as the reference's partial loader does), or the
+    reference's native checkpoint strictly."""
+    from .weights import state_dict_from_jax
+    if str(path).endswith(".pth"):
+        state = import_torch_state_dict(load_pth_file(path), model,
+                                        logger=logger)
+    else:
+        state = state_dict_from_jax(load_flax_checkpoint(path)[0])
+    model.load_state_dict(state, strict=True)
+    return model

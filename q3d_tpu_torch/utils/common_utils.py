@@ -1,9 +1,13 @@
-"""Host-side numpy helpers of the data pipeline, and device resolution.
+"""Host-side numpy helpers of the data pipeline, logging and seeding, and
+device resolution.
 
-The numpy subset of ``q3d_tpu/utils/common_utils.py`` that the data path
-calls, plus ``resolve_device``: the port's entry points run on the card
+The subset of ``q3d_tpu/utils/common_utils.py`` that the data path and the
+CLIs call, plus ``resolve_device``: the port's entry points run on the card
 unless the caller asks for the CPU, and never fall back to it silently.
 """
+
+import logging
+import random
 
 import numpy as np
 import torch
@@ -50,3 +54,24 @@ class AverageMeter:
         self.sum += val * n
         self.count += n
         self.avg = self.sum / max(self.count, 1)
+
+
+def create_logger(log_level=logging.INFO, name="q3d_tpu_torch"):
+    """A console logger (the reference's ``create_logger`` without its log
+    file): one stream handler, however often it is asked for."""
+    logger = logging.getLogger(name)
+    logger.setLevel(log_level)
+    logger.propagate = False
+    if not logger.handlers:
+        console = logging.StreamHandler()
+        console.setFormatter(logging.Formatter(
+            "%(asctime)s  %(levelname)5s  %(message)s"))
+        logger.addHandler(console)
+    return logger
+
+
+def set_random_seed(seed):
+    """Seed the host's generators (Python, numpy) and torch's."""
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)

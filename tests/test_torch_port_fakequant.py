@@ -7,9 +7,9 @@ reference's jitted form rounds as its eager one, so there is one form);
 ``compute_amax_from_hist`` for "max", "percentile", "mse" and "entropy" on
 seeded histograms (the port's entropy sweep builds its candidates with
 ``np.add.reduceat``: on integer counts every sum is exact, so it equals the
-reference's loops); the fake-mode ``TensorQuantizer`` (dynamic per tensor
-and per axis, calibration pass-through, static max and histogram, amax 0
-pass-through).
+reference's loops); the fake-mode ``TensorQuantizer`` (dynamic per tensor,
+per axis and per group of rows, calibration pass-through, static max and
+histogram, amax 0 pass-through).
 
 The sparse fake-quant conv fed the same inputs as the reference's flax
 module agrees within 2e-6 of its output's scale (the quantized inputs are
@@ -190,18 +190,46 @@ def test_fake_quantizer_matches_reference(axis, calibrator):
 
 
 def test_unported_rules_raise():
-    gq = LayerRule(("conv2d",), act=port_tq.QuantSpec(8, group_size=16))
-    with pytest.raises(NotImplementedError, match="group"):
-        port_api._check_rule(gq, "x", "conv2d")
+    """The sparse gather-view SmoothQuant (VoxelNeXt) still raises; group
+    quantization (held below) and int8 deploy without residency or with
+    dense SmoothQuant (``test_torch_port_deploy*.py``) are ported now, and
+    their rules pass; groups stay fake-quant only."""
     sq = LayerRule(("subm_conv3d",), smoothquant=SmoothQuantCfg())
     with pytest.raises(NotImplementedError, match="VoxelNeXt"):
         port_api._check_rule(sq, "x", "subm_conv3d")
-    for kw in (dict(deploy_int8=True), dict(deploy_int8=True,
-               int8_residency=True, smoothquant=SmoothQuantCfg())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_api._check_rule(LayerRule(("conv2d",), **kw), "x", "conv2d")
-    with pytest.raises(NotImplementedError, match="group"):
-        port_tq.TensorQuantizer(port_tq.QuantSpec(8, group_size=4), mode="fake")
+    gq = port_tq.QuantSpec(8, group_size=16)
+    for kw in (dict(act=gq), dict(deploy_int8=True),
+               dict(deploy_int8=True, smoothquant=SmoothQuantCfg())):
+        port_api._check_rule(LayerRule(("conv2d",), **kw), "x", "conv2d")
+    with pytest.raises(ValueError, match="group"):
+        port_api._check_rule(LayerRule(("conv2d",), act=gq, deploy_int8=True),
+                             "x", "conv2d")
+    with pytest.raises(NotImplementedError, match="groups"):
+        port_tq.TensorQuantizer(port_tq.QuantSpec(8, group_size=4), mode="int")
+
+
+@pytest.mark.parametrize("shape,group,bits", [((130, 16), 64, 8),
+                                              ((300, 24), 16, 4),
+                                              ((3, 8, 5, 5), 2, 8)])
+def test_group_quantizer_matches_reference(shape, group, bits):
+    """Group quantization (the reference's grouped dynamic branch,
+    ``tensor_quant.py:122-131``): rows padded to a multiple of the group,
+    each group fake-quantized with its own amax, exactly as the reference's
+    eager and jitted forms; while calibrating, the batch passes through."""
+    rng = np.random.RandomState(group + bits)
+    x = rng.randn(*shape).astype(np.float32)
+    x[shape[0] // 2:] *= 100.0          # groups of very different scales
+    spec = dict(num_bits=bits, group_size=group)
+    jq = jax_tq.TensorQuantizer(JaxQuantSpec(**spec))
+    want = np.asarray(jq.apply({}, jnp.asarray(x)))
+    np.testing.assert_array_equal(
+        np.asarray(jax.jit(jq.apply)({}, jnp.asarray(x))), want)
+    pq = port_tq.TensorQuantizer(port_tq.QuantSpec(**spec), mode="fake")
+    got = pq(torch.from_numpy(x))
+    assert got.shape == x.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        pq(torch.from_numpy(x), calibrating=True).numpy(), x)
 
 
 # ------------------------------------- one layer against the flax module

@@ -1,11 +1,13 @@
-"""Shared body of the int8 deploy parity tests (``test_torch_port_quant*.py``).
+"""Shared body of the int8 deploy parity tests (``test_torch_port_quant*.py``,
+``test_torch_port_deploy*.py``) and the fake-quant ones.
 
-One recipe per test file, so that ``--dist loadfile`` gives the two to two
-workers.  Each builds the reference on ``centerpoint_tiny`` with the trained
-fixture (test split, batch 2, f32 inputs), calibrates it with the
-reference's own ``quantize_model`` -> ``collect_stats`` (the batch given
-twice) -> ``compute_amax(method="max")``, and applies it once while
-recording every residency layer's int8 input and output.  The port is
+One recipe per test file, so that ``--dist loadfile`` gives them to
+separate workers.  Each builds the reference on ``centerpoint_tiny`` with
+the trained fixture (test split, batch 2, f32 inputs), calibrates it with
+the reference's own ``quantize_model`` -> ``collect_stats`` (the batch
+given twice) -> ``compute_amax(method="max")`` (a dynamic recipe needs
+none), and applies it once while recording every layer's input and
+output.  The port is
 calibrated on the same batch by its own ``quant.api``, with the reference's
 initial weights for the seed pass (the reference's ``quantize_model`` runs
 ``model.init``, whose pass fixes the histogram's first bin width; the port's
@@ -64,13 +66,13 @@ def _np(tree):
         jax.device_get(tree)))
 
 
-def _record(store):
+def _record(store, recorded=_RECORDED):
     """flax interceptor: the first positional input of every recorded
     module call, and its output, by the module's dotted path."""
     def interceptor(next_fun, args, kwargs, context):
         out = next_fun(*args, **kwargs)
         mod = context.module
-        if context.method_name == "__call__" and isinstance(mod, _RECORDED):
+        if context.method_name == "__call__" and isinstance(mod, recorded):
             path = ".".join(str(p) for p in mod.path)
             store[path] = (args[0], out)
         return out
@@ -78,7 +80,10 @@ def _record(store):
 
 
 def _arrays(x):
-    """A recorded value -> numpy: SparseConvTensor / QTensor -> dict."""
+    """A recorded value -> numpy: SparseConvTensor / QTensor -> dict, an
+    int-mode quantizer's (int8, scale) -> tuple."""
+    if isinstance(x, tuple) and not hasattr(x, "_fields"):
+        return tuple(np.asarray(v) for v in x)
     if isinstance(x, jax_layers.QTensor):
         return {"data": np.asarray(x.data), "scale": np.asarray(x.scale)}
     if hasattr(x, "features"):
@@ -110,6 +115,14 @@ def reference_fake(recipe, calib_batches=0, method="max", jit_init=False):
     differently)."""
     return _reference_run(lambda: jax_quant.centerpoint_recipe(**recipe),
                           calib_batches, method, jit_init)
+
+
+def reference_static(recipe, calib_batches, method):
+    """The static ``int8_deploy_recipe(**recipe)``, its seed pass a jitted
+    ``model.init``, calibrated on the batch given ``calib_batches`` times
+    -> see ``_reference_run``."""
+    return _reference_run(lambda: jax_quant.int8_deploy_recipe(**recipe),
+                          calib_batches, method, jit_init=True)
 
 
 def reference_model(template=True):
@@ -160,27 +173,60 @@ def _reference_run(make_rules, calib_batches, method, jit_init=False):
     calib = _np(v8["calib"]) if calib_batches else None
     v8 = {k: v for k, v in v8.items() if k != "calib"}
 
+    return {**ref, "calib": calib, "rules": rules, "vars": v8,
+            "quant": _np(v8["quant"]),
+            **_recorded_forward(model, rules, v8, batch)}
+
+
+def _recorded_forward(model, rules, variables, batch, extra=()):
+    """One jitted reference forward under ``rules`` -> {"layers": per-layer
+    records {path: (input, output)} of the ``_RECORDED`` module types and
+    ``extra`` ones, "out": the final outputs}."""
     def apply(v, b):
         store = {}
-        with quant_rules_scope(rules), fnn.intercept_methods(_record(store)):
+        with quant_rules_scope(rules), fnn.intercept_methods(
+                _record(store, _RECORDED + tuple(extra))):
             out = model.apply(v, b, train=False)
         keep = ("spatial_features", "spatial_features_2d", "final_boxes",
                 "final_scores", "final_labels", "final_valid")
         return {k: out[k] for k in keep}, store
 
-    out, store = jax.jit(apply)(v8, batch)
-    return {**ref, "calib": calib, "rules": rules, "vars": v8,
-            "quant": _np(v8["quant"]),
-            "layers": {p: (_arrays(i), _arrays(o)) for p, (i, o) in store.items()},
+    out, store = jax.jit(apply)(variables, batch)
+    return {"layers": {p: (_arrays(i), _arrays(o))
+                       for p, (i, o) in store.items()},
             "out": {k: np.asarray(v) for k, v in out.items()}}
 
 
+def reference_dynamic(recipe, extra=()):
+    """The reference under ``int8_deploy_recipe(**recipe)``, a dynamic
+    recipe, which has nothing to calibrate: its float variables applied
+    under the rules -> ``reference_model``'s dict with the rules, the
+    per-layer records (``extra``: more module types recorded) and the
+    outputs."""
+    ref = reference_model(template=False)
+    rules = jax_quant.int8_deploy_recipe(**recipe)
+    return {**ref, "rules": rules,
+            **_recorded_forward(ref["model"], rules, ref["variables"],
+                                ref["batch"], extra)}
+
+
 def port(ref, recipe):
-    """-> (port model calibrated by its own quant.api, its batch)."""
+    """-> (port model under ``int8_deploy_recipe(residency=True,
+    **recipe)``, calibrated by its own quant.api, its batch)."""
     def prepare(model, batch):
         port_quant.prepare_int8_deploy(model, [batch, batch],
                                        recipe_kwargs=recipe)
     return _port_run(ref, prepare)
+
+
+def port_dynamic(ref, recipe):
+    """-> (port model under the dynamic ``int8_deploy_recipe(**recipe)``,
+    its batch).  The seed pass only creates the quantizers here, so it
+    runs on the port's own initial weights."""
+    model, batch = port_model(ref)
+    port_quant.quantize_model(model, port_quant.int8_deploy_recipe(**recipe),
+                              batch)
+    return model, batch
 
 
 def port_fake(ref, recipe, calib_batches=0, method="max"):
@@ -193,6 +239,24 @@ def port_fake(ref, recipe, calib_batches=0, method="max"):
             port_quant.collect_stats(model, [batch] * calib_batches,
                                      calib_batches)
             port_quant.compute_amax(model, method=method)
+    return _port_run(ref, prepare)
+
+
+def port_static(ref, recipe, calib_batches, method):
+    """-> (port model under the static ``int8_deploy_recipe(**recipe)``,
+    calibrated by its own quant.api as ``reference_static`` calibrates, its
+    batch).  The reference's seed pass is jitted there, so the port's seed
+    pass rounds as the jitted steps do (``eager=False``)."""
+    seed_pass = port_quant._calibration_pass
+
+    def prepare(model, batch):
+        with mock.patch.object(port_quant, "_calibration_pass",
+                               lambda m, b, eager=False: seed_pass(m, b)):
+            port_quant.quantize_model(
+                model, port_quant.int8_deploy_recipe(**recipe), batch)
+        port_quant.collect_stats(model, [batch] * calib_batches,
+                                 calib_batches)
+        port_quant.compute_amax(model, method=method)
     return _port_run(ref, prepare)
 
 
