@@ -92,7 +92,26 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
                 package's bound (mean |fp - q| < 0.05), NDS / mAP / drop;
                 eval_plain also names the first layer where a float run
                 differs between kernels and plain versions;
- 12. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+ 12. SECOND and PointPillars at KITTI width — each KITTI config's MODEL
+                as written (tools/cfgs/kitti_models/), on SyntheticDataset
+                scenes at the config's own geometry (range, voxel size,
+                points per voxel, the 40,000-voxel test cap; ~120,000
+                points a sweep): ``data_<model>`` (points and voxels per
+                frame), ``serving_<model>`` (4 bf16 requests of batch 2,
+                seeded weights, conv_cls's prior bias 0, BN calibrated on
+                the first request; launches: SECOND 48 kernel-1 and 4
+                boxes-form NMS launches at K = 4096, PointPillars 0 and 4),
+                ``stages_<model>``, ``model_<model>`` (the f32 request
+                through the kernels and the plain versions: maps, keep
+                masks on identical candidates, detections); then
+                ``kernel_conv`` on SECOND's 12 convs, ``kernel_nms`` at K =
+                2049 / 4096 (random IoU matrices and crowded boxes at
+                thresh 0.01 / 0.5, both models' real candidate sets, times
+                and bounds at K = 4096) and ``recipes_kitti`` (SECOND under
+                ``second_recipe()``, PointPillars under
+                ``pointpillar_recipe()``, SECOND under
+                ``int8_deploy_recipe()``: kernels vs plain);
+ 13. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises and exits nonzero without the last line.  Without
 CUDA, or outside a checkout of the repo, it exits 1 and prints no result.
@@ -142,6 +161,20 @@ FQ_MAP_RTOL = 5e-2
 CONV_DESIGN = ("128-row x all-Cout tiles; book loaded once, ballot tap masks; "
                "16-byte cp.async gathers into a 2-3 stage ring; mma.sync "
                "m16n8k16 bf16 / m16n8k32 s8 (f32 on CUDA cores)")
+
+KITTI_DIR = ROOT / "tools" / "cfgs" / "kitti_models"
+# one HDL-64E sweep: ~120,000 points (48 ground rings and 20 objects of 500
+# points), which each config's range crop cuts to ~63,000
+KITTI_SCENE = {"NUM_BG_POINTS": 110000, "NUM_OBJECTS": 20,
+               "POINTS_PER_OBJECT": 500}
+# per forward: kernel 1's launches (SECOND's 12 sparse convs; PointPillars
+# has none) and the sparse convs under int8_deploy_recipe() (conv_input
+# stays float)
+KITTI_CONVS = {"second": 12, "pointpillar": 0}
+# the least voxels (pillars) a frame keeps, by model
+KITTI_MIN_VOXELS = {"second": 16000, "pointpillar": 12000}
+# kernel 2 past 32 mask words a row: the first such K, and the largest
+WIDE_K = (2049, 4096)
 
 
 def emit(tag, **fields):
@@ -232,17 +265,28 @@ def forward_trace(model, batch, reps=3):
 
 def stage_times(model, batch, reps=5):
     """CUDA-event time of each stage of one forward of ``model`` on
-    ``batch``, median of ``reps`` -> {stage: ms}.  The head's decode and NMS
-    are methods, not modules, so they are timed through instance attributes
+    ``batch``, median of ``reps`` -> {stage: ms}.  Decode and NMS are
+    methods, not modules (CenterHead's ``_decode`` / ``_nms``; an anchor
+    head's ``generate_predicted_boxes`` and the detector's
+    ``post_processing``), so they are timed through instance attributes
     that shadow them for the run."""
     import torch
     head = model.dense_head
-    stages = {"vfe": model.vfe, "backbone_3d": model.backbone_3d,
-              "map_to_bev": model.map_to_bev_module,
-              "backbone_2d": model.backbone_2d,
-              "head_convs": [head.shared_conv, head.shared_requant,
-                             *head.heads_list],
-              "dense_head": head}
+    stages = {"vfe": model.vfe}
+    if hasattr(model, "backbone_3d"):
+        stages["backbone_3d"] = model.backbone_3d
+    stages.update(map_to_bev=model.map_to_bev_module,
+                  backbone_2d=model.backbone_2d)
+    if hasattr(head, "heads_list"):                 # CenterHead
+        stages["head_convs"] = [head.shared_conv, head.shared_requant,
+                                *head.heads_list]
+        methods = ((head, "_decode", "decode"), (head, "_nms", "nms"))
+    else:                                           # AnchorHeadSingle
+        stages["head_convs"] = [c for c in (head.conv_cls, head.conv_box,
+                                            head.conv_dir_cls) if c is not None]
+        methods = ((head, "generate_predicted_boxes", "decode"),
+                   (model, "post_processing", "nms"))
+    stages["dense_head"] = head
     events = {name: [] for name in (*stages, "decode", "nms")}
 
     def mark(name, at):
@@ -264,8 +308,8 @@ def stage_times(model, batch, reps=5):
             mark(name, 1)()
             return out
         return run
-    head._decode = timed("decode", head._decode)
-    head._nms = timed("nms", head._nms)
+    for owner, attr, name in methods:
+        setattr(owner, attr, timed(name, getattr(owner, attr)))
     stage_ms = {name: [] for name in events}
     try:
         with torch.no_grad():
@@ -282,10 +326,283 @@ def stage_times(model, batch, reps=5):
     finally:
         for h in hooks:
             h.remove()
-        del head._decode, head._nms
+        for owner, attr, _ in methods:
+            delattr(owner, attr)
     stage_ms = {k: statistics.median(v) for k, v in stage_ms.items()}
-    stage_ms["decode_nms"] = stage_ms["dense_head"] - stage_ms["head_convs"]
+    # CenterHead decodes and runs NMS inside the head; an anchor detector
+    # decodes in the head and runs NMS after it
+    stage_ms["decode_nms"] = stage_ms["dense_head"] - stage_ms["head_convs"] \
+        if hasattr(head, "heads_list") else stage_ms["decode"] + stage_ms["nms"]
     return stage_ms
+
+
+def make_request(ds, r):
+    """Frames BATCH*r ... BATCH*r + BATCH-1 of the synthetic dataset ``ds``
+    -> (numpy batch, scene ms, voxelize ms): host time, scene synthesis
+    and the data pipeline apart."""
+    import numpy as np
+    from q3d_tpu_torch.datasets.synthetic_dataset import make_scene
+    frames, scene_ms, vox_ms = [], 0.0, 0.0
+    for j in range(r * BATCH, (r + 1) * BATCH):
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(ds.base_seed + j)
+        points, boxes, names = make_scene(rng, ds.point_cloud_range,
+                                          **ds.scene_kwargs)
+        t1 = time.perf_counter()
+        frames.append(ds.prepare_data({"points": points, "gt_boxes": boxes,
+                                       "gt_names": names, "frame_id": j}))
+        t2 = time.perf_counter()
+        scene_ms += (t1 - t0) * 1e3
+        vox_ms += (t2 - t1) * 1e3
+    return ds.collate_batch(frames), scene_ms, vox_ms
+
+
+def calibrate_bns(model, batch):
+    """Every BN's running statistics := the batch statistics of its input
+    in one forward on ``batch`` (a trained model's BNs match their inputs;
+    random weights with identity BNs fade to constants)."""
+    import torch
+    from q3d_tpu_torch.models.layers import BatchNorm, BatchNorm1d
+    from q3d_tpu_torch.ops.spconv.modules import SparseBatchNorm
+
+    def calibrate(mod, args):
+        x = args[0]
+        if isinstance(mod, SparseBatchNorm):
+            rows = x.features[x.valid].float()
+            mean, var = rows.mean(0), rows.var(0, unbiased=False)
+        elif isinstance(mod, BatchNorm1d):          # (..., C) PFN features
+            rows = x.float().reshape(-1, x.shape[-1])
+            mean, var = rows.mean(0), rows.var(0, unbiased=False)
+        else:
+            mean = x.float().mean((0, 2, 3))
+            var = x.float().var((0, 2, 3), unbiased=False)
+        mod.running_mean.copy_(mean)
+        mod.running_var.copy_(var)
+    hooks = [m.register_forward_pre_hook(calibrate) for m in model.modules()
+             if isinstance(m, (SparseBatchNorm, BatchNorm))]
+    try:
+        with torch.no_grad():
+            model(dict(batch))
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def check_boxes_form(boxes, valid, th, what):
+    """The boxes form against its plain version (boxes_iou_bev, then the
+    plain sweep): keep masks equal; the kernel's IoU bit-equal at every
+    pair it evaluated; every needed pair (j < i, both valid) it skipped
+    has a plain IoU of exactly 0.  -> (pairs evaluated, pairs needed,
+    the most pairs evaluated in one 64 x 64 tile)."""
+    import torch
+    from q3d_tpu_torch.ops.iou3d_nms import boxes_iou_bev
+    from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as nms_mod
+    dev = boxes.device
+    s_, k_ = valid.shape
+    corners, areas = nms_mod.bev_corners_areas(boxes)
+    iou_k = torch.full((s_, k_, k_), float("nan"), device=dev)
+    keep_k = nms_mod.greedy_suppress_boxes_cuda(corners, areas, valid, th,
+                                                iou_out=iou_k)
+    iou_p = boxes_iou_bev(boxes[..., :7], boxes[..., :7])
+    keep_p = nms_mod.greedy_suppress_plain(iou_p, valid, th)
+    diff = (keep_k != keep_p).nonzero()
+    check(len(diff) == 0, f"greedy_nms_boxes {what} thresh={th}: "
+                          f"{len(diff)} keep flags differ, first (set, "
+                          f"row) {diff[:1].tolist()}")
+    need = valid[:, :, None] & valid[:, None, :] & torch.ones(
+        (k_, k_), dtype=torch.bool, device=dev).triu(1)
+    done = ~torch.isnan(iou_k)
+    stray = (done & ~need).nonzero()
+    check(len(stray) == 0, f"greedy_nms_boxes {what}: evaluated pairs "
+                           f"outside j < i, both valid: {stray[:3].tolist()}")
+    for bad, why in (
+            (done & (iou_k.view(torch.int32) != iou_p.view(torch.int32)),
+             "kernel IoU != plain IoU"),
+            (need & ~done & (iou_p != 0), "skipped pair has plain IoU != 0")):
+        at = bad.nonzero()
+        if len(at):
+            s0, j0, i0 = at[0].tolist()
+            check(False, f"greedy_nms_boxes {what} thresh={th}: {len(at)} "
+                         f"pairs: {why}; first set {s0} (j={j0}, i={i0}): "
+                         f"kernel {float(iou_k[s0, j0, i0])!r}, plain "
+                         f"{float(iou_p[s0, j0, i0])!r}")
+    kt = -(-k_ // 64)
+    tiles = torch.nn.functional.pad(
+        done, (0, 64 * kt - k_, 0, 64 * kt - k_)).reshape(
+        s_, kt, 64, kt, 64).sum((2, 4))
+    return int(done.sum()), int(need.sum()), int(tiles.max())
+
+
+
+def record_sparse_convs(model, batch):
+    """One forward of ``model`` on ``batch`` with every sparse conv call
+    recorded in order -> ([(name, features, book, weight, row mask)], the
+    forward's outputs)."""
+    import torch
+    from q3d_tpu_torch.ops.spconv.modules import (SubMConv3d, SparseConv3d,
+                                                  subm_cache_key,
+                                                  down_cache_key)
+    convs = []
+    names = {m: n for n, m in model.named_modules()}
+
+    def record(mod, args, out):
+        st, cache = args[0], args[1]
+        if isinstance(mod, SparseConv3d):
+            key = down_cache_key(st.spatial_shape, mod.kernel_size, mod.stride,
+                                 mod.padding, args[2] if len(args) > 2 else None)
+            out_indices, idx, _ = cache[key]
+            valid = out_indices[:, 0] >= 0
+        else:
+            key = subm_cache_key(mod.indice_key or "", st.spatial_shape,
+                                 mod.kernel_size, mod.dilation)
+            idx, valid = cache[key], st.valid
+        convs.append((names[mod], st.features, idx, mod.weight.detach(), valid))
+    hooks = [m.register_forward_hook(record) for m in model.modules()
+             if isinstance(m, (SubMConv3d, SparseConv3d))]
+    try:
+        with torch.no_grad():
+            out = model(dict(batch))
+    finally:
+        for h in hooks:
+            h.remove()
+    return convs, out
+
+
+def quant_sym(x, axis=None):
+    """Symmetric int8 with per-tensor (axis None) or per-last-axis scale."""
+    import torch
+    amax = x.abs().amax() if axis is None else x.abs().amax(
+        dim=tuple(range(x.dim() - 1)))
+    s = (amax / 127.0).clamp(min=1e-8)
+    return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8), s
+
+
+def kernel_conv(convs, flush, mode, label):
+    """Phase ``kernel_conv`` for the recorded convs of one forward of model
+    ``label``: kernel 1 against its plain version in f32, bf16 and s8 on
+    each conv's real features, book and weights (f32 and bf16 within the
+    stated tolerances, s8 bit-exact), timed beside its plain version,
+    gather + ``torch.matmul`` / ``torch._int_mm`` and its bound; per conv,
+    per (Cin, Cout, K) group and in total -> (bf16 totals, worst errors)."""
+    import torch
+    from q3d_tpu_torch.ops.spconv import gather_conv
+    totals = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bytes_ms", "ops_ms")}
+    worst = {"f32": 0.0, "bf16": 0.0, "s8": 0.0}
+    by_width = {}                    # (Cin, Cout, K) -> summed times
+    under_library = {"bf16": 0, "s8": 0}   # convs at or under the library
+    with torch.no_grad():
+        for name, feats, idx, w32, valid in convs:
+            n, cin = feats.shape
+            m, k = idx.shape
+            cout = w32.shape[2]
+            present = (idx >= 0) & (idx < n)
+            n_present = int(present.sum())
+            rows_read = int(torch.unique(idx[present]).numel())
+            row = {"model": label, "conv": name, "N": n, "M": m, "K": k,
+                   "Cin": cin, "Cout": cout, "present_taps": n_present}
+            for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                f, w = feats.to(dt).contiguous(), w32.to(dt).contiguous()
+                vk = gather_conv.sparse_gather_conv(f, idx, w, out_valid=valid,
+                                                    impl="cuda")
+                vp = gather_conv.sparse_gather_conv(f, idx, w, out_valid=valid,
+                                                    impl="plain")
+                torch.cuda.synchronize()
+                err = (vk.float() - vp.float()).abs()
+                mag = vp.float().abs()
+                if tag == "f32":
+                    # summation order only: relative to the output's scale
+                    ok = float(err.max()) <= 1e-4 * max(1.0, float(mag.max()))
+                else:
+                    # one bf16 rounding of sums that differ in order: at most
+                    # one ulp (2^-7 relative) per element
+                    ok = bool((err <= 2.0 ** -7 * mag
+                               + 1e-5 * max(1.0, float(mag.max()))).all())
+                worst[tag] = max(worst[tag], float(err.max()))
+                if not ok:
+                    # the worst element's sum of |terms|: large against the
+                    # element itself means heavy cancellation
+                    at = int(err.argmax())
+                    terms = gather_conv.gather_conv_plain(
+                        f.float().abs(), idx, w.float().abs()).reshape(-1)[at]
+                    check(False, f"{name} {tag}: kernel vs plain max err "
+                                 f"{float(err.max())} (scale {float(mag.max())}"
+                                 f"; worst element {at}: plain "
+                                 f"{float(vp.reshape(-1)[at])}, sum|terms| "
+                                 f"{float(terms)})")
+                row[f"err_{tag}"] = float(err.max())
+                row[f"ms_{tag}"] = time_ms(lambda: gather_conv.gather_conv_cuda(
+                    f, idx, w, out_valid=valid), flush=flush)
+                row[f"plain_ms_{tag}"] = time_ms(lambda: gather_conv.gather_conv_plain(
+                    f, idx, w, out_valid=valid), reps=5, flush=flush)
+                flat = torch.cat([f, f.new_zeros((1, cin))])
+                safe = torch.where(present, idx.long(), n).reshape(-1)
+                w2 = w.reshape(k * cin, cout)
+                row[f"library_ms_{tag}"] = time_ms(
+                    lambda: torch.matmul(flat[safe].reshape(m, k * cin), w2),
+                    flush=flush)
+                # each input read once (the rows the rulebook uses, the
+                # table, the weights), the output written once; the
+                # operations of the present taps only
+                nbytes = (rows_read * cin + k * cin * cout + m * cout) \
+                    * f.element_size() + m * k * 4
+                row[f"bytes_ms_{tag}"] = 1e3 * nbytes / HBM_BYTES_PER_S
+                row[f"ops_ms_{tag}"] = 1e3 * 2.0 * n_present * cin * cout \
+                    / PEAK_OPS_PER_S[tag]
+                row[f"bound_ms_{tag}"] = max(row[f"bytes_ms_{tag}"],
+                                             row[f"ops_ms_{tag}"])
+            # s8: exact s32 sums, and the scaled/masked epilogue bit-exact
+            fq, s_f = quant_sym(feats.float())
+            wq, s_w = quant_sym(w32.float(), axis=-1)
+            scale = (s_f * s_w).float().contiguous()
+            for kw in ({}, {"out_scale": scale, "out_valid": valid}):
+                vk = gather_conv.sparse_gather_conv(fq, idx, wq, impl="cuda", **kw)
+                vp = gather_conv.sparse_gather_conv(fq, idx, wq, impl="plain", **kw)
+                check(torch.equal(vk, vp), f"{name} s8 {sorted(kw)}: kernel != plain")
+            row["ms_s8"] = time_ms(lambda: gather_conv.gather_conv_cuda(
+                fq, idx, wq, out_scale=scale, out_valid=valid), flush=flush)
+            row["plain_ms_s8"] = time_ms(lambda: gather_conv.gather_conv_plain(
+                fq, idx, wq, out_scale=scale, out_valid=valid), reps=5, flush=flush)
+            flatq = torch.cat([fq, fq.new_zeros((1, cin))])
+            safe = torch.where(present, idx.long(), n).reshape(-1)
+            wq2 = wq.reshape(k * cin, cout)
+            row["library_ms_s8"] = time_ms(
+                lambda: torch._int_mm(flatq[safe].reshape(m, k * cin), wq2),
+                flush=flush) if m > 16 else None
+            nbytes = rows_read * cin + k * cin * cout + m * cout * 4 + m * k * 4
+            row["bound_ms_s8"] = 1e3 * max(
+                nbytes / HBM_BYTES_PER_S,
+                2.0 * n_present * cin * cout / PEAK_OPS_PER_S["s8"])
+            emit("kernel_conv", **row)
+            for key in totals:
+                totals[key] += row[f"{key}_bf16"]
+            group = by_width.setdefault((cin, cout, k), {"convs": 0})
+            group["convs"] += 1
+            for tag in ("bf16", "s8"):
+                for key in ("ms", "library_ms", "bound_ms"):
+                    v, acc = row[f"{key}_{tag}"], group.get(f"{key}_{tag}", 0.0)
+                    group[f"{key}_{tag}"] = None if v is None or acc is None \
+                        else acc + v
+                lib_ms = row[f"library_ms_{tag}"]
+                under_library[tag] += lib_ms is not None \
+                    and row[f"ms_{tag}"] <= lib_ms
+    groups = []
+    for (cin, cout, k), g in by_width.items():
+        for tag in ("bf16", "s8"):
+            lib_ms = g[f"library_ms_{tag}"]
+            g[f"kernel_over_library_{tag}"] = None if lib_ms is None \
+                else g[f"ms_{tag}"] / lib_ms
+        groups.append({"Cin": cin, "Cout": cout, "K": k, **g})
+    emit("kernel_conv_by_width", model=label, groups=groups,
+         times="sums over the convs of each (Cin, Cout, K) group")
+    emit("kernel_conv_total", model=label, dtype="bf16", convs=len(convs),
+         **totals,
+         convs_at_or_under_library=under_library,
+         mode=mode(), max_abs_err=worst, tolerance={
+             "f32": "max|k-p| <= 1e-4 * max(1, max|p|)",
+             "bf16": "|k-p| <= 2^-7 |p| + 1e-5 * max(1, max|p|) per element",
+             "s8": "bit-exact (s32 sums and scaled/masked output)"})
+    return totals, worst
 
 
 def kernel_launches(conv_k, nms_k):
@@ -979,6 +1296,454 @@ def driver_tiny(conv_k, nms_k, mode, fp32_nds):
     return out
 
 
+def kitti_config(name):
+    """tools/cfgs/kitti_models/<name>.yaml with its MODEL section as
+    written, and a SyntheticDataset at the yaml's own geometry in place of
+    the KITTI data: its POINT_CLOUD_RANGE, POINT_FEATURE_ENCODING and
+    DATA_PROCESSOR (voxel size, points per voxel, the 40,000-voxel test
+    cap), BATCH * REQUESTS frames of KITTI_SCENE."""
+    from q3d_tpu_torch.config import EDict, cfg_from_yaml_file
+    cfg = cfg_from_yaml_file(str(KITTI_DIR / f"{name}.yaml"), EDict())
+    dc = cfg.DATA_CONFIG
+    cfg.DATA_CONFIG = EDict({
+        "DATASET": "SyntheticDataset", "NUM_FRAMES": BATCH * REQUESTS,
+        "SEED": SEED, "POINT_CLOUD_RANGE": list(dc.POINT_CLOUD_RANGE),
+        "MAX_GT_BOXES": dc.MAX_GT_BOXES,
+        "POINT_FEATURE_ENCODING": dc.POINT_FEATURE_ENCODING,
+        "DATA_PROCESSOR": dc.DATA_PROCESSOR, **KITTI_SCENE})
+    return cfg
+
+
+def scene_counts(ds):
+    """Per frame of ``ds``: points generated, points kept by the range
+    crop, voxels those occupy, and voxels the capped voxelizer keeps."""
+    import numpy as np
+    rows = []
+    for j in range(len(ds)):
+        d = ds[j]
+        pts = d["points"]
+        cells = np.floor((pts[:, :3] - ds.point_cloud_range[:3])
+                         / ds.voxel_size).astype(np.int64)
+        rows.append({"frame": j,
+                     "points_generated": 48 * (KITTI_SCENE["NUM_BG_POINTS"]
+                                               // 48)
+                     + KITTI_SCENE["NUM_OBJECTS"]
+                     * KITTI_SCENE["POINTS_PER_OBJECT"],
+                     "points_in_range": len(pts),
+                     "voxels_occupied": len(np.unique(cells, axis=0)),
+                     "voxels_kept": int((d["voxel_num_points"] > 0).sum())})
+    return rows
+
+
+def anchor_candidates(out, cfg):
+    """The model's own NMS input from a forward's outputs: per frame the
+    best class score of each anchor, stable-sorted descending, the first
+    NMS_PRE_MAXSIZE boxes and their validity (score >= SCORE_THRESH) ->
+    (boxes (B, K, 7) f32, valid (B, K))."""
+    import torch
+    post = cfg.MODEL.POST_PROCESSING
+    scores = torch.sigmoid(out["batch_cls_preds"].float()).amax(-1)
+    order = torch.sort(scores, dim=1, descending=True, stable=True)[1]
+    k = min(int(post.NMS_CONFIG.NMS_PRE_MAXSIZE), scores.shape[1])
+    order = order[:, :k]
+    boxes = out["batch_box_preds"][..., :7].float().gather(
+        1, order[..., None].expand(-1, -1, 7)).contiguous()
+    valid = (scores.gather(1, order) >= float(post.SCORE_THRESH)).contiguous()
+    return boxes, valid
+
+
+def kitti_model(name, dev, conv_k, nms_k, mode, strict_f32):
+    """Phases ``serving_<name>``, ``stages_<name>`` and ``model_<name>``:
+    the KITTI config's MODEL at full width on KITTI-geometry synthetic
+    scenes, seeded random weights (conv_cls's prior bias set to 0, so that
+    the score threshold passes candidates as a trained model's scores do),
+    BN statistics calibrated on the first request (f32, TF32 off).
+
+    serving: 4 requests of batch 2 in bf16, host time (scene + voxelize)
+    and device forward each, launches zeroed before and read after (kernel
+    1: KITTI_CONVS a forward; kernel 2's boxes form: one a forward, at K =
+    NMS_PRE_MAXSIZE); stages: CUDA events per stage of one bf16 forward;
+    model: one f32 request (TF32 off) through the kernels and through the
+    plain versions: spatial_features, the cls / box / dir maps (within
+    1e-4 of scale) and the detections (matched), the NMS keep masks of
+    both forms on identical candidates and post_processing on identical
+    inputs equal.  -> dict of what later phases need."""
+    import torch
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.models import build_network, load_data_to_device
+    from q3d_tpu_torch.ops.iou3d_nms import candidate_iou
+    from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as nms_mod
+
+    cfg = kitti_config(name)
+    ds, _, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
+                                batch_size=BATCH, training=False)
+    counts = scene_counts(ds)
+    cap = int(cfg.DATA_CONFIG.DATA_PROCESSOR[-1].MAX_NUMBER_OF_VOXELS["test"])
+    check(all(KITTI_MIN_VOXELS[name] <= c["voxels_kept"] <= cap
+              for c in counts),
+          f"{name}: voxels kept {[c['voxels_kept'] for c in counts]}")
+    emit(f"data_{name}", config=f"kitti_models/{name}.yaml",
+         dataset="SyntheticDataset at the config's geometry", scene=KITTI_SCENE,
+         point_cloud_range=list(cfg.DATA_CONFIG.POINT_CLOUD_RANGE),
+         voxel_size=[float(v) for v in ds.voxel_size],
+         grid_size=[int(g) for g in ds.grid_size], voxel_cap=cap,
+         frames=counts)
+    t0 = time.perf_counter()
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=dev)
+    head = model.dense_head
+    with torch.no_grad():
+        head.conv_cls.bias.zero_()
+    build_s = time.perf_counter() - t0
+    raw0, _, _ = make_request(ds, 0)
+    strict_f32(True)
+    batch_f32 = load_data_to_device(raw0, device=dev)
+    calibrate_bns(model, batch_f32)
+    strict_f32(False)
+
+    # ------------------------------------------------------------ serving
+    nms_cfg = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+    pre, post_max = int(nms_cfg.NMS_PRE_MAXSIZE), int(nms_cfg.NMS_POST_MAXSIZE)
+    k_seen = []                       # K of each boxes-form launch
+    real_boxes_cuda = nms_mod.greedy_suppress_boxes_cuda
+
+    def seen(corners, *args, **kw):
+        k_seen.append(int(corners.shape[1]))
+        return real_boxes_cuda(corners, *args, **kw)
+    nms_mod.greedy_suppress_boxes_cuda = seen
+    clear_launches(conv_k, nms_k)
+    per_request = []
+    try:
+        for r in range(REQUESTS):
+            raw, scene_ms, vox_ms = make_request(ds, r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = load_data_to_device(raw, device=dev,
+                                        compute_dtype=torch.bfloat16)
+            with torch.no_grad():
+                out = model(batch)
+            n_valid = out["final_valid"].sum(dim=1).tolist()
+            torch.cuda.synchronize()
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+            check(all(torch.isfinite(out[k].float()).all() for k in
+                      ("spatial_features_2d", "batch_box_preds",
+                       "final_boxes", "final_scores")),
+                  f"{name} request {r}: non-finite outputs")
+            check(out["final_boxes"].shape == (BATCH, post_max, 7),
+                  f"{name} request {r}: final_boxes shape "
+                  f"{tuple(out['final_boxes'].shape)}")
+            per_request.append({"request": r,
+                                "frames": list(range(BATCH * r,
+                                                     BATCH * (r + 1))),
+                                "scene_ms": scene_ms, "voxelize_ms": vox_ms,
+                                "device_forward_ms": fwd_ms,
+                                "valid_detections": n_valid})
+            emit(f"serving_{name}_request", **per_request[-1])
+    finally:
+        nms_mod.greedy_suppress_boxes_cuda = real_boxes_cuda
+    launches = kernel_launches(conv_k, nms_k)
+    want = {"conv": KITTI_CONVS[name] * REQUESTS, "nms_boxes": REQUESTS,
+            "nms_iou": 0, "nms_k": [pre] * REQUESTS}
+    got = {"conv": sum(conv_k.launches.values()),
+           "nms_boxes": launches["greedy_nms_boxes"],
+           "nms_iou": launches["greedy_nms_iou"], "nms_k": k_seen}
+    check(got == want, f"{name} main path launches {got}, expected {want}")
+    emit(f"serving_{name}", config=f"kitti_models/{name}.yaml", batch=BATCH,
+         dtype="bf16", requests=REQUESTS, launches=launches, nms_k=k_seen,
+         anchors=int(head.anchors.shape[0]), build_s=build_s, mode=mode(),
+         steady_forward_ms=statistics.median(
+             p["device_forward_ms"] for p in per_request[1:]))
+    stages = stage_times(model, batch)
+    emit(f"stages_{name}", dtype="bf16", batch=BATCH, mode=mode(), ms=stages)
+
+    # ------------------------------------- whole model, kernels vs plain
+    strict_f32(True)
+    convs = []
+    with torch.no_grad():
+        model.set_kernel_impl("cuda")
+        clear_launches(conv_k, nms_k)
+        if KITTI_CONVS[name]:
+            convs, out_k = record_sparse_convs(model, batch_f32)
+        else:
+            out_k = model(dict(batch_f32))
+        torch.cuda.synchronize()
+        cuda_launches = kernel_launches(conv_k, nms_k)
+        model.set_kernel_impl("plain")
+        clear_launches(conv_k, nms_k)
+        out_p = model(dict(batch_f32))
+        torch.cuda.synchronize()
+        plain_launches = kernel_launches(conv_k, nms_k)
+        model.set_kernel_impl(None)
+    check(sum(conv_k.launches.values()) == 0 and not any(
+        plain_launches.values()), f"model_{name}: the plain run launched "
+                                  f"{plain_launches}")
+    check(len(convs) == KITTI_CONVS[name] and cuda_launches[
+        "greedy_nms_boxes"] == 1, f"model_{name}: kernel run launched "
+                                  f"{cuda_launches}, {len(convs)} convs")
+    map_err = {}
+    for key in ("spatial_features", "spatial_features_2d", "cls_preds",
+                "box_preds", "dir_cls_preds"):
+        a, b = out_k[key], out_p[key]
+        err, mag = float((a - b).abs().max()), float(b.abs().max())
+        map_err[key] = {"max_abs": err, "scale": mag}
+        check(err <= 1e-4 * max(1.0, mag),
+              f"model_{name} f32 {key}: kernels vs plain max err {err} "
+              f"(scale {mag})")
+    cand, cand_valid = anchor_candidates(out_k, cfg)
+    thresh = float(nms_cfg.NMS_THRESH)
+    with torch.no_grad():
+        check(torch.equal(
+            nms_mod.greedy_nms_boxes(cand, cand_valid, thresh, impl="cuda"),
+            nms_mod.greedy_nms_boxes(cand, cand_valid, thresh, impl="plain")),
+            f"model_{name}: NMS keep masks (boxes form) differ on identical "
+            f"candidates")
+        iou, iou_valid = candidate_iou(cand, cand_valid)
+        check(torch.equal(nms_mod.greedy_nms(iou, iou_valid, thresh,
+                                             impl="cuda"),
+                          nms_mod.greedy_nms(iou, iou_valid, thresh,
+                                             impl="plain")),
+              f"model_{name}: NMS keep masks (IoU form) differ on identical "
+              f"candidates")
+        del iou
+        finals = []
+        for impl in ("cuda", "plain"):
+            model.kernel_impl = impl
+            finals.append(model.post_processing(
+                {k: out_k[k] for k in ("batch_cls_preds", "batch_box_preds",
+                                       "cls_preds_normalized")}))
+        model.kernel_impl = None
+    for key in ("final_boxes", "final_scores", "final_labels", "final_valid"):
+        check(torch.equal(finals[0][key], finals[1][key]),
+              f"model_{name}: {key} differs between NMS kernel and plain on "
+              f"identical inputs")
+    # end to end: every valid detection of one run has a partner in the
+    # other (same label, box within 1e-3, score within 1e-4)
+    matched = total = 0
+    for a, b in ((out_k, out_p), (out_p, out_k)):
+        for i in range(BATCH):
+            va, vb = a["final_valid"][i], b["final_valid"][i]
+            ba, bb = a["final_boxes"][i][va], b["final_boxes"][i][vb]
+            total += len(ba)
+            if len(ba) == 0 or len(bb) == 0:
+                continue
+            ok = ((ba[:, None, :] - bb[None, :, :]).abs().amax(-1) <= 1e-3) \
+                & (a["final_labels"][i][va][:, None]
+                   == b["final_labels"][i][vb][None, :]) \
+                & ((a["final_scores"][i][va][:, None]
+                    - b["final_scores"][i][vb][None, :]).abs() <= 1e-4)
+            matched += int(ok.any(1).sum())
+    frac = matched / max(total, 1)
+    check(total > 0 and frac >= 0.99,
+          f"model_{name}: only {matched}/{total} detections matched")
+    emit(f"model_{name}", dtype="f32", mode=mode(), map_max_abs_err=map_err,
+         map_tolerance="max|k-p| <= 1e-4 * max(1, max|p|)",
+         launches=cuda_launches,
+         nms_identical_inputs=f"keep masks (both forms, K={cand.shape[1]}) "
+         "and post_processing's detections equal",
+         candidates_valid=cand_valid.sum(1).tolist(),
+         detections_matched=matched, detections=total, matched_fraction=frac)
+    strict_f32(False)
+    return {"model": model, "cfg": cfg, "batch_f32": batch_f32,
+            "convs": convs, "cand": (cand, cand_valid), "launches": launches}
+
+
+def boxes_bound(s, k, cand_pairs, near_pairs, clock_mhz):
+    """Kernel 2's boxes form, three terms in ms: corners, areas and valid
+    read once and keep written once (bytes); the circle test of every
+    needed pair and the IoU of each near pair (operations, f32, as
+    csrc/greedy_nms.cu counts them); the sweep's chain of K steps at >= 4
+    cycles each (latency)."""
+    return {"bytes": 1e3 * s * k * (32 + 4 + 1 + 1) / HBM_BYTES_PER_S,
+            "operations": 1e3 * (cand_pairs * IOU_CIRCLE_OPS
+                                 + near_pairs * IOU_OPS)
+            / PEAK_OPS_PER_S["f32"],
+            "latency": 1e3 * k * 4 / (clock_mhz * 1e6)}
+
+
+def kernel_nms_wide(kitti, flush, mode, clock_mhz):
+    """Phase ``kernel_nms`` at the anchor heads' widths (K > 2048, two mask
+    words a sweep lane): the IoU form on random IoU matrices and the boxes
+    form on random crowded boxes, K = 2049 and 4096, thresh 0.01 (the
+    KITTI configs') and 0.5, and on both models' real candidate sets (K =
+    4096): keep masks equal to the plain versions', the boxes form's IoU
+    bit-equal at every pair it evaluated and 0 at every needed pair it
+    skipped.  Then the boxes form timed on each model's candidates beside
+    its plain version and its three-term bound.  -> {model: row}."""
+    import numpy as np
+    import torch
+    from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as nms_mod
+    dev = next(iter(kitti.values()))["cand"][0].device
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.RandomState(SEED)
+    for kk in WIDE_K:
+        r_iou = torch.rand((2, kk, kk), generator=g, device=dev)
+        r_valid = torch.rand((2, kk), generator=g, device=dev) > 0.1
+        for th in (0.01, 0.5):
+            check(torch.equal(nms_mod.greedy_nms(r_iou, r_valid, th,
+                                                 impl="cuda"),
+                              nms_mod.greedy_nms(r_iou, r_valid, th,
+                                                 impl="plain")),
+                  f"greedy_nms: random K={kk} thresh={th} keep masks differ")
+        del r_iou
+        rb_ = np.zeros((2, kk, 7), np.float32)       # crowded, duplicates
+        rb_[..., 0:2] = rng.uniform(-0.4, 0.4, (2, kk, 2)) * np.sqrt(kk)
+        rb_[..., 3:6] = rng.uniform(0.5, 4.5, (2, kk, 3))
+        rb_[..., 6] = rng.uniform(-np.pi, np.pi, (2, kk))
+        rb_[:, 10:20] = rb_[:, 0:10]
+        rb_[:, 20:30, :6] = rb_[:, 30:40, :6]
+        r_boxes = torch.from_numpy(rb_).to(dev)
+        r_valid = torch.from_numpy(rng.rand(2, kk) > 0.1).to(dev)
+        for th in (0.01, 0.5):
+            check_boxes_form(r_boxes, r_valid, th, f"random K={kk}")
+    rows = {}
+    for name, k_ in kitti.items():
+        cand, valid = k_["cand"]
+        th = float(k_["cfg"].MODEL.POST_PROCESSING.NMS_CONFIG.NMS_THRESH)
+        near, needed, most = check_boxes_form(cand, valid, th,
+                                              f"{name} candidates")
+        s, k = valid.shape
+        corners, areas = nms_mod.bev_corners_areas(cand)
+        terms = boxes_bound(s, k, needed, near, clock_mhz)
+        row = {"model": name, "entry": "q3d_greedy_nms_boxes", "sets": s,
+               "K": k, "thresh": th, "candidate_pairs": needed,
+               "near_pairs": near, "near_pairs_most_in_a_tile": most,
+               "kept": int(nms_mod.greedy_nms_boxes(cand, valid, th).sum()),
+               "ms": time_ms(lambda: nms_mod.greedy_suppress_boxes_cuda(
+                   corners, areas, valid, th), flush=flush),
+               "plain_ms": time_ms(lambda: nms_mod.greedy_suppress_boxes_plain(
+                   cand, valid, th), reps=3, flush=flush),
+               **{f"{t}_ms": v for t, v in terms.items()},
+               "kernel_us": kernel_device_us(
+                   lambda: nms_mod.greedy_suppress_boxes_cuda(
+                       corners, areas, valid, th),
+                   ("nms_box_pairs_kernel", "nms_box_iou_kernel",
+                    "nms_sweep_kernel"), flush)}
+        row["bound_by"] = max(terms, key=terms.get)
+        row["bound_ms"] = terms[row["bound_by"]]
+        rows[name] = row
+        emit("kernel_nms", form="boxes", **row, max_abs_err=0, mode=mode(),
+             clock_max_sm_mhz=clock_mhz,
+             tolerance="keep masks exactly equal, IoU bit-equal at every "
+             "evaluated pair, plain IoU exactly 0 at every skipped needed "
+             "pair (real candidates + random K=2049/4096 x thresh "
+             "0.01/0.5); IoU form keep masks equal on random K=2049/4096")
+    return rows
+
+
+def recipes_kitti(kitti, conv_k, nms_k, mode, strict_f32):
+    """Phase ``recipes_kitti``: one f32 request (TF32 off) through the
+    kernels and through the plain versions for SECOND under
+    ``second_recipe()`` and PointPillars under ``pointpillar_recipe()``
+    (dynamic SmoothQuant fake-quant: every map within FQ_MAP_RTOL of its
+    scale, the detections as sets with the FQ_* tolerances) and SECOND
+    under ``int8_deploy_recipe()`` (every int8 map a quantizer emits,
+    spatial_features and the detections equal; launches held to the
+    recipe's layers: 11 s8, 1 f32 conv_input, one ``_int_mm`` per BEV conv
+    (12), 1 NMS).
+    -> {recipe: summary}."""
+    import torch
+    from q3d_tpu_torch.eval_utils import to_host
+    from q3d_tpu_torch.models.layers import Conv2d
+    from q3d_tpu_torch.quant import api as quant_api
+    from q3d_tpu_torch.quant.tensor_quant import TensorQuantizer
+    cases = (("second", "second_recipe()", quant_api.second_recipe()),
+             ("pointpillar", "pointpillar_recipe()",
+              quant_api.pointpillar_recipe()),
+             ("second", "int8_deploy_recipe()",
+              quant_api.int8_deploy_recipe()))
+    strict_f32(True)
+    summary = {}
+    for name, tag, rules in cases:
+        batch = kitti[name]["batch_f32"]
+        m = copy.deepcopy(kitti[name]["model"])
+        quant_api.quantize_model(m, rules, batch)
+        int8 = "int8" in tag
+        grabbed = {"cuda": [], "plain": []}
+        impl_now = [None]
+        qnames = {q: n for n, q in m.named_modules()
+                  if isinstance(q, TensorQuantizer)}
+        hooks = [q.register_forward_hook(
+            lambda mod, a, o: grabbed[impl_now[0]].append((qnames[mod], o)))
+            for q, n in qnames.items() if int8
+            and not n.endswith("weight_quant")]
+        outs, launches = {}, {}
+        try:
+            with torch.no_grad():
+                for impl in ("cuda", "plain"):
+                    impl_now[0] = impl
+                    m.set_kernel_impl(impl)
+                    clear_launches(conv_k, nms_k)
+                    outs[impl] = m(dict(batch))
+                    torch.cuda.synchronize()
+                    launches[impl] = kernel_launches(conv_k, nms_k)
+        finally:
+            m.set_kernel_impl(None)
+            for h in hooks:
+                h.remove()
+        n_conv = KITTI_CONVS[name]
+        want = {"greedy_nms_boxes": 1}
+        if int8:
+            # conv_input float; one _int_mm per quantized dense conv (the
+            # BEV backbone's 12 at KITTI width)
+            want.update(sparse_gather_conv_s8=n_conv - 1,
+                        sparse_gather_conv_f32=1, int_mm_conv2d=sum(
+                            isinstance(c, Conv2d) and c.rule is not None
+                            for c in m.modules()))
+        elif n_conv:
+            want["sparse_gather_conv_f32"] = n_conv
+        check({k: v for k, v in launches["cuda"].items() if v} == want,
+              f"recipes_kitti {name} {tag}: launches {launches['cuda']}, "
+              f"expected {want}")
+        check(not any(launches["plain"].values()),
+              f"recipes_kitti {name} {tag}: the plain run launched "
+              f"{launches['plain']}")
+        ok_, op = outs["cuda"], outs["plain"]
+        row = {"model": name, "recipe": tag, "launches": launches["cuda"],
+               "valid": [int(ok_["final_valid"].sum()),
+                         int(op["final_valid"].sum())]}
+        if int8:
+            gk, gp = grabbed["cuda"], grabbed["plain"]
+            check(len(gk) == len(gp) > 0
+                  and [n for n, _ in gk] == [n for n, _ in gp],
+                  f"recipes_kitti {tag}: int8 maps {len(gk)} vs {len(gp)}")
+            bad = [n for (n, a), (_, b) in zip(gk, gp)
+                   if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]))]
+            check(not bad, f"recipes_kitti {tag}: int8 maps differ at "
+                           f"{bad[:5]}")
+            for key in ("spatial_features", "final_boxes", "final_scores",
+                        "final_labels", "final_valid"):
+                check(torch.equal(ok_[key], op[key]),
+                      f"recipes_kitti {tag}: {key} differs, kernels vs plain")
+            row.update(int8_maps_equal=len(gk),
+                       equal="every int8 map, spatial_features, detections")
+        else:
+            map_err = {}
+            for key in ("spatial_features", "spatial_features_2d",
+                        "cls_preds", "box_preds", "dir_cls_preds"):
+                a, b = ok_[key], op[key]
+                err, mag = float((a - b).abs().max()), float(b.abs().max())
+                map_err[key] = {"max_abs": err, "scale": mag}
+                check(bool(torch.isfinite(a).all())
+                      and err <= FQ_MAP_RTOL * max(mag, 1.0),
+                      f"recipes_kitti {name} {tag}: {key} {map_err[key]}")
+            hk, hp = to_host(ok_), to_host(op)
+            n, matched, worst = detections_near([hk], [hp], FQ_MIN_SCORE,
+                                                FQ_BOX_TOL, FQ_SCORE_TOL)
+            counts = row["valid"]
+            check(n > 0 and matched >= FQ_MATCH_SHARE * n
+                  and abs(counts[0] - counts[1])
+                  <= FQ_COUNT_SHARE * max(counts),
+                  f"recipes_kitti {name} {tag}: {matched}/{n} detections "
+                  f"matched, counts {counts}")
+            row.update(map_err=map_err, detections=n, matched=matched,
+                       worst=worst, map_tolerance=f"max|k-p| <= "
+                       f"{FQ_MAP_RTOL} * max(1, max|p|)")
+        summary[f"{name} {tag}"] = row
+        emit("recipes_kitti", dtype="f32", mode=mode(), batch=BATCH, **row)
+        del m
+    strict_f32(False)
+    return summary
+
+
 def main():
     import numpy as np
     import torch
@@ -993,18 +1758,13 @@ def main():
 
     from q3d_tpu_torch.config import cfg_from_yaml_file, EDict
     from q3d_tpu_torch.datasets import build_dataloader
-    from q3d_tpu_torch.datasets.synthetic_dataset import make_scene
     from q3d_tpu_torch.models import build_network, load_data_to_device
     from q3d_tpu_torch.ops import kernel_build
-    from q3d_tpu_torch.ops.iou3d_nms import boxes_iou_bev, candidate_iou
+    from q3d_tpu_torch.ops.iou3d_nms import candidate_iou
     from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as nms_mod
     from q3d_tpu_torch.ops.spconv import gather_conv
-    from q3d_tpu_torch.ops.spconv.modules import (SubMConv3d, SparseConv3d,
-                                                  SparseBatchNorm,
-                                                  subm_cache_key,
-                                                  down_cache_key)
+    from q3d_tpu_torch.ops.spconv.modules import SubMConv3d, SparseConv3d
     from q3d_tpu_torch.models import layers as dense_layers
-    from q3d_tpu_torch.models.layers import BatchNorm
     from q3d_tpu_torch.ops.spconv import modules as sp_modules
     from q3d_tpu_torch.quant import api as quant_api
     from q3d_tpu_torch.quant.tensor_quant import (TensorQuantizer,
@@ -1036,20 +1796,7 @@ def main():
                                 batch_size=BATCH, training=False)
 
     def request(r):
-        """Frames 2r, 2r+1 -> (numpy batch, scene ms, voxelize ms)."""
-        frames, scene_ms, vox_ms = [], 0.0, 0.0
-        for j in range(r * BATCH, (r + 1) * BATCH):
-            t0 = time.perf_counter()
-            rng = np.random.RandomState(ds.base_seed + j)
-            points, boxes, names = make_scene(rng, ds.point_cloud_range,
-                                              **ds.scene_kwargs)
-            t1 = time.perf_counter()
-            frames.append(ds.prepare_data({"points": points, "gt_boxes": boxes,
-                                           "gt_names": names, "frame_id": j}))
-            t2 = time.perf_counter()
-            scene_ms += (t1 - t0) * 1e3
-            vox_ms += (t2 - t1) * 1e3
-        return ds.collate_batch(frames), scene_ms, vox_ms
+        return make_request(ds, r)
 
     check(len(ds) == BATCH * REQUESTS, f"dataset has {len(ds)} frames")
     raw0, _, _ = request(0)
@@ -1075,45 +1822,10 @@ def main():
 
     # BN statistics from the first request (a trained model's BNs match
     # their inputs; random weights with identity BNs fade to constants)
-    def calibrate(mod, args):
-        x = args[0]
-        if isinstance(mod, SparseBatchNorm):
-            rows = x.features[x.valid].float()
-            mean, var = rows.mean(0), rows.var(0, unbiased=False)
-        else:
-            mean = x.float().mean((0, 2, 3))
-            var = x.float().var((0, 2, 3), unbiased=False)
-        mod.running_mean.copy_(mean)
-        mod.running_var.copy_(var)
-    hooks = [m.register_forward_pre_hook(calibrate) for m in model.modules()
-             if isinstance(m, (SparseBatchNorm, BatchNorm))]
-    with torch.no_grad():
-        model(dict(batch_f32))
-    for h in hooks:
-        h.remove()
+    calibrate_bns(model, batch_f32)
 
     # ------------------------------------------------------ kernels: conv
-    convs = []                       # every sparse conv call, in order
-
-    def record(mod, args, out):
-        st, cache = args[0], args[1]
-        if isinstance(mod, SparseConv3d):
-            key = down_cache_key(st.spatial_shape, mod.kernel_size, mod.stride,
-                                 mod.padding, args[2] if len(args) > 2 else None)
-            out_indices, idx, _ = cache[key]
-            valid = out_indices[:, 0] >= 0
-        else:
-            key = subm_cache_key(mod.indice_key or "", st.spatial_shape,
-                                 mod.kernel_size, mod.dilation)
-            idx, valid = cache[key], st.valid
-        convs.append((names[mod], st.features, idx, mod.weight.detach(), valid))
-    names = {m: n for n, m in model.named_modules()}
-    hooks = [m.register_forward_hook(record) for m in model.modules()
-             if isinstance(m, (SubMConv3d, SparseConv3d))]
-    with torch.no_grad():
-        out_ref = model(dict(batch_f32))
-    for h in hooks:
-        h.remove()
+    convs, out_ref = record_sparse_convs(model, batch_f32)
     check(len(convs) == 21, f"expected 21 sparse convs, recorded {len(convs)}")
 
     scratch = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -1121,128 +1833,7 @@ def main():
     def flush():
         scratch.zero_()
 
-    def quant(x, axis=None):
-        """Symmetric int8 with per-tensor (axis None) or per-last-axis scale."""
-        amax = x.abs().amax() if axis is None else x.abs().amax(
-            dim=tuple(range(x.dim() - 1)))
-        s = (amax / 127.0).clamp(min=1e-8)
-        return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8), s
-
-    totals = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                               "bytes_ms", "ops_ms")}
-    worst = {"f32": 0.0, "bf16": 0.0, "s8": 0.0}
-    by_width = {}                    # (Cin, Cout, K) -> summed times
-    under_library = {"bf16": 0, "s8": 0}   # convs at or under the library
-    with torch.no_grad():
-        for name, feats, idx, w32, valid in convs:
-            n, cin = feats.shape
-            m, k = idx.shape
-            cout = w32.shape[2]
-            present = (idx >= 0) & (idx < n)
-            n_present = int(present.sum())
-            rows_read = int(torch.unique(idx[present]).numel())
-            row = {"conv": name, "N": n, "M": m, "K": k, "Cin": cin,
-                   "Cout": cout, "present_taps": n_present}
-            for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-                f, w = feats.to(dt).contiguous(), w32.to(dt).contiguous()
-                vk = gather_conv.sparse_gather_conv(f, idx, w, out_valid=valid,
-                                                    impl="cuda")
-                vp = gather_conv.sparse_gather_conv(f, idx, w, out_valid=valid,
-                                                    impl="plain")
-                torch.cuda.synchronize()
-                err = (vk.float() - vp.float()).abs()
-                mag = vp.float().abs()
-                if tag == "f32":
-                    # summation order only: relative to the output's scale
-                    ok = float(err.max()) <= 1e-4 * max(1.0, float(mag.max()))
-                else:
-                    # one bf16 rounding of sums that differ in order: at most
-                    # one ulp (2^-7 relative) per element
-                    ok = bool((err <= 2.0 ** -7 * mag
-                               + 1e-5 * max(1.0, float(mag.max()))).all())
-                worst[tag] = max(worst[tag], float(err.max()))
-                if not ok:
-                    # the worst element's sum of |terms|: large against the
-                    # element itself means heavy cancellation
-                    at = int(err.argmax())
-                    terms = gather_conv.gather_conv_plain(
-                        f.float().abs(), idx, w.float().abs()).reshape(-1)[at]
-                    check(False, f"{name} {tag}: kernel vs plain max err "
-                                 f"{float(err.max())} (scale {float(mag.max())}"
-                                 f"; worst element {at}: plain "
-                                 f"{float(vp.reshape(-1)[at])}, sum|terms| "
-                                 f"{float(terms)})")
-                row[f"err_{tag}"] = float(err.max())
-                row[f"ms_{tag}"] = time_ms(lambda: gather_conv.gather_conv_cuda(
-                    f, idx, w, out_valid=valid), flush=flush)
-                row[f"plain_ms_{tag}"] = time_ms(lambda: gather_conv.gather_conv_plain(
-                    f, idx, w, out_valid=valid), reps=5, flush=flush)
-                flat = torch.cat([f, f.new_zeros((1, cin))])
-                safe = torch.where(present, idx.long(), n).reshape(-1)
-                w2 = w.reshape(k * cin, cout)
-                row[f"library_ms_{tag}"] = time_ms(
-                    lambda: torch.matmul(flat[safe].reshape(m, k * cin), w2),
-                    flush=flush)
-                # each input read once (the rows the rulebook uses, the
-                # table, the weights), the output written once; the
-                # operations of the present taps only
-                nbytes = (rows_read * cin + k * cin * cout + m * cout) \
-                    * f.element_size() + m * k * 4
-                row[f"bytes_ms_{tag}"] = 1e3 * nbytes / HBM_BYTES_PER_S
-                row[f"ops_ms_{tag}"] = 1e3 * 2.0 * n_present * cin * cout \
-                    / PEAK_OPS_PER_S[tag]
-                row[f"bound_ms_{tag}"] = max(row[f"bytes_ms_{tag}"],
-                                             row[f"ops_ms_{tag}"])
-            # s8: exact s32 sums, and the scaled/masked epilogue bit-exact
-            fq, s_f = quant(feats.float())
-            wq, s_w = quant(w32.float(), axis=-1)
-            scale = (s_f * s_w).float().contiguous()
-            for kw in ({}, {"out_scale": scale, "out_valid": valid}):
-                vk = gather_conv.sparse_gather_conv(fq, idx, wq, impl="cuda", **kw)
-                vp = gather_conv.sparse_gather_conv(fq, idx, wq, impl="plain", **kw)
-                check(torch.equal(vk, vp), f"{name} s8 {sorted(kw)}: kernel != plain")
-            row["ms_s8"] = time_ms(lambda: gather_conv.gather_conv_cuda(
-                fq, idx, wq, out_scale=scale, out_valid=valid), flush=flush)
-            row["plain_ms_s8"] = time_ms(lambda: gather_conv.gather_conv_plain(
-                fq, idx, wq, out_scale=scale, out_valid=valid), reps=5, flush=flush)
-            flatq = torch.cat([fq, fq.new_zeros((1, cin))])
-            safe = torch.where(present, idx.long(), n).reshape(-1)
-            wq2 = wq.reshape(k * cin, cout)
-            row["library_ms_s8"] = time_ms(
-                lambda: torch._int_mm(flatq[safe].reshape(m, k * cin), wq2),
-                flush=flush) if m > 16 else None
-            nbytes = rows_read * cin + k * cin * cout + m * cout * 4 + m * k * 4
-            row["bound_ms_s8"] = 1e3 * max(
-                nbytes / HBM_BYTES_PER_S,
-                2.0 * n_present * cin * cout / PEAK_OPS_PER_S["s8"])
-            emit("kernel_conv", **row)
-            for key in totals:
-                totals[key] += row[f"{key}_bf16"]
-            group = by_width.setdefault((cin, cout, k), {"convs": 0})
-            group["convs"] += 1
-            for tag in ("bf16", "s8"):
-                for key in ("ms", "library_ms", "bound_ms"):
-                    v, acc = row[f"{key}_{tag}"], group.get(f"{key}_{tag}", 0.0)
-                    group[f"{key}_{tag}"] = None if v is None or acc is None \
-                        else acc + v
-                lib_ms = row[f"library_ms_{tag}"]
-                under_library[tag] += lib_ms is not None \
-                    and row[f"ms_{tag}"] <= lib_ms
-    groups = []
-    for (cin, cout, k), g in by_width.items():
-        for tag in ("bf16", "s8"):
-            lib_ms = g[f"library_ms_{tag}"]
-            g[f"kernel_over_library_{tag}"] = None if lib_ms is None \
-                else g[f"ms_{tag}"] / lib_ms
-        groups.append({"Cin": cin, "Cout": cout, "K": k, **g})
-    emit("kernel_conv_by_width", groups=groups,
-         times="sums over the convs of each (Cin, Cout, K) group")
-    emit("kernel_conv_total", dtype="bf16", convs=len(convs), **totals,
-         convs_at_or_under_library=under_library,
-         mode=mode(), max_abs_err=worst, tolerance={
-             "f32": "max|k-p| <= 1e-4 * max(1, max|p|)",
-             "bf16": "|k-p| <= 2^-7 |p| + 1e-5 * max(1, max|p|) per element",
-             "s8": "bit-exact (s32 sums and scaled/masked output)"})
+    totals, worst = kernel_conv(convs, flush, mode, CFG.stem)
 
     # ------------------------------------------------------- kernels: NMS
     head = model.dense_head
@@ -1265,46 +1856,6 @@ def main():
             check(torch.equal(nms_mod.greedy_nms(r_iou, r_valid, th, impl="cuda"),
                               nms_mod.greedy_nms(r_iou, r_valid, th, impl="plain")),
                   f"greedy_nms: random K={kk} thresh={th} keep masks differ")
-
-    def check_boxes_form(boxes, valid, th, what):
-        """The boxes form against its plain version (boxes_iou_bev, then the
-        plain sweep): keep masks equal; the kernel's IoU bit-equal at every
-        pair it evaluated; every needed pair (j < i, both valid) it skipped
-        has a plain IoU of exactly 0.  -> (pairs evaluated, pairs needed,
-        the most pairs evaluated in one 64 x 64 tile)."""
-        s_, k_ = valid.shape
-        corners, areas = nms_mod.bev_corners_areas(boxes)
-        iou_k = torch.full((s_, k_, k_), float("nan"), device=dev)
-        keep_k = nms_mod.greedy_suppress_boxes_cuda(corners, areas, valid, th,
-                                                    iou_out=iou_k)
-        iou_p = boxes_iou_bev(boxes[..., :7], boxes[..., :7])
-        keep_p = nms_mod.greedy_suppress_plain(iou_p, valid, th)
-        diff = (keep_k != keep_p).nonzero()
-        check(len(diff) == 0, f"greedy_nms_boxes {what} thresh={th}: "
-                              f"{len(diff)} keep flags differ, first (set, "
-                              f"row) {diff[:1].tolist()}")
-        need = valid[:, :, None] & valid[:, None, :] & torch.ones(
-            (k_, k_), dtype=torch.bool, device=dev).triu(1)
-        done = ~torch.isnan(iou_k)
-        stray = (done & ~need).nonzero()
-        check(len(stray) == 0, f"greedy_nms_boxes {what}: evaluated pairs "
-                               f"outside j < i, both valid: {stray[:3].tolist()}")
-        for bad, why in (
-                (done & (iou_k.view(torch.int32) != iou_p.view(torch.int32)),
-                 "kernel IoU != plain IoU"),
-                (need & ~done & (iou_p != 0), "skipped pair has plain IoU != 0")):
-            at = bad.nonzero()
-            if len(at):
-                s0, j0, i0 = at[0].tolist()
-                check(False, f"greedy_nms_boxes {what} thresh={th}: {len(at)} "
-                             f"pairs: {why}; first set {s0} (j={j0}, i={i0}): "
-                             f"kernel {float(iou_k[s0, j0, i0])!r}, plain "
-                             f"{float(iou_p[s0, j0, i0])!r}")
-        kt = -(-k_ // 64)
-        tiles = torch.nn.functional.pad(
-            done, (0, 64 * kt - k_, 0, 64 * kt - k_)).reshape(
-            s_, kt, 64, kt, 64).sum((2, 4))
-        return int(done.sum()), int(need.sum()), int(tiles.max())
 
     near_pairs, cand_pairs, near_max_tile = check_boxes_form(
         cand, cand_valid, thresh, "ref decode")
@@ -1341,14 +1892,7 @@ def main():
     iou_terms = {"bytes": 1e3 * (pairs * 4 + 2 * s * kp) / HBM_BYTES_PER_S,
                  "operations": 1e3 * pairs / PEAK_OPS_PER_S["f32"],
                  "latency": 1e3 * kp * 4 / (clock_mhz * 1e6)}
-    # boxes form: corners, areas and valid read once, keep written once; the
-    # circle test of every needed pair and the IoU of each near pair
-    # (csrc/greedy_nms.cu counts the operations); the same chain
-    box_terms = {"bytes": 1e3 * s * kc * (32 + 4 + 1 + 1) / HBM_BYTES_PER_S,
-                 "operations": 1e3 * (cand_pairs * IOU_CIRCLE_OPS
-                                      + near_pairs * IOU_OPS)
-                 / PEAK_OPS_PER_S["f32"],
-                 "latency": 1e3 * kc * 4 / (clock_mhz * 1e6)}
+    box_terms = boxes_bound(s, kc, cand_pairs, near_pairs, clock_mhz)
     iou_form = {
         "entry": "q3d_greedy_nms", "sets": s, "K": kp,
         "candidate_pairs": pairs,
@@ -1815,6 +2359,21 @@ def main():
     def per_recipe(key):
         return {tag: g["cuda"]["launches"][key] for tag, g in gates.items()}
 
+    # ============================= SECOND and PointPillars at KITTI width
+    kitti = {name: kitti_model(name, dev, conv_k, nms_k, mode, strict_f32)
+             for name in KITTI_CONVS}
+    strict_f32(True)
+    second_totals, second_worst = kernel_conv(kitti["second"]["convs"], flush,
+                                              mode, "second")
+    strict_f32(False)
+    nms_wide = kernel_nms_wide(kitti, flush, mode, clock_mhz)
+    recipes_kitti(kitti, conv_k, nms_k, mode, strict_f32)
+    kitti_launches = {name: {"sparse_gather_conv": sum(
+        k_["launches"][e] for e in k_["launches"]
+        if e.startswith("sparse_gather_conv")),
+        "greedy_nms_boxes": k_["launches"]["greedy_nms_boxes"]}
+        for name, k_ in kitti.items()}
+
     # ---------------------------------------------------------- kernels line
     kernels = [
         {"name": "sparse_gather_conv", "route": "cuda",
@@ -1827,6 +2386,13 @@ def main():
          else "operations", "library_ms": totals["library_ms"],
          "design": CONV_DESIGN,
          "eval_launches_f32_entry": per_recipe("sparse_gather_conv_f32"),
+         "launches_second": kitti_launches["second"]["sparse_gather_conv"],
+         "second": {"ms": second_totals["ms"],
+                    "plain_ms": second_totals["plain_ms"],
+                    "bound_ms": second_totals["bound_ms"],
+                    "library_ms": second_totals["library_ms"],
+                    "max_abs_err": second_worst["bf16"],
+                    "times_cover": "one SECOND bf16 forward (12 convs)"},
          "checks": "passed", "times_cover": "one bf16 forward (21 convs)"},
         {"name": "sparse_gather_conv_s8_requant", "route": "cuda",
          "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
@@ -1869,6 +2435,11 @@ def main():
          "times_cover": f"one forward's NMS from BEV corners ({s} sets, "
                         f"K={kc}); the IoU form from the padded IoU matrix "
                         f"(K={kp})",
+         "launches_kitti": {n: v["greedy_nms_boxes"]
+                            for n, v in kitti_launches.items()},
+         "k4096": {n: {k: r[k] for k in ("sets", "K", "ms", "plain_ms",
+                                         "bound_ms", "bound_by")}
+                   for n, r in nms_wide.items()},
          "entries": [
              {"entry": f["entry"], "launches": launches[key], "ms": f["ms"],
               "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],

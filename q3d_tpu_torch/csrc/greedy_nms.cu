@@ -43,6 +43,11 @@
 // b + 1, the one the next step needs.  Warp 1 meanwhile stages block b + 2
 // into shared memory (16-byte cp.async), ORs block b - 1's kept rows into
 // the later words and writes its keep flags.  One barrier per block.
+// Widths: K <= 4096, 64 mask words a row.  The sweep and kernel B are
+// instantiated twice: up to 2048 (32 words, one per lane of warp 1) and
+// up to 4096 (two words per lane, and kernel B on
+// 256 blocks a set instead of 64, since 4096 anchor candidates list ~1M
+// near pairs a set).
 //
 // Exactness: the IoU is the port's plain formula (iou3d_nms_utils.py:
 // Liang-Barsky clipping of each edge to the other quad's half-planes,
@@ -78,10 +83,15 @@
 namespace {
 
 constexpr int TB = 64;          // boxes per tile side = bits per mask word
-constexpr int MAX_WORDS = 32;   // one warp lane per mask word: K <= 2048
-constexpr int MAX_TILES = MAX_WORDS * (MAX_WORDS + 1) / 2;  // per set
+// Mask words a row: one per lane of a warp (K <= 2048), or two (K <=
+// 4096, the anchor heads' NMS_PRE_MAXSIZE).  The sweep and kernel B are
+// instantiated for each width, so that K <= 2048 runs the narrow code.
+constexpr int NARROW_WORDS = 32;
+constexpr int MAX_WORDS = 64;
 constexpr int BOX_THREADS = 256;
-constexpr int IOU_BLOCKS = 64;          // boxes form, kernel B: per set
+// boxes form, kernel B's blocks per set: narrow, and wide (the ~1M near
+// pairs a set of 4096 anchor candidates lists need the whole card)
+constexpr int IOU_BLOCKS = 64, IOU_BLOCKS_WIDE = 256;
 constexpr int SWEEP_BUFS = 4;           // sweep: staged row blocks
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -301,6 +311,7 @@ nms_box_pairs_kernel(const float* __restrict__ corners,
 // pairs (blockIdx.y = set), so that pairs crowded into one tile, as the
 // duplicates of one object are, spread over the whole card.  One IoU per
 // lane per pass; each bit is ORed into its word with a global atomic.
+template <int WORDS>
 __global__ void __launch_bounds__(BOX_THREADS)
 nms_box_iou_kernel(const float* __restrict__ corners,
                    const float* __restrict__ areas,
@@ -308,7 +319,8 @@ nms_box_iou_kernel(const float* __restrict__ corners,
                    const uint16_t* __restrict__ list,
                    unsigned long long* __restrict__ mask,
                    float* __restrict__ iou_out, int K, int nblk, float thresh) {
-  constexpr int PER_THREAD = (MAX_TILES + BOX_THREADS - 1) / BOX_THREADS;
+  constexpr int PER_THREAD =
+      (WORDS * (WORDS + 1) / 2 + BOX_THREADS - 1) / BOX_THREADS;
   __shared__ int start[PER_THREAD * BOX_THREADS + 1];
   __shared__ int warp_sums[BOX_THREADS / 32];
   const int set = blockIdx.y, t = threadIdx.x;
@@ -413,13 +425,15 @@ __device__ __forceinline__ void cp_async_wait() {
 // of the sweep; in the same pass, in the chain's idle cycles, it ORs
 // the kept rows' words for word b + 1, which step b + 1 needs next.
 // Meanwhile warp 1 stages block b + 2, ORs block b - 1's kept rows into
-// words >= b + 1 and writes block b - 1's keep flags.
+// words >= b + 1 (lane l owns words l and l + 32) and writes block b - 1's
+// keep flags.
+template <int WORDS>
 __global__ void __launch_bounds__(64)
 nms_sweep_kernel(const unsigned long long* __restrict__ mask,
                  const unsigned long long* __restrict__ init,
                  uint8_t* __restrict__ keep, int K, int nblk) {
   extern __shared__ __align__(16) unsigned long long rows[];
-  __shared__ unsigned long long removed[MAX_WORDS], kept_w[MAX_WORDS];
+  __shared__ unsigned long long removed[WORDS], kept_w[WORDS];
   const int set = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int words = TB * nblk;                 // one row block's words
@@ -435,7 +449,9 @@ nms_sweep_kernel(const unsigned long long* __restrict__ mask,
     cp_async_commit();                         // one group per block, even empty
   };
   if (warp == 1) {
-    if (lane < nblk) removed[lane] = init[(size_t)set * nblk + lane];
+#pragma unroll
+    for (int w = lane; w < WORDS; w += 32)
+      if (w < nblk) removed[w] = init[(size_t)set * nblk + w];
     stage(0);
     stage(1);
     cp_async_wait<1>();
@@ -472,12 +488,15 @@ nms_sweep_kernel(const unsigned long long* __restrict__ mask,
         const int pb = b - 1;
         const unsigned long long* R = rows + (pb % SWEEP_BUFS) * words;
         const unsigned long long kept = kept_w[pb];
-        if (lane > b && lane < nblk) {
-          unsigned long long acc[4] = {0ull, 0ull, 0ull, 0ull};
 #pragma unroll
-          for (int r = 0; r < TB; ++r)
-            acc[r & 3] |= R[r * nblk + lane] & (0ull - ((kept >> r) & 1ull));
-          removed[lane] |= (acc[0] | acc[1]) | (acc[2] | acc[3]);
+        for (int w = lane; w < WORDS; w += 32) {
+          if (w > b && w < nblk) {
+            unsigned long long acc[4] = {0ull, 0ull, 0ull, 0ull};
+#pragma unroll
+            for (int r = 0; r < TB; ++r)
+              acc[r & 3] |= R[r * nblk + w] & (0ull - ((kept >> r) & 1ull));
+            removed[w] |= (acc[0] | acc[1]) | (acc[2] | acc[3]);
+          }
         }
         const int i0 = pb * TB;
         for (int r = lane; r < TB && i0 + r < K; r += 32)
@@ -489,17 +508,27 @@ nms_sweep_kernel(const unsigned long long* __restrict__ mask,
   }
 }
 
-int launch_sweep(const unsigned long long* mask, const unsigned long long* init,
-                 void* keep, int S, int K, int nblk, cudaStream_t s) {
+template <int WORDS>
+int launch_sweep_t(const unsigned long long* mask,
+                   const unsigned long long* init, void* keep, int S, int K,
+                   int nblk, cudaStream_t s) {
   const int smem = SWEEP_BUFS * TB * nblk * 8;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        nms_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        nms_sweep_kernel<WORDS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  nms_sweep_kernel<<<S, 64, smem, s>>>(mask, init,
-                                       static_cast<uint8_t*>(keep), K, nblk);
+  nms_sweep_kernel<WORDS><<<S, 64, smem, s>>>(
+      mask, init, static_cast<uint8_t*>(keep), K, nblk);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_sweep(const unsigned long long* mask, const unsigned long long* init,
+                 void* keep, int S, int K, int nblk, cudaStream_t s) {
+  return nblk <= NARROW_WORDS
+             ? launch_sweep_t<NARROW_WORDS>(mask, init, keep, S, K, nblk, s)
+             : launch_sweep_t<MAX_WORDS>(mask, init, keep, S, K, nblk, s);
 }
 
 struct Scratch {
@@ -537,7 +566,7 @@ extern "C" long long q3d_greedy_nms_scratch_words(int S, int K, int boxes) {
 // corners: (S, K, 4, 2) f32; areas: (S, K) f32; valid, keep: (S, K) u8;
 // scratch: q3d_greedy_nms_scratch_words(S, K, 1) words; iou_out: (S, K, K)
 // f32 or null, written only at the pairs the kernel evaluated.  Requires
-// 0 < K <= 2048 and a 16-byte aligned scratch.  Returns the cudaError_t
+// 0 < K <= 4096 and a 16-byte aligned scratch.  Returns the cudaError_t
 // of the launches.
 extern "C" int q3d_greedy_nms_boxes(const void* corners, const void* areas,
                                     const void* valid, void* scratch,
@@ -555,18 +584,25 @@ extern "C" int q3d_greedy_nms_boxes(const void* corners, const void* areas,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long pairs = (long long)K * (K - 1) / 2;
-  const int blocks = static_cast<int>(
-      std::min<long long>(IOU_BLOCKS, (pairs + BOX_THREADS - 1) / BOX_THREADS));
-  nms_box_iou_kernel<<<dim3(std::max(blocks, 1), S), BOX_THREADS, 0, s>>>(
-      cs, static_cast<const float*>(areas), w.counts, w.list, w.mask,
-      static_cast<float*>(iou_out), K, nblk, thresh);
+  const bool wide = nblk > NARROW_WORDS;
+  const int blocks = std::max(1, static_cast<int>(std::min<long long>(
+      wide ? IOU_BLOCKS_WIDE : IOU_BLOCKS,
+      (pairs + BOX_THREADS - 1) / BOX_THREADS)));
+  const auto* ar = static_cast<const float*>(areas);
+  auto* io = static_cast<float*>(iou_out);
+  if (wide)
+    nms_box_iou_kernel<MAX_WORDS><<<dim3(blocks, S), BOX_THREADS, 0, s>>>(
+        cs, ar, w.counts, w.list, w.mask, io, K, nblk, thresh);
+  else
+    nms_box_iou_kernel<NARROW_WORDS><<<dim3(blocks, S), BOX_THREADS, 0, s>>>(
+        cs, ar, w.counts, w.list, w.mask, io, K, nblk, thresh);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   return launch_sweep(w.mask, w.init, keep, S, K, nblk, s);
 }
 
 // iou: (S, K, K) f32; valid, keep: (S, K) u8; scratch:
-// q3d_greedy_nms_scratch_words(S, K, 0) words.  Requires 0 < K <= 2048
+// q3d_greedy_nms_scratch_words(S, K, 0) words.  Requires 0 < K <= 4096
 // and a 16-byte aligned scratch.  Returns the cudaError_t of the launches.
 extern "C" int q3d_greedy_nms(const void* iou, const void* valid,
                               void* scratch, void* keep, int S, int K,

@@ -1,10 +1,12 @@
-"""VoxelResBackBone8x — the CenterPoint sparse 3D backbone.
+"""The sparse 3D voxel backbones: VoxelBackBone8x (SECOND) and
+VoxelResBackBone8x (CenterPoint).
 
 Port of ``q3d_tpu/models/backbones_3d/spconv_backbone.py``: conv_input,
-four residual stages (SparseBasicBlock pairs, strided downsamples between
-them) and the (3,1,1) z-compressing conv_out.  Module names follow pcdet's,
-so a pcdet-named state dict loads strictly.  sparse_shape = [nz+1, ny, nx]
-like the reference's ``grid_size[::-1]+[1,0,0]``.
+four stages (a strided downsample, then SubM convs: plain post_act_blocks
+in VoxelBackBone8x, SparseBasicBlock pairs in VoxelResBackBone8x) and the
+(3,1,1) z-compressing conv_out.  Module names follow pcdet's, so a
+pcdet-named state dict loads strictly.  sparse_shape = [nz+1, ny, nx] like
+the reference's ``grid_size[::-1]+[1,0,0]``.
 
 Under an int8 deploy rule without residency (``quant.api``) each conv is
 int8 and hands its f32 output to the block's float BN and ReLU.  Under an
@@ -115,34 +117,18 @@ def _make_input_tensor(batch_dict, sparse_shape):
                             batch_size=b).sort_rows()
 
 
-class VoxelResBackBone8x(nn.Module):
-    """Residual variant — the CenterPoint-nuScenes backbone."""
+class _BackBone8x(nn.Module):
+    """The forward both backbones share: conv_input, conv1's blocks, then
+    per stage its strided downsample (with the stage's output capacity) and
+    its SubM blocks, then conv_out."""
 
     num_point_features = 128
 
-    def __init__(self, model_cfg, input_channels, grid_size):
+    def __init__(self, model_cfg, grid_size):
         super().__init__()
         self.model_cfg = model_cfg
         nx, ny, nz = grid_size
         self.sparse_shape = (int(nz) + 1, int(ny), int(nx))
-        use_bias = bool(model_cfg.get("USE_BIAS", False))
-        cin = max(int(input_channels), MIN_INPUT_LANES)
-        self.conv_input = _SparseConvBNReLU(cin, 16, 3, 1, 1, "subm", "subm1")
-
-        def stage(c_in, c_out, padding, down_key, res_key):
-            return nn.ModuleList([
-                _SparseConvBNReLU(c_in, c_out, 3, 2, padding, "spconv", down_key),
-                SparseBasicBlock(c_out, res_key, use_bias),
-                SparseBasicBlock(c_out, res_key, use_bias)])
-
-        self.conv1 = nn.ModuleList([SparseBasicBlock(16, "res1", use_bias),
-                                    SparseBasicBlock(16, "res1", use_bias)])
-        self.conv2 = stage(16, 32, 1, "spconv2", "res2")
-        self.conv3 = stage(32, 64, 1, "spconv3", "res3")
-        self.conv4 = stage(64, 128, (0, 1, 1), "spconv4", "res4")
-        self.conv_out = _SparseConvBNReLU(
-            128, 128, (3, 1, 1), (2, 1, 1), model_cfg.get("last_pad", 0),
-            "spconv", "spconv_down2")
 
     def forward(self, batch_dict):
         cache = {}
@@ -161,3 +147,53 @@ class VoxelResBackBone8x(nn.Module):
         batch_dict["encoded_spconv_tensor"] = dequantize_tensor(out)
         batch_dict["encoded_spconv_tensor_stride"] = 8
         return batch_dict
+
+
+class VoxelBackBone8x(_BackBone8x):
+    """SECOND's backbone (reference :134-197): 12 convs, 16 -> 32 -> 64 ->
+    64 channels, conv4's downsample padded (0, 1, 1), conv_out to 128."""
+
+    def __init__(self, model_cfg, input_channels, grid_size):
+        super().__init__(model_cfg, grid_size)
+        cin = max(int(input_channels), MIN_INPUT_LANES)
+        self.conv_input = _SparseConvBNReLU(cin, 16, 3, 1, 1, "subm", "subm1")
+
+        def stage(c_in, c_out, padding, down_key, subm_key):
+            return nn.ModuleList([
+                _SparseConvBNReLU(c_in, c_out, 3, 2, padding, "spconv", down_key),
+                _SparseConvBNReLU(c_out, c_out, 3, 1, 1, "subm", subm_key),
+                _SparseConvBNReLU(c_out, c_out, 3, 1, 1, "subm", subm_key)])
+
+        self.conv1 = nn.ModuleList([
+            _SparseConvBNReLU(16, 16, 3, 1, 1, "subm", "subm1")])
+        self.conv2 = stage(16, 32, 1, "spconv2", "subm2")
+        self.conv3 = stage(32, 64, 1, "spconv3", "subm3")
+        self.conv4 = stage(64, 64, (0, 1, 1), "spconv4", "subm4")
+        self.conv_out = _SparseConvBNReLU(
+            64, 128, (3, 1, 1), (2, 1, 1), model_cfg.get("last_pad", 0),
+            "spconv", "spconv_down2")
+
+
+class VoxelResBackBone8x(_BackBone8x):
+    """Residual variant — the CenterPoint-nuScenes backbone."""
+
+    def __init__(self, model_cfg, input_channels, grid_size):
+        super().__init__(model_cfg, grid_size)
+        use_bias = bool(model_cfg.get("USE_BIAS", False))
+        cin = max(int(input_channels), MIN_INPUT_LANES)
+        self.conv_input = _SparseConvBNReLU(cin, 16, 3, 1, 1, "subm", "subm1")
+
+        def stage(c_in, c_out, padding, down_key, res_key):
+            return nn.ModuleList([
+                _SparseConvBNReLU(c_in, c_out, 3, 2, padding, "spconv", down_key),
+                SparseBasicBlock(c_out, res_key, use_bias),
+                SparseBasicBlock(c_out, res_key, use_bias)])
+
+        self.conv1 = nn.ModuleList([SparseBasicBlock(16, "res1", use_bias),
+                                    SparseBasicBlock(16, "res1", use_bias)])
+        self.conv2 = stage(16, 32, 1, "spconv2", "res2")
+        self.conv3 = stage(32, 64, 1, "spconv3", "res3")
+        self.conv4 = stage(64, 128, (0, 1, 1), "spconv4", "res4")
+        self.conv_out = _SparseConvBNReLU(
+            128, 128, (3, 1, 1), (2, 1, 1), model_cfg.get("last_pad", 0),
+            "spconv", "spconv_down2")

@@ -1,6 +1,8 @@
 """Model builder + batch transfer (port of ``q3d_tpu/models/builder.py``).
 
-The registries hold only what the port has.  ``build_network`` and
+The registries hold only what the port has; PillarVFE and
+PointPillarScatter take the dataset's geometry, as the reference's
+builders give it (:69-76, :99).  ``build_network`` and
 ``load_data_to_device`` default to the CUDA device and raise when there is
 none; pass ``device="cpu"`` explicitly to run on the CPU.
 """
@@ -11,23 +13,34 @@ import torch
 from ..utils.common_utils import resolve_device
 from .backbones_2d.base_bev_backbone import BaseBEVBackbone
 from .backbones_2d.map_to_bev.height_compression import HeightCompression
-from .backbones_3d.spconv_backbone import VoxelResBackBone8x
+from .backbones_2d.map_to_bev.pointpillar_scatter import PointPillarScatter
+from .backbones_3d.spconv_backbone import VoxelBackBone8x, VoxelResBackBone8x
 from .backbones_3d.vfe.mean_vfe import MeanVFE
+from .backbones_3d.vfe.pillar_vfe import PillarVFE
+from .dense_heads.anchor_head_single import AnchorHeadSingle
 from .dense_heads.center_head import CenterHead
 from .detectors.centerpoint import CenterPoint
 from .detectors.detector3d_template import DatasetInfo
+from .detectors.pointpillar import PointPillar
+from .detectors.second_net import SECONDNet
 
-_VFE = {"MeanVFE": MeanVFE}
-_BACKBONE_3D = {"VoxelResBackBone8x": VoxelResBackBone8x}
-_MAP_TO_BEV = {"HeightCompression": HeightCompression}
+_VFE = {"MeanVFE": MeanVFE, "PillarVFE": PillarVFE}
+_BACKBONE_3D = {"VoxelBackBone8x": VoxelBackBone8x,
+                "VoxelResBackBone8x": VoxelResBackBone8x}
+_MAP_TO_BEV = {"HeightCompression": HeightCompression,
+               "PointPillarScatter": PointPillarScatter}
 _BACKBONE_2D = {"BaseBEVBackbone": BaseBEVBackbone}
-_DENSE_HEAD = {"CenterHead": CenterHead}
-_DETECTORS = {"CenterPoint": CenterPoint}
+_DENSE_HEAD = {"AnchorHeadSingle": AnchorHeadSingle, "CenterHead": CenterHead}
+_DETECTORS = {"CenterPoint": CenterPoint, "PointPillar": PointPillar,
+              "SECONDNet": SECONDNet}
 
 INIT_SEED = 0
 
 
 def build_vfe(cfg, dataset):
+    if cfg.NAME == "PillarVFE":
+        return PillarVFE(cfg, dataset.num_point_features, dataset.voxel_size,
+                         dataset.point_cloud_range)
     return _VFE[cfg.NAME](cfg, dataset.num_point_features)
 
 
@@ -35,7 +48,9 @@ def build_backbone_3d(cfg, input_channels, dataset):
     return _BACKBONE_3D[cfg.NAME](cfg, input_channels, dataset.grid_size)
 
 
-def build_map_to_bev(cfg):
+def build_map_to_bev(cfg, dataset):
+    if cfg.NAME == "PointPillarScatter":
+        return PointPillarScatter(cfg, dataset.grid_size)
     return _MAP_TO_BEV[cfg.NAME](cfg)
 
 
@@ -44,10 +59,11 @@ def build_backbone_2d(cfg, num_bev_features):
 
 
 def build_dense_head(cfg, input_channels, dataset, num_class):
-    return _DENSE_HEAD[cfg.NAME](
-        cfg, input_channels, num_class if not cfg.CLASS_AGNOSTIC else 1,
-        dataset.class_names, dataset.grid_size, dataset.point_cloud_range,
-        dataset.voxel_size)
+    args = (cfg, input_channels, num_class if not cfg.CLASS_AGNOSTIC else 1,
+            dataset.class_names, dataset.grid_size, dataset.point_cloud_range)
+    if cfg.NAME == "CenterHead":
+        args += (dataset.voxel_size,)
+    return _DENSE_HEAD[cfg.NAME](*args)
 
 
 def dataset_info(dataset):

@@ -1,12 +1,16 @@
-"""Detector3DTemplate — cfg-driven module slots (port of
-``q3d_tpu/models/detectors/detector3d_template.py``, the slots the
-CenterPoint path uses: vfe, backbone_3d, map_to_bev_module, backbone_2d,
-dense_head)."""
+"""Detector3DTemplate — cfg-driven module slots and the generic
+post-processing (port of ``q3d_tpu/models/detectors/detector3d_template.py``:
+the slots the ported detectors use — vfe, backbone_3d, map_to_bev_module,
+backbone_2d, dense_head — and ``post_processing``'s class-agnostic
+branch, batched over the frames)."""
 
 import dataclasses
 from typing import Tuple
 
+import torch
 from torch import nn
+
+from ..model_utils import model_nms_utils
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +40,8 @@ class Detector3DTemplate(nn.Module):
             self.backbone_3d = B.build_backbone_3d(
                 cfg.BACKBONE_3D, num_point_features, dataset)
         if cfg.get("MAP_TO_BEV", None) is not None:
-            self.map_to_bev_module = B.build_map_to_bev(cfg.MAP_TO_BEV)
+            self.map_to_bev_module = B.build_map_to_bev(cfg.MAP_TO_BEV,
+                                                        dataset)
             num_bev_features = self.map_to_bev_module.num_bev_features
         if cfg.get("BACKBONE_2D", None) is not None:
             self.backbone_2d = B.build_backbone_2d(cfg.BACKBONE_2D,
@@ -45,6 +50,8 @@ class Detector3DTemplate(nn.Module):
         if cfg.get("DENSE_HEAD", None) is not None:
             self.dense_head = B.build_dense_head(
                 cfg.DENSE_HEAD, num_bev_features, dataset, num_class)
+        # the NMS kernel's route in post_processing (set_kernel_impl)
+        self.kernel_impl = None
 
     @property
     def class_names(self):
@@ -62,3 +69,30 @@ class Detector3DTemplate(nn.Module):
         for m in self.modules():
             if hasattr(m, "kernel_impl"):
                 m.kernel_impl = impl
+
+    def post_processing(self, batch_dict):
+        """Sigmoid, the best class per box, then one class-agnostic NMS over
+        the frames (reference :127-164; each frame is one candidate set of
+        kernel 2) -> fixed-size final_boxes/scores/labels/valid (B, P)."""
+        post_cfg = self.model_cfg.POST_PROCESSING
+        nms_cfg = post_cfg.NMS_CONFIG
+        if nms_cfg.get("MULTI_CLASSES_NMS", False):
+            raise NotImplementedError(
+                "multi_classes_nms is not ported yet (ROADMAP.md)")
+        cls_preds = batch_dict["batch_cls_preds"]           # (B, Na, C)
+        box_preds = batch_dict["batch_box_preds"]           # (B, Na, 7+)
+        if not batch_dict.get("cls_preds_normalized", False):
+            cls_preds = torch.sigmoid(cls_preds)
+        max_scores = cls_preds.amax(dim=-1)
+        # argmax: the first of tied classes, as the reference's
+        labels = cls_preds.argmax(dim=-1) + 1
+        idx, valid = model_nms_utils.class_agnostic_nms(
+            max_scores, box_preds[..., :7], nms_cfg,
+            score_thresh=post_cfg.get("SCORE_THRESH", None),
+            impl=self.kernel_impl)
+        batch_dict["final_boxes"] = box_preds.gather(
+            1, idx[..., None].expand(-1, -1, box_preds.shape[-1]))
+        batch_dict["final_scores"] = max_scores.gather(1, idx)
+        batch_dict["final_labels"] = labels.gather(1, idx)
+        batch_dict["final_valid"] = valid
+        return batch_dict

@@ -286,6 +286,32 @@ class Conv2d(QuantLayer, nn.Module):
         return y.view(b, ho, wo, o).permute(0, 3, 1, 2)
 
 
+class Linear(QuantLayer, nn.Module):
+    """Dense layer, (O, I) weight: ``x @ weight.T (+ bias)`` in the input's
+    dtype (the reference's ``Linear``, a plain matmul outside any Pallas
+    kernel).  Its quant kind, "linear", is TransFusion's SmoothQuant
+    target, which is not ported: ``quant.api`` raises on a rule for it."""
+    QUANT_KIND = "linear"
+
+    def __init__(self, in_features, out_features, bias=True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+
+    def reset_parameters(self, generator):
+        """U(-1/sqrt(fan_in), 1/sqrt(fan_in)); bias 0 (the reference's
+        variance_scaling(1/3, fan_in, uniform) and zeros)."""
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x):
+        y = x @ self.weight.t().to(x.dtype)
+        return y if self.bias is None else y + self.bias
+
+
 class ConvTranspose2d(nn.Module):
     """Transposed conv (torch ConvTranspose2d geometry), IOHW weight."""
 
@@ -355,6 +381,15 @@ class BatchNorm(nn.Module):
             return self._affine(probe + 1).reshape(-1) - b, b
         return memo(self, "fold", (self.running_var, self.weight, self.bias,
                                    self.running_mean), compute)
+
+
+class BatchNorm1d(BatchNorm):
+    """Eval-mode BatchNorm over the last dim of (..., C) features (the PFN
+    layers'), computed as ``BatchNorm`` computes it."""
+
+    def _affine(self, x):
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return (x - self.running_mean) * mul + self.bias
 
 
 class DenseRequant(QuantLayer, nn.Module):

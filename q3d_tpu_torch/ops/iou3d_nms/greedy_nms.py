@@ -34,7 +34,7 @@ KERNEL = CudaLibrary(
      "q3d_greedy_nms_boxes": [_P] * 6 + [_I, _I, _F, _P],
      "q3d_greedy_nms_scratch_words": ([_I, _I, _I], ctypes.c_longlong)},
     variants=(("-fmad=false",),))
-MAX_K = 2048
+MAX_K = 4096
 
 
 def _require(cond, msg):

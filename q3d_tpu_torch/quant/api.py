@@ -1,5 +1,5 @@
-"""The PTQ workflow (port of ``q3d_tpu/quant/api.py``: the CenterPoint
-fake-quant recipe, the int8 deploy recipe (dynamic, static, SmoothQuant,
+"""The PTQ workflow (port of ``q3d_tpu/quant/api.py``: the CenterPoint,
+SECOND and PointPillars fake-quant recipes, the int8 deploy recipe (dynamic, static, SmoothQuant,
 residency), ``quantize_model``, single-stream ``collect_stats``,
 ``compute_amax`` with the reference's amax methods, and
 ``prepare_int8_deploy``).
@@ -20,8 +20,9 @@ created on first use in a calibration pass, as the reference creates its
 quantizer variables in ``model.init``; ``model.state_dict()`` then carries
 every committed amax (and each static SmoothQuant conv's
 ``sq_act_amax``).  Not ported (``_check_rule`` raises, naming
-``ROADMAP.md``): the sparse gather-view SmoothQuant (VoxelNeXt), sharded
-calibration and the other models' recipes.
+``ROADMAP.md``): the sparse gather-view SmoothQuant (VoxelNeXt), Linear
+quantization (TransFusion), sharded calibration and the VoxelNeXt and
+TransFusion recipes.
 
 Like the reference, whose ``quantize_model`` calls ``model.init`` on the
 example batch with the calibration state mutable, the statistics start
@@ -65,6 +66,30 @@ def centerpoint_recipe(w_bits=8, act_bits=8, sq=True, alpha=0.5,
         "dense_head.heads_list_*.hm_*",    # full-precision heatmap branch
     ) + tuple(extra_no_list)
     return QuantRules(rules=(sparse_rule, conv2d_rule), no_list=no_list)
+
+
+def second_recipe(w_bits=8, act_bits=8, sq=True, alpha=0.5, static=False):
+    """The reference's ``quant_second.py`` semantics: CenterPoint's rules,
+    with AnchorHeadSingle's three output convs left float."""
+    base = centerpoint_recipe(w_bits, act_bits, sq, alpha, static)
+    no_list = (
+        "backbone_3d.conv_input*",
+        "dense_head.conv_cls", "dense_head.conv_box", "dense_head.conv_dir_cls",
+    )
+    return QuantRules(rules=base.rules, no_list=no_list)
+
+
+def pointpillar_recipe(w_bits=8, act_bits=8, sq=True, alpha=0.5,
+                       static=False):
+    """The reference's ``quant_pointpillar.py`` semantics: CenterPoint's
+    rules, with the pillar VFE and AnchorHeadSingle's output convs left
+    float."""
+    base = centerpoint_recipe(w_bits, act_bits, sq, alpha, static)
+    no_list = (
+        "vfe*",
+        "dense_head.conv_cls", "dense_head.conv_box", "dense_head.conv_dir_cls",
+    )
+    return QuantRules(rules=base.rules, no_list=no_list)
 
 
 def int8_deploy_recipe(sq=False, alpha=0.5, static=False, extra_no_list=(),
@@ -115,6 +140,10 @@ def _check_rule(rule, path, kind):
     dense convs, without residency; residency with static act scales)."""
     if rule is None:
         return
+    if kind == "linear":
+        raise NotImplementedError(
+            f"{path}: Linear quantization (TransFusion's SQLinear) is not "
+            f"ported (ROADMAP.md)")
     if rule.smoothquant is not None and kind != "conv2d":
         raise NotImplementedError(
             f"{path}: the sparse gather-view SmoothQuant (VoxelNeXt) is not "

@@ -75,3 +75,9 @@ def set_random_seed(seed):
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
+
+
+def limit_period(val, offset=0.5, period=np.pi):
+    """Wrap ``val`` into [-offset*period, (1-offset)*period) (the
+    reference's ``limit_period``, torch tensors)."""
+    return val - torch.floor(val / period + offset) * period

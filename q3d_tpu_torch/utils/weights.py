@@ -7,6 +7,7 @@ reference's variables as nested dicts of numpy arrays
 tensors in the port's layouts:
 
   * dense conv (kh, kw, I, O) -> OIHW; transposed conv (kh, kw, O, I) -> IOHW;
+  * linear (I, O) -> (O, I);
   * sparse conv (K, I, O) stays (K, Cin, Cout), K k0-major;
   * BN scale/bias/mean/var -> weight/bias/running_mean/running_var;
   * the ``quant`` collection's amax leaves -> the quantizer buffers of an
@@ -35,6 +36,9 @@ def _module_rules(module, toks):
     the pcdet module path, ("OUT", head, branch) for a SeparateHead output
     conv, or None."""
     t = ".".join(toks)
+    if module == "vfe":
+        m = re.fullmatch(r"pfn_layers_(\d+)\.(linear|norm)", t)
+        return f"pfn_layers.{m.group(1)}.{m.group(2)}" if m else None
     if module == "backbone_3d":
         for pat, fmt in ((r"conv_(input|out)\.conv", "conv_{0}.0"),
                          (r"conv_(input|out)\.norm", "conv_{0}.1"),
@@ -60,6 +64,8 @@ def _module_rules(module, toks):
             return f"deblocks.{m.group(1)}.1"
         return None
     if module == "dense_head":
+        if t in ("conv_cls", "conv_box", "conv_dir_cls"):   # AnchorHeadSingle
+            return t
         if t == "shared_conv":
             return "shared_conv.0"
         if t == "shared_requant":
@@ -147,6 +153,8 @@ def _quant_name(module, mod_toks, leaf, out_index):
 
 # port module path -> reference module path (the quantizable modules)
 _REFERENCE_PATHS = (
+    (r"vfe\.pfn_layers\.(\d+)\.linear", "vfe.pfn_layers_{0}.linear"),
+    (r"dense_head\.(conv_cls|conv_box|conv_dir_cls)", "dense_head.{0}"),
     (r"backbone_3d\.conv_(input|out)\.0", "backbone_3d.conv_{0}.conv"),
     (r"backbone_3d\.conv(\d)\.(\d+)\.0", "backbone_3d.conv{0}_{1}.conv"),
     (r"backbone_3d\.conv(\d)\.(\d+)\.(conv1|conv2)",
@@ -178,6 +186,8 @@ def to_port_layout(arr, torch_leaf):
     a = np.asarray(arr)
     if torch_leaf == "weight" and a.ndim == 4:
         return np.ascontiguousarray(a.transpose(3, 2, 0, 1))
+    if torch_leaf == "weight" and a.ndim == 2:
+        return np.ascontiguousarray(a.T)
     return np.ascontiguousarray(a)
 
 

@@ -11,7 +11,10 @@
   same weights (spconv1 layout) it gives the driver's quantized metrics.
 * ``quant_driver --deploy_int8 --static`` (SmoothQuant, histograms, method
   "max", 2 calibration batches) runs and stays within the same bound.
-* the recipes of models the port does not have, and ``--eval_all``, raise.
+* ``quant_pointpillar`` (the PointPillars entry) on pointpillar_tiny, 2
+  frames, gives the driver's two metric dicts.
+* the recipes of models the port does not have (VoxelNeXt, TransFusion),
+  and ``--eval_all``, raise.
 """
 
 import numpy as np
@@ -95,8 +98,35 @@ def test_quant_driver_static_smoothquant():
     assert _mean_score_diff(frames) < SCORE_BOUND
 
 
+def test_quant_pointpillar_entry(monkeypatch):
+    """``python -m q3d_tpu_torch.tools.quant_pointpillar`` on
+    pointpillar_tiny (seeded random weights, 2 frames, the CPU): the
+    driver's fp32 and quantized metric dicts, under ``pointpillar_recipe``
+    (dynamic SmoothQuant; the VFE and the head's output convs float)."""
+    import runpy
+    import sys
+    from q3d_tpu_torch.quant import api as port_api
+    results, recipes = [], []
+    run, recipe = quant_driver.run, port_api.pointpillar_recipe
+    monkeypatch.setattr(quant_driver, "run",
+                        lambda *a, **kw: results.append(run(*a, **kw)))
+    monkeypatch.setattr(port_api, "pointpillar_recipe",
+                        lambda **kw: recipes.append(kw) or recipe(**kw))
+    monkeypatch.setattr(sys, "argv", [
+        "quant_pointpillar", "--cfg_file",
+        str(CFG_DIR / "pointpillar_tiny.yaml"), "--device", "cpu", "--set",
+        "DATA_CONFIG.NUM_FRAMES", "2"])
+    runpy.run_module("q3d_tpu_torch.tools.quant_pointpillar",
+                     run_name="__main__")
+    (fp, q), = results
+    assert recipes == [dict(w_bits=8, act_bits=8, sq=True, alpha=0.5,
+                            static=False)]
+    assert set(fp) == set(q) and "infer_time_ms" in q
+    assert all(np.isfinite(v) for v in q.values())
+
+
 def test_unported_paths_raise():
-    for name in ("second", "pointpillar", "voxelnext", "transfusion"):
+    for name in ("voxelnext", "transfusion"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             quant_driver.run(name, argv=["--cfg_file", CFG] + SMALL)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -200,28 +200,30 @@ def test_int8_conv2d_int_mm_matches_exact_product(card):
         assert torch.equal(out_p.cpu(), ref.to(torch.int32))
 
 
-def test_greedy_nms_kernel_matches_plain(card):
+@pytest.mark.parametrize("k", [1, 65, 128, 200, 1024, 2048, 2049, 4096])
+def test_greedy_nms_kernel_matches_plain(card, k):
     """The IoU form, on the sweep it shares with the boxes form: one row
-    block, a ragged last block, and K = 2048 (all 32 mask words)."""
-    rng = np.random.RandomState(0)
-    for k in (1, 65, 128, 200, 1024, 2048):
-        iou = rng.rand(4, k, k).astype(np.float32) * (rng.rand(4, k, k) < 0.3)
-        iou = torch.from_numpy(iou).to(card)
-        valid = torch.from_numpy(rng.rand(4, k) > 0.1).to(card)
-        for thresh in (0.1, 0.5):
-            assert torch.equal(
-                port_nms.greedy_nms(iou, valid, thresh),
-                port_nms.greedy_nms(iou, valid, thresh, impl="plain"))
+    block, a ragged last block, K = 2048 (32 mask words, one per lane of
+    the sweep's second warp), K = 2049 (the first K whose lanes own two
+    words) and K = 4096 (all 64 words)."""
+    rng = np.random.RandomState(k)
+    iou = rng.rand(4, k, k).astype(np.float32) * (rng.rand(4, k, k) < 0.3)
+    iou = torch.from_numpy(iou).to(card)
+    valid = torch.from_numpy(rng.rand(4, k) > 0.1).to(card)
+    for thresh in (0.1, 0.5):
+        assert torch.equal(
+            port_nms.greedy_nms(iou, valid, thresh),
+            port_nms.greedy_nms(iou, valid, thresh, impl="plain"))
 
 
-@pytest.mark.parametrize("k", [128, 200, 1024])
+@pytest.mark.parametrize("k", [128, 200, 1024, 2049, 4096])
 def test_greedy_nms_boxes_kernel_matches_plain(card, k):
     """The boxes form: crowded boxes with identical and rotated duplicates
     and invalid rows.  Keep masks equal the plain version's; the kernel's
     IoU is bit-equal to ``boxes_iou_bev`` at every pair it evaluated, and
     every valid pair j < i that it skipped has a plain IoU of exactly 0."""
     rng = np.random.RandomState(k)
-    s = 4
+    s = 4 if k <= 2048 else 2       # the plain IoU's (S, K, K, 4, 4) terms
     b = np.zeros((s, k, 7), np.float32)
     b[..., 0:2] = rng.uniform(-12, 12, (s, k, 2))
     b[..., 3:6] = rng.uniform(0.5, 4.0, (s, k, 3))

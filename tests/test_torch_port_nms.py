@@ -210,10 +210,27 @@ def test_greedy_nms_boxes_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="valid must be"):
         port_nms.greedy_suppress_boxes_cuda(corners, areas, valid[:1], 0.5)
     with pytest.raises(ValueError, match="K must be"):
-        big = torch.zeros(1, 2049, 4, 2)
+        big = torch.zeros(1, 4097, 4, 2)
         port_nms.greedy_suppress_boxes_cuda(
-            big, torch.zeros(1, 2049), torch.ones(1, 2049, dtype=torch.bool),
+            big, torch.zeros(1, 4097), torch.ones(1, 4097, dtype=torch.bool),
             0.5)
     with pytest.raises(ValueError, match="unknown impl"):
         port_nms.greedy_nms_boxes(boxes, valid, 0.5, impl="xla")
 
+
+@pytest.mark.parametrize("form", ["iou", "boxes"])
+def test_greedy_nms_wrappers_take_k_up_to_4096(form):
+    """Both entries take 0 < K <= 4096 (64 mask words a row) and raise above
+    it; nothing falls back to the plain version."""
+    for k, ok in ((4096, True), (4097, False)):
+        valid = torch.ones(1, k, dtype=torch.bool)
+        if form == "iou":
+            call = lambda: port_nms.greedy_suppress_cuda(  # noqa: E731
+                torch.zeros(1, k, k), valid, 0.5)
+        else:
+            call = lambda: port_nms.greedy_suppress_boxes_cuda(  # noqa: E731
+                torch.zeros(1, k, 4, 2), torch.zeros(1, k), valid, 0.5)
+        # past the K check, a CPU tensor is refused: the kernel or nothing
+        with pytest.raises(ValueError, match="CUDA tensor" if ok
+                           else r"K must be in \[1, 4096\] \(got 4097\)"):
+            call()
