@@ -96,8 +96,10 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
                 as written (tools/cfgs/kitti_models/), on SyntheticDataset
                 scenes at the config's own geometry (range, voxel size,
                 points per voxel, the 40,000-voxel test cap; ~120,000
-                points a sweep): ``data_<model>`` (points and voxels per
-                frame), ``serving_<model>`` (4 bf16 requests of batch 2,
+                points a sweep, cropped to the front camera's FOV as the
+                dataset yaml's FOV_POINTS_ONLY asks): ``data_<model>``
+                (points, voxels and labelled objects per frame; the cap
+                must not bind), ``serving_<model>`` (4 bf16 requests of batch 2,
                 seeded weights, conv_cls's prior bias 0, BN calibrated on
                 the first request; launches: SECOND 48 kernel-1 and 4
                 boxes-form NMS launches at K = 4096, PointPillars 0 and 4),
@@ -107,7 +109,9 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
                 ``kernel_conv`` on SECOND's 12 convs, ``kernel_nms`` at K =
                 2049 / 4096 (random IoU matrices and crowded boxes at
                 thresh 0.01 / 0.5, both models' real candidate sets, times
-                and bounds at K = 4096) and ``recipes_kitti`` (SECOND under
+                and bounds at K = 4096 with every candidate valid, with the
+                validity conv_cls's prior bias gives and with the first 512
+                valid) and ``recipes_kitti`` (SECOND under
                 ``second_recipe()``, PointPillars under
                 ``pointpillar_recipe()``, SECOND under
                 ``int8_deploy_recipe()``: kernels vs plain);
@@ -162,17 +166,17 @@ CONV_DESIGN = ("128-row x all-Cout tiles; book loaded once, ballot tap masks; "
                "16-byte cp.async gathers into a 2-3 stage ring; mma.sync "
                "m16n8k16 bf16 / m16n8k32 s8 (f32 on CUDA cores)")
 
-KITTI_DIR = ROOT / "tools" / "cfgs" / "kitti_models"
-# one HDL-64E sweep: ~120,000 points (48 ground rings and 20 objects of 500
-# points), which each config's range crop cuts to ~63,000
-KITTI_SCENE = {"NUM_BG_POINTS": 110000, "NUM_OBJECTS": 20,
-               "POINTS_PER_OBJECT": 500}
 # per forward: kernel 1's launches (SECOND's 12 sparse convs; PointPillars
 # has none) and the sparse convs under int8_deploy_recipe() (conv_input
 # stays float)
 KITTI_CONVS = {"second": 12, "pointpillar": 0}
 # the least voxels (pillars) a frame keeps, by model
-KITTI_MIN_VOXELS = {"second": 16000, "pointpillar": 12000}
+KITTI_MIN_VOXELS = {"second": 16000, "pointpillar": 9000}
+# the KITTI phases' maps, kernels vs plain, in f32 (TF32 off): kernel 1's
+# f32 entry sums in the plain order at these widths, so the maps agree to
+# rounding, under the fake-quant recipes too (a flipped fake-quant rounding
+# would be 1/127 of the scale)
+KITTI_MAP_RTOL = 1e-4
 # kernel 2 past 32 mask words a row: the first such K, and the largest
 WIDE_K = (2049, 4096)
 
@@ -336,18 +340,23 @@ def stage_times(model, batch, reps=5):
     return stage_ms
 
 
-def make_request(ds, r):
-    """Frames BATCH*r ... BATCH*r + BATCH-1 of the synthetic dataset ``ds``
-    -> (numpy batch, scene ms, voxelize ms): host time, scene synthesis
-    and the data pipeline apart."""
+def plain_scene(ds, j):
+    """Frame ``j`` of the synthetic dataset ``ds`` as its ``__getitem__``
+    makes it -> (points, gt_boxes, gt_names)."""
     import numpy as np
     from q3d_tpu_torch.datasets.synthetic_dataset import make_scene
+    return make_scene(np.random.RandomState(ds.base_seed + j),
+                      ds.point_cloud_range, **ds.scene_kwargs)
+
+
+def make_request(ds, r, scene=plain_scene):
+    """Frames BATCH*r ... BATCH*r + BATCH-1 of the synthetic dataset ``ds``,
+    each from ``scene(ds, j)`` -> (numpy batch, scene ms, voxelize ms):
+    host time, scene synthesis and the data pipeline apart."""
     frames, scene_ms, vox_ms = [], 0.0, 0.0
     for j in range(r * BATCH, (r + 1) * BATCH):
         t0 = time.perf_counter()
-        rng = np.random.RandomState(ds.base_seed + j)
-        points, boxes, names = make_scene(rng, ds.point_cloud_range,
-                                          **ds.scene_kwargs)
+        points, boxes, names = scene(ds, j)[:3]
         t1 = time.perf_counter()
         frames.append(ds.prepare_data({"points": points, "gt_boxes": boxes,
                                        "gt_names": names, "frame_id": j}))
@@ -355,37 +364,6 @@ def make_request(ds, r):
         scene_ms += (t1 - t0) * 1e3
         vox_ms += (t2 - t1) * 1e3
     return ds.collate_batch(frames), scene_ms, vox_ms
-
-
-def calibrate_bns(model, batch):
-    """Every BN's running statistics := the batch statistics of its input
-    in one forward on ``batch`` (a trained model's BNs match their inputs;
-    random weights with identity BNs fade to constants)."""
-    import torch
-    from q3d_tpu_torch.models.layers import BatchNorm, BatchNorm1d
-    from q3d_tpu_torch.ops.spconv.modules import SparseBatchNorm
-
-    def calibrate(mod, args):
-        x = args[0]
-        if isinstance(mod, SparseBatchNorm):
-            rows = x.features[x.valid].float()
-            mean, var = rows.mean(0), rows.var(0, unbiased=False)
-        elif isinstance(mod, BatchNorm1d):          # (..., C) PFN features
-            rows = x.float().reshape(-1, x.shape[-1])
-            mean, var = rows.mean(0), rows.var(0, unbiased=False)
-        else:
-            mean = x.float().mean((0, 2, 3))
-            var = x.float().var((0, 2, 3), unbiased=False)
-        mod.running_mean.copy_(mean)
-        mod.running_var.copy_(var)
-    hooks = [m.register_forward_pre_hook(calibrate) for m in model.modules()
-             if isinstance(m, (SparseBatchNorm, BatchNorm))]
-    try:
-        with torch.no_grad():
-            model(dict(batch))
-    finally:
-        for h in hooks:
-            h.remove()
 
 
 def check_boxes_form(boxes, valid, th, what):
@@ -1296,62 +1274,6 @@ def driver_tiny(conv_k, nms_k, mode, fp32_nds):
     return out
 
 
-def kitti_config(name):
-    """tools/cfgs/kitti_models/<name>.yaml with its MODEL section as
-    written, and a SyntheticDataset at the yaml's own geometry in place of
-    the KITTI data: its POINT_CLOUD_RANGE, POINT_FEATURE_ENCODING and
-    DATA_PROCESSOR (voxel size, points per voxel, the 40,000-voxel test
-    cap), BATCH * REQUESTS frames of KITTI_SCENE."""
-    from q3d_tpu_torch.config import EDict, cfg_from_yaml_file
-    cfg = cfg_from_yaml_file(str(KITTI_DIR / f"{name}.yaml"), EDict())
-    dc = cfg.DATA_CONFIG
-    cfg.DATA_CONFIG = EDict({
-        "DATASET": "SyntheticDataset", "NUM_FRAMES": BATCH * REQUESTS,
-        "SEED": SEED, "POINT_CLOUD_RANGE": list(dc.POINT_CLOUD_RANGE),
-        "MAX_GT_BOXES": dc.MAX_GT_BOXES,
-        "POINT_FEATURE_ENCODING": dc.POINT_FEATURE_ENCODING,
-        "DATA_PROCESSOR": dc.DATA_PROCESSOR, **KITTI_SCENE})
-    return cfg
-
-
-def scene_counts(ds):
-    """Per frame of ``ds``: points generated, points kept by the range
-    crop, voxels those occupy, and voxels the capped voxelizer keeps."""
-    import numpy as np
-    rows = []
-    for j in range(len(ds)):
-        d = ds[j]
-        pts = d["points"]
-        cells = np.floor((pts[:, :3] - ds.point_cloud_range[:3])
-                         / ds.voxel_size).astype(np.int64)
-        rows.append({"frame": j,
-                     "points_generated": 48 * (KITTI_SCENE["NUM_BG_POINTS"]
-                                               // 48)
-                     + KITTI_SCENE["NUM_OBJECTS"]
-                     * KITTI_SCENE["POINTS_PER_OBJECT"],
-                     "points_in_range": len(pts),
-                     "voxels_occupied": len(np.unique(cells, axis=0)),
-                     "voxels_kept": int((d["voxel_num_points"] > 0).sum())})
-    return rows
-
-
-def anchor_candidates(out, cfg):
-    """The model's own NMS input from a forward's outputs: per frame the
-    best class score of each anchor, stable-sorted descending, the first
-    NMS_PRE_MAXSIZE boxes and their validity (score >= SCORE_THRESH) ->
-    (boxes (B, K, 7) f32, valid (B, K))."""
-    import torch
-    post = cfg.MODEL.POST_PROCESSING
-    scores = torch.sigmoid(out["batch_cls_preds"].float()).amax(-1)
-    order = torch.sort(scores, dim=1, descending=True, stable=True)[1]
-    k = min(int(post.NMS_CONFIG.NMS_PRE_MAXSIZE), scores.shape[1])
-    order = order[:, :k]
-    boxes = out["batch_box_preds"][..., :7].float().gather(
-        1, order[..., None].expand(-1, -1, 7)).contiguous()
-    valid = (scores.gather(1, order) >= float(post.SCORE_THRESH)).contiguous()
-    return boxes, valid
-
-
 def kitti_model(name, dev, conv_k, nms_k, mode, strict_f32):
     """Phases ``serving_<name>``, ``stages_<name>`` and ``model_<name>``:
     the KITTI config's MODEL at full width on KITTI-geometry synthetic
@@ -1370,20 +1292,30 @@ def kitti_model(name, dev, conv_k, nms_k, mode, strict_f32):
     inputs equal.  -> dict of what later phases need."""
     import torch
     from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.datasets.kitti_synthetic import (
+        CAMERA, SCENE, kitti_config, kitti_scene, scene_counts)
     from q3d_tpu_torch.models import build_network, load_data_to_device
     from q3d_tpu_torch.ops.iou3d_nms import candidate_iou
     from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as nms_mod
+    from q3d_tpu_torch.tools.nms_ab import anchor_candidates
+    from q3d_tpu_torch.utils.bn_calibration import calibrate_bns
 
-    cfg = kitti_config(name)
+    cfg = kitti_config(name, BATCH * REQUESTS, SEED)
     ds, _, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
                                 batch_size=BATCH, training=False)
     counts = scene_counts(ds)
     cap = int(cfg.DATA_CONFIG.DATA_PROCESSOR[-1].MAX_NUMBER_OF_VOXELS["test"])
-    check(all(KITTI_MIN_VOXELS[name] <= c["voxels_kept"] <= cap
-              for c in counts),
-          f"{name}: voxels kept {[c['voxels_kept'] for c in counts]}")
+    # the cap must not bind: a capped frame loses the objects, which
+    # make_scene puts last
+    check(all(KITTI_MIN_VOXELS[name] <= c["voxels_kept"]
+              == c["voxels_occupied"] < cap for c in counts),
+          f"{name}: voxels kept {[c['voxels_kept'] for c in counts]}, "
+          f"occupied {[c['voxels_occupied'] for c in counts]}, cap {cap}")
+    check(all(c["objects_present"] == c["objects_labelled"] > 0
+              for c in counts), f"{name}: objects lost: {counts}")
     emit(f"data_{name}", config=f"kitti_models/{name}.yaml",
-         dataset="SyntheticDataset at the config's geometry", scene=KITTI_SCENE,
+         dataset="SyntheticDataset at the config's geometry, FOV-cropped",
+         scene=SCENE, camera=CAMERA,
          point_cloud_range=list(cfg.DATA_CONFIG.POINT_CLOUD_RANGE),
          voxel_size=[float(v) for v in ds.voxel_size],
          grid_size=[int(g) for g in ds.grid_size], voxel_cap=cap,
@@ -1394,7 +1326,7 @@ def kitti_model(name, dev, conv_k, nms_k, mode, strict_f32):
     with torch.no_grad():
         head.conv_cls.bias.zero_()
     build_s = time.perf_counter() - t0
-    raw0, _, _ = make_request(ds, 0)
+    raw0, _, _ = make_request(ds, 0, kitti_scene)
     strict_f32(True)
     batch_f32 = load_data_to_device(raw0, device=dev)
     calibrate_bns(model, batch_f32)
@@ -1414,7 +1346,7 @@ def kitti_model(name, dev, conv_k, nms_k, mode, strict_f32):
     per_request = []
     try:
         for r in range(REQUESTS):
-            raw, scene_ms, vox_ms = make_request(ds, r)
+            raw, scene_ms, vox_ms = make_request(ds, r, kitti_scene)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             batch = load_data_to_device(raw, device=dev,
@@ -1485,10 +1417,10 @@ def kitti_model(name, dev, conv_k, nms_k, mode, strict_f32):
         a, b = out_k[key], out_p[key]
         err, mag = float((a - b).abs().max()), float(b.abs().max())
         map_err[key] = {"max_abs": err, "scale": mag}
-        check(err <= 1e-4 * max(1.0, mag),
+        check(err <= KITTI_MAP_RTOL * max(1.0, mag),
               f"model_{name} f32 {key}: kernels vs plain max err {err} "
               f"(scale {mag})")
-    cand, cand_valid = anchor_candidates(out_k, cfg)
+    cand, cand_valid, prior_valid = anchor_candidates(out_k, cfg)
     thresh = float(nms_cfg.NMS_THRESH)
     with torch.no_grad():
         check(torch.equal(
@@ -1535,15 +1467,17 @@ def kitti_model(name, dev, conv_k, nms_k, mode, strict_f32):
     check(total > 0 and frac >= 0.99,
           f"model_{name}: only {matched}/{total} detections matched")
     emit(f"model_{name}", dtype="f32", mode=mode(), map_max_abs_err=map_err,
-         map_tolerance="max|k-p| <= 1e-4 * max(1, max|p|)",
+         map_tolerance=f"max|k-p| <= {KITTI_MAP_RTOL} * max(1, max|p|)",
          launches=cuda_launches,
          nms_identical_inputs=f"keep masks (both forms, K={cand.shape[1]}) "
          "and post_processing's detections equal",
          candidates_valid=cand_valid.sum(1).tolist(),
+         candidates_valid_under_prior_bias=prior_valid.sum(1).tolist(),
          detections_matched=matched, detections=total, matched_fraction=frac)
     strict_f32(False)
     return {"model": model, "cfg": cfg, "batch_f32": batch_f32,
-            "convs": convs, "cand": (cand, cand_valid), "launches": launches}
+            "convs": convs, "cand": (cand, cand_valid, prior_valid),
+            "launches": launches}
 
 
 def boxes_bound(s, k, cand_pairs, near_pairs, clock_mhz):
@@ -1567,10 +1501,15 @@ def kernel_nms_wide(kitti, flush, mode, clock_mhz):
     4096): keep masks equal to the plain versions', the boxes form's IoU
     bit-equal at every pair it evaluated and 0 at every needed pair it
     skipped.  Then the boxes form timed on each model's candidates beside
-    its plain version and its three-term bound.  -> {model: row}."""
+    its plain version and its three-term bound, under three validities:
+    every candidate valid, as the seeded models' zero conv_cls bias gives them (the main
+    path's input and kernel 2's worst case), valid as conv_cls's prior
+    bias would leave them, and the first 512 valid (``nms_ab.validities``).
+    -> {model: row of the main path's input}."""
     import numpy as np
     import torch
     from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as nms_mod
+    from q3d_tpu_torch.tools.nms_ab import _crowded, validities
     dev = next(iter(kitti.values()))["cand"][0].device
     g = torch.Generator(device=dev).manual_seed(SEED)
     rng = np.random.RandomState(SEED)
@@ -1584,48 +1523,47 @@ def kernel_nms_wide(kitti, flush, mode, clock_mhz):
                                                  impl="plain")),
                   f"greedy_nms: random K={kk} thresh={th} keep masks differ")
         del r_iou
-        rb_ = np.zeros((2, kk, 7), np.float32)       # crowded, duplicates
-        rb_[..., 0:2] = rng.uniform(-0.4, 0.4, (2, kk, 2)) * np.sqrt(kk)
-        rb_[..., 3:6] = rng.uniform(0.5, 4.5, (2, kk, 3))
-        rb_[..., 6] = rng.uniform(-np.pi, np.pi, (2, kk))
-        rb_[:, 10:20] = rb_[:, 0:10]
-        rb_[:, 20:30, :6] = rb_[:, 30:40, :6]
-        r_boxes = torch.from_numpy(rb_).to(dev)
-        r_valid = torch.from_numpy(rng.rand(2, kk) > 0.1).to(dev)
+        r_boxes, r_valid = _crowded(rng, 2, kk, dev)
         for th in (0.01, 0.5):
             check_boxes_form(r_boxes, r_valid, th, f"random K={kk}")
     rows = {}
     for name, k_ in kitti.items():
-        cand, valid = k_["cand"]
+        cand, all_valid, prior_valid = k_["cand"]
         th = float(k_["cfg"].MODEL.POST_PROCESSING.NMS_CONFIG.NMS_THRESH)
-        near, needed, most = check_boxes_form(cand, valid, th,
-                                              f"{name} candidates")
-        s, k = valid.shape
         corners, areas = nms_mod.bev_corners_areas(cand)
-        terms = boxes_bound(s, k, needed, near, clock_mhz)
-        row = {"model": name, "entry": "q3d_greedy_nms_boxes", "sets": s,
-               "K": k, "thresh": th, "candidate_pairs": needed,
-               "near_pairs": near, "near_pairs_most_in_a_tile": most,
-               "kept": int(nms_mod.greedy_nms_boxes(cand, valid, th).sum()),
-               "ms": time_ms(lambda: nms_mod.greedy_suppress_boxes_cuda(
-                   corners, areas, valid, th), flush=flush),
-               "plain_ms": time_ms(lambda: nms_mod.greedy_suppress_boxes_plain(
-                   cand, valid, th), reps=3, flush=flush),
-               **{f"{t}_ms": v for t, v in terms.items()},
-               "kernel_us": kernel_device_us(
-                   lambda: nms_mod.greedy_suppress_boxes_cuda(
-                       corners, areas, valid, th),
-                   ("nms_box_pairs_kernel", "nms_box_iou_kernel",
-                    "nms_sweep_kernel"), flush)}
-        row["bound_by"] = max(terms, key=terms.get)
-        row["bound_ms"] = terms[row["bound_by"]]
-        rows[name] = row
-        emit("kernel_nms", form="boxes", **row, max_abs_err=0, mode=mode(),
-             clock_max_sm_mhz=clock_mhz,
-             tolerance="keep masks exactly equal, IoU bit-equal at every "
-             "evaluated pair, plain IoU exactly 0 at every skipped needed "
-             "pair (real candidates + random K=2049/4096 x thresh "
-             "0.01/0.5); IoU form keep masks equal on random K=2049/4096")
+        s, k = all_valid.shape
+        for share, valid in validities(all_valid, prior_valid):
+            near, needed, most = check_boxes_form(
+                cand, valid, th, f"{name} candidates, {share}")
+            terms = boxes_bound(s, k, needed, near, clock_mhz)
+            row = {"model": name, "entry": "q3d_greedy_nms_boxes",
+                   "sets": s, "K": k, "thresh": th, "validity": share,
+                   "valid": valid.sum(1).tolist(), "candidate_pairs": needed,
+                   "near_pairs": near, "near_pairs_most_in_a_tile": most,
+                   "kept": int(nms_mod.greedy_nms_boxes(cand, valid,
+                                                        th).sum()),
+                   "ms": time_ms(
+                       lambda: nms_mod.greedy_suppress_boxes_cuda(
+                           corners, areas, valid, th), flush=flush),
+                   "plain_ms": time_ms(
+                       lambda: nms_mod.greedy_suppress_boxes_plain(
+                           cand, valid, th), reps=3, flush=flush),
+                   **{f"{t}_ms": v for t, v in terms.items()},
+                   "kernel_us": kernel_device_us(
+                       lambda: nms_mod.greedy_suppress_boxes_cuda(
+                           corners, areas, valid, th),
+                       ("nms_box_pairs_kernel", "nms_box_iou_kernel",
+                        "nms_sweep_kernel"), flush)}
+            row["bound_by"] = max(terms, key=terms.get)
+            row["bound_ms"] = terms[row["bound_by"]]
+            rows.setdefault(name, row)
+            emit("kernel_nms", form="boxes", **row, max_abs_err=0,
+                 mode=mode(), clock_max_sm_mhz=clock_mhz,
+                 tolerance="keep masks exactly equal, IoU bit-equal at every "
+                 "evaluated pair, plain IoU exactly 0 at every skipped "
+                 "needed pair (real candidates under each validity + "
+                 "random K=2049/4096 x thresh 0.01/0.5); IoU form keep "
+                 "masks equal on random K=2049/4096")
     return rows
 
 
@@ -1633,7 +1571,7 @@ def recipes_kitti(kitti, conv_k, nms_k, mode, strict_f32):
     """Phase ``recipes_kitti``: one f32 request (TF32 off) through the
     kernels and through the plain versions for SECOND under
     ``second_recipe()`` and PointPillars under ``pointpillar_recipe()``
-    (dynamic SmoothQuant fake-quant: every map within FQ_MAP_RTOL of its
+    (dynamic SmoothQuant fake-quant: every map within KITTI_MAP_RTOL of its
     scale, the detections as sets with the FQ_* tolerances) and SECOND
     under ``int8_deploy_recipe()`` (every int8 map a quantizer emits,
     spatial_features and the detections equal; launches held to the
@@ -1723,7 +1661,7 @@ def recipes_kitti(kitti, conv_k, nms_k, mode, strict_f32):
                 err, mag = float((a - b).abs().max()), float(b.abs().max())
                 map_err[key] = {"max_abs": err, "scale": mag}
                 check(bool(torch.isfinite(a).all())
-                      and err <= FQ_MAP_RTOL * max(mag, 1.0),
+                      and err <= KITTI_MAP_RTOL * max(mag, 1.0),
                       f"recipes_kitti {name} {tag}: {key} {map_err[key]}")
             hk, hp = to_host(ok_), to_host(op)
             n, matched, worst = detections_near([hk], [hp], FQ_MIN_SCORE,
@@ -1736,7 +1674,7 @@ def recipes_kitti(kitti, conv_k, nms_k, mode, strict_f32):
                   f"matched, counts {counts}")
             row.update(map_err=map_err, detections=n, matched=matched,
                        worst=worst, map_tolerance=f"max|k-p| <= "
-                       f"{FQ_MAP_RTOL} * max(1, max|p|)")
+                       f"{KITTI_MAP_RTOL} * max(1, max|p|)")
         summary[f"{name} {tag}"] = row
         emit("recipes_kitti", dtype="f32", mode=mode(), batch=BATCH, **row)
         del m
@@ -1769,6 +1707,7 @@ def main():
     from q3d_tpu_torch.quant import api as quant_api
     from q3d_tpu_torch.quant.tensor_quant import (TensorQuantizer,
                                                   quantize_with_scale)
+    from q3d_tpu_torch.utils.bn_calibration import calibrate_bns
 
     conv_k, nms_k = gather_conv.KERNEL, nms_mod.KERNEL
     dev = torch.device("cuda")

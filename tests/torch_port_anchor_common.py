@@ -36,10 +36,10 @@ from q3d_tpu.quant.rules import quant_rules_scope
 from q3d_tpu_torch.config import cfg_from_yaml_file, EDict
 from q3d_tpu_torch.datasets import build_dataloader
 from q3d_tpu_torch.models import build_network, load_data_to_device
-from q3d_tpu_torch.models.layers import BatchNorm, BatchNorm1d, Conv2d
+from q3d_tpu_torch.models.layers import Conv2d
 from q3d_tpu_torch.ops.spconv import SparseConv3d, SubMConv3d
-from q3d_tpu_torch.ops.spconv.modules import SparseBatchNorm
 from q3d_tpu_torch.quant import api as port_api
+from q3d_tpu_torch.utils.bn_calibration import calibrate_bns
 from q3d_tpu_torch.utils.weights import pcdet_name, reference_module_path
 from q3d_tpu_torch.utils.weights import state_dict_from_jax
 
@@ -68,26 +68,6 @@ def configs(name):
             cfg.MODEL.NAME = "SECONDNet"
             del cfg.MODEL["ROI_HEAD"]
     return cfgs
-
-
-def _calibrate_bns(model, batch):
-    """Each BN's running statistics := the batch statistics of its input."""
-    def hook(mod, args):
-        x = args[0]
-        if isinstance(mod, SparseBatchNorm):
-            rows = x.features[x.valid]
-        elif isinstance(mod, BatchNorm1d):
-            rows = x.reshape(-1, x.shape[-1])
-        else:
-            rows = x.permute(0, 2, 3, 1).reshape(-1, x.shape[1])
-        mod.running_mean.copy_(rows.mean(0))
-        mod.running_var.copy_(rows.var(0, unbiased=False))
-    hooks = [m.register_forward_pre_hook(hook) for m in model.modules()
-             if isinstance(m, (SparseBatchNorm, BatchNorm))]
-    with torch.no_grad():
-        model(dict(batch))
-    for h in hooks:
-        h.remove()
 
 
 def _set_leaves(tree, state, prefix=()):
@@ -135,7 +115,7 @@ def build(name):
     model = build_network(pcfg.MODEL, len(pcfg.CLASS_NAMES), ds, device="cpu")
     model.load_state_dict(state_dict_from_jax(variables), strict=True)
     batch = load_data_to_device(next(iter(loader)), device="cpu")
-    _calibrate_bns(model, batch)
+    calibrate_bns(model, batch)
     _set_leaves(variables, model.state_dict())
     return {"model": jmodel, "batch": jbatch, "vars": variables,
             "port": model, "port_batch": batch, "cfg": pcfg}
