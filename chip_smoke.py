@@ -115,13 +115,37 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
                 ``second_recipe()``, PointPillars under
                 ``pointpillar_recipe()``, SECOND under
                 ``int8_deploy_recipe()``: kernels vs plain);
- 13. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+ 13. training (``q3d_tpu_torch.train_utils``), f32:
+                ``train_grad`` (centerpoint_ref, batch 2, seeded weights,
+                TF32 off: one training forward and backward through the
+                kernels and through the plain versions on the first
+                request: loss within 1e-5 relative, every gradient within
+                1e-4 of its tensor's largest |g|, BN statistics within
+                1e-5; kernel 1 launched 21 times forward and 20 times as
+                the input gradient; peak memory), ``kernel_dx`` (each of
+                those 20 input gradients: kernel 1 over the inverse book
+                against its plain version, within 1e-5 of the largest |dX|,
+                timed beside it, gather + ``torch.matmul``, the bound, the
+                weight gradient's torch time and the inverse book's
+                build), ``qat_tiny`` (the trained tiny fixture under
+                ``centerpoint_recipe()``, 4 QAT steps; the first through
+                the kernels and the plain versions, held as the CPU test
+                holds QAT), ``train_tiny`` (8 Adam steps from the seeded
+                init on one batch: the loss falls by at least 10%) and
+                ``train_ref`` (``train_model`` at ref width, 2 epochs of
+                the 8 frames, centerpoint_tiny's OPTIMIZATION; per step
+                host ms, forward / backward / optimizer device ms, dX
+                kernel and dW ms, peak memory; launches counted over the
+                run; resumed from its checkpoint into a fresh model, whose
+                model and optimizer state must equal the trained ones);
+ 14. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises and exits nonzero without the last line.  Without
 CUDA, or outside a checkout of the repo, it exits 1 and prints no result.
 ``USE_APPROX_TOPK`` in the config is ignored: the port's top-K is exact.
 """
 
+import contextlib
 import copy
 import json
 import statistics
@@ -1682,6 +1706,553 @@ def recipes_kitti(kitti, conv_k, nms_k, mode, strict_f32):
     return summary
 
 
+
+# ================================================================ training
+# the gradient checks: loss within 1e-5 relative, every parameter's gradient
+# within 1e-4 of its tensor's largest |g|, BN running statistics within 1e-5
+# (of max(1, their scale)).  A whole QAT (8-bit fake-quant) step is
+# ill-conditioned: a last-bit difference can move an activation across a
+# rounding boundary, and the gradients with it (readings in PERF.md, from
+# tests/test_torch_port_train_step.py): loss within 2e-2, the gradients'
+# cosine >= 0.95 and relative L2 <= 0.35, above every reading; each conv's
+# kernel launches in the QAT step are held at 1e-5 of their plain versions
+# on their own operands (hold_conv_launches)
+TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4, "stats": 1e-5}
+QAT_TOL = {"loss": 2e-2, "cos": 0.95, "rel_l2": 0.35, "stats": 1e-3}
+TRAIN_EPOCHS = 2
+TINY_STEPS = 8
+QAT_STEPS = 4
+# from the trained fixture: momentum SGD (Adam's first updates move every
+# weight by about +-lr, which undoes a trained model)
+QAT_OPTIM = {"OPTIMIZER": "sgd", "LR": 0.003, "MOMENTUM": 0.9,
+             "WEIGHT_DECAY": 0.01, "GRAD_NORM_CLIP": 10}
+
+
+@contextlib.contextmanager
+def recording_backward(model):
+    """While open, each sparse conv's backward under autograd (which runs
+    on as it does) also appends (conv name, features, weight, book,
+    out_valid, inverse book, grad_out) to the list it yields: the inputs
+    of the model's kernel-1 launches for the forward and the input
+    gradient."""
+    from q3d_tpu_torch.ops.spconv import gather_conv
+    names = {p.data_ptr(): n for n, p in model.named_parameters()}
+    recorded = []
+    real_bwd = gather_conv._GatherConvFn.backward
+
+    def capture(ctx, grad_out):
+        f, w, idx, _, ov = ctx.saved_tensors
+        recorded.append((names.get(w.data_ptr(), "?"), f.detach(), w.detach(),
+                         idx, ov, ctx.inverse(), grad_out.detach()))
+        return real_bwd(ctx, grad_out)
+    gather_conv._GatherConvFn.backward = staticmethod(capture)
+    try:
+        yield recorded
+    finally:
+        gather_conv._GatherConvFn.backward = staticmethod(real_bwd)
+
+
+def compare_training(mk, mp, loss_k, loss_p, qat=False):
+    """The kernels' training step (``mk``) against the plain versions'
+    (``mp``), after the same step from the same state: loss, every
+    parameter's gradient, every BN's running statistics -> summary dict;
+    raises past the tolerances (``TRAIN_TOL``, or ``QAT_TOL``)."""
+    import torch
+    from q3d_tpu_torch.train_utils import biases_before_bn
+    zero = biases_before_bn(mk)
+    pk, pp = dict(mk.named_parameters()), dict(mp.named_parameters())
+    top = max(float(p.grad.abs().max()) for p in pp.values())
+    worst, num, den, dot, nk = (0.0, ""), 0.0, 0.0, 0.0, 0.0
+    for name, p in pp.items():
+        gk, gp = pk[name].grad, p.grad
+        check(gk is not None and bool(torch.isfinite(gk).all()),
+              f"{name}: kernels' gradient missing or not finite")
+        err, scale = float((gk - gp).abs().max()), float(gp.abs().max())
+        if name in zero:
+            check(max(scale, float(gk.abs().max())) <= 1e-5 * top,
+                  f"{name}: a bias before a train-mode BN has gradient "
+                  f"{scale} (largest of the model {top})")
+            continue
+        num += float((gk - gp).double().pow(2).sum())
+        den += float(gp.double().pow(2).sum())
+        dot += float((gk.double() * gp.double()).sum())
+        nk += float(gk.double().pow(2).sum())
+        rel = err / max(scale, 1e-30)
+        if not qat:
+            check(err <= TRAIN_TOL["grad"] * scale,
+                  f"{name}: gradient kernels vs plain {err} (scale {scale})")
+        worst = max(worst, (rel, name))
+    rel_l2, cos = (num / den) ** 0.5, dot / (den * nk) ** 0.5
+    tol = QAT_TOL if qat else TRAIN_TOL
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    check(loss_rel <= tol["loss"], f"loss kernels {loss_k} vs plain {loss_p}")
+    if qat:
+        check(cos >= QAT_TOL["cos"] and rel_l2 <= QAT_TOL["rel_l2"],
+              f"QAT gradients: cosine {cos}, relative L2 {rel_l2}")
+    bk, bp = dict(mk.named_buffers()), dict(mp.named_buffers())
+    stats_err = 0.0
+    for name, b in bp.items():
+        if name.endswith(("running_mean", "running_var")):
+            e = float((bk[name] - b).abs().max()) \
+                / max(1.0, float(b.abs().max()))
+            check(e <= tol["stats"], f"{name}: kernels vs plain {e}")
+            stats_err = max(stats_err, e)
+    return {"loss_kernels": loss_k, "loss_plain": loss_p,
+            "loss_rel_err": loss_rel, "grad_worst_rel": worst[0],
+            "grad_worst_param": worst[1], "grad_rel_l2": rel_l2,
+            "grad_cosine": cos, "bn_stats_worst": stats_err,
+            "zero_grad_biases": len(zero), "params": len(pp)}
+
+
+def train_grad(model, batch, conv_k, mode):
+    """Phase ``train_grad``: one training forward and backward of
+    centerpoint_ref (seeded weights, f32, TF32 off) through the kernels and
+    through the plain versions on the same batch, held by
+    ``compare_training``; kernel-1 launches of the step, forward and input
+    gradient apart (every sparse conv but conv_input, whose input takes no
+    gradient, launches a dX); every sparse conv weight gets a gradient;
+    peak memory of each step.  -> (the kernels' backward calls: (conv name,
+    features, weight, book, out_valid, inverse book, grad_out) each, the
+    launch counts)."""
+    import torch
+    from q3d_tpu_torch.ops.spconv.modules import SubMConv3d, SparseConv3d
+    mk, mp = copy.deepcopy(model), copy.deepcopy(model)
+    out = {}
+    for tag, m in (("cuda", mk), ("plain", mp)):
+        m.set_kernel_impl(tag)
+        m.train()
+        conv_k.launches.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = m(dict(batch))
+        fwd = sum(conv_k.launches.values())
+        if tag == "cuda":
+            with recording_backward(mk) as recorded:
+                res["loss"].backward()
+        else:
+            res["loss"].backward()
+        torch.cuda.synchronize()
+        out[tag] = {"loss": float(res["loss"]),
+                    "step_ms": (time.perf_counter() - t0) * 1e3,
+                    "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+                    "launches_forward": fwd,
+                    "launches_dx": sum(conv_k.launches.values()) - fwd,
+                    "launches_by_entry": dict(conv_k.launches)}
+        m.set_kernel_impl(None)
+    sparse = [n for n, mod in mk.named_modules()
+              if isinstance(mod, (SubMConv3d, SparseConv3d))]
+    check(out["cuda"]["launches_forward"] == 21
+          and out["cuda"]["launches_dx"] == 20
+          and set(out["cuda"]["launches_by_entry"])
+          == {"q3d_sparse_gather_conv_f32"},
+          f"train_grad: kernel-1 launches {out['cuda']}")
+    check(out["plain"]["launches_forward"] == out["plain"]["launches_dx"] == 0,
+          f"train_grad: plain run launched {out['plain']}")
+    pk = dict(mk.named_parameters())
+    for n in sparse:
+        g = pk[f"{n}.weight"].grad
+        check(g is not None and bool(g.abs().max() > 0),
+              f"train_grad: {n}.weight has no gradient")
+    check(len(recorded) == 21 and sum(r[0] == "backbone_3d.conv_input.0.weight"
+                                      for r in recorded) == 1,
+          f"train_grad: {len(recorded)} sparse conv backward calls")
+    summary = compare_training(mk, mp, out["cuda"]["loss"],
+                               out["plain"]["loss"])
+    emit("train_grad", config=CFG.name, batch=BATCH, dtype="f32", mode=mode(),
+         kernels=out["cuda"], plain=out["plain"], sparse_convs=len(sparse),
+         tolerance=TRAIN_TOL, peak_covers="three model copies on the card; "
+         "the kernels' run also keeps every conv's backward inputs for "
+         "kernel_dx (train_ref_step has a training step's own peak)",
+         **summary)
+    return recorded, out["cuda"]
+
+
+def kernel_dx(recorded, flush, mode):
+    """Phase ``kernel_dx``: kernel 1's f32 entry as the input gradient of
+    each sparse conv of the ref training step (the inverse book, the
+    weights transposed per tap, the step's real output gradient), against
+    its plain version (within 1e-5 of the largest |dX|), timed beside it,
+    beside gather + ``torch.matmul`` (the library call of the same
+    product) and beside its bound; the weight gradient's torch time
+    (``engine.weight_grad``) and the inverse book's build beside them.
+    -> totals."""
+    import torch
+    from q3d_tpu_torch.ops.spconv import engine, gather_conv
+    totals = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bytes_ms", "ops_ms", "dw_ms", "inverse_ms")}
+    worst = 0.0
+    rows = []
+    with torch.no_grad():
+        for name, f, w, idx, ov, inv, grad_out in recorded:
+            if name == "backbone_3d.conv_input.0.weight":
+                continue                       # its input takes no gradient
+            n, cin = f.shape
+            m, k = idx.shape
+            cout = w.shape[2]
+            g = grad_out.float()
+            if ov is not None:
+                g = g * ov.reshape(-1, 1).float()
+            g = g.contiguous()
+            wt = w.transpose(1, 2).contiguous()
+            dk = gather_conv.gather_conv_cuda(g, inv, wt)
+            dp = gather_conv.gather_conv_plain(g, inv, wt)
+            torch.cuda.synchronize()
+            err, scale = float((dk - dp).abs().max()), float(dp.abs().max())
+            check(err <= 1e-5 * scale, f"{name} dX: kernel vs plain {err} "
+                                       f"(scale {scale})")
+            worst = max(worst, err)
+            present = inv >= 0
+            n_present = int(present.sum())
+            rows_read = int(torch.unique(inv[present]).numel())
+            flat = torch.cat([g, g.new_zeros((1, cout))])
+            safe = torch.where(present, inv.long(), m).reshape(-1)
+            w2 = wt.reshape(k * cout, cin)
+            row = {"conv": name, "N": n, "M": m, "K": k, "Cin": cin,
+                   "Cout": cout, "present_taps": n_present,
+                   "max_abs_err": err, "scale": scale,
+                   "ms": time_ms(lambda: gather_conv.gather_conv_cuda(
+                       g, inv, wt), flush=flush),
+                   "plain_ms": time_ms(lambda: gather_conv.gather_conv_plain(
+                       g, inv, wt), reps=5, flush=flush),
+                   "library_ms": time_ms(lambda: torch.matmul(
+                       flat[safe].reshape(n, k * cout), w2), flush=flush),
+                   "dw_ms": time_ms(lambda: engine.weight_grad(f, idx, g),
+                                    reps=5, flush=flush),
+                   "inverse_ms": time_ms(lambda: engine.inverse_book(idx, n),
+                                         flush=flush)}
+            # the rows of dOut' the inverse book uses, the book, the
+            # transposed weights read once, dX written once; the present
+            # taps' operations on the CUDA cores (f32)
+            nbytes = (rows_read * cout + k * cout * cin + n * cin) * 4 \
+                + n * k * 4
+            row["bytes_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
+            row["ops_ms"] = 1e3 * 2.0 * n_present * cin * cout \
+                / PEAK_OPS_PER_S["f32"]
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            emit("kernel_dx", **row)
+            rows.append(row)
+            for key in totals:
+                totals[key] += row[key]
+    totals["bound_by"] = "bytes" if totals["bytes_ms"] >= totals["ops_ms"] \
+        else "operations"
+    emit("kernel_dx_total", config=CFG.name, convs=len(rows), dtype="f32",
+         mode=mode(), max_abs_err=worst, **totals,
+         tolerance="max|k-p| <= 1e-5 * max|p| per conv",
+         library="gather of dOut' by the inverse book + torch.matmul",
+         dw="engine.weight_grad: per tap, gather + f32 torch.matmul")
+    totals["max_abs_err"] = worst
+    return totals
+
+
+def train_ref(dev, conv_k, mode):
+    """Phase ``train_ref``: the port's ``train_model`` at centerpoint_ref's
+    width, batch 2, over the config's 8 frames for 2 epochs (8 steps), with
+    centerpoint_tiny's OPTIMIZATION block (adam_onecycle, LR 0.003, WD
+    0.01, clip 10; the ref config has none), on the kernels, PyTorch's
+    default TF32 settings.  ``train_model`` and its ``train_step`` run as
+    a user calls them; hooks outside them take each step's numbers: host ms
+    (the loader's time, from the run's history, with the scene synthesis
+    timed around ``make_scene`` apart), device ms between CUDA events that
+    a forward pre-hook and a forward hook on the model, each parameter's
+    post-accumulate-grad hook (the last marks the backward's end) and a
+    step post-hook on the torch optimizer record: forward, backward, and
+    optimizer (both clips and the update); the input-gradient kernels' ms
+    and the weight gradients' ms summed (CUDA events around each call
+    between the forward's end and the update), peak memory, and the memory
+    already allocated when the step starts (the model, the optimizer's
+    state, and whatever earlier phases keep on the card).  Losses finite,
+    every parameter a nonzero gradient (but the biases before a train-mode
+    BN, whose gradient is 0).  Then a fresh model resumes from the run's last
+    checkpoint, and its model and optimizer state must equal the trained
+    ones exactly.  Launches are counted over the run."""
+    import shutil
+    import numpy as np
+    import torch
+    from q3d_tpu_torch import train_utils
+    from q3d_tpu_torch.config import cfg_from_yaml_file, EDict
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.datasets import synthetic_dataset
+    from q3d_tpu_torch.models import build_network
+    from q3d_tpu_torch.ops.spconv import gather_conv
+    from torch.optim.optimizer import register_optimizer_step_post_hook
+    cfg = cfg_from_yaml_file(str(CFG), EDict())
+    optim = cfg_from_yaml_file(str(TINY_CFG), EDict()).OPTIMIZATION
+    np.random.seed(SEED)
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
+                                     batch_size=BATCH, training=True,
+                                     seed=SEED)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=dev)
+    ckpt_dir = ROOT / "output" / "chip_smoke_train_ref"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # hooks outside train_model: its own train_step runs, unchanged
+    scene_ms, cur, steps = [0.0], {}, []
+    in_bwd, dx_events, dw_events = [False], [], []
+    real_scene = synthetic_dataset.make_scene
+    real_cuda, real_wg = gather_conv.gather_conv_cuda, gather_conv.weight_grad
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def scene(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real_scene(*a, **kw)
+        finally:
+            scene_ms[0] += (time.perf_counter() - t0) * 1e3
+
+    def timed(fn, store, when=lambda: True):
+        def run(*a, **kw):
+            if not when():
+                return fn(*a, **kw)
+            start = event()
+            out = fn(*a, **kw)
+            store.append((start, event()))
+            return out
+        return run
+
+    def forward_starts(module, args):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dx_events.clear()
+        dw_events.clear()
+        cur.clear()
+        cur.update(resident=torch.cuda.memory_allocated() / 2 ** 20,
+                   launches=sum(conv_k.launches.values()),
+                   scene_ms=scene_ms[0], start=event())
+        scene_ms[0] = 0.0
+
+    def forward_ends(module, args, out):
+        cur["forward_end"] = event()
+        cur["launches_forward"] = sum(conv_k.launches.values()) \
+            - cur["launches"]
+        in_bwd[0] = True
+
+    def grad_accumulated(param):
+        cur["backward_end"] = event()      # the last parameter's counts
+
+    def optimizer_stepped(optimizer, args, kwargs):
+        in_bwd[0] = False
+        end = event()
+        torch.cuda.synchronize()
+        steps.append({
+            "step": len(steps) + 1, "scene_ms": cur["scene_ms"],
+            "forward_ms": cur["start"].elapsed_time(cur["forward_end"]),
+            "backward_ms": cur["forward_end"].elapsed_time(
+                cur["backward_end"]),
+            "optimizer_ms": cur["backward_end"].elapsed_time(end),
+            "dx_kernel_ms": sum(a.elapsed_time(b) for a, b in dx_events),
+            "dw_ms": sum(a.elapsed_time(b) for a, b in dw_events),
+            "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "resident_mib": cur["resident"],
+            "launches_forward": cur["launches_forward"],
+            "launches_dx": sum(conv_k.launches.values()) - cur["launches"]
+            - cur["launches_forward"]})
+
+    hooks = [model.register_forward_pre_hook(forward_starts),
+             model.register_forward_hook(forward_ends),
+             register_optimizer_step_post_hook(optimizer_stepped)]
+    hooks += [p.register_post_accumulate_grad_hook(grad_accumulated)
+              for p in model.parameters() if p.requires_grad]
+    conv_k.launches.clear()
+    t0 = time.perf_counter()
+    synthetic_dataset.make_scene = scene
+    gather_conv.gather_conv_cuda = timed(real_cuda, dx_events,
+                                         lambda: in_bwd[0])
+    gather_conv.weight_grad = timed(real_wg, dw_events)
+    try:
+        optimizer, history = train_utils.train_model(
+            model, optim, loader, ckpt_dir, total_epochs=TRAIN_EPOCHS,
+            device=dev)
+    finally:
+        synthetic_dataset.make_scene = real_scene
+        gather_conv.gather_conv_cuda, gather_conv.weight_grad = real_cuda, \
+            real_wg
+        for h in hooks:
+            h.remove()
+    run_s = time.perf_counter() - t0
+    launches = dict(conv_k.launches)
+    n_steps = TRAIN_EPOCHS * len(loader)
+    check(len(steps) == len(history) == n_steps,
+          f"train_ref: {len(steps)} steps, expected {n_steps}")
+    for st, h in zip(steps, history):
+        # the loader's time before the step (train_model's data meter): the
+        # scene's synthesis, then the data pipeline and the copy to the card
+        scene = st.pop("scene_ms")
+        st["host_ms"] = {"scene": scene,
+                         "pipeline": h["data_s"] * 1e3 - scene}
+        st["loss"] = h["loss"]
+        emit("train_ref_step", **st)
+    check(all(np.isfinite(s["loss"]) for s in steps), "train_ref: losses")
+    check(launches == {"q3d_sparse_gather_conv_f32": 41 * n_steps},
+          f"train_ref: launches {launches}")
+    zero = train_utils.biases_before_bn(model)
+    nograd = [n for n, p in model.named_parameters() if n not in zero and (
+        p.grad is None or not bool(p.grad.abs().max() > 0))]
+    check(not nograd, f"train_ref: parameters without a gradient {nograd}")
+
+    # resume: a fresh model and optimizer from the newest checkpoint
+    fresh = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=dev)
+    opt2, hist2 = train_utils.train_model(fresh, optim, loader, ckpt_dir,
+                                          total_epochs=TRAIN_EPOCHS,
+                                          device=dev)
+    check(not hist2, f"train_ref: resumed run took {len(hist2)} steps")
+    for (k, a), b in zip(model.state_dict().items(),
+                         fresh.state_dict().values()):
+        check(torch.equal(a, b), f"train_ref resume: model state {k} differs")
+    sa, sb = optimizer.state_dict(), opt2.state_dict()
+    check(sa["count"] == sb["count"] == n_steps, "train_ref resume: count")
+    for i, st in sa["optimizer"]["state"].items():
+        for k, v in st.items():
+            check(torch.equal(torch.as_tensor(v), torch.as_tensor(
+                sb["optimizer"]["state"][i][k]).to(torch.as_tensor(v).device)),
+                f"train_ref resume: optimizer state {i}.{k} differs")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    med = {k: statistics.median(s[k] for s in steps[1:])
+           for k in ("forward_ms", "backward_ms", "optimizer_ms",
+                     "dx_kernel_ms", "dw_ms", "peak_mib", "resident_mib")}
+    med["host_ms"] = statistics.median(sum(s["host_ms"].values())
+                                       for s in steps[1:])
+    emit("train_ref", config=CFG.name, batch=BATCH, epochs=TRAIN_EPOCHS,
+         steps=n_steps, optimization=dict(optim), mode=mode(),
+         losses=[s["loss"] for s in steps], launches=launches,
+         launches_per_step={"forward": steps[0]["launches_forward"],
+                            "dx": steps[0]["launches_dx"]},
+         run_s=run_s, median_after_first=med,
+         resume="model and optimizer state equal after resume")
+    return {"launches_dx": sum(s["launches_dx"] for s in steps),
+            "launches_forward": sum(s["launches_forward"] for s in steps),
+            "median": med}
+
+
+def train_tiny(dev, mode):
+    """Phase ``train_tiny``: centerpoint_tiny from its seeded init, 8 steps
+    of Adam 3e-3 on one batch on the card (the JAX package's
+    ``tests/test_training.py`` recipe, on CenterPoint): the loss falls by
+    at least 10%."""
+    from q3d_tpu_torch.config import cfg_from_yaml_file, EDict
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.models import build_network, load_data_to_device
+    from q3d_tpu_torch.optimization import build_optimizer
+    from q3d_tpu_torch.train_utils import MODEL_KEYS, train_step
+    cfg = cfg_from_yaml_file(str(TINY_CFG), EDict())
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
+                                     batch_size=BATCH, training=False)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=dev)
+    raw = next(iter(loader))
+    batch = load_data_to_device({k: v for k, v in raw.items()
+                                 if k in MODEL_KEYS}, device=dev)
+    opt = build_optimizer(model.parameters(), EDict(
+        {"OPTIMIZER": "adam", "LR": 0.003, "WEIGHT_DECAY": 0.0}), TINY_STEPS)
+    losses = [float(train_step(model, batch, opt)[0])
+              for _ in range(TINY_STEPS)]
+    check(losses[-1] < 0.9 * losses[0], f"train_tiny: losses {losses}")
+    emit("train_tiny", config=TINY_CFG.name, batch=BATCH, mode=mode(),
+         optimizer="adam, lr 3e-3, no weight decay, clip 10", losses=losses,
+         fall=1 - losses[-1] / losses[0])
+
+
+def hold_conv_launches(recorded):
+    """Kernel 1 against its plain version on the operands that a training
+    step's kernel launches had (``recording_backward``): each sparse conv's
+    forward, and its input gradient over the inverse book (not
+    conv_input's, whose input takes no gradient), within 1e-5 of the
+    largest |value| of each -> {"convs", "forward_worst_rel",
+    "dx_worst_rel"}."""
+    import torch
+    from q3d_tpu_torch.ops.spconv import gather_conv
+    worst = {"forward": 0.0, "dx": 0.0}
+    with torch.no_grad():
+        for name, f, w, idx, ov, inv, grad_out in recorded:
+            pairs = {"forward": (f, idx, w, None, ov)}
+            if name != "backbone_3d.conv_input.0.weight":
+                g = grad_out.float()
+                if ov is not None:
+                    g = g * ov.reshape(-1, 1).float()
+                pairs["dx"] = (g.contiguous(), inv,
+                               w.transpose(1, 2).contiguous())
+            for what, args in pairs.items():
+                k = gather_conv.gather_conv_cuda(*args)
+                p = gather_conv.gather_conv_plain(*args)
+                err, scale = float((k - p).abs().max()), float(p.abs().max())
+                check(err <= 1e-5 * scale, f"{name} {what}: kernel vs plain "
+                                           f"{err} (scale {scale})")
+                worst[what] = max(worst[what], err / max(scale, 1e-30))
+    return {"convs": len(recorded), "forward_worst_rel": worst["forward"],
+            "dx_worst_rel": worst["dx"]}
+
+
+def qat_tiny(dev, conv_k, mode):
+    """Phase ``qat_tiny``: the trained centerpoint_tiny fixture (read without
+    JAX) under ``centerpoint_recipe()`` (dynamic SmoothQuant fake-quant),
+    then QAT steps on the card (f32, TF32 off, ``QAT_OPTIM``): the first
+    step through the kernels and through the plain versions held by
+    ``compare_training`` at ``QAT_TOL``, and each of the kernels' launches
+    in it (forward and input gradient, on the fake-quantized operands it
+    had) at 1e-5 of its plain version; every quantized conv's weight
+    (the 20 sparse ones and the dense ones the recipe quantizes) gets a
+    finite, nonzero gradient; then 3 more steps through the kernels (4 in
+    all), losses finite."""
+    import numpy as np
+    import torch
+    from q3d_tpu_torch.config import cfg_from_yaml_file, EDict
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.models import build_network, load_data_to_device
+    from q3d_tpu_torch.optimization import build_optimizer
+    from q3d_tpu_torch.quant import api as quant_api
+    from q3d_tpu_torch.train_utils import MODEL_KEYS, train_step
+    from q3d_tpu_torch.utils.checkpoint import load_params_from_file
+    cfg = cfg_from_yaml_file(str(TINY_CFG), EDict())
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
+                                     batch_size=BATCH, training=False)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=dev)
+    load_params_from_file(model, CKPT)
+    raw = next(iter(loader))
+    batch = load_data_to_device({k: v for k, v in raw.items()
+                                 if k in MODEL_KEYS}, device=dev)
+    quant_api.quantize_model(model, quant_api.centerpoint_recipe(), batch)
+    check(not [n for n, _ in model.named_parameters()
+               if "quant" in n or "amax" in n],
+          "qat_tiny: a quantizer's state is a parameter")
+    quantized = [n for n, m in model.named_modules()
+                 if getattr(m, "rule", None) is not None
+                 and getattr(m, "weight", None) is not None]
+    n_sparse = sum(n.startswith("backbone_3d") for n in quantized)
+    check(n_sparse == 20 and len(quantized) > n_sparse,
+          f"qat_tiny: quantized convs {quantized}")
+    runs = {}
+    for tag in ("cuda", "plain"):
+        m = copy.deepcopy(model)
+        m.set_kernel_impl(tag)
+        opt = build_optimizer(m.parameters(), EDict(QAT_OPTIM), QAT_STEPS)
+        conv_k.launches.clear()
+        with recording_backward(m) as recorded:
+            loss = float(train_step(m, batch, opt)[0])
+        runs[tag] = (m, opt, loss, sum(conv_k.launches.values()), recorded)
+    mk, opt, loss_k, launches, recorded = runs["cuda"]
+    check(launches == 41 and runs["plain"][3] == 0,
+          f"qat_tiny: kernel-1 launches {launches} / {runs['plain'][3]}")
+    layers = hold_conv_launches(recorded)
+    grads = dict(mk.named_parameters())
+    for n in quantized:
+        g = grads[f"{n}.weight"].grad
+        check(bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0),
+              f"qat_tiny: {n}.weight gradient")
+    summary = compare_training(mk, runs["plain"][0], loss_k, runs["plain"][2],
+                               qat=True)
+    losses = [loss_k] + [float(train_step(mk, batch, opt)[0])
+                         for _ in range(QAT_STEPS - 1)]
+    check(all(np.isfinite(losses)), f"qat_tiny: losses {losses}")
+    emit("qat_tiny", config=TINY_CFG.name, recipe="centerpoint_recipe()",
+         batch=BATCH, mode=mode(), quantized_convs={
+             "sparse": n_sparse, "dense": len(quantized) - n_sparse},
+         launches_first_step=launches, losses=losses, tolerance=QAT_TOL,
+         layers=layers, **summary)
+
+
 def main():
     import numpy as np
     import torch
@@ -2313,6 +2884,25 @@ def main():
         "greedy_nms_boxes": k_["launches"]["greedy_nms_boxes"]}
         for name, k_ in kitti.items()}
 
+    # ============================================================ training
+    # the trainer: one step's gradients through the kernels against the
+    # plain versions (f32, TF32 off), kernel 1 as the input gradient, QAT
+    # on the trained tiny fixture; then the tiny model learning, and
+    # train_model at ref width (the slice's main path; PyTorch's TF32
+    # defaults)
+    # a ref training step through both routes needs ~23 GB: let go of the
+    # inference phases' models and recorded conv inputs first
+    n_s8_convs = len(s8_calls)
+    del bench8, recipes, m8, fused_calls, dense_calls, s8_calls, kitti
+    strict_f32(True)
+    recorded, _ = train_grad(model, batch_f32, conv_k, mode)
+    dx_totals = kernel_dx(recorded, flush, mode)
+    del recorded
+    qat_tiny(dev, conv_k, mode)
+    strict_f32(False)
+    train_tiny(dev, mode)
+    trained = train_ref(dev, conv_k, mode)
+
     # ---------------------------------------------------------- kernels line
     kernels = [
         {"name": "sparse_gather_conv", "route": "cuda",
@@ -2333,6 +2923,22 @@ def main():
                     "max_abs_err": second_worst["bf16"],
                     "times_cover": "one SECOND bf16 forward (12 convs)"},
          "checks": "passed", "times_cover": "one bf16 forward (21 convs)"},
+        {"name": "sparse_gather_conv_dx", "route": "cuda",
+         "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
+         "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",
+         "entry": "q3d_sparse_gather_conv_f32",
+         "use": "the input gradient of every sparse conv but conv_input, "
+                "over the inverse book, weights transposed per tap",
+         "launches": trained["launches_dx"],
+         "forward_launches": trained["launches_forward"],
+         "max_abs_err": dx_totals["max_abs_err"], "ms": dx_totals["ms"],
+         "plain_ms": dx_totals["plain_ms"], "bound_ms": dx_totals["bound_ms"],
+         "bound_by": dx_totals["bound_by"],
+         "library_ms": dx_totals["library_ms"],
+         "dw_torch_ms": dx_totals["dw_ms"],
+         "inverse_book_ms": dx_totals["inverse_ms"], "checks": "passed",
+         "times_cover": "one f32 ref training step's 20 input gradients; "
+                        "launches: train_model's 8 steps"},
         {"name": "sparse_gather_conv_s8_requant", "route": "cuda",
          "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
          "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",
@@ -2361,7 +2967,7 @@ def main():
                              for tag, d in driver.items()},
          "checks": "passed",
          "times_cover": "one int8 forward, int8_deploy_recipe() "
-                        f"({len(s8_calls)} convs)"},
+                        f"({n_s8_convs} convs)"},
         {"name": "greedy_nms", "route": "cuda",
          "source": "q3d_tpu_torch/csrc/greedy_nms.cu",
          "replaces": "q3d_tpu/ops/iou3d_nms/pallas_nms.py:45",

@@ -1,13 +1,17 @@
 """DatasetTemplate: per-frame pipeline + static-shape batch collation.
 
-Port of ``q3d_tpu/datasets/dataset.py`` for inference: class filtering ->
-PointFeatureEncoder -> DataProcessor, and a collate that stacks the
-capacity-padded per-frame arrays into fixed shapes —
+Port of ``q3d_tpu/datasets/dataset.py``: class filtering ->
+PointFeatureEncoder -> DataProcessor (in training mode it drops the boxes
+outside the range and shuffles the points, and a frame left without boxes
+is replaced by a random one, reference :212-214), and a collate that stacks
+the capacity-padded per-frame arrays into fixed shapes —
     voxels            (B, V, P, C) float32
     voxel_coords      (B, V, 3)    int32   [z, y, x], padding rows -1
     voxel_num_points  (B, V)       int32
     gt_boxes          (B, M, 8)    float32 (7 box + 1 class id), zero-padded
-Data augmentation (training) is not part of the port yet.
+                                   to MAX_GT_BOXES
+The data augmentor (``DATA_AUGMENTOR``) is not part of the port yet: a
+training dataset whose config has one raises.
 """
 
 from collections import defaultdict
@@ -58,6 +62,8 @@ class DatasetTemplate:
 
     def prepare_data(self, data_dict):
         """Shared per-frame pipeline (reference dataset.py:158, no augmentor)."""
+        if self.training and "gt_boxes" not in data_dict:
+            raise ValueError("training needs gt_boxes")
         if data_dict.get("gt_boxes", None) is not None:
             selected = common_utils.keep_arrays_by_name(
                 data_dict["gt_names"], self.class_names)
@@ -73,6 +79,8 @@ class DatasetTemplate:
         if data_dict.get("points", None) is not None:
             data_dict = self.point_feature_encoder.forward(data_dict)
         data_dict = self.data_processor.forward(data_dict)
+        if self.training and len(data_dict.get("gt_boxes", [])) == 0:
+            return self.__getitem__(np.random.randint(self.__len__()))
         data_dict.pop("gt_names", None)
         return data_dict
 

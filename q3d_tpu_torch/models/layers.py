@@ -339,15 +339,23 @@ class ConvTranspose2d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm2d over NCHW maps, computed as the reference's
-    flax BatchNorm does, (x - mean) * (rsqrt(var + eps) * weight) + bias,
-    in f32 and returned in the input dtype, or in f32 when ``out_f32`` is
-    set (an int8 deploy model: flax promotes a bf16 input with its f32
-    parameters)."""
+    """BatchNorm2d over NCHW maps, computed as the reference's flax
+    BatchNorm does, (x - mean) * (rsqrt(var + eps) * weight) + bias, in f32
+    and returned in the input dtype, or in f32 when ``out_f32`` is set (an
+    int8 deploy model: flax promotes a bf16 input with its f32
+    parameters).
 
-    def __init__(self, num_features, eps=1e-3):
+    Eval mode takes the running statistics.  Train mode (``nn.Module.
+    training``) is flax's ``nn.BatchNorm(momentum=1 - momentum)``
+    (reference ``layers.py:513-543``): the batch's statistics over N, H and
+    W, the variance as E[x^2] - E[x]^2 clipped at 0 (flax's fast variance),
+    and that biased variance in the running average.  ``F.batch_norm``
+    would average the unbiased one, so the update is written out."""
+
+    def __init__(self, num_features, eps=1e-3, momentum=0.01):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.out_f32 = False
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
@@ -361,15 +369,34 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
-    def _affine(self, x):
+    def _affine(self, x, mean=None, var=None):
         def c(v):
             return v[None, :, None, None]
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - c(self.running_mean)) * c(mul) + c(self.bias)
+        mean = self.running_mean if mean is None else mean
+        var = self.running_var if var is None else var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - c(mean)) * c(mul) + c(self.bias)
 
     def forward(self, x):
-        y = self._affine(x.float())
+        xf = x.float()
+        if self.training:
+            y = self._affine(xf, *self._batch_stats(xf))
+        else:
+            y = self._affine(xf)
         return y if self.out_f32 else y.to(x.dtype)
+
+    def _batch_stats(self, x):
+        """flax's batch mean and fast variance over all dims but the
+        channels; the running statistics move as flax moves them."""
+        dims = [d for d in range(x.dim()) if d != 1]
+        mean = x.mean(dims)
+        var = torch.clamp_min((x * x).mean(dims) - mean * mean, 0.0)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum              # flax's momentum
+            self.running_mean.copy_(keep * self.running_mean
+                                    + (1 - keep) * mean)
+            self.running_var.copy_(keep * self.running_var + (1 - keep) * var)
+        return mean, var
 
     def fold(self):
         """The eval affine as (k, b), y = x * k + b, probed as the reference
@@ -385,11 +412,20 @@ class BatchNorm(nn.Module):
 
 class BatchNorm1d(BatchNorm):
     """Eval-mode BatchNorm over the last dim of (..., C) features (the PFN
-    layers'), computed as ``BatchNorm`` computes it."""
+    layers'), computed as ``BatchNorm`` computes it.  Its train mode (the
+    reference's masked ``_MaskedBNCore``) comes with PointPillars
+    training."""
 
-    def _affine(self, x):
+    def _affine(self, x, mean=None, var=None):
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         return (x - self.running_mean) * mul + self.bias
+
+    def forward(self, x):
+        if self.training:
+            raise NotImplementedError(
+                "BatchNorm1d train mode (the PFN's masked BN) is not ported "
+                "yet (ROADMAP.md)")
+        return super().forward(x)
 
 
 class DenseRequant(QuantLayer, nn.Module):

@@ -1,8 +1,64 @@
-"""CenterNet top-K heatmap decode (port of
-``q3d_tpu/models/model_utils/centernet_utils.py::decode_bbox_from_heatmap``),
-batched over frames, NCHW."""
+"""CenterNet heatmap utilities (port of
+``q3d_tpu/models/model_utils/centernet_utils.py``): the gaussian targets
+(``gaussian_radius``, ``splat_gaussians``) and the top-K decode
+(``decode_bbox_from_heatmap``), batched over frames, NCHW."""
 
+import numpy as np
 import torch
+
+
+def gaussian_radius(dx, dy, min_overlap=0.5):
+    """CornerNet's bound on the gaussian radius (reference :15-33); dx, dy
+    in feature cells."""
+    a1 = 1
+    b1 = dy + dx
+    c1 = dx * dy * (1 - min_overlap) / (1 + min_overlap)
+    sq1 = torch.sqrt(torch.clamp_min(b1 ** 2 - 4 * a1 * c1, 0))
+    r1 = (b1 + sq1) / 2
+
+    a2 = 4
+    b2 = 2 * (dy + dx)
+    c2 = (1 - min_overlap) * dx * dy
+    sq2 = torch.sqrt(torch.clamp_min(b2 ** 2 - 4 * a2 * c2, 0))
+    r2 = (b2 + sq2) / 2
+
+    a3 = 4 * min_overlap
+    b3 = -2 * min_overlap * (dy + dx)
+    c3 = (min_overlap - 1) * dx * dy
+    sq3 = torch.sqrt(torch.clamp_min(b3 ** 2 - 4 * a3 * c3, 0))
+    r3 = (b3 + sq3) / 2
+    return torch.minimum(torch.minimum(r1, r2), r3)
+
+
+def splat_gaussians(centers, radii, class_ids, obj_valid, num_classes, H, W):
+    """The heatmap targets of a batch of frames (reference :36-66, vmapped
+    there): centers (B, M, 2) float [x, y] in feature cells, radii (B, M)
+    int, class_ids (B, M) in [0, num_classes), obj_valid (B, M) bool ->
+    (B, num_classes, H, W), each cell the max over its class's objects.
+    Each object's gaussian is cut to its (2r+1)^2 window and its sub-eps
+    tail (relative to its own peak) is zeroed, as torch's gaussian2D does."""
+    dev = centers.device
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+    cx_int = torch.floor(centers[..., 0]).to(torch.int32)
+    cy_int = torch.floor(centers[..., 1]).to(torch.int32)
+    dx = xs - cx_int[..., None, None].float()                  # (B, M, H, W)
+    dy = ys - cy_int[..., None, None].float()
+    r = radii.float()[..., None, None]
+    sigma = (2 * r + 1) / 6.0
+    g = torch.exp(-(dx ** 2 + dy ** 2) / torch.clamp_min(2 * sigma ** 2, 1e-6))
+    inside = (dx.abs() <= r) & (dy.abs() <= r)
+    g = torch.where(inside & obj_valid[..., None, None], g, 0.0)
+    gmax = g.amax(dim=(-2, -1), keepdim=True)
+    g = torch.where(g > np.finfo(np.float32).eps * gmax, g, 0.0)
+    # scatter-max over objects into their class planes (invalid -> a spare
+    # plane that is dropped)
+    cls = torch.where(obj_valid, class_ids.long(), num_classes)
+    b, m = cls.shape
+    heat = g.new_zeros((b, num_classes + 1, H, W))
+    heat.scatter_reduce_(1, cls[..., None, None].expand(b, m, H, W), g,
+                         reduce="amax")
+    return heat[:, :num_classes]
 
 
 def topk_stable(scores, k):

@@ -140,6 +140,43 @@ def sparse_conv_downsample(st: SparseConvTensor, kernel_size, stride, padding,
     return out_indices, _query(st, oc[:, 0:1], icoord, ok), out_spatial
 
 
+def inverse_book(gather_idx, n):
+    """The inverse of an (M, K) book over N input rows: the (N, K) int32
+    book with inv[g[m, k], k] = m and -1 where no output row reads input
+    row n at tap k, built by one scatter.  A SubM or strided conv reads each
+    (n, k) from at most one output row, so the inverse is a plain gather
+    book, and the input gradient of the conv is the conv of the output
+    gradient over it with the weights transposed per tap."""
+    m, k = gather_idx.shape
+    dev = gather_idx.device
+    g = gather_idx.long()
+    taps = torch.arange(k, device=dev)
+    # misses write to one sink slot past the end, which is dropped
+    flat = torch.where((g >= 0) & (g < n), g * k + taps, n * k)
+    rows = torch.arange(m, dtype=torch.int32, device=dev)[:, None].expand(m, k)
+    inv = torch.full((n * k + 1,), -1, dtype=torch.int32, device=dev)
+    inv.scatter_(0, flat.reshape(-1), rows.reshape(-1))
+    return inv[:n * k].view(n, k)
+
+
+def weight_grad(features, gather_idx, grad_out):
+    """dW[k] = sum_m f[g[m, k]]^T grad_out[m] -> (K, Cin, Cout) f32: per tap,
+    the tap's rows gathered (a miss reads the zero row) and one f32
+    ``torch.matmul``.  The (M, K*Cin) gather of the forward's plain version
+    is never built: at ref width it would take ~4.4 GB per 128-wide conv."""
+    n, cin = features.shape
+    m, k = gather_idx.shape
+    padded = torch.cat([features.float(),
+                        features.new_zeros((1, cin), dtype=torch.float32)])
+    idx = gather_idx.long()
+    idx = torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))
+    g = grad_out.float()
+    dw = g.new_empty((k, cin, g.shape[1]))
+    for t in range(k):
+        torch.matmul(padded.index_select(0, idx[:, t]).t(), g, out=dw[t])
+    return dw
+
+
 def gather_conv(features, gather_idx, weight, out_scale=None, out_valid=None):
     """Plain PyTorch sparse conv: features (N, Cin), gather_idx (M, K) with
     misses outside [0, N), weight (K, Cin, Cout) -> (M, Cout).
@@ -154,7 +191,7 @@ def gather_conv(features, gather_idx, weight, out_scale=None, out_valid=None):
     padded = torch.cat([features.to(acc), features.new_zeros((1, cin), dtype=acc)])
     idx = gather_idx.long()
     idx = torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))
-    g = padded[idx.reshape(-1)].reshape(m, k * cin)
+    g = padded.index_select(0, idx.reshape(-1)).reshape(m, k * cin)
     out = (g @ weight.to(acc).reshape(k * cin, -1)).float()
     if out_scale is not None:
         out = out * out_scale.reshape(-1)

@@ -23,6 +23,26 @@ ReLU, row mask, per-tensor requant), so the conv emits s8 rows.  Its plain
 version is ``gather_conv_plain`` + ``epilogue_f32`` + ``quantize_with_scale``,
 op for op in the reference's order; the kernel is built without multiply-add
 contraction and with IEEE division, so the two are bit-equal.
+
+Training.  The float entries (f32, bf16) run under autograd
+(``_GatherConvFn``): the forward as above, the input gradient
+
+    dX[n] = sum_{(m, k): g[m, k] = n} dOut'[m] @ W[k]^T,
+    dOut' = dOut * out_scale * out_valid,
+
+as kernel 1's own function over the inverse book (``engine.inverse_book``,
+misses -1) with the weights transposed per tap, (K, Cout, Cin): on CUDA
+tensors the kernel (counted under its entry, as the forward is), on CPU
+tensors ``gather_conv_plain`` over the same book.  The weight gradient is
+``engine.weight_grad`` (a gather per tap and one f32 ``torch.matmul``).
+As dX the f32 entry runs on the CUDA cores, and at the ref backbone's
+widths the present taps' f32 operations bound it, not its bytes (times on
+the H100 in ``PERF.md``).  The reference differentiates its XLA conv
+(``engine.gather_conv_chunked``; its training step never reaches the
+Pallas kernel), so it has no backward kernel to port.  ``out_scale``
+and ``out_valid`` take no gradient, nor do the s8 entries: an int8 deploy
+model is not trained, and QAT runs the f32 entry on fake-quantized
+tensors.
 """
 
 import ctypes
@@ -31,7 +51,7 @@ import torch
 
 from ...quant.tensor_quant import quantize_with_scale
 from ..kernel_build import CudaLibrary
-from .engine import gather_conv as gather_conv_plain
+from .engine import gather_conv as gather_conv_plain, inverse_book, weight_grad
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "s8"}
@@ -129,20 +149,68 @@ def gather_conv_cuda(features, gather_idx, weight, out_scale=None,
     return out
 
 
+def _conv(impl):
+    if impl == "cuda":
+        return gather_conv_cuda
+    if impl == "plain":
+        return gather_conv_plain
+    raise ValueError(f"unknown impl {impl!r}")
+
+
+class _GatherConvFn(torch.autograd.Function):
+    """The float conv under autograd: the forward saves only what the
+    backward reads (features, book, weight and the epilogue vectors); the
+    inverse book comes from ``inverse()`` when the input gradient is
+    needed (the caller's rulebook cache keeps it beside the forward
+    book)."""
+
+    @staticmethod
+    def forward(ctx, features, weight, gather_idx, out_scale, out_valid, impl,
+                inverse):
+        ctx.save_for_backward(features, weight, gather_idx, out_scale,
+                              out_valid)
+        ctx.impl, ctx.inverse = impl, inverse
+        return _conv(impl)(features, gather_idx, weight, out_scale, out_valid)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        features, weight, gather_idx, out_scale, out_valid = ctx.saved_tensors
+        g = grad_out.float()
+        if out_scale is not None:
+            g = g * out_scale.reshape(1, -1)
+        if out_valid is not None:
+            g = g * out_valid.reshape(-1, 1).float()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            wt = weight.transpose(1, 2).contiguous()          # (K, Cout, Cin)
+            dx = _conv(ctx.impl)(g.to(features.dtype).contiguous(),
+                                 ctx.inverse(), wt)
+        if ctx.needs_input_grad[1]:
+            dw = weight_grad(features, gather_idx, g).to(weight.dtype)
+        return dx, dw, None, None, None, None, None
+
+
 def sparse_gather_conv(features, gather_idx, weight, out_scale=None,
-                       out_valid=None, impl=None):
+                       out_valid=None, impl=None, inverse=None):
     """The sparse conv.  ``impl``: "cuda" (the kernel), "plain" (PyTorch), or
     None = the kernel for CUDA tensors and the plain version for CPU
-    tensors.  A failing kernel raises; nothing falls back."""
+    tensors.  A failing kernel raises; nothing falls back.
+
+    Float features or weights that take a gradient run under autograd, the
+    input gradient on the same ``impl`` over the inverse book; ``inverse``
+    returns that (N, K) book (None: built from ``gather_idx`` when the
+    backward needs it)."""
     if impl is None:
         impl = "cuda" if features.is_cuda else "plain"
-    if impl == "cuda":
-        return gather_conv_cuda(features, gather_idx, weight, out_scale,
-                                out_valid)
-    if impl == "plain":
-        return gather_conv_plain(features, gather_idx, weight, out_scale,
-                                 out_valid)
-    raise ValueError(f"unknown impl {impl!r}")
+    if torch.is_grad_enabled() and features.dtype in (torch.float32,
+                                                      torch.bfloat16) \
+            and (features.requires_grad or weight.requires_grad):
+        if inverse is None:
+            def inverse():
+                return inverse_book(gather_idx, features.shape[0])
+        return _GatherConvFn.apply(features, weight, gather_idx, out_scale,
+                                   out_valid, impl, inverse)
+    return _conv(impl)(features, gather_idx, weight, out_scale, out_valid)
 
 
 def epilogue_f32(y, k, b, row_valid=None, identity=None, identity_scale=None):

@@ -1,14 +1,15 @@
 """Sparse conv layers and the sparse BatchNorm (port of
 ``q3d_tpu/ops/spconv/modules.py``: the float path, the fake-quant path and
-the int8 deploy path).
+the int8 deploy path; BN's train mode).
 
 Weights are stored as (K, Cin, Cout) with K enumerating kernel offsets
 k0-major (x fastest), as ``engine.kernel_offsets`` does.  A per-forward
 rulebook cache, keyed like the reference's ``subm_cache_key`` /
 ``down_cache_key``, lets every SubM layer of a stage share one book and
-every strided conv build its output coordinates once.  Every conv runs on
-``gather_conv.sparse_gather_conv``; ``kernel_impl`` selects "cuda" or
-"plain" for the whole model (None = by the tensors' device).
+every strided conv build its output coordinates once; a book's inverse,
+which a float conv's input gradient runs over, is kept beside it.  Every
+conv runs on ``gather_conv.sparse_gather_conv``; ``kernel_impl`` selects
+"cuda" or "plain" for the whole model (None = by the tensors' device).
 
 Under a fake-quant rule a conv quantize-dequantizes its masked features and
 its weight and runs the float conv on them, on the same kernel as the float
@@ -88,6 +89,18 @@ def dequantize_tensor(st: SparseConvTensor, dtype=torch.bfloat16):
     return st
 
 
+def _cached_inverse(cache, key, gather_idx, n):
+    """-> a function returning the inverse of the book ``gather_idx`` over
+    ``n`` input rows, built once per forward and kept in the rulebook cache
+    beside the forward book (every SubM conv of a stage shares it)."""
+    def inverse():
+        inv_key = key + "|inverse"
+        if inv_key not in cache:
+            cache[inv_key] = engine.inverse_book(gather_idx, n)
+        return cache[inv_key]
+    return inverse
+
+
 class _SparseConvBase(QuantLayer, nn.Module):
     ND = 3
 
@@ -147,13 +160,15 @@ class _SparseConvBase(QuantLayer, nn.Module):
             wspec = dataclasses.replace(wspec, axis=2)
         return feats, self.fake_quantize("weight_quant", wspec, self.weight)
 
-    def _run(self, st, gather_idx, out_st, out_valid=None, requant=None):
+    def _run(self, st, gather_idx, out_st, out_valid=None, requant=None,
+             inverse=None):
         """The conv of ``st`` over ``gather_idx`` into the coordinates of
         ``out_st``: float without a rule (a residency input is dequantized
         first), float on fake-quantized features and weight under a
         fake-quant rule, int8 with f32 output (+ bias) under an int8 deploy
         rule without residency, else int8 with ``requant``, its block's
-        residency epilogue."""
+        residency epilogue.  ``inverse`` returns the book's inverse, which
+        the float conv's input gradient runs over."""
         if requant is None:
             out_scale = None
             if self.rule is None or self.fake:
@@ -165,7 +180,8 @@ class _SparseConvBase(QuantLayer, nn.Module):
             else:
                 feats, weight, out_scale = self._quantize(st)
             out = sparse_gather_conv(feats, gather_idx, weight, out_scale,
-                                     out_valid, impl=self.kernel_impl)
+                                     out_valid, impl=self.kernel_impl,
+                                     inverse=inverse)
             if self.bias is not None:
                 bias = self.bias.to(out.dtype)
                 out = out + (bias if out_valid is None
@@ -201,7 +217,9 @@ class SubMConv3d(_SparseConvBase):
         if key not in cache:
             cache[key] = engine.subm_gather_indices(st, self.kernel_size,
                                                     self.dilation)
-        return self._run(st, cache[key], st, requant=requant)
+        return self._run(st, cache[key], st, requant=requant,
+                         inverse=_cached_inverse(cache, key, cache[key],
+                                                 st.capacity))
 
 
 class SparseConv3d(_SparseConvBase):
@@ -223,15 +241,26 @@ class SparseConv3d(_SparseConvBase):
                                   spatial_shape=out_spatial,
                                   batch_size=st.batch_size, sorted_rows=True)
         return self._run(st, gather_idx, out_st,
-                         out_valid=out_indices[:, 0] >= 0, requant=requant)
+                         out_valid=out_indices[:, 0] >= 0, requant=requant,
+                         inverse=_cached_inverse(cache, key, gather_idx,
+                                                 st.capacity))
 
 
 class SparseBatchNorm(nn.Module):
-    """Eval-mode BatchNorm1d over sparse features:
-    y = (x - mean) * rsqrt(var + eps) * weight + bias, in f32, returned in
-    the features' dtype, or in f32 when ``out_f32`` is set (an int8 deploy
-    model: the reference's BN promotes a bf16 input with its f32
-    parameters).  Padding rows are transformed too and stay unread."""
+    """BatchNorm1d over sparse features (reference ``SparseBatchNorm``,
+    :474-517): y = (x - mean) * rsqrt(var + eps) * weight + bias, in f32,
+    returned in the features' dtype, or in f32 when ``out_f32`` is set (an
+    int8 deploy model: the reference's BN promotes a bf16 input with its f32
+    parameters).
+
+    In eval mode mean and var are the running statistics, and padding rows
+    are transformed too and stay unread.  In train mode (``nn.Module.
+    training``) they are the batch's, masked to the valid rows (the
+    reference's spconv tensors hold no padding), the variance in two passes;
+    the running mean and variance move by ``MOMENTUM``, the variance
+    corrected by n / (n - 1)."""
+
+    MOMENTUM = 0.01    # the reference's (q3d_tpu/ops/spconv/modules.py:482)
 
     def __init__(self, num_features, eps=1e-3):
         super().__init__()
@@ -251,9 +280,26 @@ class SparseBatchNorm(nn.Module):
 
     def forward(self, st: SparseConvTensor):
         x = st.features
-        y = (x.float() - self.running_mean) \
-            * torch.rsqrt(self.running_var + self.eps) * self.weight + self.bias
+        mean, var = self.running_mean, self.running_var
+        if self.training:
+            mean, var = self._batch_stats(x.float(), st.valid)
+        y = (x.float() - mean) * torch.rsqrt(var + self.eps) * self.weight \
+            + self.bias
         return st.replace(features=y if self.out_f32 else y.to(x.dtype))
+
+    def _batch_stats(self, x, valid):
+        """The valid rows' mean and (biased, two-pass) variance; the running
+        statistics updated as the reference's are."""
+        n = valid.sum().clamp_min(1).to(x.dtype)
+        vm = valid[:, None].to(x.dtype)
+        mean = (x * vm).sum(0) / n
+        var = (((x - mean) ** 2) * vm).sum(0) / n
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var
+                                   + m * var * n / torch.clamp_min(n - 1, 1))
+        return mean, var
 
     def fold(self):
         """The eval affine as (k, b), y = x * k + b, for a conv epilogue

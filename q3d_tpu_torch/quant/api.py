@@ -210,10 +210,13 @@ def _calibration_pass(model, batch, eager=False):
     mods = [m for _, m in quantizable_modules(model)]
     for m in mods:
         m.calibrating, m.eager = True, eager
+    training = model.training
+    model.eval()              # a model in training keeps its BN statistics
     try:
         with torch.no_grad():
             model(dict(batch))
     finally:
+        model.train(training)
         for m in mods:
             m.calibrating, m.eager = False, False
 

@@ -7,9 +7,10 @@
 ``--quant fake`` runs ``centerpoint_recipe()`` (dynamic SmoothQuant
 fake-quant), ``--quant int8`` runs ``int8_deploy_recipe()`` (dynamic
 per-tensor int8, no residency), as ``tools/test.py:80`` does.  ``--ckpt``
-takes the reference's native checkpoint or a pcdet ``.pth``.  Not ported
-(``ROADMAP.md``): ``--eval_all``, the checkpoint watcher, which comes with
-training, and ``--save_to_file``, the result files.
+takes the reference's native checkpoint or a pcdet ``.pth`` (such as the
+``checkpoint_epoch_{n}.pth`` files of ``tools/train.py``).  Not ported
+(``ROADMAP.md``): ``--eval_all``, the checkpoint watcher, and
+``--save_to_file``, the result files.
 """
 
 import argparse
@@ -49,7 +50,7 @@ def main(argv=None):
     args, cfg = parse_config(argv)
     if args.eval_all:
         raise NotImplementedError(
-            "--eval_all (the checkpoint watcher) comes with training "
+            "--eval_all (the checkpoint watcher) is not ported yet "
             "(ROADMAP.md)")
     if args.save_to_file:
         raise NotImplementedError("--save_to_file (result files) is not "

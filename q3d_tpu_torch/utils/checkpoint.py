@@ -1,5 +1,14 @@
-"""Read checkpoints without JAX, flax or msgpack: the reference's native
-ones, and pcdet ``.pth`` state dicts.
+"""Checkpoints: the port's own, written and read as pcdet's ``.pth``, and,
+without JAX, flax or msgpack, the reference's native ones.
+
+``save_checkpoint`` writes pcdet's layout (``train_utils.py:221``
+checkpoint_state) with ``torch.save``: ``{"model_state": <pcdet-named
+state_dict>, "optimizer_state", "epoch", "it", "version"}``, as
+``checkpoint_epoch_{n}.pth``, keeping the newest ``max_keep``;
+``load_checkpoint`` reads it back with ``torch.load(weights_only=True)``
+and ``find_latest_checkpoint`` finds the newest readable one (port of
+``q3d_tpu/utils/checkpoint.py:30-77``).  ``load_pth_file`` and
+``tools/test.py --ckpt`` read them as any pcdet ``.pth``.
 
 The reference's ``save_checkpoint`` (``q3d_tpu/utils/checkpoint.py``)
 pickles a plain dict whose ``model_state`` is flax's msgpack encoding of
@@ -23,10 +32,64 @@ module path whose tensor adapts to the port's shape (``adapt_torch_tensor``).
 
 import io
 import pickle
+import re
 import struct
+from pathlib import Path
 
 import numpy as np
 import torch
+
+CHECKPOINT_VERSION = "q3d_tpu_torch+0.1"
+
+
+def _epoch_checkpoints(ckpt_dir):
+    """checkpoint_epoch_*.pth in ``ckpt_dir``, oldest first (by mtime, then
+    by epoch)."""
+    def key(p):
+        m = re.fullmatch(r"checkpoint_epoch_(\d+)\.pth", p.name)
+        return p.stat().st_mtime, int(m.group(1)) if m else -1
+    return sorted(Path(ckpt_dir).glob("checkpoint_epoch_*.pth"), key=key)
+
+
+def save_checkpoint(path, model, optimizer=None, epoch=0, it=0,
+                    max_keep=None):
+    """Write ``model``'s state dict (and ``optimizer``'s) in pcdet's layout;
+    with ``max_keep``, delete the oldest epoch checkpoints beyond that many
+    in the same directory."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model_state": {k: v.detach().cpu()
+                                for k, v in model.state_dict().items()},
+                "optimizer_state": None if optimizer is None
+                else optimizer.state_dict(),
+                "epoch": int(epoch), "it": int(it),
+                "version": CHECKPOINT_VERSION}, path)
+    if max_keep:
+        for old in _epoch_checkpoints(path.parent)[:-max_keep]:
+            old.unlink(missing_ok=True)
+    return path
+
+
+def load_checkpoint(path, model, optimizer=None):
+    """Load a checkpoint of ``save_checkpoint`` into ``model`` (strictly) and
+    ``optimizer`` -> (epoch, it)."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(blob["model_state"], strict=True)
+    if optimizer is not None and blob.get("optimizer_state") is not None:
+        optimizer.load_state_dict(blob["optimizer_state"])
+    return int(blob.get("epoch", 0)), int(blob.get("it", 0))
+
+
+def find_latest_checkpoint(ckpt_dir):
+    """The newest readable epoch checkpoint in ``ckpt_dir`` (auto-resume,
+    reference tools/train.py:146-158), or None."""
+    for ckpt in reversed(_epoch_checkpoints(ckpt_dir)):
+        try:
+            torch.load(ckpt, map_location="cpu", weights_only=True)
+            return ckpt
+        except (OSError, RuntimeError, pickle.UnpicklingError, EOFError):
+            continue
+    return None
 
 
 class _NoClassUnpickler(pickle.Unpickler):
