@@ -138,7 +138,31 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
                 kernel and dW ms, peak memory; launches counted over the
                 run; resumed from its checkpoint into a fresh model, whose
                 model and optimizer state must equal the trained ones);
- 14. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+ 14. SECOND and PointPillars training at the KITTI configs' width
+                (``kitti_synthetic.kitti_config``: training frames at each
+                yaml's geometry, FOV-cropped, the 16,000-voxel train cap,
+                batch 4 as BATCH_SIZE_PER_GPU): ``train_kitti_grad`` (one
+                batch without augmentation, f32, TF32 off: one step through
+                the kernels and through the plain versions at
+                ``TRAIN_TOL``; SECOND 12 kernel-1 launches forward and 11 as
+                dX, PointPillars none), ``train_overfit`` (8 Adam steps of
+                each seeded model on that batch: the last loss below 0.9 x
+                the first), ``kernel_fwd_second`` / ``kernel_dx_second``
+                (SECOND's 12 conv forwards and 11 input gradients of that
+                step, each held against its plain version and timed beside
+                it, gather + ``torch.matmul`` and its bound),
+                ``qat_kitti`` (one step under ``second_recipe()`` /
+                ``pointpillar_recipe()``, each launch held on its own
+                operands and the whole step at ``QAT_TOL``) and
+                ``train_kitti`` (``train_model``, 8 frames, 2 epochs, each
+                yaml's OPTIMIZATION and its whole
+                DATA_AUGMENTOR, gt_sampling reading a database written to a
+                temporary directory from frames of another seed: per step
+                host / forward / backward / optimizer ms and peak memory,
+                objects placed per frame, positive anchors per class per
+                frame; launches: SECOND 23 a step, PointPillars none, no
+                NMS);
+ 15. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises and exits nonzero without the last line.  Without
 CUDA, or outside a checkout of the repo, it exits 1 and prints no result.
@@ -1804,22 +1828,27 @@ def compare_training(mk, mp, loss_k, loss_p, qat=False):
             "zero_grad_biases": len(zero), "params": len(pp)}
 
 
-def train_grad(model, batch, conv_k, mode):
-    """Phase ``train_grad``: one training forward and backward of
-    centerpoint_ref (seeded weights, f32, TF32 off) through the kernels and
-    through the plain versions on the same batch, held by
+FIRST_CONV = "backbone_3d.conv_input.0.weight"     # its input takes no dX
+
+
+def train_grad(model, batch, conv_k, mode, tag="train_grad", config=CFG.name,
+               convs=21):
+    """Phase ``train_grad`` (and ``train_kitti_grad``): one training forward
+    and backward of ``model`` (seeded weights, f32, TF32 off) through the
+    kernels and through the plain versions on the same batch, held by
     ``compare_training``; kernel-1 launches of the step, forward and input
-    gradient apart (every sparse conv but conv_input, whose input takes no
-    gradient, launches a dX); every sparse conv weight gets a gradient;
-    peak memory of each step.  -> (the kernels' backward calls: (conv name,
-    features, weight, book, out_valid, inverse book, grad_out) each, the
-    launch counts)."""
+    gradient apart (``convs`` forward; every sparse conv but conv_input,
+    whose input takes no gradient, launches a dX); every sparse conv
+    weight gets a gradient; peak memory of each step.  -> (the kernels'
+    backward calls: (conv name, features, weight, book, out_valid, inverse
+    book, grad_out) each, the kernels' run)."""
+    import numpy as np
     import torch
     from q3d_tpu_torch.ops.spconv.modules import SubMConv3d, SparseConv3d
     mk, mp = copy.deepcopy(model), copy.deepcopy(model)
     out = {}
-    for tag, m in (("cuda", mk), ("plain", mp)):
-        m.set_kernel_impl(tag)
+    for impl, m in (("cuda", mk), ("plain", mp)):
+        m.set_kernel_impl(impl)
         m.train()
         conv_k.launches.clear()
         torch.cuda.synchronize()
@@ -1827,50 +1856,54 @@ def train_grad(model, batch, conv_k, mode):
         t0 = time.perf_counter()
         res = m(dict(batch))
         fwd = sum(conv_k.launches.values())
-        if tag == "cuda":
+        if impl == "cuda":
             with recording_backward(mk) as recorded:
                 res["loss"].backward()
         else:
             res["loss"].backward()
         torch.cuda.synchronize()
-        out[tag] = {"loss": float(res["loss"]),
-                    "step_ms": (time.perf_counter() - t0) * 1e3,
-                    "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
-                    "launches_forward": fwd,
-                    "launches_dx": sum(conv_k.launches.values()) - fwd,
-                    "launches_by_entry": dict(conv_k.launches)}
+        out[impl] = {"loss": float(res["loss"].detach()),
+                     "step_ms": (time.perf_counter() - t0) * 1e3,
+                     "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+                     "launches_forward": fwd,
+                     "launches_dx": sum(conv_k.launches.values()) - fwd,
+                     "launches_by_entry": dict(conv_k.launches),
+                     "tb": {k: float(v.detach())
+                            for k, v in res["tb_dict"].items()}}
         m.set_kernel_impl(None)
     sparse = [n for n, mod in mk.named_modules()
               if isinstance(mod, (SubMConv3d, SparseConv3d))]
-    check(out["cuda"]["launches_forward"] == 21
-          and out["cuda"]["launches_dx"] == 20
+    check(len(sparse) == convs and out["cuda"]["launches_forward"] == convs
+          and out["cuda"]["launches_dx"] == max(convs - 1, 0)
           and set(out["cuda"]["launches_by_entry"])
-          == {"q3d_sparse_gather_conv_f32"},
-          f"train_grad: kernel-1 launches {out['cuda']}")
+          <= {"q3d_sparse_gather_conv_f32"},
+          f"{tag} {config}: kernel-1 launches {out['cuda']}")
     check(out["plain"]["launches_forward"] == out["plain"]["launches_dx"] == 0,
-          f"train_grad: plain run launched {out['plain']}")
+          f"{tag} {config}: plain run launched {out['plain']}")
+    check(all(np.isfinite(r["loss"]) for r in out.values()),
+          f"{tag} {config}: losses {out}")
     pk = dict(mk.named_parameters())
     for n in sparse:
         g = pk[f"{n}.weight"].grad
         check(g is not None and bool(g.abs().max() > 0),
-              f"train_grad: {n}.weight has no gradient")
-    check(len(recorded) == 21 and sum(r[0] == "backbone_3d.conv_input.0.weight"
-                                      for r in recorded) == 1,
-          f"train_grad: {len(recorded)} sparse conv backward calls")
+              f"{tag}: {n}.weight has no gradient")
+    check(len(recorded) == convs and sum(r[0] == FIRST_CONV
+                                         for r in recorded) == min(convs, 1),
+          f"{tag}: {len(recorded)} sparse conv backward calls")
     summary = compare_training(mk, mp, out["cuda"]["loss"],
                                out["plain"]["loss"])
-    emit("train_grad", config=CFG.name, batch=BATCH, dtype="f32", mode=mode(),
-         kernels=out["cuda"], plain=out["plain"], sparse_convs=len(sparse),
-         tolerance=TRAIN_TOL, peak_covers="three model copies on the card; "
-         "the kernels' run also keeps every conv's backward inputs for "
-         "kernel_dx (train_ref_step has a training step's own peak)",
-         **summary)
+    emit(tag, config=config, batch=int(batch["voxels"].shape[0]),
+         dtype="f32", mode=mode(), kernels=out["cuda"], plain=out["plain"],
+         sparse_convs=len(sparse), tolerance=TRAIN_TOL,
+         peak_covers="three model copies on the card; the kernels' run also "
+         "keeps every conv's backward inputs", **summary)
     return recorded, out["cuda"]
 
 
-def kernel_dx(recorded, flush, mode):
-    """Phase ``kernel_dx``: kernel 1's f32 entry as the input gradient of
-    each sparse conv of the ref training step (the inverse book, the
+def kernel_dx(recorded, flush, mode, tag="kernel_dx", config=CFG.name):
+    """Phase ``kernel_dx`` (and ``kernel_dx_second``): kernel 1's f32 entry
+    as the input gradient of each sparse conv of a training step (the
+    inverse book, the
     weights transposed per tap, the step's real output gradient), against
     its plain version (within 1e-5 of the largest |dX|), timed beside it,
     beside gather + ``torch.matmul`` (the library call of the same
@@ -1885,7 +1918,7 @@ def kernel_dx(recorded, flush, mode):
     rows = []
     with torch.no_grad():
         for name, f, w, idx, ov, inv, grad_out in recorded:
-            if name == "backbone_3d.conv_input.0.weight":
+            if name == FIRST_CONV:
                 continue                       # its input takes no gradient
             n, cin = f.shape
             m, k = idx.shape
@@ -1930,13 +1963,13 @@ def kernel_dx(recorded, flush, mode):
             row["ops_ms"] = 1e3 * 2.0 * n_present * cin * cout \
                 / PEAK_OPS_PER_S["f32"]
             row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
-            emit("kernel_dx", **row)
+            emit(tag, **row)
             rows.append(row)
             for key in totals:
                 totals[key] += row[key]
     totals["bound_by"] = "bytes" if totals["bytes_ms"] >= totals["ops_ms"] \
         else "operations"
-    emit("kernel_dx_total", config=CFG.name, convs=len(rows), dtype="f32",
+    emit(f"{tag}_total", config=config, convs=len(rows), dtype="f32",
          mode=mode(), max_abs_err=worst, **totals,
          tolerance="max|k-p| <= 1e-5 * max|p| per conv",
          library="gather of dOut' by the inverse book + torch.matmul",
@@ -1945,64 +1978,109 @@ def kernel_dx(recorded, flush, mode):
     return totals
 
 
-def train_ref(dev, conv_k, mode):
-    """Phase ``train_ref``: the port's ``train_model`` at centerpoint_ref's
-    width, batch 2, over the config's 8 frames for 2 epochs (8 steps), with
-    centerpoint_tiny's OPTIMIZATION block (adam_onecycle, LR 0.003, WD
-    0.01, clip 10; the ref config has none), on the kernels, PyTorch's
-    default TF32 settings.  ``train_model`` and its ``train_step`` run as
-    a user calls them; hooks outside them take each step's numbers: host ms
-    (the loader's time, from the run's history, with the scene synthesis
-    timed around ``make_scene`` apart), device ms between CUDA events that
-    a forward pre-hook and a forward hook on the model, each parameter's
-    post-accumulate-grad hook (the last marks the backward's end) and a
-    step post-hook on the torch optimizer record: forward, backward, and
-    optimizer (both clips and the update); the input-gradient kernels' ms
-    and the weight gradients' ms summed (CUDA events around each call
-    between the forward's end and the update), peak memory, and the memory
-    already allocated when the step starts (the model, the optimizer's
-    state, and whatever earlier phases keep on the card).  Losses finite,
-    every parameter a nonzero gradient (but the biases before a train-mode
-    BN, whose gradient is 0).  Then a fresh model resumes from the run's last
-    checkpoint, and its model and optimizer state must equal the trained
-    ones exactly.  Launches are counted over the run."""
-    import shutil
+def kernel_forward(recorded, flush, mode, tag, config):
+    """Phase ``kernel_fwd_second``: kernel 1's f32 entry as each sparse
+    conv's forward in a training step, on the operands
+    ``recording_backward`` kept (features, book, weights, row mask),
+    against its plain version (within 1e-5 of the largest |out|), timed
+    beside it, beside gather + ``torch.matmul`` and beside its bound (the
+    rows the book uses, the book and the weights read once, the output
+    written once; the present taps' f32 operations on the CUDA cores) ->
+    totals."""
+    import torch
+    from q3d_tpu_torch.ops.spconv import gather_conv
+    totals = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bytes_ms", "ops_ms")}
+    worst = 0.0
+    with torch.no_grad():
+        for name, f, w, idx, ov, _, _ in recorded:
+            n, cin = f.shape
+            m, k = idx.shape
+            cout = w.shape[2]
+            yk = gather_conv.gather_conv_cuda(f, idx, w, None, ov)
+            yp = gather_conv.gather_conv_plain(f, idx, w, None, ov)
+            torch.cuda.synchronize()
+            err, scale = float((yk - yp).abs().max()), float(yp.abs().max())
+            check(err <= 1e-5 * scale, f"{name} forward: kernel vs plain "
+                                       f"{err} (scale {scale})")
+            worst = max(worst, err)
+            present = (idx >= 0) & (idx < n)
+            n_present = int(present.sum())
+            rows_read = int(torch.unique(idx[present]).numel())
+            flat = torch.cat([f, f.new_zeros((1, cin))])
+            safe = torch.where(present, idx.long(), n).reshape(-1)
+            w2 = w.reshape(k * cin, cout)
+            row = {"conv": name, "N": n, "M": m, "K": k, "Cin": cin,
+                   "Cout": cout, "present_taps": n_present,
+                   "max_abs_err": err, "scale": scale,
+                   "ms": time_ms(lambda: gather_conv.gather_conv_cuda(
+                       f, idx, w, None, ov), flush=flush),
+                   "plain_ms": time_ms(lambda: gather_conv.gather_conv_plain(
+                       f, idx, w, None, ov), reps=5, flush=flush),
+                   "library_ms": time_ms(lambda: torch.matmul(
+                       flat[safe].reshape(m, k * cin), w2), flush=flush)}
+            nbytes = (rows_read * cin + k * cin * cout + m * cout) * 4 \
+                + m * k * 4
+            row["bytes_ms"] = 1e3 * nbytes / HBM_BYTES_PER_S
+            row["ops_ms"] = 1e3 * 2.0 * n_present * cin * cout \
+                / PEAK_OPS_PER_S["f32"]
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            emit(tag, **row)
+            for key in totals:
+                totals[key] += row[key]
+    totals["bound_by"] = "bytes" if totals["bytes_ms"] >= totals["ops_ms"] \
+        else "operations"
+    emit(f"{tag}_total", config=config, convs=len(recorded), dtype="f32",
+         mode=mode(), max_abs_err=worst, **totals,
+         tolerance="max|k-p| <= 1e-5 * max|p| per conv",
+         library="gather of the rows by the book + torch.matmul")
+    totals["max_abs_err"] = worst
+    return totals
+
+
+def timed_train_model(model, optim, ds, loader, ckpt_dir, conv_k, dev,
+                      tag, epochs=TRAIN_EPOCHS):
+    """The port's ``train_model`` as a user calls it, with hooks outside it
+    that take each step's numbers: host ms (the loader's time, from the
+    run's history, with the scene synthesis and the data augmentor timed
+    around ``ds.scene`` and ``ds.data_augmentor.forward`` apart), device ms
+    between CUDA events that a forward pre-hook and a forward hook on the
+    model, each parameter's post-accumulate-grad hook (the last marks the
+    backward's end) and a step post-hook on the torch optimizer record:
+    forward, backward, and optimizer (both clips and the update); the
+    input-gradient kernels' ms and the weight gradients' ms summed (CUDA
+    events around each call between the forward's end and the update),
+    peak memory, and the memory already allocated when the step starts
+    (the model, the optimizer's state, and whatever earlier phases keep on
+    the card).  Kernel-1 launch counts are zeroed just before and read just
+    after.  Losses finite, every parameter a nonzero gradient (but the
+    biases before a train-mode BN, whose gradient is 0).  Emits
+    ``<tag>_step`` per step -> (optimizer, steps, launches, run_s)."""
     import numpy as np
     import torch
     from q3d_tpu_torch import train_utils
-    from q3d_tpu_torch.config import cfg_from_yaml_file, EDict
-    from q3d_tpu_torch.datasets import build_dataloader
-    from q3d_tpu_torch.datasets import synthetic_dataset
-    from q3d_tpu_torch.models import build_network
     from q3d_tpu_torch.ops.spconv import gather_conv
     from torch.optim.optimizer import register_optimizer_step_post_hook
-    cfg = cfg_from_yaml_file(str(CFG), EDict())
-    optim = cfg_from_yaml_file(str(TINY_CFG), EDict()).OPTIMIZATION
-    np.random.seed(SEED)
-    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
-                                     batch_size=BATCH, training=True,
-                                     seed=SEED)
-    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=dev)
-    ckpt_dir = ROOT / "output" / "chip_smoke_train_ref"
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-    # hooks outside train_model: its own train_step runs, unchanged
-    scene_ms, cur, steps = [0.0], {}, []
+    host = {"scene_ms": 0.0, "augment_ms": 0.0}
+    cur, steps = {}, []
     in_bwd, dx_events, dw_events = [False], [], []
-    real_scene = synthetic_dataset.make_scene
     real_cuda, real_wg = gather_conv.gather_conv_cuda, gather_conv.weight_grad
+    augmentor = getattr(ds, "data_augmentor", None)
 
     def event():
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         return ev
 
-    def scene(*a, **kw):
-        t0 = time.perf_counter()
-        try:
-            return real_scene(*a, **kw)
-        finally:
-            scene_ms[0] += (time.perf_counter() - t0) * 1e3
+    def host_timed(fn, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host[key] += (time.perf_counter() - t0) * 1e3
+        return run
 
     def timed(fn, store, when=lambda: True):
         def run(*a, **kw):
@@ -2021,9 +2099,9 @@ def train_ref(dev, conv_k, mode):
         dw_events.clear()
         cur.clear()
         cur.update(resident=torch.cuda.memory_allocated() / 2 ** 20,
-                   launches=sum(conv_k.launches.values()),
-                   scene_ms=scene_ms[0], start=event())
-        scene_ms[0] = 0.0
+                   launches=sum(conv_k.launches.values()), host=dict(host),
+                   start=event())
+        host.update(scene_ms=0.0, augment_ms=0.0)
 
     def forward_ends(module, args, out):
         cur["forward_end"] = event()
@@ -2039,7 +2117,7 @@ def train_ref(dev, conv_k, mode):
         end = event()
         torch.cuda.synchronize()
         steps.append({
-            "step": len(steps) + 1, "scene_ms": cur["scene_ms"],
+            "step": len(steps) + 1, **cur["host"],
             "forward_ms": cur["start"].elapsed_time(cur["forward_end"]),
             "backward_ms": cur["forward_end"].elapsed_time(
                 cur["backward_end"]),
@@ -2057,42 +2135,86 @@ def train_ref(dev, conv_k, mode):
              register_optimizer_step_post_hook(optimizer_stepped)]
     hooks += [p.register_post_accumulate_grad_hook(grad_accumulated)
               for p in model.parameters() if p.requires_grad]
-    conv_k.launches.clear()
-    t0 = time.perf_counter()
-    synthetic_dataset.make_scene = scene
+    ds.scene = host_timed(ds.scene, "scene_ms")
+    if augmentor is not None:
+        augmentor.forward = host_timed(augmentor.forward, "augment_ms")
     gather_conv.gather_conv_cuda = timed(real_cuda, dx_events,
                                          lambda: in_bwd[0])
     gather_conv.weight_grad = timed(real_wg, dw_events)
+    conv_k.launches.clear()
+    t0 = time.perf_counter()
     try:
         optimizer, history = train_utils.train_model(
-            model, optim, loader, ckpt_dir, total_epochs=TRAIN_EPOCHS,
-            device=dev)
+            model, optim, loader, ckpt_dir, total_epochs=epochs, device=dev)
     finally:
-        synthetic_dataset.make_scene = real_scene
+        launches = dict(conv_k.launches)
+        del ds.scene
+        if augmentor is not None:
+            del augmentor.forward
         gather_conv.gather_conv_cuda, gather_conv.weight_grad = real_cuda, \
             real_wg
         for h in hooks:
             h.remove()
     run_s = time.perf_counter() - t0
-    launches = dict(conv_k.launches)
-    n_steps = TRAIN_EPOCHS * len(loader)
+    n_steps = epochs * len(loader)
     check(len(steps) == len(history) == n_steps,
-          f"train_ref: {len(steps)} steps, expected {n_steps}")
+          f"{tag}: {len(steps)} steps, expected {n_steps}")
     for st, h in zip(steps, history):
         # the loader's time before the step (train_model's data meter): the
-        # scene's synthesis, then the data pipeline and the copy to the card
-        scene = st.pop("scene_ms")
-        st["host_ms"] = {"scene": scene,
-                         "pipeline": h["data_s"] * 1e3 - scene}
+        # scene's synthesis, the augmentor, then the rest of the data
+        # pipeline and the copy to the card
+        parts = {k[:-3]: st.pop(k) for k in ("scene_ms", "augment_ms")}
+        parts["pipeline"] = h["data_s"] * 1e3 - sum(parts.values())
+        st["host_ms"] = parts
         st["loss"] = h["loss"]
-        emit("train_ref_step", **st)
-    check(all(np.isfinite(s["loss"]) for s in steps), "train_ref: losses")
-    check(launches == {"q3d_sparse_gather_conv_f32": 41 * n_steps},
-          f"train_ref: launches {launches}")
+        emit(f"{tag}_step", **st)
+    check(all(np.isfinite(s["loss"]) for s in steps), f"{tag}: losses")
     zero = train_utils.biases_before_bn(model)
     nograd = [n for n, p in model.named_parameters() if n not in zero and (
         p.grad is None or not bool(p.grad.abs().max() > 0))]
-    check(not nograd, f"train_ref: parameters without a gradient {nograd}")
+    check(not nograd, f"{tag}: parameters without a gradient {nograd}")
+    return optimizer, steps, launches, run_s
+
+
+def median_after_first(steps):
+    """Each step number's median over steps 2.., host ms summed."""
+    med = {k: statistics.median(s[k] for s in steps[1:])
+           for k in ("forward_ms", "backward_ms", "optimizer_ms",
+                     "dx_kernel_ms", "dw_ms", "peak_mib", "resident_mib")}
+    med["host_ms"] = statistics.median(sum(s["host_ms"].values())
+                                       for s in steps[1:])
+    return med
+
+
+def train_ref(dev, conv_k, mode):
+    """Phase ``train_ref``: the port's ``train_model`` at centerpoint_ref's
+    width, batch 2, over the config's 8 frames for 2 epochs (8 steps), with
+    centerpoint_tiny's OPTIMIZATION block (adam_onecycle, LR 0.003, WD
+    0.01, clip 10; the ref config has none), on the kernels, PyTorch's
+    default TF32 settings, timed by ``timed_train_model``.  Then a fresh
+    model resumes from the run's last checkpoint, and its model and
+    optimizer state must equal the trained ones exactly."""
+    import shutil
+    import numpy as np
+    import torch
+    from q3d_tpu_torch import train_utils
+    from q3d_tpu_torch.config import cfg_from_yaml_file, EDict
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.models import build_network
+    cfg = cfg_from_yaml_file(str(CFG), EDict())
+    optim = cfg_from_yaml_file(str(TINY_CFG), EDict()).OPTIMIZATION
+    np.random.seed(SEED)
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
+                                     batch_size=BATCH, training=True,
+                                     seed=SEED)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=dev)
+    ckpt_dir = ROOT / "output" / "chip_smoke_train_ref"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    optimizer, steps, launches, run_s = timed_train_model(
+        model, optim, ds, loader, ckpt_dir, conv_k, dev, "train_ref")
+    n_steps = len(steps)
+    check(launches == {"q3d_sparse_gather_conv_f32": 41 * n_steps},
+          f"train_ref: launches {launches}")
 
     # resume: a fresh model and optimizer from the newest checkpoint
     fresh = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=dev)
@@ -2111,11 +2233,7 @@ def train_ref(dev, conv_k, mode):
                 sb["optimizer"]["state"][i][k]).to(torch.as_tensor(v).device)),
                 f"train_ref resume: optimizer state {i}.{k} differs")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    med = {k: statistics.median(s[k] for s in steps[1:])
-           for k in ("forward_ms", "backward_ms", "optimizer_ms",
-                     "dx_kernel_ms", "dw_ms", "peak_mib", "resident_mib")}
-    med["host_ms"] = statistics.median(sum(s["host_ms"].values())
-                                       for s in steps[1:])
+    med = median_after_first(steps)
     emit("train_ref", config=CFG.name, batch=BATCH, epochs=TRAIN_EPOCHS,
          steps=n_steps, optimization=dict(optim), mode=mode(),
          losses=[s["loss"] for s in steps], launches=launches,
@@ -2168,7 +2286,7 @@ def hold_conv_launches(recorded):
     with torch.no_grad():
         for name, f, w, idx, ov, inv, grad_out in recorded:
             pairs = {"forward": (f, idx, w, None, ov)}
-            if name != "backbone_3d.conv_input.0.weight":
+            if name != FIRST_CONV:
                 g = grad_out.float()
                 if ov is not None:
                     g = g * ov.reshape(-1, 1).float()
@@ -2251,6 +2369,240 @@ def qat_tiny(dev, conv_k, mode):
              "sparse": n_sparse, "dense": len(quantized) - n_sparse},
          launches_first_step=launches, losses=losses, tolerance=QAT_TOL,
          layers=layers, **summary)
+
+
+# SECOND and PointPillars training at the KITTI configs' width: frames of
+# each yaml's BATCH_SIZE_PER_GPU (4), kernel-1 launches a step forward
+# (KITTI_CONVS), dX one fewer
+KITTI_TRAIN_FRAMES = 8
+OVERFIT_STEPS = 8
+OVERFIT_OPTIM = {"OPTIMIZER": "adam", "LR": 0.003, "WEIGHT_DECAY": 0.0}
+
+
+def kitti_train_data(name, dev, frames, seed, augment=False, root=None):
+    """The KITTI config ``name`` on a training SyntheticDataset of
+    ``frames`` frames at its geometry (FOV-cropped, the 16,000-voxel train
+    cap, points shuffled; the yaml's DATA_AUGMENTOR when ``augment``, its
+    gt database under ``root``) and the model, seeded -> (cfg, ds, loader,
+    model)."""
+    import numpy as np
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.datasets.kitti_synthetic import kitti_config
+    from q3d_tpu_torch.models import build_network
+    cfg = kitti_config(name, frames, seed)
+    if not augment:
+        del cfg.DATA_CONFIG["DATA_AUGMENTOR"]
+    np.random.seed(seed)
+    ds, loader, _ = build_dataloader(
+        cfg.DATA_CONFIG, cfg.CLASS_NAMES,
+        batch_size=int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), root_path=root,
+        training=True, seed=seed)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=dev)
+    return cfg, ds, loader, model
+
+
+def train_kitti_grad(dev, conv_k, mode):
+    """Phase ``train_kitti_grad``: for SECOND and PointPillars at the KITTI
+    configs' width, one batch of 4 training frames without augmentation
+    (f32, TF32 off): one training forward and backward through the
+    kernels and through the plain versions, held by ``train_grad`` (SECOND:
+    12 kernel-1 launches forward and 11 as dX; PointPillars launches no
+    kernel, and its loss must be finite); then ``train_overfit``: 8 Adam
+    steps (LR 3e-3) of each seeded model on that batch, as the JAX
+    package's ``tests/test_training.py`` takes them: the last loss below
+    0.9 x the first.  -> {name: batch, seeded model, recorded backward
+    calls, the kernels' run, losses}."""
+    from q3d_tpu_torch.config import EDict
+    from q3d_tpu_torch.models import load_data_to_device
+    from q3d_tpu_torch.optimization import build_optimizer
+    from q3d_tpu_torch.train_utils import MODEL_KEYS, train_step
+    out = {}
+    for name, convs in KITTI_CONVS.items():
+        cfg, ds, loader, model = kitti_train_data(name, dev, 4, SEED)
+        raw = next(iter(loader))
+        batch = load_data_to_device({k: v for k, v in raw.items()
+                                     if k in MODEL_KEYS}, device=dev)
+        recorded, run = train_grad(model, batch, conv_k, mode,
+                                   "train_kitti_grad",
+                                   f"kitti_models/{name}.yaml", convs)
+        m = copy.deepcopy(model)
+        opt = build_optimizer(m.parameters(), EDict(OVERFIT_OPTIM),
+                              OVERFIT_STEPS)
+        losses = [float(train_step(m, batch, opt)[0])
+                  for _ in range(OVERFIT_STEPS)]
+        check(losses[-1] < 0.9 * losses[0],
+              f"train_overfit {name}: losses {losses}")
+        emit("train_overfit", config=f"kitti_models/{name}.yaml",
+             batch=len(raw["gt_boxes"]), mode=mode(),
+             voxels=(raw["voxel_num_points"] > 0).sum(1).tolist(),
+             voxel_cap=int(raw["voxel_num_points"].shape[1]),
+             objects=(raw["gt_boxes"][..., 7] > 0).sum(1).tolist(),
+             optimizer="adam, lr 3e-3, no weight decay, clip 10",
+             losses=losses, fall=1 - losses[-1] / losses[0])
+        del m, opt
+        out[name] = {"batch": batch, "model": model, "recorded": recorded,
+                     "run": run, "losses": losses}
+    return out
+
+
+def qat_kitti(kitti, conv_k, mode):
+    """Phase ``qat_kitti``: each seeded KITTI model under its recipe
+    (``second_recipe()``, ``pointpillar_recipe()``: dynamic SmoothQuant
+    fake-quant), quantized on its ``train_kitti_grad`` batch, one QAT step
+    (``QAT_OPTIM``, f32, TF32 off) through the kernels and through the
+    plain versions: the whole step held by ``compare_training`` at
+    ``QAT_TOL``, each kernel-1 launch of it (forward and dX, on the
+    fake-quantized operands it had) at 1e-5 of its plain version
+    (``hold_conv_launches``); every quantized conv's weight and the PFN's
+    linear layers get finite, nonzero gradients."""
+    import torch
+    from q3d_tpu_torch.config import EDict
+    from q3d_tpu_torch.optimization import build_optimizer
+    from q3d_tpu_torch.quant import api as quant_api
+    from q3d_tpu_torch.train_utils import train_step
+    recipes = {"second": quant_api.second_recipe,
+               "pointpillar": quant_api.pointpillar_recipe}
+    for name, d in kitti.items():
+        convs = KITTI_CONVS[name]
+        model = copy.deepcopy(d["model"])
+        quant_api.quantize_model(model, recipes[name](), d["batch"])
+        check(not [n for n, _ in model.named_parameters()
+                   if "quant" in n or "amax" in n],
+              f"qat_kitti {name}: a quantizer's state is a parameter")
+        quantized = [n for n, m in model.named_modules()
+                     if getattr(m, "rule", None) is not None
+                     and getattr(m, "weight", None) is not None]
+        runs = {}
+        for impl in ("cuda", "plain"):
+            m = copy.deepcopy(model)
+            m.set_kernel_impl(impl)
+            opt = build_optimizer(m.parameters(), EDict(QAT_OPTIM), QAT_STEPS)
+            conv_k.launches.clear()
+            with recording_backward(m) as recorded:
+                loss = float(train_step(m, d["batch"], opt)[0])
+            runs[impl] = (m, loss, sum(conv_k.launches.values()), recorded)
+        mk, loss_k, launches, recorded = runs["cuda"]
+        check(launches == max(2 * convs - 1, 0) and runs["plain"][2] == 0,
+              f"qat_kitti {name}: kernel-1 launches {launches} / "
+              f"{runs['plain'][2]}")
+        layers = hold_conv_launches(recorded)
+        params = dict(mk.named_parameters())
+        watched = [f"{n}.weight" for n in quantized] + [
+            n for n in params if n.startswith("vfe.") and n.endswith(
+                "linear.weight")]
+        for n in watched:
+            g = params[n].grad
+            check(bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0),
+                  f"qat_kitti {name}: {n} gradient")
+        summary = compare_training(mk, runs["plain"][0], loss_k,
+                                   runs["plain"][1], qat=True)
+        emit("qat_kitti", config=f"kitti_models/{name}.yaml",
+             recipe=f"{recipes[name].__name__}()",
+             batch=int(d["batch"]["voxels"].shape[0]), mode=mode(),
+             quantized_convs=len(quantized), launches_step=launches,
+             tolerance=QAT_TOL, layers=layers, **summary)
+
+
+def train_kitti(dev, conv_k, nms_k, mode):
+    """Phase ``train_kitti``: ``train_model`` for SECOND and PointPillars
+    at the KITTI configs' width on 8 synthetic KITTI frames at batch 4, 2
+    epochs (4 steps), with each yaml's OPTIMIZATION (adam_onecycle, LR
+    0.003, clip 10) and its whole DATA_AUGMENTOR: ``gt_sampling`` reads a
+    database that ``write_gt_database`` writes to a temporary directory
+    from 8 frames of another seed, then the x flip, the rotation and the
+    scaling run as configured.  Timed by ``timed_train_model`` (host,
+    forward, backward and optimizer ms a step, peak memory, losses);
+    objects placed by gt_sampling per frame and positive anchors per class
+    per frame are recorded, and the sampler must place objects in every
+    frame, and every class present in a frame must have positives.  Kernel
+    launches: SECOND 12 forward and 11 dX a step, PointPillars none, no
+    NMS.  -> {name: launches forward / dx, medians}."""
+    import tempfile
+    import torch
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.datasets.augmentor.database_sampler import \
+        DataBaseSampler
+    from q3d_tpu_torch.datasets.kitti_synthetic import (kitti_config,
+                                                        write_gt_database)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, convs in KITTI_CONVS.items():
+            root = Path(tmp) / name
+            written = write_gt_database(build_dataloader(
+                kitti_config(name, KITTI_TRAIN_FRAMES, SEED + 1).DATA_CONFIG,
+                kitti_config(name, 1, SEED).CLASS_NAMES, 1,
+                training=False)[0], root)
+            cfg, ds, loader, model = kitti_train_data(
+                name, dev, KITTI_TRAIN_FRAMES, SEED, augment=True, root=root)
+            queue = ds.data_augmentor.data_augmentor_queue
+            check([type(q).__name__ if isinstance(q, DataBaseSampler)
+                   else q.func.__name__ for q in queue]
+                  == ["DataBaseSampler", "random_world_flip",
+                      "random_world_rotation", "random_world_scaling"],
+                  f"train_kitti {name}: augmentor queue {queue}")
+            placed, assigned = [], []
+            sampler = queue[0]
+
+            def counting(data_dict=None, sampler=sampler):
+                n0 = len(data_dict["gt_boxes"])
+                data_dict = sampler(data_dict=data_dict)
+                placed.append(len(data_dict["gt_boxes"]) - n0)
+                return data_dict
+            queue[0] = counting
+            head = model.dense_head
+            real_assign = head.assign_targets
+
+            def assign(gt_boxes, real_assign=real_assign):
+                t = real_assign(gt_boxes)
+                classes = torch.arange(1, len(cfg.CLASS_NAMES) + 1,
+                                       device=gt_boxes.device)
+                assigned.append((
+                    (t["box_cls_labels"][:, :, None] == classes).sum(1),
+                    (gt_boxes[:, :, 7:8] == classes).sum(1)))
+                return t
+            head.assign_targets = assign
+            nms_k.launches.clear()
+            try:
+                _, steps, launches, run_s = timed_train_model(
+                    model, cfg.OPTIMIZATION, ds, loader,
+                    Path(tmp) / f"ckpt_{name}", conv_k, dev, "train_kitti")
+            finally:
+                del head.assign_targets
+            n_steps = len(steps)
+            want = {"q3d_sparse_gather_conv_f32": (2 * convs - 1) * n_steps} \
+                if convs else {}
+            check(launches == want and not any(nms_k.launches.values()),
+                  f"train_kitti {name}: launches {launches}, NMS "
+                  f"{dict(nms_k.launches)}")
+            positives = torch.cat([a for a, _ in assigned]).tolist()
+            present = torch.cat([b for _, b in assigned]).tolist()
+            check(len(placed) == KITTI_TRAIN_FRAMES * 2 and min(placed) > 0,
+                  f"train_kitti {name}: gt_sampling placed {placed}")
+            check(all(p > 0 for pos, pres in zip(positives, present)
+                      for p, n in zip(pos, pres) if n),
+                  f"train_kitti {name}: a class present without positives: "
+                  f"{list(zip(present, positives))}")
+            med = median_after_first(steps)
+            emit("train_kitti", config=f"kitti_models/{name}.yaml",
+                 batch=int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU),
+                 frames=KITTI_TRAIN_FRAMES, epochs=TRAIN_EPOCHS,
+                 steps=n_steps, mode=mode(),
+                 optimization={k: cfg.OPTIMIZATION[k] for k in (
+                     "OPTIMIZER", "LR", "WEIGHT_DECAY", "GRAD_NORM_CLIP")},
+                 augmentor=[c.NAME for c in
+                            cfg.DATA_CONFIG.DATA_AUGMENTOR.AUG_CONFIG_LIST],
+                 gt_database=written, placed_per_frame=placed,
+                 classes=list(cfg.CLASS_NAMES),
+                 gt_per_class_per_frame=present,
+                 positives_per_class_per_frame=positives,
+                 losses=[s["loss"] for s in steps], launches=launches,
+                 run_s=run_s, median_after_first=med)
+            out[name] = {
+                "launches_forward": sum(s["launches_forward"] for s in steps),
+                "launches_dx": sum(s["launches_dx"] for s in steps),
+                "median": med}
+            del model
+    return out
 
 
 def main():
@@ -2903,6 +3255,23 @@ def main():
     train_tiny(dev, mode)
     trained = train_ref(dev, conv_k, mode)
 
+    # ============================= SECOND and PointPillars training
+    # one step's gradients through the kernels against the plain versions
+    # and SECOND's dX (f32, TF32 off), QAT; then train_model with the data
+    # augmentor (the slice's main path; PyTorch's TF32 defaults)
+    strict_f32(True)
+    kitti_train = train_kitti_grad(dev, conv_k, mode)
+    recorded = kitti_train["second"].pop("recorded")
+    fwd_second = kernel_forward(recorded, flush, mode, "kernel_fwd_second",
+                                "kitti_models/second.yaml")
+    dx_second = kernel_dx(recorded, flush, mode, "kernel_dx_second",
+                          "kitti_models/second.yaml")
+    del recorded
+    qat_kitti(kitti_train, conv_k, mode)
+    strict_f32(False)
+    del kitti_train
+    kitti_trained = train_kitti(dev, conv_k, nms_k, mode)
+
     # ---------------------------------------------------------- kernels line
     kernels = [
         {"name": "sparse_gather_conv", "route": "cuda",
@@ -2939,6 +3308,36 @@ def main():
          "inverse_book_ms": dx_totals["inverse_ms"], "checks": "passed",
          "times_cover": "one f32 ref training step's 20 input gradients; "
                         "launches: train_model's 8 steps"},
+        {"name": "sparse_gather_conv_f32_second_train", "route": "cuda",
+         "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
+         "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",
+         "entry": "q3d_sparse_gather_conv_f32",
+         "use": "SECOND training (kitti_models/second.yaml, batch 4): the "
+                "forward of its 12 sparse convs",
+         "launches": kitti_trained["second"]["launches_forward"],
+         "max_abs_err": fwd_second["max_abs_err"], "ms": fwd_second["ms"],
+         "plain_ms": fwd_second["plain_ms"],
+         "bound_ms": fwd_second["bound_ms"],
+         "bound_by": fwd_second["bound_by"],
+         "library_ms": fwd_second["library_ms"], "checks": "passed",
+         "times_cover": "one f32 SECOND training step's 12 conv forwards; "
+                        "launches: train_kitti's 4 steps"},
+        {"name": "sparse_gather_conv_dx_second", "route": "cuda",
+         "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
+         "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",
+         "entry": "q3d_sparse_gather_conv_f32",
+         "use": "SECOND training (kitti_models/second.yaml, batch 4): the "
+                "input gradient of every sparse conv but conv_input",
+         "launches": kitti_trained["second"]["launches_dx"],
+         "forward_launches": kitti_trained["second"]["launches_forward"],
+         "max_abs_err": dx_second["max_abs_err"], "ms": dx_second["ms"],
+         "plain_ms": dx_second["plain_ms"], "bound_ms": dx_second["bound_ms"],
+         "bound_by": dx_second["bound_by"],
+         "library_ms": dx_second["library_ms"],
+         "dw_torch_ms": dx_second["dw_ms"],
+         "inverse_book_ms": dx_second["inverse_ms"], "checks": "passed",
+         "times_cover": "one f32 SECOND training step's 11 input gradients; "
+                        "launches: train_kitti's 4 steps"},
         {"name": "sparse_gather_conv_s8_requant", "route": "cuda",
          "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
          "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",

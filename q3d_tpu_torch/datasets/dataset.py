@@ -1,17 +1,17 @@
 """DatasetTemplate: per-frame pipeline + static-shape batch collation.
 
-Port of ``q3d_tpu/datasets/dataset.py``: class filtering ->
-PointFeatureEncoder -> DataProcessor (in training mode it drops the boxes
-outside the range and shuffles the points, and a frame left without boxes
-is replaced by a random one, reference :212-214), and a collate that stacks
-the capacity-padded per-frame arrays into fixed shapes —
+Port of ``q3d_tpu/datasets/dataset.py``: in training the data augmentor
+(``DATA_AUGMENTOR``, built when training) with the class filter as its
+``gt_boxes_mask``, then class filtering -> PointFeatureEncoder ->
+DataProcessor (in training mode it drops the boxes outside the range and
+shuffles the points, and a frame left without boxes is replaced by a
+random one, reference :212-214), and a collate that stacks the
+capacity-padded per-frame arrays into fixed shapes —
     voxels            (B, V, P, C) float32
     voxel_coords      (B, V, 3)    int32   [z, y, x], padding rows -1
     voxel_num_points  (B, V)       int32
     gt_boxes          (B, M, 8)    float32 (7 box + 1 class id), zero-padded
                                    to MAX_GT_BOXES
-The data augmentor (``DATA_AUGMENTOR``) is not part of the port yet: a
-training dataset whose config has one raises.
 """
 
 from collections import defaultdict
@@ -20,6 +20,7 @@ from pathlib import Path
 import numpy as np
 
 from ..utils import common_utils
+from .augmentor.data_augmentor import DataAugmentor
 from .processor.point_feature_encoder import PointFeatureEncoder
 from .processor.data_processor import DataProcessor
 
@@ -33,15 +34,17 @@ class DatasetTemplate:
         self.logger = logger
         if dataset_cfg is None or class_names is None:
             return
-        if training and dataset_cfg.get("DATA_AUGMENTOR", None) is not None:
-            raise NotImplementedError(
-                "DATA_AUGMENTOR is not ported to q3d_tpu_torch yet")
         self.root_path = Path(root_path if root_path is not None
                               else dataset_cfg.DATA_PATH)
         self.point_cloud_range = np.asarray(dataset_cfg.POINT_CLOUD_RANGE, np.float32)
         self.point_feature_encoder = PointFeatureEncoder(
             dataset_cfg.POINT_FEATURE_ENCODING,
             point_cloud_range=self.point_cloud_range)
+        self.data_augmentor = None
+        if training and dataset_cfg.get("DATA_AUGMENTOR", None) is not None:
+            self.data_augmentor = DataAugmentor(
+                self.root_path, dataset_cfg.DATA_AUGMENTOR, self.class_names,
+                logger=logger)
         self.data_processor = DataProcessor(
             dataset_cfg.DATA_PROCESSOR, point_cloud_range=self.point_cloud_range,
             training=self.training,
@@ -61,9 +64,16 @@ class DatasetTemplate:
         raise NotImplementedError
 
     def prepare_data(self, data_dict):
-        """Shared per-frame pipeline (reference dataset.py:158, no augmentor)."""
-        if self.training and "gt_boxes" not in data_dict:
-            raise ValueError("training needs gt_boxes")
+        """Shared per-frame pipeline (reference dataset.py:158)."""
+        if self.training:
+            if "gt_boxes" not in data_dict:
+                raise ValueError("training needs gt_boxes")
+            if self.data_augmentor is not None:
+                gt_boxes_mask = np.array(
+                    [n in self.class_names for n in data_dict["gt_names"]],
+                    bool)
+                data_dict = self.data_augmentor.forward(
+                    data_dict={**data_dict, "gt_boxes_mask": gt_boxes_mask})
         if data_dict.get("gt_boxes", None) is not None:
             selected = common_utils.keep_arrays_by_name(
                 data_dict["gt_names"], self.class_names)

@@ -1,21 +1,30 @@
 """Synthetic scenes at a KITTI config's own geometry.
 
 No KITTI data is in the repository.  ``kitti_config(name)`` reads
-``tools/cfgs/kitti_models/<name>.yaml`` with its MODEL section as written
-and puts a ``SyntheticDataset`` at the yaml's geometry in place of the KITTI
-data: its POINT_CLOUD_RANGE, POINT_FEATURE_ENCODING and DATA_PROCESSOR
-(voxel size, points per voxel, the 40,000-voxel test cap).  Each frame is
-one HDL-64E-like sweep of ~120,000 points (48 ground rings and 20 objects
-of 500 points), which the range crop cuts to ~63,000; ``kitti_scene``
-applies the dataset yaml's FOV crop (``FOV_POINTS_ONLY``), which leaves
-~22,000-25,000, and labels only the objects the camera sees.
+``tools/cfgs/kitti_models/<name>.yaml`` with its MODEL and OPTIMIZATION
+sections as written and puts a ``SyntheticDataset`` at the yaml's geometry
+in place of the KITTI data: its POINT_CLOUD_RANGE, POINT_FEATURE_ENCODING,
+FOV_POINTS_ONLY, DATA_AUGMENTOR (used by a training dataset) and
+DATA_PROCESSOR (voxel size, points per voxel, the 16,000-voxel train and
+40,000-voxel test caps).  Each frame is one HDL-64E-like sweep of
+~120,000 points (48 ground rings and 20 objects of 500 points), which the
+range crop cuts to ~63,000; ``kitti_scene`` applies the FOV crop, which
+leaves ~22,000-25,000, and labels only the objects the camera sees.
+
+Nor is KITTI's gt database (``kitti_dbinfos_train.pkl``) in the
+repository: ``write_gt_database`` writes one in the reference's format
+from the labelled objects of such synthetic frames (test data, of another
+seed than the frames it is pasted into), for the augmentor's
+``gt_sampling``.
 """
 
+import pickle
 from pathlib import Path
 
 import numpy as np
 
 from ..config import EDict, cfg_from_yaml_file
+from ..utils.box_utils import points_in_boxes_cpu
 from .synthetic_dataset import make_scene
 
 KITTI_DIR = Path(__file__).resolve().parents[2] / "tools" / "cfgs" / \
@@ -44,6 +53,8 @@ def kitti_config(name, num_frames, seed):
         "SEED": seed, "POINT_CLOUD_RANGE": list(dc.POINT_CLOUD_RANGE),
         "MAX_GT_BOXES": dc.MAX_GT_BOXES,
         "POINT_FEATURE_ENCODING": dc.POINT_FEATURE_ENCODING,
+        "FOV_POINTS_ONLY": dc.FOV_POINTS_ONLY,
+        "DATA_AUGMENTOR": dc.DATA_AUGMENTOR,
         "DATA_PROCESSOR": dc.DATA_PROCESSOR, **SCENE})
     return cfg
 
@@ -103,3 +114,33 @@ def scene_counts(ds):
                      "objects_present": sum(
                          n >= MIN_OBJECT_POINTS for n in obj_points)})
     return rows
+
+
+def write_gt_database(ds, out_dir):
+    """Write a gt database in the reference's format from every labelled
+    object of the frames of ``ds`` (a SyntheticDataset at a KITTI
+    geometry, FOV-cropped as ``kitti_scene`` gives them): each object's
+    points inside its box, relative to the box centre, as raw float32
+    (``gt_database/<frame>_<class>_<i>.bin``), and
+    ``kitti_dbinfos_train.pkl`` (the name the KITTI dataset yaml's
+    gt_sampling reads), ``{class: [{name, path, image_idx, gt_idx,
+    box3d_lidar, num_points_in_gt, difficulty}]}`` with paths relative to
+    ``out_dir`` -> {class: objects written}."""
+    out_dir = Path(out_dir)
+    (out_dir / "gt_database").mkdir(parents=True, exist_ok=True)
+    infos = {}
+    for j in range(len(ds)):
+        points, boxes, names, _ = kitti_scene(ds, j)
+        inside = points_in_boxes_cpu(points[:, :3], boxes).astype(bool)
+        for i, (box, name) in enumerate(zip(boxes, names)):
+            obj = points[inside[i]].copy()
+            obj[:, :3] -= box[:3]
+            rel = Path("gt_database") / f"{j}_{name}_{i}.bin"
+            obj.astype(np.float32).tofile(out_dir / rel)
+            infos.setdefault(str(name), []).append({
+                "name": str(name), "path": str(rel), "image_idx": j,
+                "gt_idx": i, "box3d_lidar": box.astype(np.float32),
+                "num_points_in_gt": len(obj), "difficulty": 0})
+    with open(out_dir / "kitti_dbinfos_train.pkl", "wb") as f:
+        pickle.dump(infos, f)
+    return {k: len(v) for k, v in infos.items()}

@@ -103,10 +103,19 @@ class SyntheticDataset(DatasetTemplate):
     def __len__(self):
         return self.length
 
-    def __getitem__(self, index):
+    def scene(self, index):
+        """Frame ``index`` -> (points, gt_boxes, gt_names); under
+        ``FOV_POINTS_ONLY`` (the KITTI configs) cropped to the front
+        camera's FOV with only the objects it sees labelled
+        (``kitti_synthetic.kitti_scene``)."""
+        if self.dataset_cfg.get("FOV_POINTS_ONLY", False):
+            from .kitti_synthetic import kitti_scene
+            return kitti_scene(self, int(index))[:3]
         rng = np.random.RandomState(self.base_seed + int(index))
-        points, gt_boxes, gt_names = make_scene(rng, self.point_cloud_range,
-                                                **self.scene_kwargs)
+        return make_scene(rng, self.point_cloud_range, **self.scene_kwargs)
+
+    def __getitem__(self, index):
+        points, gt_boxes, gt_names = self.scene(index)
         input_dict = {
             "points": points,
             "gt_boxes": gt_boxes,
@@ -138,9 +147,7 @@ class SyntheticDataset(DatasetTemplate):
         -> (result string, metrics dict)."""
         gts = []
         for anno in det_annos:
-            rng = np.random.RandomState(self.base_seed + int(anno["frame_id"]))
-            _, gt_boxes, gt_names = make_scene(rng, self.point_cloud_range,
-                                               **self.scene_kwargs)
+            _, gt_boxes, gt_names = self.scene(anno["frame_id"])
             gts.append({"boxes": gt_boxes, "names": gt_names})
         if kwargs.get("eval_metric") == "nuscenes":
             from .nuscenes.nuscenes_eval import nuscenes_eval

@@ -58,11 +58,14 @@ def build_backbone_2d(cfg, num_bev_features):
     return _BACKBONE_2D[cfg.NAME](cfg, num_bev_features)
 
 
-def build_dense_head(cfg, input_channels, dataset, num_class):
+def build_dense_head(cfg, input_channels, dataset, num_class,
+                     predict_boxes_when_training=False):
     args = (cfg, input_channels, num_class if not cfg.CLASS_AGNOSTIC else 1,
             dataset.class_names, dataset.grid_size, dataset.point_cloud_range)
     if cfg.NAME == "CenterHead":
         args += (dataset.voxel_size,)
+    else:
+        args += (predict_boxes_when_training,)
     return _DENSE_HEAD[cfg.NAME](*args)
 
 

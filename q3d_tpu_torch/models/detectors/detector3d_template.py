@@ -2,7 +2,9 @@
 post-processing (port of ``q3d_tpu/models/detectors/detector3d_template.py``:
 the slots the ported detectors use — vfe, backbone_3d, map_to_bev_module,
 backbone_2d, dense_head — and ``post_processing``'s class-agnostic
-branch, batched over the frames)."""
+branch, batched over the frames).  In training mode (``nn.Module.
+training``) a detector's forward returns the batch dict with the head's
+``loss`` and ``tb_dict`` and runs no post-processing."""
 
 import dataclasses
 from typing import Tuple
@@ -48,8 +50,11 @@ class Detector3DTemplate(nn.Module):
                                                    num_bev_features)
             num_bev_features = self.backbone_2d.num_bev_features
         if cfg.get("DENSE_HEAD", None) is not None:
+            # decoded boxes in training only for a second stage (reference
+            # :88, :92)
             self.dense_head = B.build_dense_head(
-                cfg.DENSE_HEAD, num_bev_features, dataset, num_class)
+                cfg.DENSE_HEAD, num_bev_features, dataset, num_class,
+                predict_boxes_when_training=cfg.get("ROI_HEAD") is not None)
         # the NMS kernel's route in post_processing (set_kernel_impl)
         self.kernel_impl = None
 

@@ -411,21 +411,20 @@ class BatchNorm(nn.Module):
 
 
 class BatchNorm1d(BatchNorm):
-    """Eval-mode BatchNorm over the last dim of (..., C) features (the PFN
-    layers'), computed as ``BatchNorm`` computes it.  Its train mode (the
-    reference's masked ``_MaskedBNCore``) comes with PointPillars
-    training."""
+    """BatchNorm over the last dim of (..., C) features (the PFN layers'),
+    computed as ``BatchNorm`` computes it.  Train mode is flax's, as the
+    reference's PFN runs it (``pillar_vfe.py:31-33``): the statistics of
+    all (N * P) rows, the padded point slots included (they were zeroed
+    before the linear layer and take part, as OpenPCDet's do)."""
 
     def _affine(self, x, mean=None, var=None):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+        mean = self.running_mean if mean is None else mean
+        var = self.running_var if var is None else var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
-    def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm1d train mode (the PFN's masked BN) is not ported "
-                "yet (ROADMAP.md)")
-        return super().forward(x)
+    def _batch_stats(self, x):
+        return super()._batch_stats(x.reshape(-1, x.shape[-1]))
 
 
 class DenseRequant(QuantLayer, nn.Module):

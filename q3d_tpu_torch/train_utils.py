@@ -78,12 +78,27 @@ def train_step(model, batch, optimizer, grad_clip=10.0):
 def _disable_augmentation_hook(dataset, optim_cfg, epoch, total_epochs,
                                logger=None):
     """The reference's late-epoch augmentation switch-off
-    (``HOOK.DisableAugmentationHook``).  The port has no data augmentor
-    yet (a training config with one raises when its dataset is built), so
-    there is nothing to switch off."""
+    (``HOOK.DisableAugmentationHook``): from ``NUM_LAST_EPOCHS`` (5)
+    before the end, the dataset's augmentor is rebuilt with the hook's
+    DISABLE_AUG_LIST (``gt_sampling`` by default) disabled."""
     hook_cfg = optim_cfg.get("HOOK", {}).get("DisableAugmentationHook", None)
-    if hook_cfg and getattr(dataset, "data_augmentor", None) is not None:
-        raise NotImplementedError("the data augmentor is not ported yet")
+    if not hook_cfg:
+        return
+    if epoch < total_epochs - int(hook_cfg.get("NUM_LAST_EPOCHS", 5)):
+        return
+    augmentor = getattr(dataset, "data_augmentor", None)
+    if augmentor is None or not augmentor.data_augmentor_queue:
+        return
+    from .config import EDict
+    configs = augmentor.augmentor_configs
+    cfg = EDict({"DISABLE_AUG_LIST": list(hook_cfg.get(
+        "DISABLE_AUG_LIST", ["gt_sampling"])),
+        "AUG_CONFIG_LIST": list(configs if isinstance(configs, list)
+                                else configs.AUG_CONFIG_LIST)})
+    augmentor.disable_augmentation(cfg)
+    if logger:
+        logger.info(f"epoch {epoch}: disabled augmentations "
+                    f"{cfg.DISABLE_AUG_LIST}")
 
 
 def train_model(model, optim_cfg, train_loader, ckpt_dir, total_epochs,

@@ -1,12 +1,20 @@
-"""Box geometry: BEV corners (torch) and the data pipeline's range mask (numpy).
+"""Box geometry: corners, BEV IoU for anchor matching, point-in-box tests and
+the data pipeline's range mask.
 
-Port of the parts of ``q3d_tpu/utils/box_utils.py`` the CenterPoint path
-uses.  Box convention: (x, y, z, dx, dy, dz, heading[, ...]) with (x, y, z)
-the box centre and heading the rotation about +z (counter-clockwise).
+Port of the parts of ``q3d_tpu/utils/box_utils.py`` the ported paths use,
+and of ``q3d_tpu/ops/roiaware_pool3d/roiaware_pool3d_utils.py::
+points_in_boxes_cpu``.  The data pipeline's functions take numpy arrays;
+``boxes_iou_normal`` and ``boxes3d_nearest_bev_iou`` torch tensors (the
+target assigner's, on the device, and the gt sampler's), each computed in
+the reference's order of operations.  Box convention: (x, y,
+z, dx, dy, dz, heading[, ...]) with (x, y, z) the box centre and heading
+the rotation about +z (counter-clockwise).
 """
 
 import numpy as np
 import torch
+
+from . import common_utils
 
 _CORNER_TEMPLATE = np.array([
     [1, 1, -1], [1, -1, -1], [-1, -1, -1], [-1, 1, -1],
@@ -14,13 +22,11 @@ _CORNER_TEMPLATE = np.array([
 ], dtype=np.float32) / 2.0
 
 
-def boxes_to_corners_3d_numpy(boxes3d):
-    """(N, 7) numpy -> (N, 8, 3) corners."""
-    corners = boxes3d[:, None, 3:6] * _CORNER_TEMPLATE[None, :, :]
-    c, s = np.cos(boxes3d[:, 6]), np.sin(boxes3d[:, 6])
-    x = corners[..., 0] * c[:, None] - corners[..., 1] * s[:, None]
-    y = corners[..., 0] * s[:, None] + corners[..., 1] * c[:, None]
-    corners = np.stack([x, y, corners[..., 2]], axis=-1)
+def boxes_to_corners_3d(boxes3d):
+    """numpy (N, 7) -> (N, 8, 3) corners (the reference's corner order)."""
+    template = _CORNER_TEMPLATE.astype(boxes3d.dtype)
+    corners = boxes3d[:, None, 3:6] * template[None, :, :]
+    corners = common_utils.rotate_points_along_z(corners, boxes3d[:, 6])
     return corners + boxes3d[:, None, 0:3]
 
 
@@ -47,6 +53,70 @@ def mask_boxes_outside_range_numpy(boxes, limit_range, min_num_corners=1,
     if use_center_to_filter:
         c = boxes[:, 0:3]
         return ((c >= lo) & (c <= hi)).all(axis=1)
-    corners = boxes_to_corners_3d_numpy(boxes)
+    corners = boxes_to_corners_3d(boxes)
     inside = ((corners >= lo) & (corners <= hi)).all(axis=2)
     return inside.sum(axis=1) >= min_num_corners
+
+
+def points_in_boxes_cpu(points, boxes):
+    """numpy: points (N, 3+), boxes (M, 7) -> (M, N) int32 0/1 flags: |local
+    x| <= dx/2, |local y| <= dy/2, |z - zc| <= dz/2 + 1e-6."""
+    points = np.asarray(points, dtype=np.float32)
+    boxes = np.asarray(boxes, dtype=np.float32)
+    shift = points[None, :, 0:3] - boxes[:, None, 0:3]
+    cosa = np.cos(-boxes[:, 6])[:, None]
+    sina = np.sin(-boxes[:, 6])[:, None]
+    lx = shift[..., 0] * cosa - shift[..., 1] * sina
+    ly = shift[..., 0] * sina + shift[..., 1] * cosa
+    half = boxes[:, None, 3:6] / 2
+    flags = ((np.abs(lx) <= half[..., 0]) & (np.abs(ly) <= half[..., 1])
+             & (np.abs(shift[..., 2]) <= half[..., 2] + 1e-6))
+    return flags.astype(np.int32)
+
+
+def remove_points_in_boxes3d(points, boxes3d):
+    """numpy: drop the points whose xyz falls inside any box."""
+    flags = points_in_boxes_cpu(points[:, 0:3], boxes3d)
+    return points[flags.sum(axis=0) == 0]
+
+
+def enlarge_box3d(boxes3d, extra_width=(0, 0, 0)):
+    """numpy: boxes grown by ``extra_width`` on each side of each axis."""
+    large = np.asarray(boxes3d).copy()
+    large[:, 3:6] = large[:, 3:6] \
+        + np.asarray(extra_width, dtype=boxes3d.dtype)[None, :] * 2
+    return large
+
+
+def boxes_iou_normal(boxes_a, boxes_b):
+    """Axis-aligned 2D IoU of (..., N, 4) and (..., M, 4) [x1, y1, x2, y2]
+    boxes -> (..., N, M)."""
+    a, b = boxes_a[..., :, None, :], boxes_b[..., None, :, :]
+    x_min = torch.maximum(a[..., 0], b[..., 0])
+    y_min = torch.maximum(a[..., 1], b[..., 1])
+    x_max = torch.minimum(a[..., 2], b[..., 2])
+    y_max = torch.minimum(a[..., 3], b[..., 3])
+    inter = torch.clamp_min(x_max - x_min, 0) \
+        * torch.clamp_min(y_max - y_min, 0)
+    area_a = (boxes_a[..., 2] - boxes_a[..., 0]) \
+        * (boxes_a[..., 3] - boxes_a[..., 1])
+    area_b = (boxes_b[..., 2] - boxes_b[..., 0]) \
+        * (boxes_b[..., 3] - boxes_b[..., 1])
+    return inter / torch.clamp_min(area_a[..., :, None] + area_b[..., None, :]
+                                   - inter, 1e-6)
+
+
+def boxes3d_nearest_bev_iou(boxes_a, boxes_b):
+    """BEV IoU of the axis-aligned boxes of the nearest 90-degree
+    orientation, (..., N, 7+) and (..., M, 7+) -> (..., N, M): the
+    axis-aligned target assigner's and the gt sampler's measure."""
+    def to_aabb(boxes):
+        rot = common_utils.limit_period(boxes[..., 6], 0.5, np.pi)
+        swap = torch.abs(rot) > np.pi / 4
+        dx = torch.where(swap, boxes[..., 4], boxes[..., 3])
+        dy = torch.where(swap, boxes[..., 3], boxes[..., 4])
+        return torch.stack([boxes[..., 0] - dx / 2, boxes[..., 1] - dy / 2,
+                            boxes[..., 0] + dx / 2, boxes[..., 1] + dy / 2],
+                           dim=-1)
+
+    return boxes_iou_normal(to_aabb(boxes_a), to_aabb(boxes_b))

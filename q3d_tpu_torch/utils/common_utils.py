@@ -79,5 +79,20 @@ def set_random_seed(seed):
 
 def limit_period(val, offset=0.5, period=np.pi):
     """Wrap ``val`` into [-offset*period, (1-offset)*period) (the
-    reference's ``limit_period``, torch tensors)."""
-    return val - torch.floor(val / period + offset) * period
+    reference's ``limit_period``; torch tensors or numpy arrays)."""
+    floor = np.floor if isinstance(val, np.ndarray) else torch.floor
+    return val - floor(val / period + offset) * period
+
+
+def rotate_points_along_z(points, angle):
+    """numpy: points (B, N, 3 + C) rotated about +z by angle (B,) radians,
+    counter-clockwise; extra columns pass through.  The reference's
+    formula, a product with the rotation matrix, so that the two packages
+    round alike."""
+    angle = np.asarray(angle, dtype=points.dtype)
+    cosa, sina = np.cos(angle), np.sin(angle)
+    ones, zeros = np.ones_like(cosa), np.zeros_like(cosa)
+    rot = np.stack([cosa, sina, zeros, -sina, cosa, zeros,
+                    zeros, zeros, ones], axis=-1).reshape(*angle.shape, 3, 3)
+    xyz = points[..., 0:3] @ rot
+    return np.concatenate([xyz, points[..., 3:]], axis=-1)

@@ -1,9 +1,63 @@
-"""CenterNet losses (port of ``q3d_tpu/utils/loss_utils.py:86-134``): the
-gaussian focal loss on the heatmaps and the L1 regression at the objects'
-heatmap peaks, as CenterHead trains with them.  The other losses of the
-reference come with the heads that use them."""
+"""Losses (port of ``q3d_tpu/utils/loss_utils.py``): the anchor heads'
+sigmoid focal classification loss, weighted smooth-L1 and weighted
+cross-entropy (:16-79), and the CenterNet losses (:86-134), the gaussian
+focal loss on the heatmaps and the L1 regression at the objects' heatmap
+peaks.  Each returns per-element losses (the CenterNet ones their reduced
+value), as the reference's do.  The other losses of the reference come
+with the heads that use them."""
 
 import torch
+
+
+def sigmoid_focal_cls_loss(pred, target, weights, alpha=0.25, gamma=2.0):
+    """Sigmoid focal loss (RetinaNet form): pred (B, N, C) logits, target
+    (B, N, C) one-hot, weights (B, N) or (B, N, C) -> (B, N, C)."""
+    pred_sigmoid = torch.sigmoid(pred)
+    alpha_weight = target * alpha + (1 - target) * (1 - alpha)
+    pt = target * (1.0 - pred_sigmoid) + (1.0 - target) * pred_sigmoid
+    focal_weight = alpha_weight * torch.pow(pt, gamma)
+    # the numerically stable BCE with logits
+    bce = torch.clamp_min(pred, 0) - pred * target \
+        + torch.log1p(torch.exp(-torch.abs(pred)))
+    loss = focal_weight * bce
+    if weights.dim() == 2 or weights.dim() + 1 == pred.dim():
+        weights = weights[..., None]
+    return loss * weights
+
+
+def smooth_l1_loss(diff, beta=1.0 / 9.0):
+    if beta < 1e-5:
+        return torch.abs(diff)
+    n = torch.abs(diff)
+    return torch.where(n < beta, 0.5 * n ** 2 / beta, n - 0.5 * beta)
+
+
+class WeightedSmoothL1Loss:
+    """Smooth-L1 with optional per-code weights and (B, N) weights; NaN
+    targets take the prediction (no loss)."""
+
+    def __init__(self, beta=1.0 / 9.0, code_weights=None):
+        self.beta = beta
+        self.code_weights = None if code_weights is None \
+            else [float(w) for w in code_weights]
+
+    def __call__(self, pred, target, weights=None):
+        target = torch.where(torch.isnan(target), pred, target)
+        diff = pred - target
+        if self.code_weights is not None:
+            diff = diff * torch.tensor(self.code_weights, dtype=diff.dtype,
+                                       device=diff.device)
+        loss = smooth_l1_loss(diff, self.beta)
+        if weights is not None:
+            loss = loss * weights[..., None]
+        return loss
+
+
+def weighted_cross_entropy(pred, target, weights):
+    """pred (B, N, C) logits, target (B, N, C) one-hot, weights (B, N) ->
+    (B, N)."""
+    logp = torch.log_softmax(pred, dim=-1)
+    return -(target * logp).sum(-1) * weights
 
 
 def _neg_loss(pred, gt, mask=None):

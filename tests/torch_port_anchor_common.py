@@ -121,6 +121,25 @@ def build(name):
             "port": model, "port_batch": batch, "cfg": pcfg}
 
 
+def build_for_training(name):
+    """-> dict: the reference's model and its seeded variables as a
+    training run starts them (BN statistics 0 and 1), the port's model
+    holding the same variables, and the port's config."""
+    jcfg, pcfg = configs(name)
+    jds, jloader, _ = jax_build_dataloader(jcfg.DATA_CONFIG, jcfg.CLASS_NAMES,
+                                           batch_size=1, training=False)
+    jmodel = jax_build_network(jcfg.MODEL, num_class=len(jcfg.CLASS_NAMES),
+                               dataset=jds)
+    variables = _seeded_variables(jax.eval_shape(
+        lambda k, b: jmodel.init(k, b, train=False), jax.random.PRNGKey(0),
+        jax_load_data_to_device(next(iter(jloader)))))
+    ds, _, _ = build_dataloader(pcfg.DATA_CONFIG, pcfg.CLASS_NAMES,
+                                batch_size=1, training=False)
+    model = build_network(pcfg.MODEL, len(pcfg.CLASS_NAMES), ds, device="cpu")
+    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    return {"model": jmodel, "vars": variables, "port": model, "cfg": pcfg}
+
+
 def reference_forward(ref, rules=None, variables=None):
     """One jitted reference forward -> (outputs, the head's conv maps NCHW,
     {path: (input, output)} of every conv)."""
