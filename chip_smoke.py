@@ -162,7 +162,30 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
                 objects placed per frame, positive anchors per class per
                 frame; launches: SECOND 23 a step, PointPillars none, no
                 NMS);
- 15. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+ 15. VoxelNeXt inference (the nuScenes config's MODEL and CLASS_NAMES
+                as written, on centerpoint_ref's scenes, batch 2, seeded
+                weights, BN statistics from the first request):
+                ``kernel_conv_voxelnext`` (kernel 1 on the 32 convs of one
+                forward, 30 3D books and 2 2D ones over 3 x 2 x 160,000
+                rows, against the plain versions in f32 / bf16 / s8, timed
+                beside gather + ``torch.matmul`` and the bound; the 3D
+                stages, conv5/conv6 and the 2D convs summed apart),
+                ``serving_voxelnext`` (4 bf16 requests: 32 kernel-1
+                launches, one kernel-2 launch of 12 candidate sets and 72
+                pointwise 1x1 products each), ``stages_voxelnext``,
+                ``model_voxelnext`` (f32, TF32 off, kernels vs plain: the
+                encoded rows, every branch map, kernel 2 on identical
+                candidates, the detections), ``kernel_nms_voxelnext``
+                (kernel 2's boxes form on that forward's 12 candidate sets
+                against its plain version, timed, its bound),
+                ``recipes_voxelnext``
+                (``voxelnext_recipe()``, ``int8_deploy_recipe()`` and int8
+                residency calibrated on the first request: launches per
+                recipe, each launch held against its plain version on its
+                own operands, kernels vs plain end to end) and
+                ``tta_voxelnext`` (double flip at tiny width, kernels vs
+                plain);
+ 16. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises and exits nonzero without the last line.  Without
 CUDA, or outside a checkout of the repo, it exits 1 and prints no result.
@@ -461,11 +484,12 @@ def check_boxes_form(boxes, valid, th, what):
 
 
 def record_sparse_convs(model, batch):
-    """One forward of ``model`` on ``batch`` with every sparse conv call
-    recorded in order -> ([(name, features, book, weight, row mask)], the
-    forward's outputs)."""
+    """One forward of ``model`` on ``batch`` with every call of kernel 1 (a
+    sparse conv with a book; a 1x1 SubM conv has none) recorded in order ->
+    ([(name, features, book, weight, row mask)], the forward's outputs)."""
     import torch
-    from q3d_tpu_torch.ops.spconv.modules import (SubMConv3d, SparseConv3d,
+    from q3d_tpu_torch.ops.spconv.modules import (_SparseConv,
+                                                  _SparseConvBase,
                                                   subm_cache_key,
                                                   down_cache_key)
     convs = []
@@ -473,7 +497,9 @@ def record_sparse_convs(model, batch):
 
     def record(mod, args, out):
         st, cache = args[0], args[1]
-        if isinstance(mod, SparseConv3d):
+        if mod.pointwise:
+            return
+        if isinstance(mod, _SparseConv):
             key = down_cache_key(st.spatial_shape, mod.kernel_size, mod.stride,
                                  mod.padding, args[2] if len(args) > 2 else None)
             out_indices, idx, _ = cache[key]
@@ -484,7 +510,7 @@ def record_sparse_convs(model, batch):
             idx, valid = cache[key], st.valid
         convs.append((names[mod], st.features, idx, mod.weight.detach(), valid))
     hooks = [m.register_forward_hook(record) for m in model.modules()
-             if isinstance(m, (SubMConv3d, SparseConv3d))]
+             if isinstance(m, _SparseConvBase)]
     try:
         with torch.no_grad():
             out = model(dict(batch))
@@ -509,7 +535,8 @@ def kernel_conv(convs, flush, mode, label):
     each conv's real features, book and weights (f32 and bf16 within the
     stated tolerances, s8 bit-exact), timed beside its plain version,
     gather + ``torch.matmul`` / ``torch._int_mm`` and its bound; per conv,
-    per (Cin, Cout, K) group and in total -> (bf16 totals, worst errors)."""
+    per (Cin, Cout, K) group and in total -> (bf16 totals, worst errors,
+    the per-conv rows)."""
     import torch
     from q3d_tpu_torch.ops.spconv import gather_conv
     totals = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -517,6 +544,7 @@ def kernel_conv(convs, flush, mode, label):
     worst = {"f32": 0.0, "bf16": 0.0, "s8": 0.0}
     by_width = {}                    # (Cin, Cout, K) -> summed times
     under_library = {"bf16": 0, "s8": 0}   # convs at or under the library
+    rows = []
     with torch.no_grad():
         for name, feats, idx, w32, valid in convs:
             n, cin = feats.shape
@@ -600,6 +628,7 @@ def kernel_conv(convs, flush, mode, label):
                 nbytes / HBM_BYTES_PER_S,
                 2.0 * n_present * cin * cout / PEAK_OPS_PER_S["s8"])
             emit("kernel_conv", **row)
+            rows.append(row)
             for key in totals:
                 totals[key] += row[f"{key}_bf16"]
             group = by_width.setdefault((cin, cout, k), {"convs": 0})
@@ -628,7 +657,7 @@ def kernel_conv(convs, flush, mode, label):
              "f32": "max|k-p| <= 1e-4 * max(1, max|p|)",
              "bf16": "|k-p| <= 2^-7 |p| + 1e-5 * max(1, max|p|) per element",
              "s8": "bit-exact (s32 sums and scaled/masked output)"})
-    return totals, worst
+    return totals, worst, rows
 
 
 def kernel_launches(conv_k, nms_k):
@@ -685,6 +714,27 @@ def detections_near(a, b, min_score, box_tol, score_tol):
                         worst = [max(worst[0], float(db[k])),
                                  max(worst[1], float(ds[k]))]
     return n, matched, worst
+
+
+def matched_detections(a, b, frames):
+    """Valid detections of either run with a partner in the other (same
+    frame and label, box within 1e-3, score within 1e-4) -> (matched,
+    total)."""
+    matched = total = 0
+    for x, y in ((a, b), (b, a)):
+        for i in range(frames):
+            vx, vy = x["final_valid"][i], y["final_valid"][i]
+            bx, by = x["final_boxes"][i][vx], y["final_boxes"][i][vy]
+            total += len(bx)
+            if len(bx) == 0 or len(by) == 0:
+                continue
+            ok = ((bx[:, None, :] - by[None, :, :]).abs().amax(-1) <= 1e-3) \
+                & (x["final_labels"][i][vx][:, None]
+                   == y["final_labels"][i][vy][None, :]) \
+                & ((x["final_scores"][i][vx][:, None]
+                    - y["final_scores"][i][vy][None, :]).abs() <= 1e-4)
+            matched += int(ok.any(1).sum())
+    return matched, total
 
 
 def first_difference(model, batch):
@@ -1497,20 +1547,7 @@ def kitti_model(name, dev, conv_k, nms_k, mode, strict_f32):
               f"identical inputs")
     # end to end: every valid detection of one run has a partner in the
     # other (same label, box within 1e-3, score within 1e-4)
-    matched = total = 0
-    for a, b in ((out_k, out_p), (out_p, out_k)):
-        for i in range(BATCH):
-            va, vb = a["final_valid"][i], b["final_valid"][i]
-            ba, bb = a["final_boxes"][i][va], b["final_boxes"][i][vb]
-            total += len(ba)
-            if len(ba) == 0 or len(bb) == 0:
-                continue
-            ok = ((ba[:, None, :] - bb[None, :, :]).abs().amax(-1) <= 1e-3) \
-                & (a["final_labels"][i][va][:, None]
-                   == b["final_labels"][i][vb][None, :]) \
-                & ((a["final_scores"][i][va][:, None]
-                    - b["final_scores"][i][vb][None, :]).abs() <= 1e-4)
-            matched += int(ok.any(1).sum())
+    matched, total = matched_detections(out_k, out_p, BATCH)
     frac = matched / max(total, 1)
     check(total > 0 and frac >= 0.99,
           f"model_{name}: only {matched}/{total} detections matched")
@@ -2605,6 +2642,533 @@ def train_kitti(dev, conv_k, nms_k, mode):
     return out
 
 
+# =============================================================== VoxelNeXt
+# the nuScenes VoxelNeXt config (MODEL and CLASS_NAMES as written) on
+# centerpoint_ref's scenes (the same nuScenes geometry); its tiny config
+# for the double-flip phase
+VN_CFG = ROOT / "tools" / "cfgs" / "nuscenes_models" / \
+    "cbgs_voxel0075_voxelnext.yaml"
+VN_TINY_CFG = ROOT / "tools" / "cfgs" / "synthetic_models" / \
+    "voxelnext_tiny.yaml"
+# per forward at full width: kernel 1 (30 3D convs, conv_out, shared_conv),
+# the 1x1 head convs on the pointwise route (6 heads x 6 branches x 2),
+# kernel 2's candidate sets (6 heads x BATCH) in one launch
+VN_CONVS, VN_POINTWISE, VN_HEADS, VN_BRANCHES = 32, 72, 6, 6
+# the 3D convs of conv5 and conv6 (listed apart in kernel_conv_voxelnext)
+VN_DEEP = ("backbone_3d.conv5.", "backbone_3d.conv6.")
+VN_2D = ("backbone_3d.conv_out.", "backbone_3d.shared_conv.")
+
+
+def voxelnext_model(dev, cfg_path=VN_CFG, scenes=CFG, double_flip=False):
+    """VoxelNeXt with ``cfg_path``'s MODEL and CLASS_NAMES on the synthetic
+    scenes of ``scenes`` (seeded weights) -> (config, dataset, model)."""
+    import dataclasses
+    from q3d_tpu_torch.config import cfg_from_yaml_file, EDict
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.models import build_network
+    from q3d_tpu_torch.models.builder import dataset_info
+    vcfg = cfg_from_yaml_file(str(cfg_path), EDict())
+    scfg = cfg_from_yaml_file(str(scenes), EDict())
+    vcfg.MODEL.DENSE_HEAD.DOUBLE_FLIP = double_flip
+    ds, _, _ = build_dataloader(scfg.DATA_CONFIG, scfg.CLASS_NAMES,
+                                batch_size=BATCH, training=False)
+    info = dataclasses.replace(dataset_info(ds),
+                               class_names=tuple(vcfg.CLASS_NAMES))
+    model = build_network(vcfg.MODEL, len(vcfg.CLASS_NAMES), info, device=dev)
+    return vcfg, ds, model
+
+
+def voxelnext_stage_times(model, batch, reps=5):
+    """CUDA-event time of each stage of one VoxelNeXt forward, median of
+    ``reps`` -> {stage: ms}: vfe; backbone_3d (conv_input to conv6);
+    merge_pool (dequantize, upscale, concatenate and ``bev_sum_pool``; the
+    pool alone as bev_sum_pool); conv_out + shared_conv; head_convs; decode
+    (top-K); nms; forward (all of it)."""
+    import torch
+    from q3d_tpu_torch.models.backbones_3d import spconv_backbone_voxelnext as vn
+    bb, head = model.backbone_3d, model.dense_head
+    events = {}
+
+    def mark(name):
+        def hook(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events[name] = ev
+        return hook
+    hooks = []
+    for mod, pre, post in ((model.vfe, "vfe0", "vfe1"),
+                           (bb.conv_input, "bb0", None),
+                           (bb.conv6[-1], None, "bb1"),
+                           (bb.conv_out, "bev0", None),
+                           (bb.shared_conv, None, "bev1"),
+                           (head.heads_list[0], "head0", None),
+                           (head.heads_list[-1], None, "head1")):
+        if pre:
+            hooks.append(mod.register_forward_pre_hook(mark(pre)))
+        if post:
+            hooks.append(mod.register_forward_hook(mark(post)))
+
+    def timed(fn, a, b):
+        def run(*args, **kw):
+            mark(a)()
+            out = fn(*args, **kw)
+            mark(b)()
+            return out
+        return run
+    real_pool = vn.bev_sum_pool
+    vn.bev_sum_pool = timed(real_pool, "pool0", "pool1")
+    head._decode = timed(head._decode, "dec0", "dec1")
+    head._nms = timed(head._nms, "nms0", "nms1")
+    spans = {"vfe": ("vfe0", "vfe1"), "backbone_3d": ("bb0", "bb1"),
+             "merge_pool": ("bb1", "bev0"), "bev_sum_pool": ("pool0", "pool1"),
+             "conv_out_shared_conv": ("bev0", "bev1"),
+             "head_convs": ("head0", "head1"), "decode": ("dec0", "dec1"),
+             "nms": ("nms0", "nms1"), "forward": ("vfe0", "nms1")}
+    ms = {k: [] for k in spans}
+    try:
+        with torch.no_grad():
+            for _ in range(reps):
+                events.clear()
+                model(dict(batch))
+                torch.cuda.synchronize()
+                for k, (a, b) in spans.items():
+                    ms[k].append(events[a].elapsed_time(events[b]))
+    finally:
+        vn.bev_sum_pool = real_pool
+        del head._decode, head._nms
+        for h in hooks:
+            h.remove()
+    return {k: statistics.median(v) for k, v in ms.items()}
+
+
+def voxelnext_launches(conv_k, nms_k, sets):
+    """kernel_launches plus the pointwise route and kernel 2's sets."""
+    from q3d_tpu_torch.models import layers as dense_layers
+    from q3d_tpu_torch.ops.spconv.modules import POINTWISE_CALLS
+    out = kernel_launches(conv_k, nms_k)
+    out.update(sparse_gather_conv=sum(conv_k.launches.values()),
+               pointwise_float=POINTWISE_CALLS["float"],
+               pointwise_int8=POINTWISE_CALLS["int8"],
+               int_mm_pointwise=dense_layers.INT_MM_CALLS["sparse_pointwise"],
+               nms_sets=list(sets))
+    return out
+
+
+@contextlib.contextmanager
+def counting_nms_sets(sets):
+    """Record the number of candidate sets of every boxes-form launch."""
+    from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as nms_mod
+    real = nms_mod.greedy_suppress_boxes_cuda
+
+    def seen(corners, *args, **kw):
+        sets.append(int(corners.shape[0]))
+        return real(corners, *args, **kw)
+    nms_mod.greedy_suppress_boxes_cuda = seen
+    try:
+        yield
+    finally:
+        nms_mod.greedy_suppress_boxes_cuda = real
+
+
+def clear_voxelnext_launches(conv_k, nms_k):
+    from q3d_tpu_torch.ops.spconv.modules import POINTWISE_CALLS
+    clear_launches(conv_k, nms_k)
+    POINTWISE_CALLS.clear()
+
+
+def voxelnext_kernels_vs_plain(model, batch, conv_k, nms_k, tag, frames,
+                               strict=True):
+    """One request through the kernels and through the plain versions ->
+    (summary, kernel run's launches, kernel run's outputs).  Kernel 2 on
+    identical candidates must give equal keep masks and ``_nms`` outputs.
+    Always: the detections near at the FQ_* tolerances (a quantized
+    model, where a last-bit difference flips a rounding and the flips grow
+    through the layers, is held only to that, every launch of its kernels
+    being held on its own operands).  ``strict`` (a float model): also the
+    encoded rows and every branch map within 1e-4 of max(1, scale) (f32
+    sums in another order) and 99% of the detections matched (box 1e-3,
+    score 1e-4).  Whether the detections are equal is reported."""
+    import torch
+    from q3d_tpu_torch.eval_utils import to_host
+    from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as nms_mod
+    head = model.dense_head
+    outs, launches, sets = {}, {}, []
+    with torch.no_grad(), counting_nms_sets(sets):
+        for impl in ("cuda", "plain"):
+            model.set_kernel_impl(impl)
+            clear_voxelnext_launches(conv_k, nms_k)
+            sets.clear()
+            outs[impl] = model(dict(batch))
+            torch.cuda.synchronize()
+            launches[impl] = voxelnext_launches(conv_k, nms_k, sets)
+        model.set_kernel_impl(None)
+    check(not any(v for k, v in launches["plain"].items()
+                  if not k.startswith("pointwise")),
+          f"{tag}: the plain run launched {launches['plain']}")
+    ok_, op = outs["cuda"], outs["plain"]
+    maps = {"encoded": (ok_["encoded_spconv_tensor"].features,
+                        op["encoded_spconv_tensor"].features)}
+    for h, (pk, pp) in enumerate(zip(ok_["pred_dicts"], op["pred_dicts"])):
+        for key in pk:
+            maps[f"head{h}.{key}"] = (pk[key], pp[key])
+    map_err = {}
+    for key, (a, b) in maps.items():
+        err, mag = float((a.float() - b.float()).abs().max()), \
+            float(b.float().abs().max())
+        map_err[key] = {"max_abs": err, "scale": mag}
+        check(bool(torch.isfinite(a).all())
+              and (not strict or err <= 1e-4 * max(1.0, mag)),
+              f"{tag} {key}: kernels vs plain max err {err} (scale {mag})")
+    nms_cfg = head.model_cfg.POST_PROCESSING.NMS_CONFIG
+    thresh = float(nms_cfg.NMS_THRESH)
+    with torch.no_grad():
+        cand = head._candidates(ok_["encoded_spconv_tensor"], ok_["pred_dicts"])
+        kc = min(int(nms_cfg.NMS_PRE_MAXSIZE), cand[0].shape[1])
+        bx, bv = cand[0][:, :kc, :7].contiguous(), cand[3][:, :kc].contiguous()
+        check(torch.equal(nms_mod.greedy_nms_boxes(bx, bv, thresh, impl="cuda"),
+                          nms_mod.greedy_nms_boxes(bx, bv, thresh,
+                                                   impl="plain")),
+              f"{tag}: NMS keep masks differ on identical candidates")
+        finals = []
+        for impl in ("cuda", "plain"):
+            head.kernel_impl = impl
+            bd = {}
+            head._nms(bd, *cand)
+            finals.append(bd)
+        head.kernel_impl = None
+    for key in ("final_boxes", "final_scores", "final_labels", "final_valid"):
+        check(torch.equal(finals[0][key], finals[1][key]),
+              f"{tag}: {key} differs between NMS kernel and plain on "
+              f"identical candidates")
+    matched, total = matched_detections(ok_, op, frames)
+    frac = matched / max(total, 1)
+    check(total > 0 and (not strict or frac >= 0.99),
+          f"{tag}: only {matched}/{total} detections matched")
+    near = detections_near([to_host(ok_)], [to_host(op)], FQ_MIN_SCORE,
+                           FQ_BOX_TOL, FQ_SCORE_TOL)
+    counts = [int(ok_["final_valid"].sum()), int(op["final_valid"].sum())]
+    check(near[0] > 0 and near[1] >= FQ_MATCH_SHARE * near[0]
+          and abs(counts[0] - counts[1]) <= FQ_COUNT_SHARE * max(counts),
+          f"{tag}: {near[1]}/{near[0]} detections near, counts {counts}")
+    equal = all(torch.equal(ok_[k], op[k]) for k in (
+        "final_boxes", "final_scores", "final_labels", "final_valid"))
+    return ({"map_max_abs_err": map_err, "detections": total,
+             "detections_matched": matched, "matched_fraction": frac,
+             "detections_near_fq": {"scoring": near[0], "partnered": near[1],
+                                    "worst_box_score": near[2]},
+             "detections_equal": equal,
+             "candidates_valid": cand[3].sum(1).tolist(),
+             "candidate_sets": list(cand[3].shape)},
+            launches["cuda"], ok_)
+
+
+@contextlib.contextmanager
+def recording_launches(calls):
+    """Every launch of kernel 1's entries (with its operands) and of the
+    pointwise ``_int_mm`` during the block -> ``calls`` [(entry, args,
+    kwargs)]."""
+    from q3d_tpu_torch.models import layers as dense_layers
+    from q3d_tpu_torch.ops.spconv import gather_conv
+    real = {"conv": gather_conv.gather_conv_cuda,
+            "requant": gather_conv.gather_conv_requant_cuda,
+            "int_mm": dense_layers.int8_matmul}
+
+    def wrap(name):
+        def run(*args, **kw):
+            if name != "int_mm":
+                calls.append((name, args, kw))
+            elif kw.get("tag") == "sparse_pointwise":
+                impl = args[2] if len(args) > 2 else kw.get("impl")
+                if impl == "cuda" or impl is None and args[0].is_cuda:
+                    calls.append((name, args[:2], {}))
+            return real[name](*args, **kw)
+        return run
+    gather_conv.gather_conv_cuda = wrap("conv")
+    gather_conv.gather_conv_requant_cuda = wrap("requant")
+    dense_layers.int8_matmul = wrap("int_mm")
+    try:
+        yield
+    finally:
+        gather_conv.gather_conv_cuda = real["conv"]
+        gather_conv.gather_conv_requant_cuda = real["requant"]
+        dense_layers.int8_matmul = real["int_mm"]
+
+
+def hold_launches_on_operands(calls, tag):
+    """Each recorded launch against its plain version on its own operands:
+    float entries within 1e-4 of max(1, scale) (summation order), s8, the
+    fused requant entry and ``_int_mm`` exact -> {entry: launches, worst
+    relative error}."""
+    import torch
+    from q3d_tpu_torch.models import layers as dense_layers
+    from q3d_tpu_torch.ops.spconv import gather_conv
+    counts, worst = {}, 0.0
+    with torch.no_grad():
+        for name, args, kw in calls:
+            if name == "conv":
+                k = gather_conv.gather_conv_cuda(*args, **kw)
+                p = gather_conv.gather_conv_plain(*args, **kw)
+                entry = f"conv_{str(args[0].dtype).split('.')[-1]}"
+            elif name == "requant":
+                k = gather_conv.gather_conv_requant_cuda(*args, **kw)
+                p = gather_conv.gather_conv_requant_plain(*args, **kw)
+                entry = "conv_s8_requant"
+            else:
+                a, b = args
+                k = dense_layers.int8_matmul(a, b, "cuda", tag="held")
+                p = dense_layers.int8_matmul(a, b, "plain")
+                entry = "int_mm_pointwise"
+            torch.cuda.synchronize()
+            counts[entry] = counts.get(entry, 0) + 1
+            if entry in ("conv_float32", "conv_bfloat16"):
+                err = float((k.float() - p.float()).abs().max())
+                scale = max(1.0, float(p.float().abs().max()))
+                check(err <= 1e-4 * scale, f"{tag} {entry}: kernel vs plain "
+                                           f"{err} (scale {scale})")
+                worst = max(worst, err / scale)
+            else:
+                check(torch.equal(k, p), f"{tag} {entry}: kernel != plain")
+    return {"launches_held": counts, "worst_float_rel": worst}
+
+
+def voxelnext_phases(dev, conv_k, nms_k, mode, strict_f32, flush):
+    """The VoxelNeXt phases (full width: the nuScenes config's MODEL on
+    centerpoint_ref's scenes, batch 2, seeded weights, BN statistics from
+    the first request): ``kernel_conv_voxelnext`` (kernel 1 on the 32 convs
+    of one forward against the plain versions, timed; 3D, conv5/conv6 and
+    2D apart), ``serving_voxelnext`` (4 bf16 requests: 32 kernel-1
+    launches, one kernel-2 launch of 12 sets and 72 pointwise products
+    each), ``stages_voxelnext``, ``model_voxelnext`` (f32, TF32 off,
+    kernels vs plain), ``recipes_voxelnext`` (``voxelnext_recipe()``,
+    ``int8_deploy_recipe()`` and residency: launches per recipe, each launch
+    on its own operands, kernels vs plain) and ``tta_voxelnext`` (double
+    flip at tiny width, kernels vs plain) -> summary for the kernels line."""
+    import numpy as np
+    import torch
+    from q3d_tpu_torch.eval_utils import to_host
+    from q3d_tpu_torch.models import load_data_to_device
+    from q3d_tpu_torch.quant import api as quant_api
+    from q3d_tpu_torch.utils.bn_calibration import calibrate_bns
+
+    t0 = time.perf_counter()
+    vcfg, ds, model = voxelnext_model(dev)
+    build_s = time.perf_counter() - t0
+    raw0, _, _ = make_request(ds, 0)
+    strict_f32(True)
+    batch_f32 = load_data_to_device(raw0, device=dev)
+    calibrate_bns(model, batch_f32)
+
+    # ------------------------------------------------ kernels: conv
+    convs, out_ref = record_sparse_convs(model, batch_f32)
+    check(len(convs) == VN_CONVS,
+          f"voxelnext: {len(convs)} kernel-1 convs, expected {VN_CONVS}")
+    enc = out_ref["encoded_spconv_tensor"]
+    rows_valid = int(enc.valid.sum())
+    totals, worst, rows = kernel_conv(convs, flush, mode, "voxelnext")
+    groups = {"3d_conv_input_to_conv4": [], "3d_conv5_conv6": [],
+              "2d_conv_out_shared_conv": []}
+    for row in rows:
+        key = "2d_conv_out_shared_conv" if row["conv"].startswith(VN_2D) \
+            else "3d_conv5_conv6" if row["conv"].startswith(VN_DEEP) \
+            else "3d_conv_input_to_conv4"
+        groups[key].append(row)
+    group_sums = {
+        g: {"convs": len(rs), "M": sorted({r["M"] for r in rs}),
+            "K": sorted({r["K"] for r in rs}),
+            **{k: sum(r[f"{k}_bf16"] for r in rs)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "bytes_ms", "ops_ms")},
+            **{f"{k}_s8": sum(r[f"{k}_s8"] for r in rs)
+               for k in ("ms", "bound_ms")}}
+        for g, rs in groups.items()}
+    emit("kernel_conv_voxelnext", config=VN_CFG.name, scenes=CFG.name,
+         batch=BATCH, convs=len(convs), totals_bf16=totals,
+         max_abs_err=worst, groups=group_sums,
+         encoded_rows=enc.capacity, encoded_rows_valid=rows_valid,
+         mode=mode(), times="bf16 sums over one forward's convs, L2 flushed")
+    strict_f32(False)
+
+    # ------------------------------------------------ serving
+    nms_cfg = vcfg.MODEL.DENSE_HEAD.POST_PROCESSING.NMS_CONFIG
+    post_max = int(nms_cfg.NMS_POST_MAXSIZE)
+    box_dim = 9 if "vel" in vcfg.MODEL.DENSE_HEAD.SEPARATE_HEAD_CFG.HEAD_DICT \
+        else 7
+    sets, per_request = [], []
+    clear_voxelnext_launches(conv_k, nms_k)
+    with counting_nms_sets(sets):
+        for r in range(REQUESTS):
+            raw, scene_ms, vox_ms = make_request(ds, r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = load_data_to_device(raw, device=dev,
+                                        compute_dtype=torch.bfloat16)
+            with torch.no_grad():
+                out = model(batch)
+            n_valid = out["final_valid"].sum(dim=1).tolist()
+            torch.cuda.synchronize()
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+            check(all(torch.isfinite(out[k].float()).all() for k in
+                      ("final_boxes", "final_scores")),
+                  f"voxelnext request {r}: non-finite outputs")
+            check(out["final_boxes"].shape
+                  == (BATCH, VN_HEADS * post_max, box_dim),
+                  f"voxelnext request {r}: final_boxes shape "
+                  f"{tuple(out['final_boxes'].shape)}")
+            per_request.append({"request": r, "frames": list(range(
+                BATCH * r, BATCH * (r + 1))), "scene_ms": scene_ms,
+                "voxelize_ms": vox_ms, "device_forward_ms": fwd_ms,
+                "valid_detections": n_valid})
+            emit("serving_voxelnext_request", **per_request[-1])
+    launches = voxelnext_launches(conv_k, nms_k, sets)
+    want = {"sparse_gather_conv": VN_CONVS * REQUESTS,
+            "sparse_gather_conv_bf16": VN_CONVS * REQUESTS,
+            "greedy_nms_boxes": REQUESTS, "greedy_nms_iou": 0,
+            "pointwise_float": VN_POINTWISE * REQUESTS, "pointwise_int8": 0,
+            "nms_sets": [VN_HEADS * BATCH] * REQUESTS}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"voxelnext main path launches {got}, expected {want}")
+    emit("serving_voxelnext", config=VN_CFG.name, scenes=CFG.name,
+         batch=BATCH, dtype="bf16", requests=REQUESTS, launches=launches,
+         build_s=build_s, mode=mode(), steady_forward_ms=statistics.median(
+             p["device_forward_ms"] for p in per_request[1:]))
+    stages = voxelnext_stage_times(model, batch)
+    emit("stages_voxelnext", dtype="bf16", batch=BATCH, mode=mode(), ms=stages,
+         sparse_conv_kernels_ms=totals["ms"],
+         conv_kernels_ms_by_group={g: v["ms"] for g, v in group_sums.items()},
+         trace=forward_trace(model, batch))
+
+    # ------------------------------------------------ whole model, f32
+    strict_f32(True)
+    summary, launches_f32, _ = voxelnext_kernels_vs_plain(
+        model, batch_f32, conv_k, nms_k, "model_voxelnext", BATCH)
+    check(launches_f32["sparse_gather_conv_f32"] == VN_CONVS
+          and launches_f32["greedy_nms_boxes"] == 1
+          and launches_f32["pointwise_float"] == VN_POINTWISE,
+          f"model_voxelnext: launches {launches_f32}")
+    emit("model_voxelnext", dtype="f32", mode=mode(), launches=launches_f32,
+         map_tolerance="max|k-p| <= 1e-4 * max(1, max|p|)", **summary)
+
+    # ------------------------------------------------ kernels: NMS
+    # kernel 2 on this forward's 12 candidate sets (6 heads x 2 frames,
+    # K = 500): the boxes form against its plain version, timed, bound
+    from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as nms_mod
+    head = model.dense_head
+    with torch.no_grad():
+        out_f = model(dict(batch_f32))
+        cand = head._candidates(out_f["encoded_spconv_tensor"],
+                                out_f["pred_dicts"])
+    bx, bv = cand[0][..., :7].contiguous(), cand[3].contiguous()
+    s_, k_ = bv.shape
+    thresh = float(nms_cfg.NMS_THRESH)
+    near_pairs, cand_pairs, near_max_tile = check_boxes_form(
+        bx, bv, thresh, "voxelnext")
+    corners, areas = nms_mod.bev_corners_areas(bx)
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    terms = boxes_bound(s_, k_, cand_pairs, near_pairs, clock_mhz)
+    nms_row = {"entry": "q3d_greedy_nms_boxes", "sets": s_, "K": k_,
+               "valid": int(bv.sum()), "candidate_pairs": cand_pairs,
+               "near_pairs": near_pairs,
+               "near_pairs_most_in_a_tile": near_max_tile,
+               "kept": int(nms_mod.greedy_nms_boxes(bx, bv, thresh).sum()),
+               "ms": time_ms(lambda: nms_mod.greedy_suppress_boxes_cuda(
+                   corners, areas, bv, thresh), flush=flush),
+               "plain_ms": time_ms(lambda: nms_mod.greedy_suppress_boxes_plain(
+                   bx, bv, thresh), reps=5, flush=flush),
+               **{f"{k}_ms": v for k, v in terms.items()}}
+    nms_row["bound_by"] = max(terms, key=terms.get)
+    nms_row["bound_ms"] = terms[nms_row["bound_by"]]
+    emit("kernel_nms_voxelnext", **nms_row, max_abs_err=0, mode=mode(),
+         tolerance="keep masks exactly equal, IoU bit-equal at every "
+         "evaluated pair, plain IoU exactly 0 at every skipped needed pair")
+
+    # ------------------------------------------------ recipes
+    recipes = {}
+    cases = (("voxelnext_recipe()", lambda m: quant_api.quantize_model(
+                 m, quant_api.voxelnext_recipe(), batch_f32)),
+             ("int8_deploy_recipe()", lambda m: quant_api.quantize_model(
+                 m, quant_api.int8_deploy_recipe(), batch_f32)),
+             ("int8 residency", lambda m: quant_api.prepare_int8_deploy(
+                 m, [batch_f32])))
+    # the head's 1x1 convs: 6 x 5 hidden ones quantized (hm excluded), the
+    # hm hidden ones and the 36 output convs float; conv_input float, the
+    # other 29 3D convs quantized; conv_out and shared_conv on the
+    # gather-view SmoothQuant or kernel 1's s8 entry (no residency)
+    n_hidden_q = VN_HEADS * (VN_BRANCHES - 1)
+    n_pw_float, n_3d = VN_POINTWISE - n_hidden_q, VN_CONVS - 2
+    want_by = {
+        "voxelnext_recipe()": {"sparse_gather_conv_f32": n_3d,
+                               "greedy_nms_boxes": 1,
+                               "pointwise_float": n_pw_float},
+        "int8_deploy_recipe()": {"sparse_gather_conv_f32": 1,
+                                 "sparse_gather_conv_s8": n_3d + 1,
+                                 "greedy_nms_boxes": 1,
+                                 "pointwise_float": n_pw_float,
+                                 "pointwise_int8": n_hidden_q,
+                                 "int_mm_pointwise": n_hidden_q},
+        "int8 residency": {"sparse_gather_conv_f32": 1,
+                           "sparse_gather_conv_s8": 2,
+                           "sparse_gather_conv_s8_requant": n_3d - 1,
+                           "greedy_nms_boxes": 1,
+                           "pointwise_float": n_pw_float,
+                           "pointwise_int8": n_hidden_q,
+                           "int_mm_pointwise": n_hidden_q}}
+    float_host = None
+    for tag, prepare in cases:
+        m = copy.deepcopy(model)
+        t0 = time.perf_counter()
+        prepare(m)
+        prep_s = time.perf_counter() - t0
+        calls = []
+        with recording_launches(calls):
+            row, launches_q, out_q = voxelnext_kernels_vs_plain(
+                m, batch_f32, conv_k, nms_k, f"recipes_voxelnext {tag}",
+                BATCH, strict=False)
+        got = {k: v for k, v in launches_q.items()
+               if v and k not in ("sparse_gather_conv", "nms_sets")}
+        check(got == want_by[tag], f"recipes_voxelnext {tag}: launches "
+                                   f"{got}, expected {want_by[tag]}")
+        n_rec = sum(v for k, v in got.items()
+                    if k.startswith("sparse_gather") or k == "int_mm_pointwise")
+        check(len(calls) == n_rec, f"recipes_voxelnext {tag}: {len(calls)} "
+                                   f"launches recorded, {n_rec} counted")
+        held = hold_launches_on_operands(calls, f"recipes_voxelnext {tag}")
+        del calls
+        if float_host is None:
+            with torch.no_grad():
+                float_host = to_host(model(dict(batch_f32)))
+        diff = float(np.abs(to_host(out_q)["final_scores"]
+                            - float_host["final_scores"]).mean())
+        recipes[tag] = {"launches": got, "prepare_s": prep_s,
+                        "mean_abs_score_vs_float": diff, **held, **row}
+        emit("recipes_voxelnext", recipe=tag, dtype="f32", batch=BATCH,
+             mode=mode(), **recipes[tag])
+        del m
+    strict_f32(False)
+
+    # ------------------------------------------------ double flip, tiny
+    strict_f32(True)
+    tcfg, tds, tmodel = voxelnext_model(dev, VN_TINY_CFG, VN_TINY_CFG,
+                                        double_flip=True)
+    traw = tds.collate_batch([tds[i] for i in range(BATCH)])
+    tbatch = load_data_to_device(traw, device=dev)
+    calibrate_bns(tmodel, tbatch)
+    tsum, tl, _ = voxelnext_kernels_vs_plain(tmodel, tbatch, conv_k, nms_k,
+                                             "tta_voxelnext", BATCH)
+    n_heads = len(tcfg.MODEL.DENSE_HEAD.CLASS_NAMES_EACH_HEAD)
+    check(tl["sparse_gather_conv_f32"] == 42 and tl["greedy_nms_boxes"] == 1
+          and tl["nms_sets"] == [n_heads * BATCH],
+          f"tta_voxelnext: launches {tl}")
+    emit("tta_voxelnext", config=VN_TINY_CFG.name, frames=BATCH,
+         expanded_batch=4 * BATCH, dtype="f32", mode=mode(), launches=tl,
+         **tsum)
+    strict_f32(False)
+    del model, tmodel
+    return {"launches": launches, "totals": totals, "worst": worst,
+            "groups": group_sums, "stages": stages, "nms": nms_row}
+
+
 def main():
     import numpy as np
     import torch
@@ -2695,7 +3259,7 @@ def main():
     def flush():
         scratch.zero_()
 
-    totals, worst = kernel_conv(convs, flush, mode, CFG.stem)
+    totals, worst, _ = kernel_conv(convs, flush, mode, CFG.stem)
 
     # ------------------------------------------------------- kernels: NMS
     head = model.dense_head
@@ -2907,20 +3471,7 @@ def main():
     # end to end: every valid detection of one run has a partner in the
     # other (same label, box within 1e-3, score within 1e-4); a partner can
     # be missing only where near-equal scores reorder the greedy sweep
-    matched, total = 0, 0
-    for a, b in ((out_k, out_p), (out_p, out_k)):
-        for i in range(BATCH):
-            va, vb = a["final_valid"][i], b["final_valid"][i]
-            ba, bb = a["final_boxes"][i][va], b["final_boxes"][i][vb]
-            la, lb = a["final_labels"][i][va], b["final_labels"][i][vb]
-            sa, sb_ = a["final_scores"][i][va], b["final_scores"][i][vb]
-            total += len(ba)
-            if len(ba) == 0 or len(bb) == 0:
-                continue
-            ok = ((ba[:, None, :] - bb[None, :, :]).abs().amax(-1) <= 1e-3) \
-                & (la[:, None] == lb[None, :]) \
-                & ((sa[:, None] - sb_[None, :]).abs() <= 1e-4)
-            matched += int(ok.any(1).sum())
+    matched, total = matched_detections(out_k, out_p, BATCH)
     frac = matched / max(total, 1)
     check(frac >= 0.99, f"model f32: only {matched}/{total} detections matched")
     emit("model_check", dtype="f32", mode=mode(), map_max_abs_err=map_err,
@@ -3225,8 +3776,8 @@ def main():
     kitti = {name: kitti_model(name, dev, conv_k, nms_k, mode, strict_f32)
              for name in KITTI_CONVS}
     strict_f32(True)
-    second_totals, second_worst = kernel_conv(kitti["second"]["convs"], flush,
-                                              mode, "second")
+    second_totals, second_worst, _ = kernel_conv(kitti["second"]["convs"],
+                                                 flush, mode, "second")
     strict_f32(False)
     nms_wide = kernel_nms_wide(kitti, flush, mode, clock_mhz)
     recipes_kitti(kitti, conv_k, nms_k, mode, strict_f32)
@@ -3272,6 +3823,13 @@ def main():
     del kitti_train
     kitti_trained = train_kitti(dev, conv_k, nms_k, mode)
 
+    # ============================================================ VoxelNeXt
+    # inference at the nuScenes config's width on centerpoint_ref's scenes:
+    # kernel 1 on 3D and 2D books, the pointwise 1x1 head convs, kernel 2 on
+    # 12 candidate sets; the PTQ recipes; double flip at tiny width
+    torch.cuda.empty_cache()
+    vn = voxelnext_phases(dev, conv_k, nms_k, mode, strict_f32, flush)
+
     # ---------------------------------------------------------- kernels line
     kernels = [
         {"name": "sparse_gather_conv", "route": "cuda",
@@ -3285,6 +3843,16 @@ def main():
          "design": CONV_DESIGN,
          "eval_launches_f32_entry": per_recipe("sparse_gather_conv_f32"),
          "launches_second": kitti_launches["second"]["sparse_gather_conv"],
+         "launches_voxelnext": vn["launches"]["sparse_gather_conv"],
+         "voxelnext": {"ms": vn["totals"]["ms"],
+                       "plain_ms": vn["totals"]["plain_ms"],
+                       "bound_ms": vn["totals"]["bound_ms"],
+                       "library_ms": vn["totals"]["library_ms"],
+                       "max_abs_err": vn["worst"]["bf16"],
+                       "by_group": {g: {k: v[k] for k in (
+                           "convs", "ms", "plain_ms", "bound_ms",
+                           "library_ms")} for g, v in vn["groups"].items()},
+                       "times_cover": "one VoxelNeXt bf16 forward (32 convs)"},
          "second": {"ms": second_totals["ms"],
                     "plain_ms": second_totals["plain_ms"],
                     "bound_ms": second_totals["bound_ms"],
@@ -3381,6 +3949,9 @@ def main():
                         f"(K={kp})",
          "launches_kitti": {n: v["greedy_nms_boxes"]
                             for n, v in kitti_launches.items()},
+         "launches_voxelnext": vn["launches"]["greedy_nms_boxes"],
+         "voxelnext": {k: vn["nms"][k] for k in (
+             "sets", "K", "ms", "plain_ms", "bound_ms", "bound_by")},
          "k4096": {n: {k: r[k] for k in ("sets", "K", "ms", "plain_ms",
                                          "bound_ms", "bound_by")}
                    for n, r in nms_wide.items()},

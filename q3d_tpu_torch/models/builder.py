@@ -2,7 +2,8 @@
 
 The registries hold only what the port has; PillarVFE and
 PointPillarScatter take the dataset's geometry, as the reference's
-builders give it (:69-76, :99).  ``build_network`` and
+builders give it (:69-76, :99), and VoxelNeXtHead its voxel size, as
+CenterHead does.  ``build_network`` and
 ``load_data_to_device`` default to the CUDA device and raise when there is
 none; pass ``device="cpu"`` explicitly to run on the CPU.
 """
@@ -15,24 +16,30 @@ from .backbones_2d.base_bev_backbone import BaseBEVBackbone
 from .backbones_2d.map_to_bev.height_compression import HeightCompression
 from .backbones_2d.map_to_bev.pointpillar_scatter import PointPillarScatter
 from .backbones_3d.spconv_backbone import VoxelBackBone8x, VoxelResBackBone8x
+from .backbones_3d.spconv_backbone_voxelnext import (
+    VoxelResBackBone8xVoxelNeXt)
 from .backbones_3d.vfe.mean_vfe import MeanVFE
 from .backbones_3d.vfe.pillar_vfe import PillarVFE
 from .dense_heads.anchor_head_single import AnchorHeadSingle
 from .dense_heads.center_head import CenterHead
+from .dense_heads.voxelnext_head import VoxelNeXtHead
 from .detectors.centerpoint import CenterPoint
 from .detectors.detector3d_template import DatasetInfo
 from .detectors.pointpillar import PointPillar
 from .detectors.second_net import SECONDNet
+from .detectors.voxelnext import VoxelNeXt
 
 _VFE = {"MeanVFE": MeanVFE, "PillarVFE": PillarVFE}
 _BACKBONE_3D = {"VoxelBackBone8x": VoxelBackBone8x,
-                "VoxelResBackBone8x": VoxelResBackBone8x}
+                "VoxelResBackBone8x": VoxelResBackBone8x,
+                "VoxelResBackBone8xVoxelNeXt": VoxelResBackBone8xVoxelNeXt}
 _MAP_TO_BEV = {"HeightCompression": HeightCompression,
                "PointPillarScatter": PointPillarScatter}
 _BACKBONE_2D = {"BaseBEVBackbone": BaseBEVBackbone}
-_DENSE_HEAD = {"AnchorHeadSingle": AnchorHeadSingle, "CenterHead": CenterHead}
+_DENSE_HEAD = {"AnchorHeadSingle": AnchorHeadSingle, "CenterHead": CenterHead,
+               "VoxelNeXtHead": VoxelNeXtHead}
 _DETECTORS = {"CenterPoint": CenterPoint, "PointPillar": PointPillar,
-              "SECONDNet": SECONDNet}
+              "SECONDNet": SECONDNet, "VoxelNeXt": VoxelNeXt}
 
 INIT_SEED = 0
 
@@ -62,7 +69,7 @@ def build_dense_head(cfg, input_channels, dataset, num_class,
                      predict_boxes_when_training=False):
     args = (cfg, input_channels, num_class if not cfg.CLASS_AGNOSTIC else 1,
             dataset.class_names, dataset.grid_size, dataset.point_cloud_range)
-    if cfg.NAME == "CenterHead":
+    if cfg.NAME in ("CenterHead", "VoxelNeXtHead"):
         args += (dataset.voxel_size,)
     else:
         args += (predict_boxes_when_training,)

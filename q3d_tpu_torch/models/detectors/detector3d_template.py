@@ -1,7 +1,8 @@
 """Detector3DTemplate — cfg-driven module slots and the generic
 post-processing (port of ``q3d_tpu/models/detectors/detector3d_template.py``:
 the slots the ported detectors use — vfe, backbone_3d, map_to_bev_module,
-backbone_2d, dense_head — and ``post_processing``'s class-agnostic
+backbone_2d, dense_head (fed by the 3D backbone in a fully sparse
+detector) — and ``post_processing``'s class-agnostic
 branch, batched over the frames).  In training mode (``nn.Module.
 training``) a detector's forward returns the batch dict with the head's
 ``loss`` and ``tb_dict`` and runs no post-processing."""
@@ -41,6 +42,7 @@ class Detector3DTemplate(nn.Module):
         if cfg.get("BACKBONE_3D", None) is not None:
             self.backbone_3d = B.build_backbone_3d(
                 cfg.BACKBONE_3D, num_point_features, dataset)
+            num_point_features = self.backbone_3d.num_point_features
         if cfg.get("MAP_TO_BEV", None) is not None:
             self.map_to_bev_module = B.build_map_to_bev(cfg.MAP_TO_BEV,
                                                         dataset)
@@ -51,9 +53,12 @@ class Detector3DTemplate(nn.Module):
             num_bev_features = self.backbone_2d.num_bev_features
         if cfg.get("DENSE_HEAD", None) is not None:
             # decoded boxes in training only for a second stage (reference
-            # :88, :92)
+            # :88, :92); a fully sparse detector (VoxelNeXt) feeds its head
+            # straight from the 3D backbone (reference builder.py:119-123)
+            head_in = num_point_features \
+                if cfg.DENSE_HEAD.NAME == "VoxelNeXtHead" else num_bev_features
             self.dense_head = B.build_dense_head(
-                cfg.DENSE_HEAD, num_bev_features, dataset, num_class,
+                cfg.DENSE_HEAD, head_in, dataset, num_class,
                 predict_boxes_when_training=cfg.get("ROI_HEAD") is not None)
         # the NMS kernel's route in post_processing (set_kernel_impl)
         self.kernel_impl = None

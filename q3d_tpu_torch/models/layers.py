@@ -32,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..quant.tensor_quant import QuantLayer, memo, rescale
+from ..quant.tensor_quant import (QuantLayer, memo, rescale,  # noqa: F401
+                                   smoothquant_scale)
 
 # int8_conv2d calls through torch._int_mm (a library GEMM, counted so that a
 # run can show the int8 path went through it)
@@ -116,14 +117,6 @@ def int8_conv2d(x, w, stride, padding, impl=None):
 
 def _pair(v):
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
-
-
-def smoothquant_scale(a_amax, w_amax, alpha):
-    """SmoothQuant's per-column scale migration,
-    max(act_amax^alpha / w_amax^(1-alpha), 1e-5), from the clamped column
-    amaxes of the patches and of the (K, O) weight."""
-    return torch.clamp_min(torch.pow(a_amax, alpha)
-                           / torch.pow(w_amax, 1.0 - alpha), 1e-5).detach()
 
 
 class Conv2d(QuantLayer, nn.Module):

@@ -177,6 +177,20 @@ def weight_grad(features, gather_idx, grad_out):
     return dw
 
 
+def gather_view(features, gather_idx):
+    """The (M, K*Cin) matrix of ``features`` gathered over the book
+    ``gather_idx`` (None: a 1x1 SubM conv's rows as they are), columns
+    k-major, c-minor; a miss reads a zero row."""
+    if gather_idx is None:
+        return features
+    n, cin = features.shape
+    m, k = gather_idx.shape
+    padded = torch.cat([features, features.new_zeros((1, cin))])
+    idx = gather_idx.long()
+    idx = torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))
+    return padded.index_select(0, idx.reshape(-1)).reshape(m, k * cin)
+
+
 def gather_conv(features, gather_idx, weight, out_scale=None, out_valid=None):
     """Plain PyTorch sparse conv: features (N, Cin), gather_idx (M, K) with
     misses outside [0, N), weight (K, Cin, Cout) -> (M, Cout).
@@ -185,14 +199,9 @@ def gather_conv(features, gather_idx, weight, out_scale=None, out_valid=None):
     (M, K*Cin) @ (K*Cin, Cout) GEMM.  Float inputs accumulate in f32 and
     return the input dtype; s8 inputs accumulate exactly (f64 holds every
     s8 x s8 sum of this size exactly) and return f32, like the s32 kernel."""
-    n, cin = features.shape
-    m, k = gather_idx.shape
     acc = torch.float64 if features.dtype == torch.int8 else torch.float32
-    padded = torch.cat([features.to(acc), features.new_zeros((1, cin), dtype=acc)])
-    idx = gather_idx.long()
-    idx = torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))
-    g = padded.index_select(0, idx.reshape(-1)).reshape(m, k * cin)
-    out = (g @ weight.to(acc).reshape(k * cin, -1)).float()
+    g = gather_view(features.to(acc), gather_idx)
+    out = (g @ weight.to(acc).reshape(g.shape[1], -1)).float()
     if out_scale is not None:
         out = out * out_scale.reshape(-1)
     if out_valid is not None:

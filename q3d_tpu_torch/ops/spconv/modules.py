@@ -2,14 +2,25 @@
 ``q3d_tpu/ops/spconv/modules.py``: the float path, the fake-quant path and
 the int8 deploy path; BN's train mode).
 
-Weights are stored as (K, Cin, Cout) with K enumerating kernel offsets
-k0-major (x fastest), as ``engine.kernel_offsets`` does.  A per-forward
-rulebook cache, keyed like the reference's ``subm_cache_key`` /
-``down_cache_key``, lets every SubM layer of a stage share one book and
-every strided conv build its output coordinates once; a book's inverse,
-which a float conv's input gradient runs over, is kept beside it.  Every
+The 3D kinds (``SubMConv3d``, ``SparseConv3d``) and the 2D ones
+(``SubMConv2d``, ``SparseConv2d``, VoxelNeXt's BEV convs and head) share
+one nd-generic body.  Weights are stored as (K, Cin, Cout) with K
+enumerating kernel offsets k0-major (x fastest), as
+``engine.kernel_offsets`` does.  A per-forward rulebook cache, keyed
+like the reference's ``subm_cache_key`` / ``down_cache_key``, lets every
+SubM layer of a stage share one book and every strided conv build its
+output coordinates once; a book's inverse, which a float conv's input
+gradient runs over, is kept beside it.  Every
 conv runs on ``gather_conv.sparse_gather_conv``; ``kernel_impl`` selects
 "cuda" or "plain" for the whole model (None = by the tensors' device).
+The one exception is a SubM conv with a 1x1 kernel (VoxelNeXt's head
+convs): the reference sends every conv whose last kernel dimension is not
+3 to its XLA gather-GEMM, never to the Pallas kernel
+(``q3d_tpu/ops/spconv/engine.py:427-433``), and kernel 1 has no instance
+for their 1-3 output channels, so such a conv is the plain product
+``(features * valid) @ W[0]`` (``pointwise_conv``: ``torch.matmul``, or the
+exact s8 product of ``models.layers.int8_matmul`` under an int8 rule),
+chosen from the conv's shape and counted in ``POINTWISE_CALLS``.
 
 Under a fake-quant rule a conv quantize-dequantizes its masked features and
 its weight and runs the float conv on them, on the same kernel as the float
@@ -26,8 +37,18 @@ entry ``sparse_gather_conv_requant`` (or, while
 calibrating, through the unfused s8 conv and ``requant_epilogue``, whose
 quantizer needs the f32 values).  The quantized weight and the rescale are
 computed once per calibrated model (``QuantLayer.constant``).
+
+Under a fake-quant rule with SmoothQuant (VoxelNeXt's sparse 2D convs) a
+conv migrates scale per column of its gather view, as the reference's
+``gemm_transform`` does (:131-179, its ``SQSubM2d``): ``_smoothquant_conv``
+builds the (M, K*Cin) matrix of the masked features gathered over the
+book, divides it by the column scale, fake-quantizes it and the scaled
+weight and runs one ``torch.matmul``.  The reference never sends such a
+conv to its Pallas kernel (``pallas_conv.py:402-406``), so neither does
+the port.
 """
 
+import collections
 import dataclasses
 import math
 from typing import NamedTuple, Optional
@@ -35,7 +56,8 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from ...quant.tensor_quant import QuantLayer, QuantSpec, memo, rescale
+from ...quant.tensor_quant import (QuantLayer, QuantSpec, memo, rescale,
+                                   smoothquant_scale)
 from . import engine
 from .gather_conv import (epilogue_f32, sparse_gather_conv,
                           sparse_gather_conv_requant)
@@ -89,6 +111,32 @@ def dequantize_tensor(st: SparseConvTensor, dtype=torch.bfloat16):
     return st
 
 
+# the 1x1 SubM convs' products (``pointwise_conv``), by route: "float"
+# (torch.matmul) or "int8" (the exact s8 product)
+POINTWISE_CALLS = collections.Counter()
+
+
+def pointwise_conv(features, valid, weight, out_scale=None, impl=None):
+    """A SubM conv with a 1x1 kernel: ``(features * valid) @ weight`` over
+    the (M, Cin) rows, the reference's ``engine.gather_conv`` on its (M, 1)
+    book (a pad row misses and reads zeros).  Float features multiply in
+    their dtype (``torch.matmul``); s8 features take the exact s32 product
+    (``models.layers.int8_matmul``, ``impl`` as there), scaled by
+    ``out_scale`` to f32, as kernel 1's s8 entry returns.  Counted in
+    ``POINTWISE_CALLS``."""
+    masked = torch.where(valid[:, None], features,
+                         torch.zeros((), dtype=features.dtype,
+                                     device=features.device))
+    if features.dtype == torch.int8:
+        from ...models.layers import int8_matmul
+        POINTWISE_CALLS["int8"] += 1
+        acc = int8_matmul(masked.contiguous(), weight.t().contiguous().t(),
+                          impl, tag="sparse_pointwise")
+        return acc.float() * out_scale.reshape(1, -1)
+    POINTWISE_CALLS["float"] += 1
+    return torch.matmul(masked, weight.to(features.dtype))
+
+
 def _cached_inverse(cache, key, gather_idx, n):
     """-> a function returning the inverse of the book ``gather_idx`` over
     ``n`` input rows, built once per forward and kept in the rulebook cache
@@ -103,6 +151,7 @@ def _cached_inverse(cache, key, gather_idx, n):
 
 class _SparseConvBase(QuantLayer, nn.Module):
     ND = 3
+    SUBM = False
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
                  padding=0, dilation=1, bias=False, indice_key=None):
@@ -147,6 +196,11 @@ class _SparseConvBase(QuantLayer, nn.Module):
                                                   not self.eager))
         return features, wq, out_scale
 
+    @property
+    def pointwise(self):
+        """True for a SubM conv with a 1x1 kernel (``pointwise_conv``)."""
+        return self.SUBM and all(int(k) == 1 for k in self.kernel_size)
+
     def _fake_quantize(self, features, valid):
         """-> (features, f32 weight) quantize-dequantized: the reference's
         ``_quantize`` fake-quant branch (:130, :189-197).  Pad rows are
@@ -160,35 +214,96 @@ class _SparseConvBase(QuantLayer, nn.Module):
             wspec = dataclasses.replace(wspec, axis=2)
         return feats, self.fake_quantize("weight_quant", wspec, self.weight)
 
+    def _smoothquant_conv(self, st, gather_idx, out_valid):
+        """The gather-view SmoothQuant conv (the reference's
+        ``gemm_transform``, :131-179): G, the masked features gathered over
+        the book (``engine.gather_view``, (M, K*Cin), in f32); per column,
+        scale = max(a_amax^alpha / w_amax^(1-alpha), 1e-5), with w_amax the
+        row amax of the (K*Cin, Cout) weight and a_amax the batch's column
+        amax of G (dynamic) or the calibrated ``sq_act_amax`` (static;
+        calibration records ``sq_act_absmax``, k-major, c-minor); then G / s
+        fake-quantized per tensor, W * s per output column, and one
+        ``torch.matmul``, masked by ``out_valid``, in the features' dtype."""
+        feats = dequantize_tensor(st).features
+        g = engine.gather_view(feats.float() * st.valid[:, None],
+                               gather_idx)
+        k, cin, cout = self.weight.shape
+        w2d = self.weight.reshape(k * cin, cout)
+        sq = self.rule.smoothquant
+        w_amax = w2d.abs().amax(1).clamp_min(1e-5)
+        if sq.dynamic:
+            a_amax = g.abs().amax(0).clamp_min(1e-5)
+        else:
+            if self.calibrating:
+                if not hasattr(self, "sq_act_amax"):
+                    # the reference's quant/sq_act_amax (ones until
+                    # committed) and calib/sq_act_absmax
+                    self.register_buffer("sq_act_amax", torch.ones(
+                        k * cin, device=g.device))
+                    self.register_buffer("sq_act_absmax", torch.zeros(
+                        k * cin, device=g.device), persistent=False)
+                self.sq_act_absmax = torch.maximum(
+                    self.sq_act_absmax, g.detach().abs().amax(0))
+            elif not hasattr(self, "sq_act_amax"):
+                raise RuntimeError("a static SmoothQuant conv was never "
+                                   "calibrated: run quant.api.quantize_model")
+            a_amax = self.sq_act_amax.clamp_min(1e-5)
+        scale = smoothquant_scale(a_amax, w_amax, sq.alpha)
+        p = self.fake_quantize("act_quant", self.rule.act,
+                               torch.div(g, scale))
+        wspec = self.rule.weight
+        if wspec is not None and wspec.axis is not None:
+            wspec = dataclasses.replace(wspec, axis=1)
+        wq = self.fake_quantize("weight_quant", wspec, w2d * scale[:, None])
+        out = torch.matmul(p, wq.to(p.dtype))
+        if out_valid is not None:
+            out = out * out_valid[:, None]
+        return out.to(feats.dtype)
+
+    def _conv(self, feats, gather_idx, weight, out_scale, out_valid, valid,
+              inverse):
+        """Kernel 1 over the book, or, for a 1x1 SubM conv (no book),
+        ``pointwise_conv`` over the rows ``valid`` marks."""
+        if gather_idx is None:
+            return pointwise_conv(feats, valid, weight[0], out_scale,
+                                  impl=self.kernel_impl)
+        return sparse_gather_conv(feats, gather_idx, weight, out_scale,
+                                  out_valid, impl=self.kernel_impl,
+                                  inverse=inverse)
+
     def _run(self, st, gather_idx, out_st, out_valid=None, requant=None,
              inverse=None):
-        """The conv of ``st`` over ``gather_idx`` into the coordinates of
-        ``out_st``: float without a rule (a residency input is dequantized
-        first), float on fake-quantized features and weight under a
-        fake-quant rule, int8 with f32 output (+ bias) under an int8 deploy
+        """The conv of ``st`` over ``gather_idx`` (None: a 1x1 SubM conv)
+        into the coordinates of ``out_st``: float without a rule (a
+        residency input is dequantized first), float on fake-quantized
+        features and weight under a fake-quant rule (SmoothQuant: the
+        gather view), int8 with f32 output (+ bias) under an int8 deploy
         rule without residency, else int8 with ``requant``, its block's
         residency epilogue.  ``inverse`` returns the book's inverse, which
         the float conv's input gradient runs over."""
         if requant is None:
-            out_scale = None
-            if self.rule is None or self.fake:
-                feats = dequantize_tensor(st).features
-                weight = self.weight
-                if self.fake:
-                    feats, weight = self._fake_quantize(feats, st.valid)
-                weight = weight.to(feats.dtype)
+            if self.fake and self.rule.smoothquant is not None:
+                out = self._smoothquant_conv(st, gather_idx, out_valid)
             else:
-                feats, weight, out_scale = self._quantize(st)
-            out = sparse_gather_conv(feats, gather_idx, weight, out_scale,
-                                     out_valid, impl=self.kernel_impl,
-                                     inverse=inverse)
+                out_scale = None
+                if self.rule is None or self.fake:
+                    feats = dequantize_tensor(st).features
+                    weight = self.weight
+                    if self.fake:
+                        feats, weight = self._fake_quantize(feats, st.valid)
+                    weight = weight.to(feats.dtype)
+                else:
+                    feats, weight, out_scale = self._quantize(st)
+                out = self._conv(feats, gather_idx, weight, out_scale,
+                                 out_valid, st.valid, inverse)
             if self.bias is not None:
                 bias = self.bias.to(out.dtype)
                 out = out + (bias if out_valid is None
                              else bias * out_valid[:, None])
             return out_st.replace(features=out, feat_scale=None)
-        if self.bias is not None:
-            raise NotImplementedError("conv bias under int8 residency")
+        if self.bias is not None or gather_idx is None:
+            raise NotImplementedError("a conv bias or a 1x1 SubM conv under "
+                                      "int8 residency")
         feats, wq, out_scale = self._quantize(st)
         ident = requant.identity
         if self.calibrating:
@@ -206,11 +321,13 @@ class _SparseConvBase(QuantLayer, nn.Module):
         return out_st.replace(features=q, feat_scale=s)
 
 
-class SubMConv3d(_SparseConvBase):
-    QUANT_KIND = "subm_conv3d"
+class _SubMConv(_SparseConvBase):
+    SUBM = True
 
     def forward(self, st: SparseConvTensor, rulebook_cache=None,
                 requant=None):
+        if self.pointwise:
+            return self._run(st, None, st, requant=requant)
         key = subm_cache_key(self.indice_key or "", st.spatial_shape,
                              self.kernel_size, self.dilation)
         cache = {} if rulebook_cache is None else rulebook_cache
@@ -222,9 +339,7 @@ class SubMConv3d(_SparseConvBase):
                                                  st.capacity))
 
 
-class SparseConv3d(_SparseConvBase):
-    QUANT_KIND = "sparse_conv3d"
-
+class _SparseConv(_SparseConvBase):
     def forward(self, st: SparseConvTensor, rulebook_cache=None,
                 out_capacity=None, requant=None):
         """out_capacity: static output voxel capacity (None = the input's);
@@ -244,6 +359,24 @@ class SparseConv3d(_SparseConvBase):
                          out_valid=out_indices[:, 0] >= 0, requant=requant,
                          inverse=_cached_inverse(cache, key, gather_idx,
                                                  st.capacity))
+
+
+class SubMConv3d(_SubMConv):
+    QUANT_KIND = "subm_conv3d"
+
+
+class SparseConv3d(_SparseConv):
+    QUANT_KIND = "sparse_conv3d"
+
+
+class SubMConv2d(_SubMConv):
+    ND = 2
+    QUANT_KIND = "subm_conv2d"
+
+
+class SparseConv2d(_SparseConv):
+    ND = 2
+    QUANT_KIND = "sparse_conv2d"
 
 
 class SparseBatchNorm(nn.Module):

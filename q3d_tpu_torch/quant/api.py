@@ -1,6 +1,7 @@
 """The PTQ workflow (port of ``q3d_tpu/quant/api.py``: the CenterPoint,
-SECOND and PointPillars fake-quant recipes, the int8 deploy recipe (dynamic, static, SmoothQuant,
-residency), ``quantize_model``, single-stream ``collect_stats``,
+SECOND, PointPillars and VoxelNeXt fake-quant recipes, the int8 deploy
+recipe (dynamic, static, SmoothQuant, residency), ``quantize_model``,
+single-stream ``collect_stats``,
 ``compute_amax`` with the reference's amax methods, and
 ``prepare_int8_deploy``).
 
@@ -19,10 +20,10 @@ each quantizable layer's rule once, by its path in the reference's naming
 created on first use in a calibration pass, as the reference creates its
 quantizer variables in ``model.init``; ``model.state_dict()`` then carries
 every committed amax (and each static SmoothQuant conv's
-``sq_act_amax``).  Not ported (``_check_rule`` raises, naming
-``ROADMAP.md``): the sparse gather-view SmoothQuant (VoxelNeXt), Linear
-quantization (TransFusion), sharded calibration and the VoxelNeXt and
-TransFusion recipes.
+``sq_act_amax``, dense or sparse).  Not ported (``_check_rule`` raises,
+naming ``ROADMAP.md``): Linear quantization (TransFusion), a sparse
+SmoothQuant rule under int8 deploy (no recipe of the reference makes one),
+sharded calibration and the TransFusion recipe.
 
 Like the reference, whose ``quantize_model`` calls ``model.init`` on the
 example batch with the calibration state mutable, the statistics start
@@ -127,6 +128,35 @@ def int8_deploy_recipe(sq=False, alpha=0.5, static=False, extra_no_list=(),
     return QuantRules(rules=(sparse_rule, conv2d_rule), no_list=no_list)
 
 
+def voxelnext_recipe(w_bits=8, act_bits=8, sq=True, alpha=0.5,
+                     static=False):
+    """The reference's ``quant_voxelnext.py`` semantics: the 3D backbone's
+    convs as in ``centerpoint_recipe``; the sparse 2D convs (conv_out,
+    shared_conv, the heads' hidden convs) through the gather-view
+    SmoothQuant (``SQSubM2d``), or plain fake-quant when not ``sq``; per
+    head every branch's output conv and both hm convs stay float."""
+    dynamic = not static
+    calib = "histogram" if static else "max"
+    sparse3d = LayerRule(
+        layer_kinds=("subm_conv3d", "sparse_conv3d"),
+        weight=QuantSpec(w_bits, axis=0, dynamic=True),
+        act=QuantSpec(act_bits, axis=1 if sq else None, dynamic=dynamic,
+                      calibrator="max" if sq else calib),
+    )
+    sparse2d = LayerRule(
+        layer_kinds=("subm_conv2d", "sparse_conv2d"),
+        weight=QuantSpec(w_bits, axis=0, dynamic=True),
+        act=QuantSpec(act_bits, axis=None, dynamic=dynamic, calibrator=calib),
+        smoothquant=SmoothQuantCfg(alpha=alpha, dynamic=dynamic) if sq else None,
+    )
+    no_list = (
+        "backbone_3d.conv_input*",
+        "dense_head.heads_list_*.*_out",
+        "dense_head.heads_list_*.hm_*",
+    )
+    return QuantRules(rules=(sparse3d, sparse2d), no_list=no_list)
+
+
 def quantizable_modules(model):
     """(port name, module) of every layer a rule can match: the modules with
     a ``QUANT_KIND``."""
@@ -135,19 +165,21 @@ def quantizable_modules(model):
 
 def _check_rule(rule, path, kind):
     """The rules ported: fake-quant (group quantization included;
-    SmoothQuant on dense convs only) and int8 deploy (per-tensor act scales,
-    dynamic or static; dynamic per-channel weight scales; SmoothQuant on
-    dense convs, without residency; residency with static act scales)."""
+    SmoothQuant on dense convs and, over the gather view, on sparse ones)
+    and int8 deploy (per-tensor act scales, dynamic or static; dynamic
+    per-channel weight scales; SmoothQuant on dense convs, without
+    residency; residency with static act scales)."""
     if rule is None:
         return
     if kind == "linear":
         raise NotImplementedError(
             f"{path}: Linear quantization (TransFusion's SQLinear) is not "
             f"ported (ROADMAP.md)")
-    if rule.smoothquant is not None and kind != "conv2d":
+    if rule.smoothquant is not None and kind != "conv2d" \
+            and rule.deploy_int8:
         raise NotImplementedError(
-            f"{path}: the sparse gather-view SmoothQuant (VoxelNeXt) is not "
-            f"ported (ROADMAP.md)")
+            f"{path}: SmoothQuant on an int8 sparse conv is not ported (the "
+            f"reference's int8 deploy ignores it; ROADMAP.md)")
     if not rule.deploy_int8:
         return
     if any(spec is not None and spec.group_size

@@ -314,6 +314,15 @@ def rescale(s_in, w, axis, fused=True):
     return (s_in.float() * (1.0 / 127.0)) * amax_w
 
 
+def smoothquant_scale(a_amax, w_amax, alpha):
+    """SmoothQuant's per-column scale migration,
+    max(act_amax^alpha / w_amax^(1-alpha), 1e-5), from the clamped column
+    amaxes of the patches (a dense conv's im2col, a sparse conv's gather
+    view) and of the (K, O) weight."""
+    return torch.clamp_min(torch.pow(a_amax, alpha)
+                           / torch.pow(w_amax, 1.0 - alpha), 1e-5).detach()
+
+
 class QuantLayer:
     """Mixin of a quantizable layer: the rule ``quant.api.quantize_model``
     attached (None = the layer stays float; a fake-quant rule, with or

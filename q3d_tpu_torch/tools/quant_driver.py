@@ -8,12 +8,12 @@ reporting both side by side.
         [--device cpu]
 
 Without ``--deploy_int8`` it runs the recipe's fake-quant rules
-(``centerpoint_recipe``, ``second_recipe`` or ``pointpillar_recipe``;
-SmoothQuant unless ``--no_sq``); with it, ``int8_deploy_recipe(sq=not
-no_sq, alpha, static)``, true-int8 GEMMs.  ``--ckpt`` takes the reference's
-native checkpoint or a pcdet ``.pth``.  ``--set KEY VALUE ...`` overrides
-the config, as ``tools/test.py``'s does.  The VoxelNeXt and TransFusion
-recipes wait for their models (``ROADMAP.md``).
+(``centerpoint_recipe``, ``second_recipe``, ``pointpillar_recipe`` or
+``voxelnext_recipe``; SmoothQuant unless ``--no_sq``); with it,
+``int8_deploy_recipe(sq=not no_sq, alpha, static)``, true-int8 GEMMs.
+``--ckpt`` takes the reference's native checkpoint or a pcdet ``.pth``.
+``--set KEY VALUE ...`` overrides the config, as ``tools/test.py``'s does.
+The TransFusion recipe waits for its model (``ROADMAP.md``).
 """
 
 import argparse
@@ -51,7 +51,7 @@ def run(recipe_name="centerpoint", argv=None, frames=None):
     per-frame host arrays under "fp" and "quant"."""
     if recipe_name not in RECIPES:
         raise ValueError(f"unknown recipe {recipe_name!r}")
-    if recipe_name in ("voxelnext", "transfusion"):
+    if recipe_name == "transfusion":
         raise NotImplementedError(
             f"the {recipe_name} recipe waits for its model (ROADMAP.md)")
     args = parse_args(argv)
@@ -103,7 +103,8 @@ def run(recipe_name="centerpoint", argv=None, frames=None):
     else:
         recipe_fn = {"centerpoint": quant_api.centerpoint_recipe,
                      "second": quant_api.second_recipe,
-                     "pointpillar": quant_api.pointpillar_recipe}[recipe_name]
+                     "pointpillar": quant_api.pointpillar_recipe,
+                     "voxelnext": quant_api.voxelnext_recipe}[recipe_name]
         rules = recipe_fn(w_bits=args.w_bits, act_bits=args.act_bits,
                           sq=not args.no_sq, alpha=args.alpha,
                           static=args.static)

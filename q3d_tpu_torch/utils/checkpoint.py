@@ -236,8 +236,9 @@ def adapt_torch_tensor(t, target_shape):
     """A pcdet tensor -> the port's layout of ``target_shape``, or
     ValueError.  Dense convs (OIHW), transposed convs (IOHW), BN and bias
     vectors have the port's shapes already; a sparse conv weight is
-    spconv2's (O, kd, kh, kw, I) or spconv1's (kd, kh, kw, I, O), which
-    becomes the kernel's (K, Cin, Cout), K k0-major; a reference-shaped
+    spconv2's (O, kd, kh, kw, I) or spconv1's (kd, kh, kw, I, O) (a 2D one
+    (O, kh, kw, I) or (kh, kw, I, O)), which becomes the kernel's (K, Cin,
+    Cout), K k0-major; a reference-shaped
     first conv (I below the port's ``MIN_INPUT_LANES``) is zero-padded on
     its input rows (the pad lanes see only zeros)."""
     a = t.detach().cpu() if isinstance(t, torch.Tensor) \
@@ -245,10 +246,10 @@ def adapt_torch_tensor(t, target_shape):
     ts = tuple(target_shape)
     if tuple(a.shape) == ts:
         return a
-    if a.dim() == 5 and len(ts) == 3:
-        o, kd, kh, kw, i = a.shape
-        cands = (a.reshape(o, kd * kh * kw, i).permute(1, 2, 0),   # spconv2
-                 a.reshape(o * kd * kh, kw, i))                     # spconv1
+    if a.dim() in (4, 5) and len(ts) == 3:
+        o, i = a.shape[0], a.shape[-1]
+        cands = (a.reshape(o, -1, i).permute(1, 2, 0),              # spconv2
+                 a.reshape(-1, *a.shape[-2:]))                       # spconv1
         for cand in cands:
             if cand.shape[0] == ts[0] and cand.shape[2] == ts[2] \
                     and cand.shape[1] <= ts[1]:

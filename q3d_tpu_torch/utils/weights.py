@@ -8,7 +8,10 @@ tensors in the port's layouts:
 
   * dense conv (kh, kw, I, O) -> OIHW; transposed conv (kh, kw, O, I) -> IOHW;
   * linear (I, O) -> (O, I);
-  * sparse conv (K, I, O) stays (K, Cin, Cout), K k0-major;
+  * sparse conv (K, I, O) stays (K, Cin, Cout), K k0-major (3D and
+    VoxelNeXt's 2D convs alike; VoxelNeXt's ``backbone_3d.shared_conv`` is
+    (conv, BN) like ``conv_out``, apart from the CenterHead's
+    ``dense_head.shared_conv``);
   * BN scale/bias/mean/var -> weight/bias/running_mean/running_var;
   * the ``quant`` collection's amax leaves -> the quantizer buffers of an
     int8 model (``quant.api``): a conv's ``act_quant`` / ``weight_quant``
@@ -40,8 +43,8 @@ def _module_rules(module, toks):
         m = re.fullmatch(r"pfn_layers_(\d+)\.(linear|norm)", t)
         return f"pfn_layers.{m.group(1)}.{m.group(2)}" if m else None
     if module == "backbone_3d":
-        for pat, fmt in ((r"conv_(input|out)\.conv", "conv_{0}.0"),
-                         (r"conv_(input|out)\.norm", "conv_{0}.1"),
+        for pat, fmt in ((r"(conv_input|conv_out|shared_conv)\.conv", "{0}.0"),
+                         (r"(conv_input|conv_out|shared_conv)\.norm", "{0}.1"),
                          (r"conv(\d)_(\d+)\.conv", "conv{0}.{1}.0"),
                          (r"conv(\d)_(\d+)\.norm", "conv{0}.{1}.1"),
                          (r"conv(\d)_(\d+)\.(conv1|conv2|bn1|bn2)", "conv{0}.{1}.{2}")):
@@ -155,7 +158,8 @@ def _quant_name(module, mod_toks, leaf, out_index):
 _REFERENCE_PATHS = (
     (r"vfe\.pfn_layers\.(\d+)\.linear", "vfe.pfn_layers_{0}.linear"),
     (r"dense_head\.(conv_cls|conv_box|conv_dir_cls)", "dense_head.{0}"),
-    (r"backbone_3d\.conv_(input|out)\.0", "backbone_3d.conv_{0}.conv"),
+    (r"backbone_3d\.(conv_input|conv_out|shared_conv)\.0",
+     "backbone_3d.{0}.conv"),
     (r"backbone_3d\.conv(\d)\.(\d+)\.0", "backbone_3d.conv{0}_{1}.conv"),
     (r"backbone_3d\.conv(\d)\.(\d+)\.(conv1|conv2)",
      "backbone_3d.conv{0}_{1}.{2}"),

@@ -90,6 +90,64 @@ def test_gather_conv_kernel_matches_plain(card, cin, cout, k, dtype):
                                        rtol=2 ** -7, atol=1e-2)
 
 
+def _bev_tensor(rng, card, n_cap, n_valid, c, shape=(180, 180)):
+    """A batch-2 2D sparse tensor (VoxelNeXt's stride-8 BEV rows at
+    nuScenes width): n_valid unique cells of B x 180 x 180, the rest of the
+    n_cap rows padding, rows sorted by key, on the card."""
+    from q3d_tpu_torch.ops.spconv import SparseConvTensor
+    cells = int(np.prod(shape))
+    flat = rng.choice(2 * cells, n_valid, replace=False)
+    b, rest = np.divmod(flat, cells)
+    y, x = np.divmod(rest, shape[1])
+    idx = np.full((n_cap, 3), -1, np.int32)
+    idx[:n_valid] = np.stack([b, y, x], 1)
+    feats = rng.randn(n_cap, c).astype(np.float32)
+    feats[n_valid:] = 0.0
+    return SparseConvTensor(torch.from_numpy(feats).to(card),
+                            torch.from_numpy(idx).to(card), shape,
+                            2).sort_rows()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "s8"])
+@pytest.mark.parametrize("kind", ["subm", "stride1"])
+def test_gather_conv_2d_books_match_plain(card, kind, dtype):
+    """VoxelNeXt's 2D convs: K = 9, 128 -> 128, over 960,000 rows, most of
+    them padding (3 x 2 x 160,000, as the merged BEV tensor's capacity);
+    the SubMConv2d book and the stride-1 SparseConv2d book (its outputs the
+    dilation of its inputs)."""
+    from q3d_tpu_torch.ops.spconv import engine
+    rng = np.random.RandomState(9 + len(kind) + len(dtype))
+    st = _bev_tensor(rng, card, 960_000, 40_000, 128)
+    if kind == "subm":
+        idx, valid = engine.subm_gather_indices(st, 3), None
+    else:
+        out_idx, idx, _ = engine.sparse_conv_downsample(st, 3, 1, 1)
+        valid = out_idx[:, 0] >= 0
+        assert 40_000 < int(valid.sum()) < 960_000
+    assert idx.shape == (960_000, 9)
+    f = st.features
+    w = torch.from_numpy(rng.randn(9, 128, 128).astype(np.float32) / 30.0)
+    w = w.to(card)
+    if dtype == "s8":
+        f = torch.clamp(torch.round(f * 40), -127, 127).to(torch.int8)
+        w = torch.clamp(torch.round(w * 300), -127, 127).to(torch.int8)
+    elif dtype == "bf16":
+        f, w = f.to(torch.bfloat16), w.to(torch.bfloat16)
+    launches = sum(gather_conv.KERNEL.launches.values())
+    out_k = gather_conv.sparse_gather_conv(f, idx, w, out_valid=valid)
+    out_p = gather_conv.sparse_gather_conv(f, idx, w, out_valid=valid,
+                                           impl="plain")
+    torch.cuda.synchronize()
+    assert sum(gather_conv.KERNEL.launches.values()) == launches + 1
+    if dtype == "s8":
+        assert torch.equal(out_k, out_p)
+    elif dtype == "f32":
+        torch.testing.assert_close(out_k, out_p, rtol=1e-5, atol=1e-4)
+    else:
+        torch.testing.assert_close(out_k.float(), out_p.float(),
+                                   rtol=2 ** -7, atol=1e-2)
+
+
 def test_gather_conv_wrapper_raises_on_what_no_instance_takes(card):
     book = torch.zeros((64, 27), dtype=torch.int32, device=card)
     w = torch.zeros((27, 16, 16), dtype=torch.bfloat16, device=card)

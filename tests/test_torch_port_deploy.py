@@ -276,9 +276,10 @@ def test_smoothquant_int8_dense_conv_matches_reference():
 
 def test_unported_deploy_rules_raise():
     sq = SmoothQuantCfg()
-    with pytest.raises(NotImplementedError, match="VoxelNeXt"):
-        port_api._check_rule(LayerRule(("subm_conv3d",), deploy_int8=True,
-                                       smoothquant=sq), "x", "subm_conv3d")
+    for kind in ("subm_conv3d", "subm_conv2d", "sparse_conv2d"):
+        with pytest.raises(NotImplementedError, match="int8 sparse conv"):
+            port_api._check_rule(LayerRule((kind,), deploy_int8=True,
+                                           smoothquant=sq), "x", kind)
     for kw, msg in ((dict(int8_residency=True), "static"),
                     (dict(int8_residency=True, smoothquant=sq), "static"),
                     (dict(act=port_api.QuantSpec(8, axis=1)), "per-tensor"),

@@ -190,13 +190,21 @@ def test_fake_quantizer_matches_reference(axis, calibrator):
 
 
 def test_unported_rules_raise():
-    """The sparse gather-view SmoothQuant (VoxelNeXt) still raises; group
-    quantization (held below) and int8 deploy without residency or with
-    dense SmoothQuant (``test_torch_port_deploy*.py``) are ported now, and
-    their rules pass; groups stay fake-quant only."""
-    sq = LayerRule(("subm_conv3d",), smoothquant=SmoothQuantCfg())
-    with pytest.raises(NotImplementedError, match="VoxelNeXt"):
-        port_api._check_rule(sq, "x", "subm_conv3d")
+    """Linear quantization (TransFusion) and SmoothQuant on an int8 sparse
+    conv still raise; the sparse gather-view SmoothQuant (VoxelNeXt, held in
+    ``test_torch_port_voxelnext_quant.py``), group quantization (held below)
+    and int8 deploy without residency or with dense SmoothQuant
+    (``test_torch_port_deploy*.py``) are ported now, and their rules pass;
+    groups stay fake-quant only."""
+    with pytest.raises(NotImplementedError, match="Linear"):
+        port_api._check_rule(LayerRule(("linear",), smoothquant=SmoothQuantCfg()),
+                             "x", "linear")
+    for kind in ("subm_conv2d", "sparse_conv2d"):
+        sq = LayerRule((kind,), smoothquant=SmoothQuantCfg())
+        port_api._check_rule(sq, "x", kind)
+        with pytest.raises(NotImplementedError, match="int8 sparse conv"):
+            port_api._check_rule(dataclasses.replace(sq, deploy_int8=True),
+                                 "x", kind)
     gq = port_tq.QuantSpec(8, group_size=16)
     for kw in (dict(act=gq), dict(deploy_int8=True),
                dict(deploy_int8=True, smoothquant=SmoothQuantCfg())):
