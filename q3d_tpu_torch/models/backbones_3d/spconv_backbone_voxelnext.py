@@ -56,28 +56,35 @@ def segment_sum(values, seg, n):
     return out
 
 
-def bev_sum_pool(st: SparseConvTensor, out_capacity=None):
-    """Collapse z: sum the features that share a (b, y, x) cell -> a 2D
-    sparse tensor of ``out_capacity`` rows (None = the input's), in key
-    order, pads last (reference ``bev_sum_pool``, :24-51: one stable sort
-    by the (b, y, x) key and a segment sum)."""
-    _, h, w = (int(s) for s in st.spatial_shape)
-    m = out_capacity or st.capacity
-    idx = st.indices.long()
-    key = (idx[:, 0] * h + idx[:, 2]) * w + idx[:, 3]
-    key = torch.where(st.valid, key, torch.full_like(key, BIG_KEY))
+def sort_segments(key, valid):
+    """Group rows by ``key`` (the ``valid`` ones; keys below ``BIG_KEY``):
+    one stable sort -> (order, the sorted rows' segment ids (n = the row
+    count for the invalid rows, which sort last), the (n,) unique keys in
+    ascending order, ``BIG_KEY`` past the last)."""
+    n = key.shape[0]
+    key = torch.where(valid, key, torch.full_like(key, BIG_KEY))
     key_s, order = torch.sort(key, stable=True)
     real = key_s != BIG_KEY
     first = torch.ones_like(real)
     first[1:] = key_s[1:] != key_s[:-1]
     first &= real
     seg = torch.cumsum(first.long(), 0) - 1
-    seg = torch.where(real, seg.clamp(max=m), torch.full_like(seg, m))
-    feats = segment_sum(st.features[order], seg, m)
-    out_keys = torch.full((m + 1,), BIG_KEY, dtype=torch.long,
-                          device=key.device)
-    out_keys[torch.where(first, seg, m)] = key_s
-    out_keys = out_keys[:m]
+    seg = torch.where(real, seg, torch.full_like(seg, n))
+    keys = torch.full((n + 1,), BIG_KEY, dtype=key.dtype, device=key.device)
+    keys[torch.where(first, seg, n)] = key_s
+    return order, seg, keys[:n]
+
+
+def bev_sum_pool(st: SparseConvTensor):
+    """Collapse z: sum the features that share a (b, y, x) cell -> a 2D
+    sparse tensor of the input's row capacity, in key order, pads last
+    (reference ``bev_sum_pool``, :24-51: one stable sort by the (b, y, x)
+    key and a segment sum)."""
+    _, h, w = (int(s) for s in st.spatial_shape)
+    idx = st.indices.long()
+    order, seg, out_keys = sort_segments(
+        (idx[:, 0] * h + idx[:, 2]) * w + idx[:, 3], st.valid)
+    feats = segment_sum(st.features[order], seg, st.capacity)
     pad = out_keys == BIG_KEY
     indices = torch.stack([out_keys // (h * w), (out_keys // w) % h,
                            out_keys % w], dim=1)
@@ -88,8 +95,9 @@ def bev_sum_pool(st: SparseConvTensor, out_capacity=None):
 
 
 class _Sparse2dConvBNReLU(nn.Sequential):
-    """A 2D sparse conv (slot 0), BN (slot 1) and ReLU (reference :54-72);
-    never under int8 residency."""
+    """A 2D sparse conv (slot 0), BN (slot 1) and ReLU (reference :54-72):
+    conv_out, shared_conv and the hidden convs of VoxelNeXt's head; never
+    under int8 residency."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
                  padding=1, conv_type="spconv", bias=False):

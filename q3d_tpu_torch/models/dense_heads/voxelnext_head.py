@@ -19,23 +19,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...ops.spconv import SubMConv2d, SparseBatchNorm
-from ..backbones_3d.spconv_backbone_voxelnext import segment_sum
+from ...ops.spconv import SubMConv2d
+from ...ops.spconv.sparse_tensor import BIG_KEY
+from ..backbones_3d.spconv_backbone_voxelnext import (_Sparse2dConvBNReLU,
+                                                      segment_sum,
+                                                      sort_segments)
 from ..model_utils import centernet_utils
 from .center_head import CenterHead
-
-
-class _SubMConvBNReLU(nn.Sequential):
-    """A hidden branch conv (slot 0), its BN (slot 1) and ReLU."""
-
-    def __init__(self, channels, kernel_size, indice_key):
-        super().__init__(SubMConv2d(channels, channels, kernel_size, 1,
-                                    kernel_size // 2, indice_key=indice_key),
-                         SparseBatchNorm(channels))
-
-    def forward(self, st, cache):
-        st = self[1](self[0](st, cache))
-        return st.replace(features=torch.relu(st.features))
 
 
 class _Branch(nn.Sequential):
@@ -52,7 +42,9 @@ class SparseSeparateHead(nn.Module):
         super().__init__()
         self.names = list(sep_head_dict)
         for name, spec in sep_head_dict.items():
-            layers = [_SubMConvBNReLU(input_channels, kernel_size, name)
+            layers = [_Sparse2dConvBNReLU(input_channels, input_channels,
+                                          kernel_size, 1, kernel_size // 2,
+                                          "subm")
                       for _ in range(int(spec["num_conv"]) - 1)]
             layers.append(SubMConv2d(input_channels, int(spec["out_channels"]),
                                      1, 1, 0, bias=True,
@@ -151,25 +143,14 @@ class VoxelNeXtHead(nn.Module):
         if "vel" in pred:
             out["vel"] = flip(pred["vel"], torch.neg, torch.neg)
 
-        big = 2 ** 30
-        keys = torch.where(valid, orig * (h * w) + yy * w + xx,
-                           torch.full_like(vb, big))
-        ks, order = torch.sort(keys, stable=True)
-        real = ks != big
-        first = torch.ones_like(real)
-        first[1:] = ks[1:] != ks[:-1]
-        first &= real
-        seg = torch.cumsum(first.long(), 0) - 1
-        n = keys.shape[0]
-        slot = torch.where(real, seg, torch.full_like(seg, n))
+        order, slot, ukeys = sort_segments(orig * (h * w) + yy * w + xx,
+                                           valid)
+        n = slot.shape[0]
         cnt = torch.bincount(slot, minlength=n + 1)[:n].float()
         denom = torch.clamp_min(cnt, 1.0)[:, None]
         merged = {k: (segment_sum(v[order].float(), slot, n) / denom).to(
             v.dtype) for k, v in out.items()}
-        ukeys = torch.full((n + 1,), big, dtype=torch.long, device=ks.device)
-        ukeys[slot] = ks
-        ukeys = ukeys[:n]
-        m_valid = ukeys != big
+        m_valid = ukeys != BIG_KEY
         m_batch = torch.where(m_valid, torch.div(ukeys, h * w,
                                                  rounding_mode="floor"), -1)
         rem = torch.remainder(ukeys, h * w)

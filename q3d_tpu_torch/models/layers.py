@@ -194,43 +194,13 @@ class Conv2d(QuantLayer, nn.Module):
         return patches, (b, ho, wo)
 
     def _smoothquant_conv(self, x):
-        """im2col + SmoothQuant scale migration + fake-quant + GEMM (the
-        reference's ``_smoothquant_conv``, :265-308): the columns of
-        ``F.unfold`` are in (cin, kh, kw) order, as the reference's patches;
-        per column, scale = max(act_amax^alpha / w_amax^(1-alpha), 1e-5),
-        with act_amax the batch's (dynamic) or the calibrated
-        ``sq_act_amax`` (static); then the act is fake-quantized per tensor,
-        the weight per output channel, and one f32 GEMM (the reference's
-        ``einsum``, outside any Pallas kernel) -> (B, O, Ho, Wo)."""
+        """im2col + ``QuantLayer.smoothquant_matmul`` (the reference's
+        ``_smoothquant_conv``, :265-308): the columns of ``F.unfold`` are in
+        (cin, kh, kw) order, as the reference's patches -> (B, O, Ho, Wo)."""
         o = self.weight.shape[0]
         patches, (b, ho, wo) = self._unfold(x)                    # (B, L, K)
         w2d = self.weight.reshape(o, -1).t()                      # (K, O)
-        sq = self.rule.smoothquant
-        w_amax = w2d.abs().amax(1).clamp_min(1e-5)
-        if sq.dynamic:
-            a_amax = patches.abs().amax((0, 1)).clamp_min(1e-5)
-        else:
-            if self.calibrating:
-                if not hasattr(self, "sq_act_amax"):
-                    # the reference's quant/sq_act_amax (ones until
-                    # committed) and calib/sq_act_absmax
-                    self.register_buffer("sq_act_amax", torch.ones(
-                        w2d.shape[0], device=x.device))
-                    self.register_buffer("sq_act_absmax", torch.zeros(
-                        w2d.shape[0], device=x.device), persistent=False)
-                self.sq_act_absmax = torch.maximum(
-                    self.sq_act_absmax, patches.detach().abs().amax((0, 1)))
-            elif not hasattr(self, "sq_act_amax"):
-                raise RuntimeError("a static SmoothQuant conv was never "
-                                   "calibrated: run quant.api.quantize_model")
-            a_amax = self.sq_act_amax.clamp_min(1e-5)
-        scale = smoothquant_scale(a_amax, w_amax, sq.alpha)
-        p = self.fake_quantize("act_quant", self.rule.act, patches / scale)
-        wspec = self.rule.weight
-        if wspec is not None and wspec.axis is not None:
-            wspec = dataclasses.replace(wspec, axis=1)
-        wq = self.fake_quantize("weight_quant", wspec, w2d * scale[:, None])
-        y = torch.matmul(p, wq.to(p.dtype))                       # (B, L, O)
+        y = self.smoothquant_matmul(patches, w2d)                 # (B, L, O)
         return y.transpose(1, 2).reshape(b, o, ho, wo)
 
     def _int8_conv(self, x):

@@ -42,8 +42,9 @@ Under a fake-quant rule with SmoothQuant (VoxelNeXt's sparse 2D convs) a
 conv migrates scale per column of its gather view, as the reference's
 ``gemm_transform`` does (:131-179, its ``SQSubM2d``): ``_smoothquant_conv``
 builds the (M, K*Cin) matrix of the masked features gathered over the
-book, divides it by the column scale, fake-quantizes it and the scaled
-weight and runs one ``torch.matmul``.  The reference never sends such a
+book, and ``QuantLayer.smoothquant_matmul``, which the dense SmoothQuant
+conv shares, divides it by the column scale, fake-quantizes it and the
+scaled weight and runs one ``torch.matmul``.  The reference never sends such a
 conv to its Pallas kernel (``pallas_conv.py:402-406``), so neither does
 the port.
 """
@@ -56,8 +57,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from ...quant.tensor_quant import (QuantLayer, QuantSpec, memo, rescale,
-                                   smoothquant_scale)
+from ...quant.tensor_quant import QuantLayer, QuantSpec, memo, rescale
 from . import engine
 from .gather_conv import (epilogue_f32, sparse_gather_conv,
                           sparse_gather_conv_requant)
@@ -217,45 +217,15 @@ class _SparseConvBase(QuantLayer, nn.Module):
     def _smoothquant_conv(self, st, gather_idx, out_valid):
         """The gather-view SmoothQuant conv (the reference's
         ``gemm_transform``, :131-179): G, the masked features gathered over
-        the book (``engine.gather_view``, (M, K*Cin), in f32); per column,
-        scale = max(a_amax^alpha / w_amax^(1-alpha), 1e-5), with w_amax the
-        row amax of the (K*Cin, Cout) weight and a_amax the batch's column
-        amax of G (dynamic) or the calibrated ``sq_act_amax`` (static;
-        calibration records ``sq_act_absmax``, k-major, c-minor); then G / s
-        fake-quantized per tensor, W * s per output column, and one
-        ``torch.matmul``, masked by ``out_valid``, in the features' dtype."""
+        the book (``engine.gather_view``, (M, K*Cin) in f32, columns k-major,
+        c-minor), and the (K*Cin, Cout) weight through
+        ``QuantLayer.smoothquant_matmul``, masked by ``out_valid``, in the
+        features' dtype."""
         feats = dequantize_tensor(st).features
         g = engine.gather_view(feats.float() * st.valid[:, None],
                                gather_idx)
         k, cin, cout = self.weight.shape
-        w2d = self.weight.reshape(k * cin, cout)
-        sq = self.rule.smoothquant
-        w_amax = w2d.abs().amax(1).clamp_min(1e-5)
-        if sq.dynamic:
-            a_amax = g.abs().amax(0).clamp_min(1e-5)
-        else:
-            if self.calibrating:
-                if not hasattr(self, "sq_act_amax"):
-                    # the reference's quant/sq_act_amax (ones until
-                    # committed) and calib/sq_act_absmax
-                    self.register_buffer("sq_act_amax", torch.ones(
-                        k * cin, device=g.device))
-                    self.register_buffer("sq_act_absmax", torch.zeros(
-                        k * cin, device=g.device), persistent=False)
-                self.sq_act_absmax = torch.maximum(
-                    self.sq_act_absmax, g.detach().abs().amax(0))
-            elif not hasattr(self, "sq_act_amax"):
-                raise RuntimeError("a static SmoothQuant conv was never "
-                                   "calibrated: run quant.api.quantize_model")
-            a_amax = self.sq_act_amax.clamp_min(1e-5)
-        scale = smoothquant_scale(a_amax, w_amax, sq.alpha)
-        p = self.fake_quantize("act_quant", self.rule.act,
-                               torch.div(g, scale))
-        wspec = self.rule.weight
-        if wspec is not None and wspec.axis is not None:
-            wspec = dataclasses.replace(wspec, axis=1)
-        wq = self.fake_quantize("weight_quant", wspec, w2d * scale[:, None])
-        out = torch.matmul(p, wq.to(p.dtype))
+        out = self.smoothquant_matmul(g, self.weight.reshape(k * cin, cout))
         if out_valid is not None:
             out = out * out_valid[:, None]
         return out.to(feats.dtype)

@@ -364,6 +364,47 @@ class QuantLayer:
         quantizers record), else kept by ``memo``."""
         return fn() if self.calibrating else memo(self, name, sources, fn)
 
+    def smoothquant_matmul(self, patches, w2d):
+        """The fake-quant SmoothQuant product of a conv's patch matrix
+        ``patches`` (..., K) (a dense conv's im2col, a sparse conv's gather
+        view) and its weight ``w2d`` (K, O) (the reference's
+        ``_smoothquant_conv`` and ``gemm_transform``): per column, scale =
+        ``smoothquant_scale`` of the clamped column amaxes, the act's from
+        the batch (dynamic) or the calibrated ``sq_act_amax`` (static;
+        calibration records ``sq_act_absmax``); then patches / scale
+        fake-quantized per tensor, w2d * scale per output column, and one
+        ``torch.matmul`` (the reference's einsum, outside any Pallas
+        kernel) -> (..., O)."""
+        sq = self.rule.smoothquant
+        rows = tuple(range(patches.dim() - 1))
+        w_amax = w2d.abs().amax(1).clamp_min(1e-5)
+        if sq.dynamic:
+            a_amax = patches.abs().amax(rows).clamp_min(1e-5)
+        else:
+            if self.calibrating:
+                if not hasattr(self, "sq_act_amax"):
+                    # the reference's quant/sq_act_amax (ones until
+                    # committed) and calib/sq_act_absmax
+                    self.register_buffer("sq_act_amax", torch.ones(
+                        w2d.shape[0], device=patches.device))
+                    self.register_buffer("sq_act_absmax", torch.zeros(
+                        w2d.shape[0], device=patches.device),
+                        persistent=False)
+                self.sq_act_absmax = torch.maximum(
+                    self.sq_act_absmax, patches.detach().abs().amax(rows))
+            elif not hasattr(self, "sq_act_amax"):
+                raise RuntimeError("a static SmoothQuant conv was never "
+                                   "calibrated: run quant.api.quantize_model")
+            a_amax = self.sq_act_amax.clamp_min(1e-5)
+        scale = smoothquant_scale(a_amax, w_amax, sq.alpha)
+        p = self.fake_quantize("act_quant", self.rule.act,
+                               torch.div(patches, scale))
+        wspec = self.rule.weight
+        if wspec is not None and wspec.axis is not None:
+            wspec = dataclasses.replace(wspec, axis=1)
+        wq = self.fake_quantize("weight_quant", wspec, w2d * scale[:, None])
+        return torch.matmul(p, wq.to(p.dtype))
+
     def quantizer(self, name, spec, like, mode="int"):
         q = self._modules.get(name)
         if q is None:

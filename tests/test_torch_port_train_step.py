@@ -50,12 +50,12 @@ from q3d_tpu.quant.rules import quant_rules_scope
 from tests.test_pallas_conv import _sorted_sparse
 
 from q3d_tpu_torch.config import EDict
-from q3d_tpu_torch.models import layers as port_layers
 from q3d_tpu_torch.models import load_data_to_device
 from q3d_tpu_torch.models.layers import Conv2d
 from q3d_tpu_torch.ops.spconv import SparseConvTensor, SubMConv3d
 from q3d_tpu_torch.optimization import build_optimizer
 from q3d_tpu_torch.quant import api as port_quant
+from q3d_tpu_torch.quant import tensor_quant as port_tensor_quant
 from q3d_tpu_torch.train_utils import MODEL_KEYS, biases_before_bn, \
     train_step
 from q3d_tpu_torch.utils.weights import state_dict_from_jax
@@ -319,7 +319,7 @@ def test_qat_layer_backward_matches_reference(kind, monkeypatch):
     layer, so a missing fake-quant shows; no quantizer state is a
     parameter."""
     if kind == "dense":
-        monkeypatch.setattr(port_layers, "smoothquant_scale",
+        monkeypatch.setattr(port_tensor_quant, "smoothquant_scale",
                             _reference_sq_scale)
     rng = np.random.RandomState(11 if kind == "sparse" else 13)
     index = 0 if kind == "sparse" else 1

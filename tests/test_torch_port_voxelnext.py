@@ -186,17 +186,9 @@ def test_2d_convs_and_pointwise_route_match_reference(vn):
     assert (pooled["indices"][:, 0] >= 0).sum() > 100
 
     jst, pst = jax_st(pooled), qcommon._st(pooled)
-    np.testing.assert_array_equal(
-        pengine.subm_gather_indices(pst, 3).numpy(),
-        np.asarray(jengine.subm_gather_indices(jst, 3)))
-    for stride in (1, 2):
-        jo, jb, jsp = jengine.sparse_conv_downsample(jst, 3, stride, 1)
-        po, pb, psp = pengine.sparse_conv_downsample(pst, 3, stride, 1)
-        assert psp == jsp
-        np.testing.assert_array_equal(po.numpy(), np.asarray(jo))
-        np.testing.assert_array_equal(pb.numpy(), np.asarray(jb))
     rng = np.random.RandomState(0)
     cin = pst.num_channels
+    cases = []
     for cls, jcls, ks, stride, cout in (
             (pmodules.SubMConv2d, jmodules.SubMConv2d, 3, 1, 32),
             (pmodules.SparseConv2d, jmodules.SparseConv2d, 3, 1, 32),
@@ -209,16 +201,34 @@ def test_2d_convs_and_pointwise_route_match_reference(vn):
         with torch.no_grad():
             conv.weight.copy_(torch.from_numpy(w))
             conv.bias.copy_(torch.from_numpy(b))
-        params = {"params": {"weight": w, "bias": b}}
+        cases.append((conv, jcls(cout, ks, stride, pad, use_bias=True),
+                      {"params": {"weight": w, "bias": b}}))
+
+    def reference(t, params):
+        """The reference's books and convs, in one jitted call."""
+        books = [jengine.subm_gather_indices(t, 3)] + [
+            jengine.sparse_conv_downsample(t, 3, stride, 1)
+            for stride in (1, 2)]
+        return books, [jmod.apply(p, t, {}).features
+                       for (_, jmod, _), p in zip(cases, params)]
+    books, wants = jax.tree_util.tree_map(np.asarray, jax.jit(reference)(
+        jst, [p for _, _, p in cases]))
+    np.testing.assert_array_equal(
+        pengine.subm_gather_indices(pst, 3).numpy(), books[0])
+    for stride, (jo, jb, jsp) in zip((1, 2), books[1:]):
+        po, pb, psp = pengine.sparse_conv_downsample(pst, 3, stride, 1)
+        assert psp == tuple(int(x) for x in jsp)
+        np.testing.assert_array_equal(po.numpy(), jo)
+        np.testing.assert_array_equal(pb.numpy(), jb)
+    for (conv, _, _), want in zip(cases, wants):
+        ks, stride = conv.kernel_size[0], conv.stride
         calls = sum(pmodules.POINTWISE_CALLS.values())
         cache = {}
         with torch.no_grad():
             got = conv(pst, cache).features.numpy()
-        jmod = jcls(cout, ks, stride, pad, use_bias=True)
-        want = np.asarray(jax.jit(lambda p, t: jmod.apply(p, t, {}).features)(
-            params, jst))
         assert got.shape == want.shape
-        assert rel_err(got, want) <= CONV_RTOL, (cls.__name__, ks, stride)
+        assert rel_err(got, want) <= CONV_RTOL, (type(conv).__name__, ks,
+                                                 stride)
         pointwise = ks == 1
         assert conv.pointwise == pointwise and (not cache) == pointwise
         assert sum(pmodules.POINTWISE_CALLS.values()) == calls + pointwise
@@ -269,9 +279,8 @@ def test_reference_shared_conv_reads_a_stale_probe(vn):
                            cache if shared else {})
             outs[name] = {"features": st.features, "indices": st.indices}
         return outs
-    stale, fresh = (jax.tree_util.tree_map(np.asarray, jax.jit(
-        run, static_argnums=1)(jax_st(pooled), shared))
-        for shared in (True, False))
+    stale, fresh = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda st: (run(st, True), run(st, False)))(jax_st(pooled)))
     co = fresh["conv_out"]
     assert (co["indices"][:, 0] >= 0).sum() > (pooled["indices"][:, 0]
                                                >= 0).sum()
@@ -314,10 +323,10 @@ def test_double_flip_matches_reference(vn):
     indices = np.concatenate(rows).astype(np.int32)
     pred = {k: np.concatenate([p[k] for p in preds]) for k in pred0}
     pred["hm"] = np.log(pred["hm"] / (1 - pred["hm"]))
-    theirs = jvh.VoxelNeXtHead._merge_double_flip(
-        None, pred, JaxSparseConvTensor(
-            features=np.zeros((4 * n, 1), np.float32), indices=indices,
-            spatial_shape=(h, w), batch_size=4))
+    theirs = jax.jit(lambda p, i: jvh.VoxelNeXtHead._merge_double_flip(
+        None, p, JaxSparseConvTensor(
+            features=np.zeros((4 * n, 1), np.float32), indices=i,
+            spatial_shape=(h, w), batch_size=4)))(pred, indices)
     ours = ref_head = vn[0]["port"].dense_head
     ours = ref_head._merge_double_flip(
         {k: torch.from_numpy(v) for k, v in pred.items()},

@@ -7,8 +7,9 @@ the seeded weights of ``torch_port_anchor_common.build``.
   hidden head conv), each fed the reference's own input: dynamic, and
   static after one calibration pass of that input on both sides (method
   "max"), within 2e-3 of the output's scale (XLA's jitted ``pow`` rounds
-  some column scales an ulp away, ``ROADMAP.md`` §3); the float layer is
-  more than 1e-3 away, so a missing transform shows.
+  some column scales an ulp away, ``ROADMAP.md`` §3); the float layer and
+  the same rule without SmoothQuant are both more than 4e-3 away, so a
+  missing transform or a missing scale migration shows.
 * ``voxelnext_recipe``: rules and no_list equal to the reference's for
   every (sq, static), and every conv's resolved rule equal to the one the
   reference's layers resolve.
@@ -53,8 +54,8 @@ import torch_port_anchor_common as common
 import torch_port_quant_common as qcommon
 from test_quant import _RecordingRules
 from test_torch_port_voxelnext import (OUT_KEYS, check_detections,
-                                       fresh_probes, jax_st, port_forward,
-                                       rel_err)
+                                       first_frame, fresh_probes, jax_st,
+                                       port_forward, rel_err)
 from q3d_tpu_torch.models.backbones_3d import spconv_backbone_voxelnext as pvn
 from q3d_tpu_torch.ops.spconv import modules as pmodules
 from q3d_tpu_torch.quant import api as port_api
@@ -83,8 +84,10 @@ def _configs(name):
 def _recorded(ref, rules, variables, method=None):
     """One jitted reference forward under ``rules`` -> (final outputs or
     None, {path: (input, output)} of every sparse conv and 2D block,
-    ``bev_sum_pool``'s
-    (input, output)); ``method``: the part of the model applied."""
+    ``bev_sum_pool``'s (input, output)); ``method``: the part of the model
+    applied.  ``variables`` without a quant collection: a dynamic recipe's,
+    whose layers declare the leaves they would read as they run (none is
+    read)."""
     kinds = (jmodules.SubMConv3d, jmodules.SparseConv3d, jmodules.SubMConv2d,
              jmodules.SparseConv2d, jvn._Sparse2dConvBNReLU)
     real_pool = jvn.bev_sum_pool
@@ -100,8 +103,11 @@ def _recorded(ref, rules, variables, method=None):
                 qcommon._record(store, kinds)), \
                 mock.patch.object(jvn, "bev_sum_pool", record_pool), \
                 fresh_probes():
-            out = ref["model"].apply(v, b, train=False) if method is None \
-                else ref["model"].apply(v, b, method=method)
+            kw = {} if "quant" in v else {"mutable": ["quant"]}
+            out = ref["model"].apply(v, b, train=False, **kw) \
+                if method is None else ref["model"].apply(v, b, method=method,
+                                                          **kw)
+            out = out[0] if kw else out
         return {k: out[k] for k in OUT_KEYS if k in out}, store, pool[0]
 
     out, store, pool = jax.jit(apply)(variables, ref["batch"])
@@ -142,11 +148,12 @@ def _quant_tree(ref, rules, state, method=None):
 def vq():
     with mock.patch.object(common, "configs", _configs):
         ref = common.build("voxelnext_tiny")
-    rules = jax_api.int8_deploy_recipe()
+    # the (path, kind) of every lookup the reference's layers make
+    rules = _RecordingRules(jax_api.int8_deploy_recipe())
     float_out, _ = port_forward(ref["port"], ref["port_batch"])
-    # a dynamic recipe's forward reads no quant values: zeros
-    jout, layers, _ = _recorded(ref, rules, _quant_tree(ref, rules, {}))
-    return ref, float_out, jout, layers
+    jout, layers, _ = _recorded(ref, rules, {
+        c: ref["vars"][c] for c in ("params", "batch_stats")})
+    return ref, float_out, jout, layers, rules.calls
 
 
 def _sq_rule(static):
@@ -157,64 +164,77 @@ def test_gather_view_smoothquant_per_layer(vq):
     """conv_out, shared_conv and a 1x1 hidden head conv under the recipe's
     sparse 2D rule (SmoothQuant), each fed the reference's recorded input
     as a standalone layer on both sides: dynamic, then static after one
-    calibration pass of that input (method "max")."""
-    ref, _, _, layers = vq
-    port = ref["port"]
-    mods = dict(port.named_modules())
+    calibration pass of that input (method "max").  The float layer and the
+    same rule without SmoothQuant (plain fake-quant, no scale migration)
+    both land more than 2 x SQ_RTOL from the reference's output."""
+    ref, _, _, layers = vq[:4]
+    mods = dict(ref["port"].named_modules())
+    cases = []
+    for name, path in SQ_LAYERS.items():
+        mod = mods[name]
+        jmod = (jmodules.SubMConv2d if mod.SUBM else jmodules.SparseConv2d)(
+            mod.weight.shape[2], mod.kernel_size[0], mod.stride, mod.padding,
+            use_bias=mod.bias is not None)
+        params = {"weight": mod.weight.detach().numpy()}
+        if mod.bias is not None:
+            params["bias"] = mod.bias.detach().numpy()
+        cases.append((name, mod, jmod, params, layers[path][0]))
+    jsts = [jax_st(x) for *_, x in cases]
     for static in (False, True):
         jrules = JaxQuantRules(
             rules=(jax_api.voxelnext_recipe(static=static).rules[1],))
-        for name, path in SQ_LAYERS.items():
-            mod = copy.deepcopy(mods[name])
-            x = layers[path][0]
-            jst, pst = jax_st(x), qcommon._st(x)
-            jmod = (jmodules.SubMConv2d if mod.SUBM
-                    else jmodules.SparseConv2d)(
-                mod.weight.shape[2], mod.kernel_size[0], mod.stride,
-                mod.padding, use_bias=mod.bias is not None)
-            params = {"weight": mod.weight.detach().numpy()}
-            if mod.bias is not None:
-                params["bias"] = mod.bias.detach().numpy()
+
+        def apply(vs, sts, mutable):
+            """Every layer in one call -> [(output, mutated collections)];
+            a leaf a layer declares starts as the reference's init makes
+            it (sq_act_amax ones, the rest zeros)."""
             with quant_rules_scope(jrules):
-                shapes = jax.eval_shape(lambda k, t: jmod.init(k, t, {}),
-                                        jax.random.PRNGKey(0), jst)
-                # fresh calibration state; sq_act_amax ones, as the
-                # reference's init makes it
-                v = {"params": params, **{c: jax.tree_util.tree_map_with_path(
-                    lambda p, s: (np.ones if p[-1].key == "sq_act_amax"
-                                  else np.zeros)(s.shape, s.dtype),
-                    dict(shapes[c])) for c in shapes if c != "params"}}
-                if static:
-                    _, mut = jax.jit(lambda v, t: jmod.apply(
-                        v, t, {}, mutable=["calib"]))(v, jst)
-                    v = jax_api.compute_amax({**v, **mut}, method="max")
-                    v = {c: t for c, t in v.items() if c != "calib"}
-                want = np.asarray(jax.jit(lambda v, t: jmod.apply(
-                    v, t, {}).features)(v, jst))
-            with torch.no_grad():
-                plain = mod(pst, {}).features.numpy()
-                # one calibration pass creates the quantizers (and, static,
-                # records the input)
-                mod.rule, mod.calibrating = _sq_rule(static), True
-                mod(pst, {})
-                mod.calibrating = False
-                if static:
-                    port_api.compute_amax(mod, method="max")
-                    np.testing.assert_allclose(
-                        mod.sq_act_amax.numpy(),
-                        np.asarray(v["quant"]["sq_act_amax"]), rtol=1e-6)
-                got = mod(pst, {}).features.numpy()
-            assert rel_err(got, want) <= SQ_RTOL, (name, static)
-            assert rel_err(plain, want) > 1e-3, (name, static)
+                return [jmod.apply(v, t, {}, mutable=mutable)
+                        for (_, _, jmod, _, _), v, t in zip(cases, vs, sts)]
+        vs = [{"params": params} for _, _, _, params, _ in cases]
+        if static:
+            muts = jax.jit(lambda vs, sts: [m for _, m in apply(
+                vs, sts, ["calib", "quant"])])(vs, jsts)
+            vs = [{c: t for c, t in jax_api.compute_amax(
+                {**v, **m}, method="max").items() if c != "calib"}
+                for v, m in zip(vs, muts)]
+        wants = [np.asarray(w) for w in jax.jit(lambda vs, sts: [
+            o.features for o, _ in apply(vs, sts, ["quant"])])(vs, jsts)]
+        for (name, mod0, _, _, x), v, want in zip(cases, vs, wants):
+            pst, cache = qcommon._st(x), {}         # one book for every run
+            got = {}
+            for key, rule in (("sq", _sq_rule(static)), ("plain", None),
+                              ("no_sq", dataclasses.replace(
+                                  _sq_rule(static), smoothquant=None))):
+                mod = copy.deepcopy(mod0)
+                with torch.no_grad():
+                    if rule is not None:
+                        # one calibration pass creates the quantizers (and,
+                        # static, records the input)
+                        mod.rule, mod.calibrating = rule, True
+                        mod(pst, cache)
+                        mod.calibrating = False
+                        if static:
+                            port_api.compute_amax(mod, method="max")
+                    if key == "sq" and static:
+                        np.testing.assert_allclose(
+                            mod.sq_act_amax.numpy(),
+                            np.asarray(v["quant"]["sq_act_amax"]), rtol=1e-6)
+                    got[key] = rel_err(mod(pst, cache).features.numpy(),
+                                       want)
+            assert got["sq"] <= SQ_RTOL, (name, static, got)
+            assert got["plain"] > 2 * SQ_RTOL, (name, static, got)
+            assert got["no_sq"] > 2 * SQ_RTOL, (name, static, got)
 
 
 def test_voxelnext_recipe_matches_reference(vq):
     """Rules and no_list equal to the reference's for every (sq, static),
     with its signature, every rule one the port runs; each of the model's
     convs resolves the rule the reference's layer resolves under
-    ``voxelnext_recipe()``: 29 3D convs and 10 2D ones quantized (conv_out,
-    shared_conv, 4 hidden branch convs a head), conv_input and the heads'
-    hm and output convs float."""
+    ``voxelnext_recipe()`` (the reference's ``lookup`` on the path and kind
+    that layer looked up in the fixture's forward): 29 3D convs and 10 2D
+    ones quantized (conv_out, shared_conv, 4 hidden branch convs a head),
+    conv_input and the heads' hm and output convs float."""
     for sq, static in itertools.product((False, True), repeat=2):
         kw = dict(sq=sq, static=static, alpha=0.4, w_bits=8, act_bits=8)
         ours, theirs = port_api.voxelnext_recipe(**kw), \
@@ -228,24 +248,23 @@ def test_voxelnext_recipe_matches_reference(vq):
     assert inspect.signature(port_api.voxelnext_recipe) \
         == inspect.signature(jax_api.voxelnext_recipe)
 
-    ref = vq[0]
-    rec = _RecordingRules(jax_api.voxelnext_recipe())
-    with quant_rules_scope(rec):
-        jax.eval_shape(lambda k, b: ref["model"].init(k, b, train=False),
-                       jax.random.PRNGKey(0), ref["batch"])
+    ref, calls = vq[0], vq[4]
+    recipe = jax_api.voxelnext_recipe()
     model = copy.deepcopy(ref["port"])
+    # a dynamic recipe: the seed pass only creates the quantizers
     port_api.quantize_model(model, port_api.voxelnext_recipe(),
-                            ref["port_batch"])
+                            first_frame(ref["port_batch"]))
     seen = {}
     for name, mod in port_api.quantizable_modules(model):
         path = reference_module_path(name)
-        kind, rule = rec.calls[path]
+        kind = calls[path][0]
+        rule = recipe.lookup(path, kind)
         assert kind == mod.QUANT_KIND, name
         assert (rule is None) == (mod.rule is None), name
         if rule is not None:
             assert dataclasses.asdict(rule) == dataclasses.asdict(mod.rule)
         seen[path] = mod.rule is not None
-    assert set(seen) == set(rec.calls)
+    assert set(seen) == set(calls)
     assert sum(seen.values()) == 29 + 10
     assert not seen["backbone_3d.conv_input.conv"]
 
@@ -257,10 +276,11 @@ def test_int8_deploy_recipe_matches_reference(vq):
     hidden head convs on the exact s8 product, the heads' hm and output
     convs float); the head, decode and NMS on the reference's encoded
     tensor give the reference's detections slot for slot."""
-    ref, _, jout, layers = vq
+    ref, _, jout, layers = vq[:4]
     model = copy.deepcopy(ref["port"])
+    # a dynamic recipe: the seed pass only creates the quantizers
     port_api.quantize_model(model, port_api.int8_deploy_recipe(),
-                            ref["port_batch"])
+                            first_frame(ref["port_batch"]))
     pmodules.POINTWISE_CALLS.clear()
     n = quantized = 0
     with torch.no_grad():
@@ -281,14 +301,16 @@ def test_int8_deploy_recipe_matches_reference(vq):
 
 def test_residency_merge_fault_not_copied(vq):
     """Under ``prepare_int8_deploy`` (residency, calibrated by the port on
-    the batch, the same scales carried into the reference): the reference's merged tensor
-    is int8 without a scale and its BEV sums wrap (the int8 sums differ
-    from the same codes summed in int32); the port's merged tensor is the
+    the batch's first frame, the same scales carried into the reference),
+    on the whole batch: the reference's merged tensor is int8 without a
+    scale and its BEV sums wrap (the int8 sums differ from the same codes
+    summed in int32); the port's merged tensor is the
     x4 / x5 / x6 features dequantized, each with its own scale, and its
     final scores stay within mean |fp - q| < 0.05 of its float model's."""
-    ref, float_out, _, _ = vq
+    ref, float_out = vq[:2]
     model = copy.deepcopy(ref["port"])
-    rules = port_api.prepare_int8_deploy(model, [ref["port_batch"]])
+    rules = port_api.prepare_int8_deploy(model,
+                                         [first_frame(ref["port_batch"])])
     jrules = jax_api.int8_deploy_recipe(residency=True)
     assert [dataclasses.asdict(r) for r in rules.rules] \
         == [dataclasses.asdict(r) for r in jrules.rules]
