@@ -185,7 +185,28 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
                 own operands, kernels vs plain end to end) and
                 ``tta_voxelnext`` (double flip at tiny width, kernels vs
                 plain);
- 16. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+ 16. TransFusion-LiDAR inference (the nuScenes config's MODEL and
+                CLASS_NAMES as written, on centerpoint_ref's scenes, batch 2,
+                seeded weights, BN statistics from the first request):
+                ``kernel_conv_transfusion`` (kernel 1 on the 21 convs of one
+                forward, over 2 x 160,000 rows: no stage sets an output
+                capacity, against the plain versions in f32 / bf16 / s8,
+                timed beside gather + ``torch.matmul`` and the bound),
+                ``serving_transfusion`` (4 bf16 requests: 21 kernel-1
+                launches each and none of kernel 2, the head has no NMS;
+                device forward and host time apart),
+                ``stages_transfusion`` (vfe, backbone_3d, map_to_bev,
+                backbone_2d, then the head: shared conv + heatmap, peak
+                pool + top-K, the queries, the position embeddings,
+                self-attention, cross-attention over the 180 x 180 cells,
+                FFN, prediction head + decode), ``model_transfusion`` (f32,
+                TF32 off, kernels vs plain: every map within 1e-4 of its
+                scale, the top-K equal, the 200 queries' labels and valid
+                flags equal) and ``recipes_transfusion``
+                (``transfusion_recipe()`` and its static form calibrated on
+                the first two requests: each launch held against its plain
+                version on its own operands);
+ 17. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises and exits nonzero without the last line.  Without
 CUDA, or outside a checkout of the repo, it exits 1 and prints no result.
@@ -2659,9 +2680,10 @@ VN_DEEP = ("backbone_3d.conv5.", "backbone_3d.conv6.")
 VN_2D = ("backbone_3d.conv_out.", "backbone_3d.shared_conv.")
 
 
-def voxelnext_model(dev, cfg_path=VN_CFG, scenes=CFG, double_flip=False):
-    """VoxelNeXt with ``cfg_path``'s MODEL and CLASS_NAMES on the synthetic
-    scenes of ``scenes`` (seeded weights) -> (config, dataset, model)."""
+def nuscenes_model(dev, cfg_path, scenes=CFG, **head_cfg):
+    """A model with ``cfg_path``'s MODEL and CLASS_NAMES (``head_cfg`` set
+    on its DENSE_HEAD) on the synthetic scenes of ``scenes`` (seeded
+    weights) -> (config, dataset, model)."""
     import dataclasses
     from q3d_tpu_torch.config import cfg_from_yaml_file, EDict
     from q3d_tpu_torch.datasets import build_dataloader
@@ -2669,13 +2691,19 @@ def voxelnext_model(dev, cfg_path=VN_CFG, scenes=CFG, double_flip=False):
     from q3d_tpu_torch.models.builder import dataset_info
     vcfg = cfg_from_yaml_file(str(cfg_path), EDict())
     scfg = cfg_from_yaml_file(str(scenes), EDict())
-    vcfg.MODEL.DENSE_HEAD.DOUBLE_FLIP = double_flip
+    vcfg.MODEL.DENSE_HEAD.update(head_cfg)
     ds, _, _ = build_dataloader(scfg.DATA_CONFIG, scfg.CLASS_NAMES,
                                 batch_size=BATCH, training=False)
     info = dataclasses.replace(dataset_info(ds),
                                class_names=tuple(vcfg.CLASS_NAMES))
     model = build_network(vcfg.MODEL, len(vcfg.CLASS_NAMES), info, device=dev)
     return vcfg, ds, model
+
+
+def voxelnext_model(dev, cfg_path=VN_CFG, scenes=CFG, double_flip=False):
+    """VoxelNeXt with ``cfg_path``'s MODEL and CLASS_NAMES on the synthetic
+    scenes of ``scenes`` (seeded weights) -> (config, dataset, model)."""
+    return nuscenes_model(dev, cfg_path, scenes, DOUBLE_FLIP=double_flip)
 
 
 def voxelnext_stage_times(model, batch, reps=5):
@@ -3167,6 +3195,309 @@ def voxelnext_phases(dev, conv_k, nms_k, mode, strict_f32, flush):
     del model, tmodel
     return {"launches": launches, "totals": totals, "worst": worst,
             "groups": group_sums, "stages": stages, "nms": nms_row}
+
+
+TF_CFG = ROOT / "tools" / "cfgs" / "nuscenes_models" / "transfusion_lidar.yaml"
+# per forward at full width: kernel 1 on VoxelResBackBone8x's 21 sparse
+# convs; the head has no NMS, so kernel 2 never launches
+TF_CONVS = 21
+TF_OUT = ("final_boxes", "final_scores", "final_labels", "final_valid")
+
+
+def transfusion_stage_times(model, batch, reps=5):
+    """CUDA-event time of each stage of one TransFusion forward, median of
+    ``reps`` -> {stage: ms}: vfe, backbone_3d, map_to_bev, backbone_2d,
+    then the head: shared conv + heatmap (``dense_heatmap``), peak pool +
+    top-K (``proposals``), the queries' gather and class encoding
+    (``queries``), the two position embeddings, self-attention (with its
+    LayerNorm), cross-attention (with its LayerNorm), FFN (with its
+    LayerNorm), prediction head + decode; forward (all of it).  The head's
+    methods are timed through instance attributes that shadow them."""
+    import torch
+    head, dec = model.dense_head, model.dense_head.decoder
+    events = {}
+
+    def mark(name):
+        def hook(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events[name] = ev
+        return hook
+    hooks = []
+    for mod, pre, post in (
+            (model.vfe, "vfe0", "vfe1"), (model.backbone_3d, "bb0", "bb1"),
+            (model.map_to_bev_module, "bev0", "bev1"),
+            (model.backbone_2d, "b2d0", "b2d1"),
+            (dec.self_posembed, "pos0", None),
+            (dec.cross_posembed, None, "pos1"),
+            (dec.self_attn, "sa0", None), (dec.norm1, None, "sa1"),
+            (dec.multihead_attn, "ca0", None), (dec.norm2, None, "ca1"),
+            (dec.linear1, "ffn0", None), (dec.norm3, None, "ffn1"),
+            (head.prediction_head, "pred0", None)):
+        if pre:
+            hooks.append(mod.register_forward_pre_hook(mark(pre)))
+        if post:
+            hooks.append(mod.register_forward_hook(mark(post)))
+
+    def timed(fn, a, b):
+        def run(*args, **kw):
+            if a:
+                mark(a)()
+            out = fn(*args, **kw)
+            mark(b)()
+            return out
+        return run
+    for attr, a, b in (("dense_heatmap", "hm0", "hm1"),
+                       ("proposals", "topk0", "topk1"),
+                       ("queries", "q0", "q1"),
+                       ("final_predictions", None, "pred1")):
+        setattr(head, attr, timed(getattr(head, attr), a, b))
+    spans = {"vfe": ("vfe0", "vfe1"), "backbone_3d": ("bb0", "bb1"),
+             "map_to_bev": ("bev0", "bev1"), "backbone_2d": ("b2d0", "b2d1"),
+             "shared_conv_heatmap": ("hm0", "hm1"),
+             "peak_pool_topk": ("topk0", "topk1"),
+             "query_gather_class_encoding": ("q0", "q1"),
+             "position_embeddings": ("pos0", "pos1"),
+             "self_attention": ("sa0", "sa1"),
+             "cross_attention": ("ca0", "ca1"), "ffn": ("ffn0", "ffn1"),
+             "prediction_head_decode": ("pred0", "pred1"),
+             "dense_head": ("hm0", "pred1"), "forward": ("vfe0", "pred1")}
+    ms = {k: [] for k in spans}
+    try:
+        with torch.no_grad():
+            for _ in range(reps):
+                events.clear()
+                model(dict(batch))
+                torch.cuda.synchronize()
+                for k, (a, b) in spans.items():
+                    ms[k].append(events[a].elapsed_time(events[b]))
+    finally:
+        for attr in ("dense_heatmap", "proposals", "queries",
+                     "final_predictions"):
+            delattr(head, attr)
+        for h in hooks:
+            h.remove()
+    return {k: statistics.median(v) for k, v in ms.items()}
+
+
+@contextlib.contextmanager
+def recording_proposals(head, store):
+    """The head's top-K (classes, cells) of every forward -> ``store``."""
+    real = head.proposals
+
+    def run(*args):
+        out = real(*args)
+        store.append(out[1:])
+        return out
+    head.proposals = run
+    try:
+        yield
+    finally:
+        del head.proposals
+
+
+def transfusion_kernels_vs_plain(model, batch, conv_k, nms_k, tag,
+                                 strict=True):
+    """One request through the kernels and through the plain versions ->
+    (summary, kernel run's launches).  The plain run launches nothing.
+    ``strict`` (a float model): spatial_features, spatial_features_2d and
+    every head map (dense heatmap and the branches) within 1e-4 of max(1,
+    scale); the top-K (classes and cells) equal; then the 200 queries'
+    labels and valid flags equal and their boxes and scores within 1e-4 of
+    max(1, scale).  Otherwise (a fake-quant model, where a last-bit
+    difference flips a rounding that grows through the layers) only
+    finite outputs, every launch being held on its own operands.  Whether
+    the outputs are exactly equal is reported."""
+    import torch
+    head = model.dense_head
+    outs, launches, res, tops = {}, {}, {}, {}
+    real_predict = head.predict
+
+    def keep_res(impl):
+        def run(*args):
+            res[impl] = real_predict(*args)
+            return res[impl]
+        return run
+    with torch.no_grad():
+        for impl in ("cuda", "plain"):
+            model.set_kernel_impl(impl)
+            clear_launches(conv_k, nms_k)
+            tops[impl] = []
+            head.predict = keep_res(impl)
+            with recording_proposals(head, tops[impl]):
+                outs[impl] = model(dict(batch))
+            del head.predict
+            torch.cuda.synchronize()
+            launches[impl] = {**kernel_launches(conv_k, nms_k),
+                              "sparse_gather_conv": sum(
+                                  conv_k.launches.values())}
+        model.set_kernel_impl(None)
+    check(not any(launches["plain"].values()),
+          f"{tag}: the plain run launched {launches['plain']}")
+    ok_, op = outs["cuda"], outs["plain"]
+    maps = {k: (ok_[k], op[k]) for k in ("spatial_features",
+                                         "spatial_features_2d")}
+    maps.update({f"head.{k}": (res["cuda"][k], res["plain"][k])
+                 for k in res["cuda"] if k != "query_labels"})
+    maps.update({k: (ok_[k], op[k]) for k in ("final_boxes", "final_scores")})
+    map_err = {}
+    for key, (a, b) in maps.items():
+        err, mag = float((a.float() - b.float()).abs().max()), \
+            float(b.float().abs().max())
+        map_err[key] = {"max_abs": err, "scale": mag}
+        check(bool(torch.isfinite(a.float()).all())
+              and (not strict or err <= 1e-4 * max(1.0, mag)),
+              f"{tag} {key}: kernels vs plain max err {err} (scale {mag})")
+    same_topk = all(torch.equal(a, b) for a, b in zip(tops["cuda"][0],
+                                                      tops["plain"][0]))
+    if strict:
+        check(same_topk, f"{tag}: the top-K differs between kernels and plain")
+        for key in ("final_labels", "final_valid"):
+            check(torch.equal(ok_[key], op[key]),
+                  f"{tag}: {key} differ between kernels and plain")
+    equal = all(torch.equal(ok_[k], op[k]) for k in TF_OUT)
+    return ({"map_max_abs_err": map_err, "topk_equal": same_topk,
+             "outputs_equal": equal,
+             "valid_queries": ok_["final_valid"].sum(1).tolist()},
+            launches["cuda"])
+
+
+def transfusion_phases(dev, conv_k, nms_k, mode, strict_f32, flush):
+    """The TransFusion phases (full width: the nuScenes config's MODEL and
+    CLASS_NAMES on centerpoint_ref's scenes, batch 2, seeded weights, BN
+    statistics from the first request): ``kernel_conv_transfusion``
+    (kernel 1 on the 21 convs of one forward against the plain versions,
+    timed), ``serving_transfusion`` (4 bf16 requests: 21 kernel-1 launches
+    each, no kernel 2), ``stages_transfusion`` (the head split into its
+    stages), ``model_transfusion`` (f32, TF32 off, kernels vs plain) and
+    ``recipes_transfusion`` (``transfusion_recipe()`` and its static form,
+    histograms calibrated on the first two requests, method "max": each
+    launch held against its plain version on its own operands) -> summary
+    for the kernels line."""
+    import torch
+    from q3d_tpu_torch.models import load_data_to_device
+    from q3d_tpu_torch.quant import api as quant_api
+    from q3d_tpu_torch.utils.bn_calibration import calibrate_bns
+
+    t0 = time.perf_counter()
+    tcfg, ds, model = nuscenes_model(dev, TF_CFG)
+    build_s = time.perf_counter() - t0
+    raw0, _, _ = make_request(ds, 0)
+    strict_f32(True)
+    batch_f32 = load_data_to_device(raw0, device=dev)
+    calibrate_bns(model, batch_f32)
+
+    # ------------------------------------------------ kernels: conv
+    convs, _ = record_sparse_convs(model, batch_f32)
+    check(len(convs) == TF_CONVS,
+          f"transfusion: {len(convs)} kernel-1 convs, expected {TF_CONVS}")
+    totals, worst, rows = kernel_conv(convs, flush, mode, "transfusion")
+    emit("kernel_conv_transfusion", config=TF_CFG.name, scenes=CFG.name,
+         batch=BATCH, convs=len(convs), totals_bf16=totals,
+         max_abs_err=worst, rows=sorted({r["M"] for r in rows}),
+         mode=mode(), times="bf16 sums over one forward's convs, L2 flushed")
+    del convs
+    strict_f32(False)
+
+    # ------------------------------------------------ serving
+    head_cfg = tcfg.MODEL.DENSE_HEAD
+    n_prop = int(head_cfg.NUM_PROPOSALS)
+    box_dim = 9 if "vel" in head_cfg.SEPARATE_HEAD_CFG.HEAD_DICT else 7
+    per_request = []
+    clear_launches(conv_k, nms_k)
+    for r in range(REQUESTS):
+        raw, scene_ms, vox_ms = make_request(ds, r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = load_data_to_device(raw, device=dev,
+                                    compute_dtype=torch.bfloat16)
+        with torch.no_grad():
+            out = model(batch)
+        n_valid = out["final_valid"].sum(dim=1).tolist()
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        check(all(torch.isfinite(out[k].float()).all() for k in
+                  ("final_boxes", "final_scores")),
+              f"transfusion request {r}: non-finite outputs")
+        check(out["final_boxes"].shape == (BATCH, n_prop, box_dim),
+              f"transfusion request {r}: final_boxes shape "
+              f"{tuple(out['final_boxes'].shape)}")
+        per_request.append({"request": r, "frames": list(range(
+            BATCH * r, BATCH * (r + 1))), "scene_ms": scene_ms,
+            "voxelize_ms": vox_ms, "device_forward_ms": fwd_ms,
+            "valid_detections": n_valid})
+        emit("serving_transfusion_request", **per_request[-1])
+    launches = {**kernel_launches(conv_k, nms_k),
+                "sparse_gather_conv": sum(conv_k.launches.values())}
+    want = {"sparse_gather_conv": TF_CONVS * REQUESTS,
+            "sparse_gather_conv_bf16": TF_CONVS * REQUESTS,
+            "greedy_nms_boxes": 0, "greedy_nms_iou": 0}
+    got = {k: launches[k] for k in want}
+    check(got == want,
+          f"transfusion main path launches {got}, expected {want}")
+    emit("serving_transfusion", config=TF_CFG.name, scenes=CFG.name,
+         batch=BATCH, dtype="bf16", requests=REQUESTS, launches=launches,
+         build_s=build_s, mode=mode(), steady_forward_ms=statistics.median(
+             p["device_forward_ms"] for p in per_request[1:]),
+         steady_host_ms=statistics.median(
+             p["scene_ms"] + p["voxelize_ms"] for p in per_request[1:]))
+    stages = transfusion_stage_times(model, batch)
+    emit("stages_transfusion", dtype="bf16", batch=BATCH, mode=mode(),
+         ms=stages, sparse_conv_kernels_ms=totals["ms"],
+         trace=forward_trace(model, batch))
+
+    # ------------------------------------------------ whole model, f32
+    strict_f32(True)
+    summary, launches_f32 = transfusion_kernels_vs_plain(
+        model, batch_f32, conv_k, nms_k, "model_transfusion")
+    check(launches_f32["sparse_gather_conv_f32"] == TF_CONVS
+          and launches_f32["sparse_gather_conv"] == TF_CONVS
+          and launches_f32["greedy_nms_boxes"] == 0,
+          f"model_transfusion: launches {launches_f32}")
+    emit("model_transfusion", dtype="f32", mode=mode(),
+         launches=launches_f32,
+         map_tolerance="max|k-p| <= 1e-4 * max(1, max|p|)", **summary)
+
+    # ------------------------------------------------ recipes
+    raw1, _, _ = make_request(ds, 1)
+    batch1_f32 = load_data_to_device(raw1, device=dev)
+
+    def static(m):
+        quant_api.quantize_model(m, quant_api.transfusion_recipe(static=True),
+                                 batch_f32)
+        quant_api.collect_stats(m, [batch_f32, batch1_f32], 2)
+        quant_api.compute_amax(m, method="max")
+    recipes = {}
+    for tag, prepare in (
+            ("transfusion_recipe()", lambda m: quant_api.quantize_model(
+                m, quant_api.transfusion_recipe(), batch_f32)),
+            ("transfusion_recipe(static=True), max", static)):
+        m = copy.deepcopy(model)
+        t0 = time.perf_counter()
+        prepare(m)
+        prep_s = time.perf_counter() - t0
+        calls = []
+        with recording_launches(calls):
+            row, launches_q = transfusion_kernels_vs_plain(
+                m, batch_f32, conv_k, nms_k, f"recipes_transfusion {tag}",
+                strict=False)
+        got = {k: v for k, v in launches_q.items() if v}
+        want = {"sparse_gather_conv": TF_CONVS,
+                "sparse_gather_conv_f32": TF_CONVS}
+        check(got == want, f"recipes_transfusion {tag}: launches {got}, "
+                           f"expected {want}")
+        check(len(calls) == TF_CONVS, f"recipes_transfusion {tag}: "
+                                      f"{len(calls)} launches recorded")
+        held = hold_launches_on_operands(calls, f"recipes_transfusion {tag}")
+        del calls
+        recipes[tag] = {"launches": got, "prepare_s": prep_s, **held, **row}
+        emit("recipes_transfusion", recipe=tag, dtype="f32", batch=BATCH,
+             mode=mode(), **recipes[tag])
+        del m
+    strict_f32(False)
+    del model
+    return {"launches": launches, "totals": totals, "worst": worst,
+            "stages": stages}
 
 
 def main():
@@ -3830,6 +4161,13 @@ def main():
     torch.cuda.empty_cache()
     vn = voxelnext_phases(dev, conv_k, nms_k, mode, strict_f32, flush)
 
+    # ========================================================== TransFusion
+    # inference at the nuScenes config's width on centerpoint_ref's scenes:
+    # kernel 1 on the 21 sparse convs, the cross-attention decoder in torch,
+    # no NMS; its PTQ recipe, dynamic and static
+    torch.cuda.empty_cache()
+    tf = transfusion_phases(dev, conv_k, nms_k, mode, strict_f32, flush)
+
     # ---------------------------------------------------------- kernels line
     kernels = [
         {"name": "sparse_gather_conv", "route": "cuda",
@@ -3844,6 +4182,16 @@ def main():
          "eval_launches_f32_entry": per_recipe("sparse_gather_conv_f32"),
          "launches_second": kitti_launches["second"]["sparse_gather_conv"],
          "launches_voxelnext": vn["launches"]["sparse_gather_conv"],
+         "launches_transfusion": tf["launches"]["sparse_gather_conv"],
+         "transfusion": {"ms": tf["totals"]["ms"],
+                         "plain_ms": tf["totals"]["plain_ms"],
+                         "bound_ms": tf["totals"]["bound_ms"],
+                         "bound_by": "bytes" if tf["totals"]["bytes_ms"]
+                         >= tf["totals"]["ops_ms"] else "operations",
+                         "library_ms": tf["totals"]["library_ms"],
+                         "max_abs_err": tf["worst"]["bf16"],
+                         "times_cover": "one TransFusion bf16 forward "
+                                        "(21 convs)"},
          "voxelnext": {"ms": vn["totals"]["ms"],
                        "plain_ms": vn["totals"]["plain_ms"],
                        "bound_ms": vn["totals"]["bound_ms"],
@@ -3950,6 +4298,7 @@ def main():
          "launches_kitti": {n: v["greedy_nms_boxes"]
                             for n, v in kitti_launches.items()},
          "launches_voxelnext": vn["launches"]["greedy_nms_boxes"],
+         "launches_transfusion": tf["launches"]["greedy_nms_boxes"],
          "voxelnext": {k: vn["nms"][k] for k in (
              "sets", "K", "ms", "plain_ms", "bound_ms", "bound_by")},
          "k4096": {n: {k: r[k] for k in ("sets", "K", "ms", "plain_ms",

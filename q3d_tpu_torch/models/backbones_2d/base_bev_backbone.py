@@ -42,16 +42,19 @@ class _Block(nn.Sequential):
 
 
 class _Deblock(nn.Sequential):
-    """Upsample lateral head: ConvTranspose2d(k=s, stride=s) BN ReLU."""
+    """Upsample lateral head: ConvTranspose2d(k=s, stride=s) BN ReLU; at
+    stride 1 with ``use_conv`` (USE_CONV_FOR_NO_STRIDE) a 1x1 Conv2d in
+    the transposed conv's place, as the reference's (:59-77)."""
 
-    def __init__(self, in_channels, features, stride):
+    def __init__(self, in_channels, features, stride, use_conv=False):
         if stride < 1:
             raise NotImplementedError(
                 "strided-conv deblocks (UPSAMPLE_STRIDES < 1) are not ported")
         s = int(stride)
-        super().__init__(ConvTranspose2d(in_channels, features, s, s, 0,
-                                         bias=False),
-                         BatchNorm(features), nn.ReLU())
+        conv = Conv2d(in_channels, features, 1, 1, 0, bias=False) \
+            if s == 1 and use_conv else \
+            ConvTranspose2d(in_channels, features, s, s, 0, bias=False)
+        super().__init__(conv, BatchNorm(features), nn.ReLU())
 
 
 class BaseBEVBackbone(nn.Module):
@@ -69,8 +72,10 @@ class BaseBEVBackbone(nn.Module):
         self.blocks = nn.ModuleList(
             _Block(c_in[i], num_filters[i], layer_strides[i], layer_nums[i])
             for i in range(len(layer_nums)))
+        use_conv = cfg.get("USE_CONV_FOR_NO_STRIDE", False)
         self.deblocks = nn.ModuleList(
-            _Deblock(num_filters[i], num_up_filters[i], upsample_strides[i])
+            _Deblock(num_filters[i], num_up_filters[i], upsample_strides[i],
+                     use_conv)
             for i in range(len(upsample_strides)))
         self.num_bev_features = (sum(num_up_filters) if upsample_strides
                                  else num_filters[-1])

@@ -2,8 +2,8 @@
 
 The registries hold only what the port has; PillarVFE and
 PointPillarScatter take the dataset's geometry, as the reference's
-builders give it (:69-76, :99), and VoxelNeXtHead its voxel size, as
-CenterHead does.  ``build_network`` and
+builders give it (:69-76, :99), and VoxelNeXtHead and TransFusionHead
+their voxel size, as CenterHead does.  ``build_network`` and
 ``load_data_to_device`` default to the CUDA device and raise when there is
 none; pass ``device="cpu"`` explicitly to run on the CPU.
 """
@@ -22,11 +22,13 @@ from .backbones_3d.vfe.mean_vfe import MeanVFE
 from .backbones_3d.vfe.pillar_vfe import PillarVFE
 from .dense_heads.anchor_head_single import AnchorHeadSingle
 from .dense_heads.center_head import CenterHead
+from .dense_heads.transfusion_head import TransFusionHead
 from .dense_heads.voxelnext_head import VoxelNeXtHead
 from .detectors.centerpoint import CenterPoint
 from .detectors.detector3d_template import DatasetInfo
 from .detectors.pointpillar import PointPillar
 from .detectors.second_net import SECONDNet
+from .detectors.transfusion import TransFusion
 from .detectors.voxelnext import VoxelNeXt
 
 _VFE = {"MeanVFE": MeanVFE, "PillarVFE": PillarVFE}
@@ -37,9 +39,11 @@ _MAP_TO_BEV = {"HeightCompression": HeightCompression,
                "PointPillarScatter": PointPillarScatter}
 _BACKBONE_2D = {"BaseBEVBackbone": BaseBEVBackbone}
 _DENSE_HEAD = {"AnchorHeadSingle": AnchorHeadSingle, "CenterHead": CenterHead,
+               "TransFusionHead": TransFusionHead,
                "VoxelNeXtHead": VoxelNeXtHead}
 _DETECTORS = {"CenterPoint": CenterPoint, "PointPillar": PointPillar,
-              "SECONDNet": SECONDNet, "VoxelNeXt": VoxelNeXt}
+              "SECONDNet": SECONDNet, "TransFusion": TransFusion,
+              "VoxelNeXt": VoxelNeXt}
 
 INIT_SEED = 0
 
@@ -69,7 +73,7 @@ def build_dense_head(cfg, input_channels, dataset, num_class,
                      predict_boxes_when_training=False):
     args = (cfg, input_channels, num_class if not cfg.CLASS_AGNOSTIC else 1,
             dataset.class_names, dataset.grid_size, dataset.point_cloud_range)
-    if cfg.NAME in ("CenterHead", "VoxelNeXtHead"):
+    if cfg.NAME in ("CenterHead", "TransFusionHead", "VoxelNeXtHead"):
         args += (dataset.voxel_size,)
     else:
         args += (predict_boxes_when_training,)

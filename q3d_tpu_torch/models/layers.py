@@ -159,10 +159,7 @@ class Conv2d(QuantLayer, nn.Module):
                 return y.to(x.dtype)
             w = self.weight
             if self.fake:
-                wspec = rule.weight
-                if wspec is not None and wspec.axis is not None:
-                    wspec = dataclasses.replace(wspec, axis=0)
-                w = self.fake_quantize("weight_quant", wspec, w)
+                w = self.fake_quantize("weight_quant", self.weight_spec(0), w)
                 x = self.fake_quantize("act_quant", rule.act, x)
             bias = None if self.bias is None else self.bias.to(x.dtype)
             return F.conv2d(x, w.to(x.dtype), bias, self.stride, self.padding)
@@ -251,9 +248,14 @@ class Conv2d(QuantLayer, nn.Module):
 
 class Linear(QuantLayer, nn.Module):
     """Dense layer, (O, I) weight: ``x @ weight.T (+ bias)`` in the input's
-    dtype (the reference's ``Linear``, a plain matmul outside any Pallas
-    kernel).  Its quant kind, "linear", is TransFusion's SmoothQuant
-    target, which is not ported: ``quant.api`` raises on a rule for it."""
+    dtype, as the reference's ``Linear`` (:446-510) computes it: ``x @
+    k.astype(x.dtype)`` has no f32 accumulation type, so a bf16 input gives
+    a bf16 product, and the f32 bias then promotes it to f32.  Quant kind
+    "linear" (TransFusion's decoder): a fake-quant rule quantize-dequantizes
+    the weight per output channel and the input per tensor; with
+    SmoothQuant the product is ``QuantLayer.smoothquant_matmul`` of the
+    input (its columns' amax over every axis but the last, or the
+    calibrated ``sq_act_amax`` when static) and ``weight.T``."""
     QUANT_KIND = "linear"
 
     def __init__(self, in_features, out_features, bias=True):
@@ -271,12 +273,82 @@ class Linear(QuantLayer, nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
-        y = x @ self.weight.t().to(x.dtype)
+        rule = self.rule
+        if rule is not None and rule.smoothquant is not None:
+            y = self.smoothquant_matmul(x, self.weight.t())
+        else:
+            w = self.weight
+            if rule is not None:
+                w = self.fake_quantize("weight_quant", self.weight_spec(0), w)
+                x = self.fake_quantize("act_quant", rule.act, x)
+            y = x @ w.t().to(x.dtype)
         return y if self.bias is None else y + self.bias
 
 
-class ConvTranspose2d(nn.Module):
-    """Transposed conv (torch ConvTranspose2d geometry), IOHW weight."""
+class Conv1d(QuantLayer, nn.Module):
+    """1D conv over (B, L, C) rows, torch's (O, I, k) weight (the
+    reference's ``Conv1d``, :392-444, whose kernel is (k, I, O)): the weight
+    cast to the input's dtype, the products summed in f32, + bias, then
+    the input's dtype.  Quant kind "conv1d": a fake-quant rule
+    quantize-dequantizes the weight per output channel and the input per
+    tensor; with SmoothQuant the conv runs as ``smoothquant_matmul`` of its
+    (B, L, I*k) patches, columns in (I, k) order as the reference's, whose
+    column amax is always the batch's: the reference's Conv1d ignores the
+    rule's ``dynamic`` and keeps no ``sq_act_amax``, also under a static
+    recipe, and the port does the same."""
+    QUANT_KIND = "conv1d"
+
+    def __init__(self, in_channels, out_channels, kernel_size=1, stride=1,
+                 padding=0, bias=True):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+
+    def reset_parameters(self, generator):
+        """U(-1/sqrt(fan_in), 1/sqrt(fan_in)); bias 0 (the reference's
+        variance_scaling(1/3, fan_in, uniform) and zeros)."""
+        bound = 1.0 / math.sqrt(self.weight[0].numel())
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x):
+        rule = self.rule
+        if rule is not None and rule.smoothquant is not None:
+            o, i, k = self.weight.shape
+            patches = x if k == 1 and self.stride == 1 and not self.padding \
+                else F.unfold(x.transpose(1, 2)[..., None], (k, 1),
+                              padding=(self.padding, 0),
+                              stride=(self.stride, 1)).transpose(1, 2)
+            y = self.smoothquant_matmul(
+                patches, self.weight.reshape(o, -1).t(), dynamic=True)
+            y = y.to(x.dtype)
+            return y if self.bias is None else y + self.bias
+        w = self.weight
+        if rule is not None:
+            w = self.fake_quantize("weight_quant", self.weight_spec(0), w)
+            x = self.fake_quantize("act_quant", rule.act, x)
+        y = F.conv1d(x.transpose(1, 2).float(), w.to(x.dtype).float(), None,
+                     self.stride, self.padding).transpose(1, 2)
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(x.dtype)
+
+
+class ConvTranspose2d(QuantLayer, nn.Module):
+    """Transposed conv (torch ConvTranspose2d geometry), IOHW weight.  Quant
+    kind "conv_transpose2d" (reference :311-390): a fake-quant rule
+    quantize-dequantizes the weight per output channel and the input per
+    tensor; with SmoothQuant the migration is per input channel (the
+    reduction columns of the transposed conv's GEMM view): the input divided
+    by ``smoothquant_column_scale`` (the batch's channel amax, or the
+    calibrated ``sq_act_amax``), the weight multiplied by it, then both
+    fake-quantized and the conv run on them.  No recipe of the reference
+    quantizes a transposed conv (``docs/PARITY.md`` §2.2)."""
+    QUANT_KIND = "conv_transpose2d"
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, bias=True):
@@ -296,9 +368,48 @@ class ConvTranspose2d(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
+        rule, w = self.rule, self.weight
+        if rule is not None:
+            if rule.smoothquant is not None:
+                scale = self.smoothquant_column_scale(
+                    lambda: x.abs().amax((0, 2, 3)),
+                    w.abs().amax((1, 2, 3)).clamp_min(1e-5))
+                x = torch.div(x, scale.reshape(1, -1, 1, 1))
+                w = w * scale.reshape(-1, 1, 1, 1)
+            w = self.fake_quantize("weight_quant", self.weight_spec(1), w)
+            x = self.fake_quantize("act_quant", rule.act, x)
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias,
-                                  self.stride, self.padding)
+        return F.conv_transpose2d(x, w.to(x.dtype), bias, self.stride,
+                                  self.padding)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` as flax 0.12.3 computes it, over the last dim:
+    epsilon 1e-6 (torch's default is 1e-5); mean and E[x^2] in f32, the
+    variance E[x^2] - E[x]^2 clipped at 0 (``use_fast_variance``); then
+    (x - mean) * (rsqrt(var + eps) * weight) + bias.  The output's dtype is
+    the promotion of the input's and the f32 parameters', as flax's:
+    f32 for a bf16 input, so in a bf16 forward everything after a
+    LayerNorm runs in f32, as the reference's does."""
+    EPS = 1e-6
+
+    def __init__(self, num_features):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp_min((xf * xf).mean(-1, keepdim=True) - mean * mean,
+                              0.0)
+        mul = torch.rsqrt(var + self.EPS) * self.weight
+        return (xf - mean) * mul + self.bias
 
 
 class BatchNorm(nn.Module):

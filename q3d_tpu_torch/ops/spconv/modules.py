@@ -209,10 +209,8 @@ class _SparseConvBase(QuantLayer, nn.Module):
         weight per output channel (axis 2 of (K, Cin, Cout))."""
         feats = self.fake_quantize("act_quant", self.rule.act,
                                    features * valid[:, None])
-        wspec = self.rule.weight
-        if wspec is not None and wspec.axis is not None:
-            wspec = dataclasses.replace(wspec, axis=2)
-        return feats, self.fake_quantize("weight_quant", wspec, self.weight)
+        return feats, self.fake_quantize("weight_quant", self.weight_spec(2),
+                                         self.weight)
 
     def _smoothquant_conv(self, st, gather_idx, out_valid):
         """The gather-view SmoothQuant conv (the reference's

@@ -1,9 +1,8 @@
 """The PTQ workflow (port of ``q3d_tpu/quant/api.py``: the CenterPoint,
-SECOND, PointPillars and VoxelNeXt fake-quant recipes, the int8 deploy
-recipe (dynamic, static, SmoothQuant, residency), ``quantize_model``,
-single-stream ``collect_stats``,
-``compute_amax`` with the reference's amax methods, and
-``prepare_int8_deploy``).
+SECOND, PointPillars, VoxelNeXt and TransFusion fake-quant recipes, the int8
+deploy recipe (dynamic, static, SmoothQuant, residency), ``quantize_model``,
+single-stream ``collect_stats``, ``compute_amax`` with the reference's amax
+methods, and ``prepare_int8_deploy``).
 
     quantize_model(model, centerpoint_recipe(sq=True), batch)  # dynamic PTQ
     quantize_model(model, centerpoint_recipe(sq=False, static=True), batch)
@@ -19,11 +18,11 @@ each quantizable layer's rule once, by its path in the reference's naming
 (``utils.weights.reference_module_path``), and attaches it; quantizers are
 created on first use in a calibration pass, as the reference creates its
 quantizer variables in ``model.init``; ``model.state_dict()`` then carries
-every committed amax (and each static SmoothQuant conv's
-``sq_act_amax``, dense or sparse).  Not ported (``_check_rule`` raises,
-naming ``ROADMAP.md``): Linear quantization (TransFusion), a sparse
-SmoothQuant rule under int8 deploy (no recipe of the reference makes one),
-sharded calibration and the TransFusion recipe.
+every committed amax (and each static SmoothQuant layer's
+``sq_act_amax``: dense or sparse conv, Linear, transposed conv).  Not
+ported: sharded calibration.  ``_check_rule`` raises where the reference
+has no int8 path: a SmoothQuant rule on an int8 sparse conv, and any int8
+deploy rule on a Linear, Conv1d or transposed conv.
 
 Like the reference, whose ``quantize_model`` calls ``model.init`` on the
 example batch with the calibration state mutable, the statistics start
@@ -157,6 +156,34 @@ def voxelnext_recipe(w_bits=8, act_bits=8, sq=True, alpha=0.5,
     return QuantRules(rules=(sparse3d, sparse2d), no_list=no_list)
 
 
+def transfusion_recipe(w_bits=8, act_bits=8, sq=True, alpha=0.5,
+                       static=False):
+    """The reference's ``quant_transfusion.py`` semantics: CenterPoint's
+    rules for the sparse and dense convs, plus the decoder's Linears and
+    Conv1ds (``dense_head.decoder*``) through SmoothQuant (or plain
+    fake-quant when not ``sq``); both attention out-projections, the
+    prediction head's output convs and the heatmap's output conv stay
+    float."""
+    base = centerpoint_recipe(w_bits, act_bits, sq, alpha, static)
+    dynamic = not static
+    calib = "histogram" if static else "max"
+    linear_rule = LayerRule(
+        layer_kinds=("linear", "conv1d"),
+        weight=QuantSpec(w_bits, axis=0, dynamic=True),
+        act=QuantSpec(act_bits, axis=None, dynamic=dynamic, calibrator=calib),
+        smoothquant=SmoothQuantCfg(alpha=alpha, dynamic=dynamic) if sq else None,
+        pattern="dense_head.decoder*",
+    )
+    no_list = (
+        "backbone_3d.conv_input*",
+        "dense_head.decoder.self_attn.out_proj",
+        "dense_head.decoder.multihead_attn.out_proj",
+        "dense_head.prediction_head.*_out",
+        "dense_head.heatmap_head_out",
+    )
+    return QuantRules(rules=base.rules + (linear_rule,), no_list=no_list)
+
+
 def quantizable_modules(model):
     """(port name, module) of every layer a rule can match: the modules with
     a ``QUANT_KIND``."""
@@ -165,16 +192,17 @@ def quantizable_modules(model):
 
 def _check_rule(rule, path, kind):
     """The rules ported: fake-quant (group quantization included;
-    SmoothQuant on dense convs and, over the gather view, on sparse ones)
-    and int8 deploy (per-tensor act scales, dynamic or static; dynamic
-    per-channel weight scales; SmoothQuant on dense convs, without
-    residency; residency with static act scales)."""
+    SmoothQuant on dense convs, Linears, Conv1ds and transposed convs and,
+    over the gather view, on sparse ones) and int8 deploy (per-tensor act
+    scales, dynamic or static; dynamic per-channel weight scales;
+    SmoothQuant on dense convs, without residency; residency with static
+    act scales) on the convs the reference runs in int8."""
     if rule is None:
         return
-    if kind == "linear":
+    if rule.deploy_int8 and kind in ("linear", "conv1d", "conv_transpose2d"):
         raise NotImplementedError(
-            f"{path}: Linear quantization (TransFusion's SQLinear) is not "
-            f"ported (ROADMAP.md)")
+            f"{path}: the reference has no int8 deploy path for kind "
+            f"{kind!r} (its layer fake-quantizes)")
     if rule.smoothquant is not None and kind != "conv2d" \
             and rule.deploy_int8:
         raise NotImplementedError(
@@ -216,7 +244,7 @@ def quantize_model(model, rules, example_batch):
     from ..utils.weights import reference_module_path
 
     for name, mod in quantizable_modules(model):
-        path = reference_module_path(name)
+        path = reference_module_path(name, mod)
         if path is None:
             raise KeyError(f"no reference path for quantizable module {name}")
         rule = rules.lookup(path, mod.QUANT_KIND)

@@ -32,7 +32,7 @@ def capture_layer_outputs(model, batch):
                 out[path] = y.detach()
         return grab
     for name, mod in quantizable_modules(model):
-        path = reference_module_path(name)
+        path = reference_module_path(name, mod)
         if path is not None:
             hooks.append(mod.register_forward_hook(hook(path)))
     try:

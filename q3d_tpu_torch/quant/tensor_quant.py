@@ -364,46 +364,61 @@ class QuantLayer:
         quantizers record), else kept by ``memo``."""
         return fn() if self.calibrating else memo(self, name, sources, fn)
 
-    def smoothquant_matmul(self, patches, w2d):
-        """The fake-quant SmoothQuant product of a conv's patch matrix
-        ``patches`` (..., K) (a dense conv's im2col, a sparse conv's gather
-        view) and its weight ``w2d`` (K, O) (the reference's
-        ``_smoothquant_conv`` and ``gemm_transform``): per column, scale =
-        ``smoothquant_scale`` of the clamped column amaxes, the act's from
-        the batch (dynamic) or the calibrated ``sq_act_amax`` (static;
-        calibration records ``sq_act_absmax``); then patches / scale
-        fake-quantized per tensor, w2d * scale per output column, and one
-        ``torch.matmul`` (the reference's einsum, outside any Pallas
-        kernel) -> (..., O)."""
+    def smoothquant_column_scale(self, act_amax, w_amax, dynamic=None):
+        """SmoothQuant's per-column scale (``smoothquant_scale``) from the
+        weight's clamped column amax ``w_amax`` and the activation's: the
+        batch's, ``act_amax()`` (dynamic), or the calibrated ``sq_act_amax``
+        (static; calibration records ``sq_act_absmax``, the reference's
+        quant/sq_act_amax and calib/sq_act_absmax).  ``dynamic`` overrides
+        the rule's (a Conv1d takes the batch's always, as the reference's
+        does)."""
         sq = self.rule.smoothquant
-        rows = tuple(range(patches.dim() - 1))
-        w_amax = w2d.abs().amax(1).clamp_min(1e-5)
-        if sq.dynamic:
-            a_amax = patches.abs().amax(rows).clamp_min(1e-5)
+        dynamic = sq.dynamic if dynamic is None else dynamic
+        if dynamic:
+            a_amax = act_amax().clamp_min(1e-5)
         else:
             if self.calibrating:
                 if not hasattr(self, "sq_act_amax"):
-                    # the reference's quant/sq_act_amax (ones until
-                    # committed) and calib/sq_act_absmax
-                    self.register_buffer("sq_act_amax", torch.ones(
-                        w2d.shape[0], device=patches.device))
-                    self.register_buffer("sq_act_absmax", torch.zeros(
-                        w2d.shape[0], device=patches.device),
-                        persistent=False)
+                    # ones until committed, as the reference's
+                    self.register_buffer("sq_act_amax", torch.ones_like(
+                        w_amax, dtype=torch.float32))
+                    self.register_buffer("sq_act_absmax", torch.zeros_like(
+                        w_amax, dtype=torch.float32), persistent=False)
                 self.sq_act_absmax = torch.maximum(
-                    self.sq_act_absmax, patches.detach().abs().amax(rows))
+                    self.sq_act_absmax, act_amax().detach())
             elif not hasattr(self, "sq_act_amax"):
-                raise RuntimeError("a static SmoothQuant conv was never "
+                raise RuntimeError("a static SmoothQuant layer was never "
                                    "calibrated: run quant.api.quantize_model")
             a_amax = self.sq_act_amax.clamp_min(1e-5)
-        scale = smoothquant_scale(a_amax, w_amax, sq.alpha)
+        return smoothquant_scale(a_amax, w_amax, sq.alpha)
+
+    def smoothquant_matmul(self, patches, w2d, dynamic=None):
+        """The fake-quant SmoothQuant product of a layer's patch matrix
+        ``patches`` (..., K) (a dense conv's im2col, a sparse conv's gather
+        view, a Linear's input) and its weight ``w2d`` (K, O) (the
+        reference's ``_smoothquant_conv``, ``gemm_transform``, ``Linear``
+        and ``Conv1d``): per column, scale = ``smoothquant_column_scale``
+        (``dynamic`` as there); then patches / scale fake-quantized per
+        tensor, w2d * scale per output column, and one ``torch.matmul``
+        (the reference's einsum or ``@``, outside any Pallas kernel) ->
+        (..., O) in the patches' dtype."""
+        rows = tuple(range(patches.dim() - 1))
+        scale = self.smoothquant_column_scale(
+            lambda: patches.abs().amax(rows),
+            w2d.abs().amax(1).clamp_min(1e-5), dynamic)
         p = self.fake_quantize("act_quant", self.rule.act,
                                torch.div(patches, scale))
+        wq = self.fake_quantize("weight_quant", self.weight_spec(1),
+                                w2d * scale[:, None])
+        return torch.matmul(p, wq.to(p.dtype))
+
+    def weight_spec(self, axis):
+        """The rule's weight spec, per channel along ``axis`` of the
+        weight as this layer holds it when the rule's is per channel."""
         wspec = self.rule.weight
         if wspec is not None and wspec.axis is not None:
-            wspec = dataclasses.replace(wspec, axis=1)
-        wq = self.fake_quantize("weight_quant", wspec, w2d * scale[:, None])
-        return torch.matmul(p, wq.to(p.dtype))
+            wspec = dataclasses.replace(wspec, axis=axis)
+        return wspec
 
     def quantizer(self, name, spec, like, mode="int"):
         q = self._modules.get(name)

@@ -8,12 +8,12 @@ reporting both side by side.
         [--device cpu]
 
 Without ``--deploy_int8`` it runs the recipe's fake-quant rules
-(``centerpoint_recipe``, ``second_recipe``, ``pointpillar_recipe`` or
-``voxelnext_recipe``; SmoothQuant unless ``--no_sq``); with it,
+(``centerpoint_recipe``, ``second_recipe``, ``pointpillar_recipe``,
+``voxelnext_recipe`` or ``transfusion_recipe``; SmoothQuant unless
+``--no_sq``); with it,
 ``int8_deploy_recipe(sq=not no_sq, alpha, static)``, true-int8 GEMMs.
 ``--ckpt`` takes the reference's native checkpoint or a pcdet ``.pth``.
 ``--set KEY VALUE ...`` overrides the config, as ``tools/test.py``'s does.
-The TransFusion recipe waits for its model (``ROADMAP.md``).
 """
 
 import argparse
@@ -51,9 +51,6 @@ def run(recipe_name="centerpoint", argv=None, frames=None):
     per-frame host arrays under "fp" and "quant"."""
     if recipe_name not in RECIPES:
         raise ValueError(f"unknown recipe {recipe_name!r}")
-    if recipe_name == "transfusion":
-        raise NotImplementedError(
-            f"the {recipe_name} recipe waits for its model (ROADMAP.md)")
     args = parse_args(argv)
 
     from ..config import EDict, cfg_from_list, cfg_from_yaml_file
@@ -104,7 +101,8 @@ def run(recipe_name="centerpoint", argv=None, frames=None):
         recipe_fn = {"centerpoint": quant_api.centerpoint_recipe,
                      "second": quant_api.second_recipe,
                      "pointpillar": quant_api.pointpillar_recipe,
-                     "voxelnext": quant_api.voxelnext_recipe}[recipe_name]
+                     "voxelnext": quant_api.voxelnext_recipe,
+                     "transfusion": quant_api.transfusion_recipe}[recipe_name]
         rules = recipe_fn(w_bits=args.w_bits, act_bits=args.act_bits,
                           sq=not args.no_sq, alpha=args.alpha,
                           static=args.static)

@@ -7,17 +7,29 @@ reference's variables as nested dicts of numpy arrays
 tensors in the port's layouts:
 
   * dense conv (kh, kw, I, O) -> OIHW; transposed conv (kh, kw, O, I) -> IOHW;
-  * linear (I, O) -> (O, I);
+  * linear (I, O) -> (O, I); TransFusion's Conv1d (k, I, O) -> torch's
+    (O, I, k);
   * sparse conv (K, I, O) stays (K, Cin, Cout), K k0-major (3D and
     VoxelNeXt's 2D convs alike; VoxelNeXt's ``backbone_3d.shared_conv`` is
     (conv, BN) like ``conv_out``, apart from the CenterHead's
     ``dense_head.shared_conv``);
-  * BN scale/bias/mean/var -> weight/bias/running_mean/running_var;
+  * BN scale/bias/mean/var and LayerNorm scale/bias ->
+    weight/bias/running_mean/running_var;
   * the ``quant`` collection's amax leaves -> the quantizer buffers of an
     int8 model (``quant.api``): a conv's ``act_quant`` / ``weight_quant``
     stay on the conv, a block's ``out_quant{i}`` goes to the conv ``conv{i}``
     it requantizes, ``shared_requant/quant`` to the head's DenseRequant,
     a static SmoothQuant conv's ``sq_act_amax`` to that conv.
+
+TransFusion's head takes OpenPCDet's ``TransFusionHead`` names (the
+reference's ``pcdet_names.py`` has no rules for it): ``shared_conv`` (a bare
+conv there, CenterHead's ``shared_conv.0`` otherwise), ``heatmap_head.0.conv
+/ .bn``, ``heatmap_head.1``, ``class_encoding``, ``decoder.<attention>.
+{q,k,v,out}_proj`` (the reference's separate projections, not torch's packed
+``in_proj``), ``decoder.{linear1,linear2,norm1-3}``, ``decoder.<self or
+cross>_posembed.position_embedding_head.{0,1,3}`` and
+``prediction_head.<branch>.{k}.0 / .1``, ``prediction_head.<branch>.<hidden
+count>``.
 
 ``model.load_state_dict(state_dict_from_jax(v), strict=True)`` loads them.
 ``reference_module_path`` is the inverse for the quantizable modules: the
@@ -34,10 +46,12 @@ _LEAF = {"kernel": "weight", "weight": "weight", "bias": "bias",
          "scale": "weight", "mean": "running_mean", "var": "running_var"}
 
 
-def _module_rules(module, toks):
+def _module_rules(module, toks, transfusion=False):
     """toks: reference module-path tokens (bn dropped) inside ``module`` ->
     the pcdet module path, ("OUT", head, branch) for a SeparateHead output
-    conv, or None."""
+    conv (head None: TransFusion's prediction head), or None.
+    ``transfusion``: the head is TransFusion's, whose shared_conv is a bare
+    conv."""
     t = ".".join(toks)
     if module == "vfe":
         m = re.fullmatch(r"pfn_layers_(\d+)\.(linear|norm)", t)
@@ -59,7 +73,7 @@ def _module_rules(module, toks):
         m = re.fullmatch(r"blocks_(\d+)\.norm(\d+)", t)
         if m:
             return f"blocks.{m.group(1)}.{2 + 3 * int(m.group(2))}"
-        m = re.fullmatch(r"deblocks_(\d+)\.deconv", t)
+        m = re.fullmatch(r"deblocks_(\d+)\.(deconv|conv)", t)
         if m:
             return f"deblocks.{m.group(1)}.0"
         m = re.fullmatch(r"deblocks_(\d+)\.norm", t)
@@ -70,7 +84,10 @@ def _module_rules(module, toks):
         if t in ("conv_cls", "conv_box", "conv_dir_cls"):   # AnchorHeadSingle
             return t
         if t == "shared_conv":
-            return "shared_conv.0"
+            return "shared_conv" if transfusion else "shared_conv.0"
+        r = _transfusion_rules(t)
+        if r is not None:
+            return r
         if t == "shared_requant":
             return "shared_requant"
         if t == "shared_norm":
@@ -88,6 +105,32 @@ def _module_rules(module, toks):
     return None
 
 
+def _transfusion_rules(t):
+    """TransFusionHead's modules but its shared_conv (see the module
+    docstring), or None."""
+    fixed = {"heatmap_head_conv": "heatmap_head.0.conv",
+             "heatmap_head_norm": "heatmap_head.0.bn",
+             "heatmap_head_out": "heatmap_head.1",
+             "class_encoding": "class_encoding"}
+    if t in fixed:
+        return fixed[t]
+    if re.fullmatch(r"decoder\.(self_attn|multihead_attn)\.(?:[qkv]|out)_proj"
+                    r"|decoder\.(linear[12]|norm[123])", t):
+        return t
+    m = re.fullmatch(r"decoder\.(self|cross)_posembed\.(conv0|norm|conv1)", t)
+    if m:
+        slot = {"conv0": 0, "norm": 1, "conv1": 3}[m.group(2)]
+        return f"decoder.{m.group(1)}_posembed.position_embedding_head.{slot}"
+    m = re.fullmatch(r"prediction_head\.([a-z_]+?)_(\d+)(_norm)?", t)
+    if m:
+        return (f"prediction_head.{m.group(1)}.{m.group(2)}."
+                f"{1 if m.group(3) else 0}")
+    m = re.fullmatch(r"prediction_head\.([a-z_]+?)_out", t)
+    if m:
+        return ("OUT", None, m.group(1))
+    return None
+
+
 def _flatten(tree, prefix=()):
     out = {}
     for k, v in tree.items():
@@ -98,19 +141,28 @@ def _flatten(tree, prefix=()):
     return out
 
 
-def _out_index(flat_paths):
-    """SeparateHead output-conv index = the branch's hidden-conv count (its
-    position in pcdet's nn.Sequential)."""
-    counts = {}
-    for path in flat_paths:
-        if len(path) < 4 or path[1] != "dense_head":
-            continue
-        mh = re.fullmatch(r"heads_list_(\d+)", path[2])
-        mb = re.fullmatch(r"([a-z_]+?)_(\d+)", path[3])
-        if mh and mb and path[-1] in ("kernel", "weight"):
-            key = (mh.group(1), mb.group(1))
-            counts[key] = max(counts.get(key, 0), int(mb.group(2)) + 1)
-    return lambda head, branch: counts.get((head, branch), 1)
+class _Layout:
+    """What the reference's names leave open, read off its whole tree: a
+    branch's output-conv index, ``self(head, branch)`` = the branch's
+    hidden-conv count (its position in pcdet's nn.Sequential; head None for
+    TransFusion's prediction head), and whether the head is TransFusion's
+    (it has a ``decoder``)."""
+
+    def __init__(self, flat_paths):
+        self.counts, self.transfusion = {}, False
+        for path in flat_paths:
+            if len(path) < 4 or path[1] != "dense_head":
+                continue
+            self.transfusion |= path[2] == "decoder"
+            mh = re.fullmatch(r"heads_list_(\d+)|prediction_head", path[2])
+            mb = re.fullmatch(r"([a-z_]+?)_(\d+)", path[3])
+            if mh and mb and path[-1] in ("kernel", "weight"):
+                key = (mh.group(1), mb.group(1))
+                self.counts[key] = max(self.counts.get(key, 0),
+                                       int(mb.group(2)) + 1)
+
+    def __call__(self, head, branch):
+        return self.counts.get((head, branch), 1)
 
 
 def pcdet_name(path, out_index):
@@ -128,11 +180,13 @@ def pcdet_name(path, out_index):
 
 
 def _port_module(module, toks, out_index):
-    """``_module_rules`` with a branch's output conv resolved to its slot."""
-    r = _module_rules(module, toks)
+    """``_module_rules`` with a branch's output conv resolved to its slot
+    (``out_index``: a ``_Layout``, or any (head, branch) -> index)."""
+    r = _module_rules(module, toks, getattr(out_index, "transfusion", False))
     if isinstance(r, tuple):
         _, head, branch = r
-        r = f"heads_list.{head}.{branch}.{out_index(head, branch)}"
+        r = (f"heads_list.{head}.{branch}" if head is not None
+             else f"prediction_head.{branch}") + f".{out_index(head, branch)}"
     return r
 
 
@@ -169,15 +223,44 @@ _REFERENCE_PATHS = (
      "dense_head.heads_list_{0}.{1}_{2}"),
     (r"dense_head\.heads_list\.(\d+)\.([a-z_]+)\.\d+",
      "dense_head.heads_list_{0}.{1}_out"),
+    # TransFusionHead
+    (r"dense_head\.shared_conv", "dense_head.shared_conv"),
+    (r"dense_head\.heatmap_head\.0\.conv", "dense_head.heatmap_head_conv"),
+    (r"dense_head\.heatmap_head\.1", "dense_head.heatmap_head_out"),
+    (r"dense_head\.class_encoding", "dense_head.class_encoding"),
+    (r"dense_head\.decoder\.(self_attn|multihead_attn)\.((?:[qkv]|out)_proj)",
+     "dense_head.decoder.{0}.{1}"),
+    (r"dense_head\.decoder\.(linear[12])", "dense_head.decoder.{0}"),
+    (r"dense_head\.decoder\.(self|cross)_posembed\.position_embedding_head"
+     r"\.0", "dense_head.decoder.{0}_posembed.conv0"),
+    (r"dense_head\.decoder\.(self|cross)_posembed\.position_embedding_head"
+     r"\.3", "dense_head.decoder.{0}_posembed.conv1"),
+    (r"dense_head\.prediction_head\.([a-z_]+)\.(\d+)\.0",
+     "dense_head.prediction_head.{0}_{1}"),
+    (r"dense_head\.prediction_head\.([a-z_]+)\.\d+",
+     "dense_head.prediction_head.{0}_out"),
 )
 
+# TransFusion's Conv1d weights (torch's (O, I, k); the reference's (k, I, O))
+_CONV1D_WEIGHT = re.compile(
+    r"dense_head\.(class_encoding|decoder\.\w+_posembed\."
+    r"position_embedding_head\.[03]|prediction_head\.[a-z_]+\.\d+(\.0)?)"
+    r"\.weight")
 
-def reference_module_path(name):
+
+def reference_module_path(name, module=None):
     """Port module name -> the reference's dotted module path (inverse of
-    ``_module_rules`` for convs and the head's DenseRequant), or None."""
+    ``_module_rules`` for convs and the head's DenseRequant), or None.  A
+    deblock's slot 0 is the reference's ``deconv``, or its ``conv`` when
+    ``module`` is a (1x1) Conv2d (``USE_CONV_FOR_NO_STRIDE``)."""
     m = re.fullmatch(r"backbone_2d\.blocks\.(\d+)\.(\d+)", name)
     if m and (int(m.group(2)) - 1) % 3 == 0:
         return f"backbone_2d.blocks_{m.group(1)}.conv{(int(m.group(2)) - 1) // 3}"
+    m = re.fullmatch(r"backbone_2d\.deblocks\.(\d+)\.0", name)
+    if m:
+        kind = getattr(module, "QUANT_KIND", "conv_transpose2d")
+        return f"backbone_2d.deblocks_{m.group(1)}." \
+            f"{'conv' if kind == 'conv2d' else 'deconv'}"
     for pat, fmt in _REFERENCE_PATHS:
         m = re.fullmatch(pat, name)
         if m:
@@ -185,9 +268,13 @@ def reference_module_path(name):
     return None
 
 
-def to_port_layout(arr, torch_leaf):
-    """Reference array -> the port's layout (see the module docstring)."""
+def to_port_layout(arr, key):
+    """Reference array -> the port's layout for the port's state-dict
+    ``key`` (see the module docstring)."""
     a = np.asarray(arr)
+    torch_leaf = key.rsplit(".", 1)[1]
+    if _CONV1D_WEIGHT.fullmatch(key):
+        return np.ascontiguousarray(a.transpose(2, 1, 0))
     if torch_leaf == "weight" and a.ndim == 4:
         return np.ascontiguousarray(a.transpose(3, 2, 0, 1))
     if torch_leaf == "weight" and a.ndim == 2:
@@ -200,12 +287,12 @@ def state_dict_from_jax(variables):
     ``batch_stats`` and optionally ``quant``) -> {pcdet name: tensor} in the
     port's layouts.  Raises on a leaf with no naming rule."""
     flat = _flatten(variables)
-    out_index = _out_index(list(flat))
+    out_index = _Layout(list(flat))
     state = {}
     for path, leaf in flat.items():
         key = pcdet_name(path, out_index)
         if key is None:
             raise KeyError(f"no port name for reference variable "
                            f"{'/'.join(path)}")
-        state[key] = torch.tensor(to_port_layout(leaf, key.rsplit(".", 1)[1]))
+        state[key] = torch.tensor(to_port_layout(leaf, key))
     return state

@@ -338,6 +338,37 @@ def test_tiny_model_kernels_match_plain(card):
     assert torch.equal(out_k["final_valid"], out_p["final_valid"])
 
 
+def test_tiny_transfusion_kernels_match_plain(card):
+    """transfusion_tiny, seeded random weights, BN statistics from the
+    batch, f32 without TF32: 21 kernel-1 launches and no NMS; the BEV maps,
+    the top-50 queries and their detections through the kernels equal the
+    plain versions' (maps and boxes within 1e-4, labels and valid flags
+    equal)."""
+    from q3d_tpu_torch.utils.bn_calibration import calibrate_bns
+    cfg = cfg_from_yaml_file(str(CFG.parent / "transfusion_tiny.yaml"),
+                             EDict())
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
+                                     batch_size=2, training=False)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=card)
+    batch = load_data_to_device(next(iter(loader)), device=card)
+    calibrate_bns(model, batch)
+    conv_launches = sum(gather_conv.KERNEL.launches.values())
+    nms_launches = sum(port_nms.KERNEL.launches.values())
+    with torch.no_grad():
+        out_k = model(dict(batch))
+        model.set_kernel_impl("plain")
+        out_p = model(dict(batch))
+        model.set_kernel_impl(None)
+    assert sum(gather_conv.KERNEL.launches.values()) - conv_launches == 21
+    assert sum(port_nms.KERNEL.launches.values()) == nms_launches
+    for key in ("spatial_features", "spatial_features_2d", "final_boxes",
+                "final_scores"):
+        torch.testing.assert_close(out_k[key], out_p[key], rtol=1e-4,
+                                   atol=1e-4)
+    for key in ("final_labels", "final_valid"):
+        assert torch.equal(out_k[key], out_p[key]), key
+
+
 def test_tiny_model_int8_kernels_match_plain(card):
     """centerpoint_tiny under the bench int8 recipe, calibrated on the card:
     through the kernels (the fused s8 entry, ``_int_mm``) and through the

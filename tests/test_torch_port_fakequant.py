@@ -20,7 +20,11 @@ which rounds a third of its values an ulp away from PyTorch's (and from
 the correctly rounded value), and an ulp in the scale moves the odd
 activation across a rounding boundary of the fake-quant, by one step.
 
-The trained model under the dynamic recipe is held in
+The two conv layers live in ``test_torch_port_fakequant_layers.py`` and
+the fake-mode ``TensorQuantizer`` and the entropy amax on sparse
+histograms in ``..._fakequant_calib.py``, so that each file keeps at most 5
+tests and ``--dist loadfile`` dispatches ``test_accuracy_regression.py``
+early.  The trained model under the dynamic recipe is held in
 ``test_torch_port_fakequant_dynamic.py``, under static entropy in
 ``test_torch_port_fakequant_static.py``.
 """
@@ -33,21 +37,11 @@ import numpy as np
 import pytest
 import torch
 
-from q3d_tpu.models import layers as jax_layers
-from q3d_tpu.ops.spconv import engine as jax_engine
-from q3d_tpu.ops.spconv import modules as jax_spmodules
 from q3d_tpu.quant import api as jax_api
 from q3d_tpu.quant import sensitivity as jax_sens
 from q3d_tpu.quant import tensor_quant as jax_tq
-from q3d_tpu.quant.rules import (LayerRule as JaxLayerRule,
-                                 QuantRules as JaxQuantRules,
-                                 QuantSpec as JaxQuantSpec,
-                                 SmoothQuantCfg as JaxSmoothQuantCfg,
-                                 quant_rules_scope)
-from tests.test_pallas_conv import _sorted_sparse
+from q3d_tpu.quant.rules import QuantSpec as JaxQuantSpec
 
-from q3d_tpu_torch.models.layers import Conv2d
-from q3d_tpu_torch.ops.spconv import SparseConvTensor, SubMConv3d
 from q3d_tpu_torch.quant import api as port_api
 from q3d_tpu_torch.quant import calib as port_calib
 from q3d_tpu_torch.quant import sensitivity as port_sens
@@ -129,76 +123,25 @@ def test_compute_amax_from_hist_matches_reference(method, kwargs):
         assert got == want, (method, kwargs, got, want)
 
 
-def test_entropy_amax_equals_reference_loops_on_sparse_histograms():
-    """Mostly-empty histograms (levels with no filled bin, an empty tail):
-    the vectorised candidates equal the reference's Python loops."""
-    rng = np.random.RandomState(3)
-    for n_filled in (5, 700):
-        h = np.zeros(2048)
-        h[rng.choice(2048, n_filled, replace=False)] = rng.randint(1, 50,
-                                                                   n_filled)
-        assert port_calib._entropy_amax(h, 0.01) \
-            == jax_tq._entropy_amax(h, 0.01)
-
-
 # ------------------------------------------------- the fake-mode quantizer
-
-@pytest.mark.parametrize("axis,calibrator", [(None, "max"), (1, "max"),
-                                             (None, "histogram")])
-def test_fake_quantizer_matches_reference(axis, calibrator):
-    """Dynamic; then static: two calibration batches (passed through),
-    committed by "max" (and "entropy" for the histogram), then quantizing."""
-    rng = np.random.RandomState(5)
-    batches = [rng.randn(300, 24).astype(np.float32) * s for s in (1.0, 3.0)]
-    dyn = port_tq.QuantSpec(8, axis=axis, dynamic=True)
-    jq = jax_tq.TensorQuantizer(JaxQuantSpec(8, axis=axis, dynamic=True))
-    pq = port_tq.TensorQuantizer(dyn, mode="fake")
-    want = jq.apply({}, jnp.asarray(batches[0]))
-    np.testing.assert_array_equal(pq(torch.from_numpy(batches[0])).numpy(),
-                                  np.asarray(want))
-
-    spec = dict(axis=axis, dynamic=False, calibrator=calibrator)
-    jq = jax_tq.TensorQuantizer(JaxQuantSpec(8, **spec))
-    shape = () if axis is None else (24,)
-    pq = port_tq.TensorQuantizer(port_tq.QuantSpec(8, **spec), shape,
-                                 mode="fake")
-    # never calibrated (amax 0): pass-through on both sides
-    v = jq.init(jax.random.PRNGKey(0), jnp.asarray(batches[0]))
-    v = {"quant": v["quant"]}
-    np.testing.assert_array_equal(
-        np.asarray(jq.apply(v, jnp.asarray(batches[1]))), batches[1])
-    np.testing.assert_array_equal(pq(torch.from_numpy(batches[1])).numpy(),
-                                  batches[1])
-    v = {"quant": v["quant"], "calib": jax.tree_util.tree_map(
-        jnp.zeros_like, jq.init(jax.random.PRNGKey(0),
-                                jnp.asarray(batches[0]))["calib"])}
-    for b in batches:
-        y, mut = jq.apply(v, jnp.asarray(b), mutable=["calib"])
-        v = {"quant": v["quant"], "calib": mut["calib"]}
-        np.testing.assert_array_equal(np.asarray(y), b)
-        np.testing.assert_array_equal(
-            pq(torch.from_numpy(b), calibrating=True).numpy(), b)
-    for method in ("max", "entropy") if calibrator == "histogram" else ("max",):
-        quant = jax_tq.resolve_amax(v["calib"], v["quant"], method=method)
-        pq.commit_amax(method)
-        np.testing.assert_array_equal(pq.amax.numpy(),
-                                      np.asarray(quant["amax"]))
-        for b in batches:
-            np.testing.assert_array_equal(
-                pq(torch.from_numpy(b)).numpy(),
-                np.asarray(jq.apply({"quant": quant}, jnp.asarray(b))))
 
 
 def test_unported_rules_raise():
-    """Linear quantization (TransFusion) and SmoothQuant on an int8 sparse
-    conv still raise; the sparse gather-view SmoothQuant (VoxelNeXt, held in
+    """SmoothQuant on an int8 sparse conv and an int8 deploy rule on a
+    Linear, Conv1d or transposed conv still raise (the reference has no
+    int8 path for them); fake-quant on those three kinds, with SmoothQuant
+    or without (TransFusion, held in ``test_torch_port_transfusion_quant.
+    py``), the sparse gather-view SmoothQuant (VoxelNeXt, held in
     ``test_torch_port_voxelnext_quant.py``), group quantization (held below)
     and int8 deploy without residency or with dense SmoothQuant
     (``test_torch_port_deploy*.py``) are ported now, and their rules pass;
     groups stay fake-quant only."""
-    with pytest.raises(NotImplementedError, match="Linear"):
-        port_api._check_rule(LayerRule(("linear",), smoothquant=SmoothQuantCfg()),
-                             "x", "linear")
+    for kind in ("linear", "conv1d", "conv_transpose2d"):
+        for kw in (dict(), dict(smoothquant=SmoothQuantCfg())):
+            port_api._check_rule(LayerRule((kind,), **kw), "x", kind)
+            with pytest.raises(NotImplementedError, match="no int8 deploy"):
+                port_api._check_rule(LayerRule((kind,), deploy_int8=True,
+                                               **kw), "x", kind)
     for kind in ("subm_conv2d", "sparse_conv2d"):
         sq = LayerRule((kind,), smoothquant=SmoothQuantCfg())
         port_api._check_rule(sq, "x", kind)
@@ -251,91 +194,6 @@ def _calibrate_layer(mod, rule, batches):
         for b in batches:
             mod(*b)
     mod.calibrating = False
-
-
-@pytest.mark.parametrize("act_axis", [None, 1])
-def test_sparse_fakequant_conv_matches_reference(act_axis):
-    """A SubMConv3d (16 -> 32) under a fake-quant rule, the act per tensor
-    or per input channel, pad rows present."""
-    rng = np.random.RandomState(11)
-    st, _ = _sorted_sparse(rng, 2, (4, 10, 16), 300, 16, 384)
-    st = st.replace(features=st.features * 3.0)
-    jrule = JaxLayerRule(("subm_conv3d",), act=JaxQuantSpec(8, axis=act_axis))
-    jmod = jax_spmodules.SubMConv3d(32, 3, 1, 1, indice_key="k")
-    with quant_rules_scope(JaxQuantRules(rules=(jrule,))):
-        v = jmod.init(jax.random.PRNGKey(1), st, {})
-        want = np.asarray(jax.jit(lambda v_, s: jmod.apply(v_, s, {}))(
-            v, st).features)
-    pst = SparseConvTensor(
-        features=torch.from_numpy(np.array(st.features)),
-        indices=torch.from_numpy(np.array(st.indices)),
-        spatial_shape=tuple(st.spatial_shape), batch_size=2, sorted_rows=True)
-    mod = SubMConv3d(16, 32, 3, 1, 1, indice_key="k")
-    mod.weight.data = torch.from_numpy(np.array(v["params"]["weight"]))
-    _calibrate_layer(mod, LayerRule(("subm_conv3d",),
-                                    act=port_tq.QuantSpec(8, axis=act_axis)),
-                     [(pst, {})])
-    with torch.no_grad():
-        got = mod(pst, {}).features.numpy()
-    assert np.abs(want).max() > 1.0
-    assert np.abs(got - want).max() <= SPARSE_RTOL * np.abs(want).max()
-    # the float conv on the reference's fake-quantized operands, exactly
-    valid = np.array(st.indices[:, 0] >= 0)[:, None]
-    fq = jax_tq.fake_quant(st.features * valid, jax_tq._reduce_amax(
-        st.features * valid, act_axis), axis=act_axis)
-    w = v["params"]["weight"]
-    wq = jax_tq.fake_quant(w, jax_tq._reduce_amax(w, 2), axis=2)
-    book = jax_engine.subm_gather_indices(st.with_hash(), 3)
-    again = np.asarray(jax_engine.gather_conv(fq, book, wq))
-    assert np.abs(got - again).max() <= SPARSE_RTOL * np.abs(again).max()
-
-
-@pytest.mark.parametrize("dynamic,method", [(True, None), (False, "max"),
-                                            (False, "entropy")])
-def test_smoothquant_conv_matches_reference(dynamic, method):
-    """A 3x3 stride-2 Conv2d (24 -> 40, bias) under SmoothQuant, alpha 0.5:
-    dynamic, or static with the column amax and the histogram act amax
-    calibrated on two batches (the init pass first, as in the reference)."""
-    rng = np.random.RandomState(13)
-    xs = [np.maximum(rng.randn(2, 21, 19, 24), 0).astype(np.float32) * s
-          for s in (1.0, 2.5, 1.5)]
-    act = JaxQuantSpec(8, axis=None, dynamic=dynamic,
-                       calibrator="max" if dynamic else "histogram")
-    jrule = JaxLayerRule(("conv2d",), act=act,
-                         smoothquant=JaxSmoothQuantCfg(0.5, dynamic))
-    jmod = jax_layers.Conv2d(40, 3, 2, 1, bias_init=0.3)
-    rules = JaxQuantRules(rules=(jrule,))
-    with quant_rules_scope(rules):
-        v = jmod.init(jax.random.PRNGKey(2), jnp.asarray(xs[0]))
-        if not dynamic:
-            for x in xs[1:]:
-                _, mut = jmod.apply(v, jnp.asarray(x), mutable=["calib"])
-                v = {**v, "calib": mut["calib"]}
-            v = {**v, "quant": jax_tq.resolve_amax(v["calib"], v["quant"],
-                                                   method=method)}
-        want = np.asarray(jax.jit(jmod.apply)(
-            {k: v[k] for k in v if k != "calib"}, jnp.asarray(xs[0])))
-    mod = Conv2d(24, 40, 3, 2, 1)
-    mod.weight.data = torch.from_numpy(
-        np.array(v["params"]["kernel"]).transpose(3, 2, 0, 1).copy())
-    mod.bias.data = torch.from_numpy(np.array(v["params"]["bias"]))
-    rule = LayerRule(("conv2d",), act=port_tq.QuantSpec(
-        8, axis=None, dynamic=dynamic,
-        calibrator="max" if dynamic else "histogram"),
-        smoothquant=SmoothQuantCfg(0.5, dynamic))
-    nchw = [torch.from_numpy(x.transpose(0, 3, 1, 2).copy()) for x in xs]
-    _calibrate_layer(mod, rule, [(nchw[0],)] + ([] if dynamic else
-                                                [(x,) for x in nchw[1:]]))
-    if not dynamic:
-        port_api.compute_amax(mod, method=method)
-        np.testing.assert_array_equal(mod.sq_act_amax.numpy(),
-                                      np.asarray(v["quant"]["sq_act_amax"]))
-        assert float(mod.act_quant.amax) == float(
-            v["quant"]["act_quant"]["amax"])
-    with torch.no_grad():
-        got = mod(nchw[0]).permute(0, 2, 3, 1).numpy()
-    assert got.shape == want.shape and np.abs(want).max() > 1.0
-    assert np.abs(got - want).max() <= DENSE_RTOL * np.abs(want).max()
 
 
 def test_sweep_helpers_match_reference():

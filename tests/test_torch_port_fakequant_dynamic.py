@@ -98,15 +98,16 @@ def test_dynamic_sq_end_to_end(dynamic_sq):
 
 def test_layer_l1_diff_matches_reference(dynamic_sq):
     """``layer_l1_diff``'s rows (path, mean L1, relative L1) for the sparse
-    and BEV convs name the reference's layers, and their relative L1 agree
-    within 2% (the fake-quant roundings flipped on either side move it)."""
+    and BEV convs and the deblocks' transposed convs name the reference's
+    layers, and their relative L1 agree within 2% (the fake-quant roundings
+    flipped on either side move it)."""
     ref, model, batch = dynamic_sq
     float_model = common.float_copy(model)
     rows = {r[0]: r for r in port_sens.layer_l1_diff(float_model, model,
                                                      batch, top=200)}
     jrows = {r[0]: r for r in common.reference_l1_rows(ref)}
     assert len([n for n in rows if n.startswith(("backbone_3d",
-                                                 "backbone_2d"))]) == 27
+                                                 "backbone_2d"))]) == 29
     checked = 0
     for name in rows:
         if not name.startswith(("backbone_3d", "backbone_2d")) \
@@ -117,7 +118,7 @@ def test_layer_l1_diff_matches_reference(dynamic_sq):
         _, jl1, jrel = jrows[name]
         assert jrel > 0 and abs(rel - jrel) <= 0.02 * jrel, (name, rel, jrel)
         checked += 1
-    assert checked == 26
+    assert checked == 28
 
 
 def test_top_magnitudes_match_reference(dynamic_sq):

@@ -3,7 +3,10 @@
 of the port's forms: from an IoU matrix and from the boxes.
 
 Keep masks and NMS selections must be exactly equal; the IoU agrees within
-1e-5 (the same float32 formula, evaluated by two libraries).
+1e-5 (the same float32 formula, evaluated by two libraries).  The IoU and
+the boxes form live in ``test_torch_port_nms_boxes.py``, so that each file
+keeps at most 5 tests and ``--dist loadfile`` dispatches
+``test_accuracy_regression.py`` early.
 """
 
 import jax.numpy as jnp
@@ -75,21 +78,6 @@ def _random_boxes(rng, n, spread=6.0):
     return b
 
 
-def test_boxes_iou_bev_matches_reference():
-    rng = np.random.RandomState(0)
-    a, b = _random_boxes(rng, 96), _random_boxes(rng, 80)
-    b[:10] = a[:10]                                   # identical pairs
-    b[10:20, :6] = a[10:20, :6]                       # same box, rotated
-    ref = np.asarray(jax_iou.boxes_iou_bev(jnp.asarray(a), jnp.asarray(b)))
-    ours = port_iou.boxes_iou_bev(torch.from_numpy(a), torch.from_numpy(b))
-    assert ours.shape == ref.shape and (ref > 0.1).sum() > 50
-    np.testing.assert_allclose(ours.numpy(), ref, rtol=0, atol=1e-5)
-    # batched over sets, as the port's NMS calls it
-    batched = port_iou.boxes_iou_bev(torch.from_numpy(np.stack([a, a])),
-                                     torch.from_numpy(np.stack([b, b])))
-    np.testing.assert_array_equal(batched[1].numpy(), ours.numpy())
-
-
 @pytest.mark.parametrize("presorted", [False, True])
 def test_nms_bev_matches_reference(presorted):
     """Whole rotated NMS on random candidates: the same selected indices and
@@ -135,30 +123,6 @@ def _crowded_sets(rng, s, k):
     boxes[:, 10:20] = boxes[:, 0:10]                  # identical duplicates
     boxes[:, 20:30, :6] = boxes[:, 30:40, :6]         # same box, rotated
     return boxes, rng.rand(s, k) > 0.15
-
-
-@pytest.mark.parametrize("thresh", [0.1, 0.3, 0.6])
-def test_greedy_nms_boxes_matches_reference(thresh):
-    """The boxes form (IoU computed inside kernel 2 on the card; here its
-    plain version) equals the JAX model's sweep over the JAX IoU: K = 200
-    candidates padded with zero boxes to 256."""
-    rng = np.random.RandomState(int(thresh * 100))
-    s, k, kp = 2, 200, 256
-    boxes, valid = _crowded_sets(rng, s, k)
-    boxes_p = np.zeros((s, kp, 7), np.float32)
-    boxes_p[:, :k] = boxes
-    valid_p = np.zeros((s, kp), bool)
-    valid_p[:, :k] = valid
-    keep = port_nms.greedy_nms_boxes(torch.from_numpy(boxes_p),
-                                     torch.from_numpy(valid_p), thresh)
-    assert keep.shape == (s, kp) and not keep[:, k:].any()
-    for i in range(s):
-        b = jnp.asarray(boxes[i])
-        ref = np.asarray(jax_iou._greedy_suppress_wavefront(
-            jax_iou.boxes_iou_bev(b, b), jnp.asarray(valid[i]), thresh))
-        np.testing.assert_array_equal(keep[i, :k].numpy(), ref)
-        # duplicates suppress each other, and not every valid box survives
-        assert 0 < int(keep[i].sum()) < int(valid[i].sum())
 
 
 def test_apart_circles_give_exactly_zero_iou():

@@ -29,7 +29,10 @@ activation amax within 6.2e-3 relative, boxes within 0.07 and scores within
 slots.  So (b) holds weights equal and activations within rtol 1e-2, and
 (d) holds spatial_features within 1e-2 of their max, the same valid count,
 and every reference detection matched by label with its box within 0.1 and
-its score within 0.05.
+its score within 0.05.  That the head's hidden branch convs run int8 is
+held in ``test_torch_port_quant_entry_head.py``, so that each file keeps at
+most 5 tests and ``--dist loadfile`` dispatches
+``test_accuracy_regression.py`` early.
 """
 
 import pytest
@@ -80,15 +83,3 @@ def test_end_to_end(with_ref_amax):
     ref, model, batch = with_ref_amax
     out, jout = common.forward(model, batch, ref)
     common.check_detections_matched(out, jout, box_tol=0.1, score_tol=0.05)
-
-
-def test_head_runs_int8(with_ref_amax):
-    """The head's shared map is quantized once and its hidden branch convs
-    take it as int8; the heatmap branch (excluded) dequantizes it."""
-    _, model, _ = with_ref_amax
-    head = model.dense_head
-    assert head.shared_requant.residency and head.shared_conv[0].residency
-    for branches in head.heads_list:
-        for name in branches.names:
-            hidden = getattr(branches, name)[0][0]
-            assert (hidden.rule is None) == (name == "hm"), name

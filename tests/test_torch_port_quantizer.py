@@ -88,8 +88,9 @@ def test_reference_paths_round_trip():
     and the weights carry-over's rules map that path back to the module."""
     _, _, _, model = _port_model("centerpoint_ref")
     names = [n for n, m in model.named_modules() if hasattr(m, "QUANT_KIND")]
-    # sparse, BEV, shared conv and requant, 3 heads x 6 branches x 2 convs
-    assert len(names) == 21 + 12 + 2 + 3 * 6 * 2
+    # sparse, BEV, the 2 deblocks' transposed convs, shared conv and
+    # requant, 3 heads x 6 branches x 2 convs
+    assert len(names) == 21 + 12 + 2 + 2 + 3 * 6 * 2
     for name in names:
         path = reference_module_path(name)
         assert path is not None, name
