@@ -206,7 +206,26 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
                 (``transfusion_recipe()`` and its static form calibrated on
                 the first two requests: each launch held against its plain
                 version on its own operands);
- 17. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+ 17. TransFusion-LiDAR and VoxelNeXt training (``nuscenes_training``; each
+                nuScenes config's MODEL on training frames of
+                centerpoint_ref's scenes, f32; TransFusion at batch 2 over
+                8 frames, VoxelNeXt at batch 1 over 4, since its batch-2
+                step does not fit in 80 GB): ``train_grad_<model>`` (one
+                step through the kernels and through the plain versions at
+                ``TRAIN_TOL``; kernel-1 launches forward and dX, VoxelNeXt's
+                2 dX over 2D inverse books apart; TransFusion's Hungarian
+                assignment equal in both runs; peak memory),
+                ``kernel_fwd_<model>`` / ``kernel_dx_<model>`` (each launch
+                of that step against its plain version, timed beside it,
+                gather + ``torch.matmul``, the bound and dW in torch;
+                VoxelNeXt's 3D and 2D books apart), ``qat_<model>`` (one
+                QAT step under ``transfusion_recipe()`` /
+                ``voxelnext_recipe()`` at ``QAT_TOL``, each launch held on
+                its operands), ``train_tiny_<model>`` (8 Adam steps of the
+                tiny config: the loss falls by at least 10%) and
+                ``train_<model>`` (``train_model``, 8 steps, the yaml's
+                OPTIMIZATION, timed as ``train_ref``);
+ 18. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises and exits nonzero without the last line.  Without
 CUDA, or outside a checkout of the repo, it exits 1 and prints no result.
@@ -1834,14 +1853,16 @@ def recording_backward(model):
         gather_conv._GatherConvFn.backward = staticmethod(real_bwd)
 
 
-def compare_training(mk, mp, loss_k, loss_p, qat=False):
+def compare_training(mk, mp, loss_k, loss_p, qat=False, zero_extra=()):
     """The kernels' training step (``mk``) against the plain versions'
     (``mp``), after the same step from the same state: loss, every
     parameter's gradient, every BN's running statistics -> summary dict;
-    raises past the tolerances (``TRAIN_TOL``, or ``QAT_TOL``)."""
+    raises past the tolerances (``TRAIN_TOL``, or ``QAT_TOL``).  The
+    biases before a train-mode BN and ``zero_extra`` have gradient 0 in
+    exact arithmetic and are held below 1e-5 of the model's largest."""
     import torch
     from q3d_tpu_torch.train_utils import biases_before_bn
-    zero = biases_before_bn(mk)
+    zero = biases_before_bn(mk) | set(zero_extra)
     pk, pp = dict(mk.named_parameters()), dict(mp.named_parameters())
     top = max(float(p.grad.abs().max()) for p in pp.values())
     worst, num, den, dot, nk = (0.0, ""), 0.0, 0.0, 0.0, 0.0
@@ -1889,20 +1910,33 @@ def compare_training(mk, mp, loss_k, loss_p, qat=False):
 FIRST_CONV = "backbone_3d.conv_input.0.weight"     # its input takes no dX
 
 
+def kernel1_convs(model, two_d=False):
+    """Names of the model's sparse convs that run on kernel 1 (every
+    SubMConv / SparseConv but the 1x1 SubM convs of the pointwise route);
+    only the 2D ones with ``two_d``."""
+    from q3d_tpu_torch.ops.spconv.modules import (SparseConv2d, SparseConv3d,
+                                                  SubMConv2d, SubMConv3d)
+    kinds = (SubMConv2d, SparseConv2d) if two_d else (
+        SubMConv3d, SparseConv3d, SubMConv2d, SparseConv2d)
+    return [n for n, mod in model.named_modules()
+            if isinstance(mod, kinds) and not mod.pointwise]
+
+
 def train_grad(model, batch, conv_k, mode, tag="train_grad", config=CFG.name,
-               convs=21):
-    """Phase ``train_grad`` (and ``train_kitti_grad``): one training forward
-    and backward of ``model`` (seeded weights, f32, TF32 off) through the
-    kernels and through the plain versions on the same batch, held by
-    ``compare_training``; kernel-1 launches of the step, forward and input
-    gradient apart (``convs`` forward; every sparse conv but conv_input,
-    whose input takes no gradient, launches a dX); every sparse conv
-    weight gets a gradient; peak memory of each step.  -> (the kernels'
-    backward calls: (conv name, features, weight, book, out_valid, inverse
-    book, grad_out) each, the kernels' run)."""
+               convs=21, zero_extra=()):
+    """Phase ``train_grad`` (and ``train_kitti_grad``, ``train_grad_*``):
+    one training forward and backward of ``model`` (seeded weights, f32,
+    TF32 off) through the kernels and through the plain versions on the
+    same batch, held by ``compare_training``; kernel-1 launches of the
+    step, forward and input gradient apart, the 2D books' dX launches
+    counted apart too (``convs`` forward; every sparse conv on kernel 1
+    but conv_input, whose input takes no gradient, launches a dX); every
+    such conv's weight gets a gradient; peak memory of each step.  -> (the
+    kernels' backward calls: (conv name, features, weight, book, out_valid,
+    inverse book, grad_out) each, the kernels' run).  ``zero_extra``: as
+    in ``compare_training``."""
     import numpy as np
     import torch
-    from q3d_tpu_torch.ops.spconv.modules import SubMConv3d, SparseConv3d
     mk, mp = copy.deepcopy(model), copy.deepcopy(model)
     out = {}
     for impl, m in (("cuda", mk), ("plain", mp)):
@@ -1929,8 +1963,10 @@ def train_grad(model, batch, conv_k, mode, tag="train_grad", config=CFG.name,
                      "tb": {k: float(v.detach())
                             for k, v in res["tb_dict"].items()}}
         m.set_kernel_impl(None)
-    sparse = [n for n, mod in mk.named_modules()
-              if isinstance(mod, (SubMConv3d, SparseConv3d))]
+    sparse = kernel1_convs(mk)
+    two_d = kernel1_convs(mk, two_d=True)
+    out["cuda"]["launches_dx_2d"] = sum(r[0].rsplit(".", 1)[0] in two_d
+                                        for r in recorded)
     check(len(sparse) == convs and out["cuda"]["launches_forward"] == convs
           and out["cuda"]["launches_dx"] == max(convs - 1, 0)
           and set(out["cuda"]["launches_by_entry"])
@@ -1949,10 +1985,11 @@ def train_grad(model, batch, conv_k, mode, tag="train_grad", config=CFG.name,
                                          for r in recorded) == min(convs, 1),
           f"{tag}: {len(recorded)} sparse conv backward calls")
     summary = compare_training(mk, mp, out["cuda"]["loss"],
-                               out["plain"]["loss"])
+                               out["plain"]["loss"], zero_extra=zero_extra)
     emit(tag, config=config, batch=int(batch["voxels"].shape[0]),
          dtype="f32", mode=mode(), kernels=out["cuda"], plain=out["plain"],
-         sparse_convs=len(sparse), tolerance=TRAIN_TOL,
+         sparse_convs=len(sparse), sparse_convs_2d=len(two_d),
+         tolerance=TRAIN_TOL,
          peak_covers="three model copies on the card; the kernels' run also "
          "keeps every conv's backward inputs", **summary)
     return recorded, out["cuda"]
@@ -2097,7 +2134,7 @@ def kernel_forward(recorded, flush, mode, tag, config):
 
 
 def timed_train_model(model, optim, ds, loader, ckpt_dir, conv_k, dev,
-                      tag, epochs=TRAIN_EPOCHS):
+                      tag, epochs=TRAIN_EPOCHS, no_signal=(), any_step=False):
     """The port's ``train_model`` as a user calls it, with hooks outside it
     that take each step's numbers: host ms (the loader's time, from the
     run's history, with the scene synthesis and the data augmentor timed
@@ -2112,7 +2149,11 @@ def timed_train_model(model, optim, ds, loader, ckpt_dir, conv_k, dev,
     (the model, the optimizer's state, and whatever earlier phases keep on
     the card).  Kernel-1 launch counts are zeroed just before and read just
     after.  Losses finite, every parameter a nonzero gradient (but the
-    biases before a train-mode BN, whose gradient is 0).  Emits
+    biases before a train-mode BN, whose gradient is 0, and ``no_signal``:
+    parameters whose gradient is 0 on these scenes) in the last step, or,
+    with ``any_step``, in some step of the run (an L1 loss gives a bias
+    gradient 0 on a step where its terms' signs balance; the flags are
+    taken on the card after each step's timed region).  Emits
     ``<tag>_step`` per step -> (optimizer, steps, launches, run_s)."""
     import numpy as np
     import torch
@@ -2122,6 +2163,8 @@ def timed_train_model(model, optim, ds, loader, ckpt_dir, conv_k, dev,
 
     host = {"scene_ms": 0.0, "augment_ms": 0.0}
     cur, steps = {}, []
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    nonzero = torch.zeros(len(named), dtype=torch.bool, device=dev)
     in_bwd, dx_events, dw_events = [False], [], []
     real_cuda, real_wg = gather_conv.gather_conv_cuda, gather_conv.weight_grad
     augmentor = getattr(ds, "data_augmentor", None)
@@ -2187,6 +2230,9 @@ def timed_train_model(model, optim, ds, loader, ckpt_dir, conv_k, dev,
             "launches_forward": cur["launches_forward"],
             "launches_dx": sum(conv_k.launches.values()) - cur["launches"]
             - cur["launches_forward"]})
+        nonzero.logical_or_(torch.stack([
+            p.grad.ne(0).any() if p.grad is not None
+            else nonzero.new_zeros(()) for _, p in named]))
 
     hooks = [model.register_forward_pre_hook(forward_starts),
              model.register_forward_hook(forward_ends),
@@ -2228,8 +2274,11 @@ def timed_train_model(model, optim, ds, loader, ckpt_dir, conv_k, dev,
         emit(f"{tag}_step", **st)
     check(all(np.isfinite(s["loss"]) for s in steps), f"{tag}: losses")
     zero = train_utils.biases_before_bn(model)
-    nograd = [n for n, p in model.named_parameters() if n not in zero and (
-        p.grad is None or not bool(p.grad.abs().max() > 0))]
+    seen = dict(zip((n for n, _ in named), nonzero.tolist()))
+    nograd = [n for n, p in model.named_parameters()
+              if n not in zero and n not in no_signal and not (
+                  seen[n] if any_step else p.grad is not None
+                  and bool(p.grad.abs().max() > 0))]
     check(not nograd, f"{tag}: parameters without a gradient {nograd}")
     return optimizer, steps, launches, run_s
 
@@ -3500,6 +3549,341 @@ def transfusion_phases(dev, conv_k, nms_k, mode, strict_f32, flush):
             "stages": stages}
 
 
+# ============================================ TransFusion and VoxelNeXt training
+# f32 training of the nuScenes configs' MODEL at full width on training
+# frames of centerpoint_ref's scenes (the yamls' BATCH_SIZE_PER_GPU is 4):
+# TransFusion at batch 2 over 8 frames; VoxelNeXt at batch 1 over 4 frames,
+# since its batch-2 step runs out of the card's 80 GB (its head keeps f32
+# activations of 3 x B x 160,000 rows, most of them padding).  The scenes'
+# class ids 1-3 name each config's first three classes (car, truck,
+# construction_vehicle).  Kernel 1 a step: TransFusion 21 forward and 20
+# dX; VoxelNeXt 32 forward (30 3D, conv_out and shared_conv 2D) and 31 dX
+# (2 over the 2D inverse books).
+NU_TRAIN = {"transfusion": {"cfg": TF_CFG, "tiny": ROOT / "tools" / "cfgs"
+                            / "synthetic_models" / "transfusion_tiny.yaml",
+                            "batch": 2, "frames": 8,
+                            "convs": TF_CONVS, "convs_2d": 0,
+                            "recipe": "transfusion_recipe", "qat_convs": 21},
+            "voxelnext": {"cfg": VN_CFG, "tiny": VN_TINY_CFG,
+                          "batch": 1, "frames": 4,
+                          "convs": VN_CONVS, "convs_2d": 2,
+                          "recipe": "voxelnext_recipe", "qat_convs": 30}}
+# TransFusion's gradients that are 0 in exact arithmetic besides the biases
+# before a BN: the key projections' biases (the softmax cancels them) and
+# the last LayerNorm's bias (the prediction branches' BNs cancel it)
+TF_ZERO_GRAD = ("dense_head.decoder.self_attn.k_proj.bias",
+                "dense_head.decoder.multihead_attn.k_proj.bias",
+                "dense_head.decoder.norm3.bias")
+
+
+def nuscenes_train_data(name, dev):
+    """The nuScenes config ``name``'s MODEL and CLASS_NAMES (seeded weights)
+    on a training loader of centerpoint_ref's scenes at the frames and
+    batch ``NU_TRAIN`` gives (points shuffled, as training) -> (config,
+    dataset, loader, model)."""
+    import dataclasses
+    import numpy as np
+    from q3d_tpu_torch.config import cfg_from_yaml_file, EDict
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.models import build_network
+    from q3d_tpu_torch.models.builder import dataset_info
+    vcfg = cfg_from_yaml_file(str(NU_TRAIN[name]["cfg"]), EDict())
+    scfg = cfg_from_yaml_file(str(CFG), EDict())
+    scfg.DATA_CONFIG.NUM_FRAMES = NU_TRAIN[name]["frames"]
+    np.random.seed(SEED)
+    ds, loader, _ = build_dataloader(scfg.DATA_CONFIG, scfg.CLASS_NAMES,
+                                     batch_size=NU_TRAIN[name]["batch"],
+                                     training=True, seed=SEED)
+    info = dataclasses.replace(dataset_info(ds),
+                               class_names=tuple(vcfg.CLASS_NAMES))
+    model = build_network(vcfg.MODEL, len(vcfg.CLASS_NAMES), info, device=dev)
+    return vcfg, ds, loader, model
+
+
+def zero_grads(model, name, gt_boxes):
+    """The parameters whose gradient is 0 on a batch besides the biases
+    before a BN: TransFusion's ``TF_ZERO_GRAD``; VoxelNeXt's regression
+    branches of the heads none of whose classes the gt boxes hold (their
+    L1 loss has no term) -> set of names."""
+    if name == "transfusion":
+        return set(TF_ZERO_GRAD)
+    present = {int(c) - 1 for c in gt_boxes[..., -1].reshape(-1).tolist()
+               if c > 0}
+    head = model.dense_head
+    return {n for n, _ in model.named_parameters()
+            for i, ids in enumerate(head.class_id_mapping_each_head)
+            if not present & set(ids.tolist())
+            and n.startswith(f"dense_head.heads_list.{i}.")
+            and not n.startswith(f"dense_head.heads_list.{i}.hm.")}
+
+
+@contextlib.contextmanager
+def recording_assignments(out):
+    """While open, each ``hungarian_assignment`` result is appended to
+    ``out``."""
+    from q3d_tpu_torch.models.dense_heads import transfusion_head
+    real = transfusion_head.hungarian_assignment
+
+    def run(*args):
+        assigned = real(*args)
+        out.append(assigned)
+        return assigned
+    transfusion_head.hungarian_assignment = run
+    try:
+        yield
+    finally:
+        transfusion_head.hungarian_assignment = real
+
+
+def qat_nuscenes(name, model, batch, conv_k, mode):
+    """Phase ``qat_<name>``: the seeded model under its recipe
+    (``transfusion_recipe()`` / ``voxelnext_recipe()``, dynamic SmoothQuant
+    fake-quant), quantized on the batch, one QAT step (``QAT_OPTIM``, f32,
+    TF32 off) through the kernels and through the plain versions: the whole
+    step held by ``compare_training`` at ``QAT_TOL``, each kernel-1 launch
+    (forward and dX, on the fake-quantized operands it had) at 1e-5 of its
+    plain version (``hold_conv_launches``); every quantized layer's weight
+    gets a finite gradient, nonzero but where the batch gives its loss no
+    term.  VoxelNeXt's conv_out and shared_conv run the gather-view
+    SmoothQuant in torch, so its 30 3D convs launch kernel 1."""
+    import collections
+    import torch
+    from q3d_tpu_torch.config import EDict
+    from q3d_tpu_torch.optimization import build_optimizer
+    from q3d_tpu_torch.quant import api as quant_api
+    from q3d_tpu_torch.train_utils import train_step
+    spec = NU_TRAIN[name]
+    recipe = getattr(quant_api, spec["recipe"])
+    qmodel = copy.deepcopy(model)
+    quant_api.quantize_model(qmodel, recipe(), batch)
+    check(not [n for n, _ in qmodel.named_parameters()
+               if "quant" in n or "amax" in n],
+          f"qat_{name}: a quantizer's state is a parameter")
+    quantized = {n: m.QUANT_KIND for n, m in qmodel.named_modules()
+                 if getattr(m, "rule", None) is not None
+                 and getattr(m, "weight", None) is not None}
+    runs = {}
+    for impl in ("cuda", "plain"):
+        m = copy.deepcopy(qmodel)
+        m.set_kernel_impl(impl)
+        opt = build_optimizer(m.parameters(), EDict(QAT_OPTIM), QAT_STEPS)
+        conv_k.launches.clear()
+        with recording_backward(m) as recorded:
+            loss = float(train_step(m, batch, opt)[0])
+        runs[impl] = (m, loss, dict(conv_k.launches), recorded)
+    del qmodel
+    mk, loss_k, launches, recorded = runs["cuda"]
+    n = spec["qat_convs"]
+    check(launches == {"q3d_sparse_gather_conv_f32": 2 * n - 1}
+          and not any(runs["plain"][2].values()) and len(recorded) == n,
+          f"qat_{name}: kernel-1 launches {launches} / {runs['plain'][2]}")
+    layers = hold_conv_launches(recorded)
+    del recorded
+    zero = zero_grads(mk, name, batch["gt_boxes"])
+    params = dict(mk.named_parameters())
+    for n_ in quantized:
+        g = params[f"{n_}.weight"].grad
+        check(bool(torch.isfinite(g).all()) and (
+            f"{n_}.weight" in zero or bool(g.abs().max() > 0)),
+            f"qat_{name}: {n_}.weight gradient")
+    summary = compare_training(mk, runs["plain"][0], loss_k,
+                               runs["plain"][1], qat=True, zero_extra=zero)
+    emit(f"qat_{name}", config=spec["cfg"].name,
+         recipe=f"{spec['recipe']}()", batch=spec["batch"], mode=mode(),
+         quantized_by_kind=dict(collections.Counter(quantized.values())),
+         launches_step=launches, tolerance=QAT_TOL, layers=layers,
+         **summary)
+
+
+def train_tiny_nuscenes(name, dev, mode):
+    """Phase ``train_tiny_<name>``: the tiny config (``transfusion_tiny`` /
+    ``voxelnext_tiny``) from its seeded init, 8 steps of Adam 3e-3 on one
+    batch on the card, as ``train_tiny``: the loss falls by at least
+    10%."""
+    from q3d_tpu_torch.config import cfg_from_yaml_file, EDict
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.models import build_network, load_data_to_device
+    from q3d_tpu_torch.optimization import build_optimizer
+    from q3d_tpu_torch.train_utils import MODEL_KEYS, train_step
+    path = NU_TRAIN[name]["tiny"]
+    cfg = cfg_from_yaml_file(str(path), EDict())
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
+                                     batch_size=BATCH, training=False)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=dev)
+    raw = next(iter(loader))
+    batch = load_data_to_device({k: v for k, v in raw.items()
+                                 if k in MODEL_KEYS}, device=dev)
+    opt = build_optimizer(model.parameters(), EDict(
+        {"OPTIMIZER": "adam", "LR": 0.003, "WEIGHT_DECAY": 0.0}), TINY_STEPS)
+    losses = [float(train_step(model, batch, opt)[0])
+              for _ in range(TINY_STEPS)]
+    check(losses[-1] < 0.9 * losses[0], f"train_tiny_{name}: losses {losses}")
+    emit(f"train_tiny_{name}", config=path.name, batch=BATCH, mode=mode(),
+         optimizer="adam, lr 3e-3, no weight decay, clip 10", losses=losses,
+         fall=1 - losses[-1] / losses[0])
+
+
+def train_nuscenes(name, dev, conv_k, nms_k, mode):
+    """Phase ``train_<name>``: ``train_model`` at the nuScenes config's
+    width on ``NU_TRAIN``'s training frames and batch, 2 epochs (8 steps),
+    with
+    the yaml's OPTIMIZATION (adam_onecycle, LR 1e-3, WD 0.01, clip 10),
+    PyTorch's TF32 defaults, timed by ``timed_train_model`` (host,
+    forward, backward with dX and dW apart, optimizer ms a step, peak
+    memory, losses); kernel-1 launches 2 x convs - 1 a step, no NMS ->
+    {launches forward / dx, medians}."""
+    import shutil
+    cfg, ds, loader, model = nuscenes_train_data(name, dev)
+    ckpt_dir = ROOT / "output" / f"chip_smoke_train_{name}"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    quiet = zero_grads(model, name, next(iter(loader))["gt_boxes"])
+    nms_k.launches.clear()
+    try:
+        _, steps, launches, run_s = timed_train_model(
+            model, cfg.OPTIMIZATION, ds, loader, ckpt_dir, conv_k, dev,
+            f"train_{name}", no_signal=quiet, any_step=True)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n_steps, convs = len(steps), NU_TRAIN[name]["convs"]
+    check(launches == {"q3d_sparse_gather_conv_f32": (2 * convs - 1) * n_steps}
+          and not any(nms_k.launches.values()),
+          f"train_{name}: launches {launches}, NMS {dict(nms_k.launches)}")
+    med = median_after_first(steps)
+    emit(f"train_{name}", config=NU_TRAIN[name]["cfg"].name, scenes=CFG.name,
+         batch=NU_TRAIN[name]["batch"], epochs=TRAIN_EPOCHS, steps=n_steps,
+         mode=mode(),
+         optimization={k: cfg.OPTIMIZATION[k] for k in (
+             "OPTIMIZER", "LR", "WEIGHT_DECAY", "GRAD_NORM_CLIP")},
+         losses=[s["loss"] for s in steps], launches=launches, run_s=run_s,
+         zero_gradient_allowed=sorted(quiet), median_after_first=med)
+    return {"launches_forward": sum(s["launches_forward"] for s in steps),
+            "launches_dx": sum(s["launches_dx"] for s in steps),
+            "median": med}
+
+
+def nuscenes_training(dev, conv_k, nms_k, mode, strict_f32, flush):
+    """The TransFusion and VoxelNeXt training phases, each model in turn:
+    ``train_grad_<name>`` (one training step of the seeded model on the
+    first training batch, f32, TF32 off, through the kernels and through
+    the plain versions at ``TRAIN_TOL``; TransFusion's Hungarian assignment
+    equal in both runs; VoxelNeXt's 2 dX launches over the 2D inverse
+    books counted apart), ``kernel_fwd_<name>`` and ``kernel_dx_<name>``
+    (each recorded launch of that step against its plain version, timed
+    beside it, gather + ``torch.matmul`` and the bound; VoxelNeXt's 3D and
+    2D convs summed apart), ``qat_<name>``, ``train_tiny_<name>`` and
+    ``train_<name>`` -> {name: summaries for the kernels line}."""
+    import torch
+    from q3d_tpu_torch.models import load_data_to_device
+    from q3d_tpu_torch.train_utils import MODEL_KEYS
+    out = {}
+    for name, spec in NU_TRAIN.items():
+        config = spec["cfg"].name
+        _, _, loader, model = nuscenes_train_data(name, dev)
+        raw = next(iter(loader))
+        batch = load_data_to_device({k: v for k, v in raw.items()
+                                     if k in MODEL_KEYS}, device=dev)
+        strict_f32(True)
+        assigned = []
+        with recording_assignments(assigned):
+            recorded, run = train_grad(
+                model, batch, conv_k, mode, f"train_grad_{name}", config,
+                spec["convs"], zero_grads(model, name, raw["gt_boxes"]))
+        check(run["launches_dx_2d"] == spec["convs_2d"],
+              f"train_grad_{name}: {run['launches_dx_2d']} dX launches over "
+              f"2D books, expected {spec['convs_2d']}")
+        if name == "transfusion":
+            check(len(assigned) == 2 and torch.equal(assigned[0], assigned[1])
+                  and bool((assigned[0] >= 0).any()),
+                  f"train_grad_{name}: Hungarian assignments differ between "
+                  f"kernels and plain versions")
+            emit("train_grad_transfusion_assignment",
+                 matched_per_frame=(assigned[0] >= 0).sum(1).tolist(),
+                 objects_per_frame=(raw["gt_boxes"][..., -1] > 0).sum(1)
+                 .tolist(), equal="kernels' and plain run's assignment")
+        del assigned
+        two_d = {f"{n}.weight" for n in kernel1_convs(model, two_d=True)}
+        groups = {"3d": [r for r in recorded if r[0] not in two_d],
+                  "2d": [r for r in recorded if r[0] in two_d]}
+        fwd, dx = {}, {}
+        for g, rec in groups.items():
+            if not rec:
+                continue
+            suffix = f"{name}_{g}" if name == "voxelnext" else name
+            fwd[g] = kernel_forward(rec, flush, mode, f"kernel_fwd_{suffix}",
+                                    config)
+            dx[g] = kernel_dx(rec, flush, mode, f"kernel_dx_{suffix}", config)
+        del recorded, groups
+        emit(f"kernel_dx_{name}", config=config, mode=mode(), forward=fwd,
+             dx=dx, times="f32, one training step's launches, L2 flushed")
+        qat_nuscenes(name, model, batch, conv_k, mode)
+        strict_f32(False)
+        del model, batch
+        torch.cuda.empty_cache()
+        train_tiny_nuscenes(name, dev, mode)
+        trained = train_nuscenes(name, dev, conv_k, nms_k, mode)
+        torch.cuda.empty_cache()
+        out[name] = {"fwd": fwd, "dx": dx, "trained": trained,
+                     "peak_mib": run["peak_mib"]}
+    return out
+
+
+def summed(groups):
+    """Totals of ``kernel_forward`` / ``kernel_dx`` over groups of convs:
+    times and bounds added, the worst error kept, ``bound_by`` of the
+    sums."""
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms",
+            "dw_ms", "inverse_ms")
+    out = {k: sum(g[k] for g in groups.values()) for k in keys
+           if all(k in g for g in groups.values())}
+    out["max_abs_err"] = max(g["max_abs_err"] for g in groups.values())
+    out["bound_by"] = "bytes" if out["bytes_ms"] >= out["ops_ms"] \
+        else "operations"
+    return out
+
+
+def nuscenes_kernel_rows(nu):
+    """The kernels line's entries of kernel 1 in the TransFusion and
+    VoxelNeXt training steps: the f32 forward and the input gradient of
+    each model, VoxelNeXt's 3D and 2D books apart as well."""
+    rows = []
+    for name, v in nu.items():
+        spec = NU_TRAIN[name]
+        config = spec["cfg"].name
+        steps = TRAIN_EPOCHS * spec["frames"] // spec["batch"]
+        for use, totals, launches in (
+                ("forward", v["fwd"], v["trained"]["launches_forward"]),
+                ("dx", v["dx"], v["trained"]["launches_dx"])):
+            t = summed(totals)
+            row = {"name": f"sparse_gather_conv_{use}_{name}_train",
+                   "route": "cuda",
+                   "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
+                   "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",
+                   "entry": "q3d_sparse_gather_conv_f32",
+                   "use": f"{name} training ({config}, batch "
+                          f"{spec['batch']}): the "
+                          + ("forward of its sparse convs" if use == "forward"
+                             else "input gradient of every sparse conv but "
+                                  "conv_input, over the inverse book"),
+                   "launches": launches,
+                   **{k: t[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")},
+                   "checks": "passed",
+                   "times_cover": f"one f32 {name} training step's launches; "
+                                  f"launches: train_{name}'s {steps} "
+                                  f"steps",
+                   "peak_mib_train_grad": v["peak_mib"]}
+            if use == "dx":
+                row.update(dw_torch_ms=t["dw_ms"],
+                           inverse_book_ms=t["inverse_ms"])
+            if len(totals) > 1:
+                row["by_book"] = {g: {k: x[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "library_ms",
+                    "max_abs_err")} for g, x in totals.items()}
+            rows.append(row)
+    return rows
+
+
 def main():
     import numpy as np
     import torch
@@ -4168,6 +4552,13 @@ def main():
     torch.cuda.empty_cache()
     tf = transfusion_phases(dev, conv_k, nms_k, mode, strict_f32, flush)
 
+    # ============================== TransFusion and VoxelNeXt training
+    # at the nuScenes configs' width: kernel 1 as every sparse conv's
+    # forward and input gradient (VoxelNeXt's 2D books too), the set loss
+    # and the sparse targets, QAT under each recipe, train_model
+    torch.cuda.empty_cache()
+    nu = nuscenes_training(dev, conv_k, nms_k, mode, strict_f32, flush)
+
     # ---------------------------------------------------------- kernels line
     kernels = [
         {"name": "sparse_gather_conv", "route": "cuda",
@@ -4181,6 +4572,8 @@ def main():
          "design": CONV_DESIGN,
          "eval_launches_f32_entry": per_recipe("sparse_gather_conv_f32"),
          "launches_second": kitti_launches["second"]["sparse_gather_conv"],
+         "launches_train": {n: {k: v["trained"][k] for k in (
+             "launches_forward", "launches_dx")} for n, v in nu.items()},
          "launches_voxelnext": vn["launches"]["sparse_gather_conv"],
          "launches_transfusion": tf["launches"]["sparse_gather_conv"],
          "transfusion": {"ms": tf["totals"]["ms"],
@@ -4254,6 +4647,7 @@ def main():
          "inverse_book_ms": dx_second["inverse_ms"], "checks": "passed",
          "times_cover": "one f32 SECOND training step's 11 input gradients; "
                         "launches: train_kitti's 4 steps"},
+        *nuscenes_kernel_rows(nu),
         {"name": "sparse_gather_conv_s8_requant", "route": "cuda",
          "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
          "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",

@@ -126,11 +126,7 @@ class CenterHead(nn.Module):
 
         inds = center_int[..., 1].long() * w + center_int[..., 0].long()
         inds = torch.where(valid, inds, 0)
-        extra = gt_boxes[..., 7:-1]
-        n_extra = self.code_size - 8
-        extra = torch.cat([extra, extra.new_zeros(
-            (*extra.shape[:-1], n_extra - extra.shape[-1]))], dim=-1) \
-            if extra.shape[-1] < n_extra else extra[..., :n_extra]
+        extra = centernet_utils.extra_targets(gt_boxes, self.code_size - 8)
         ret_boxes = torch.cat([
             center - center_int.to(center.dtype),
             gt_boxes[..., 2:3],

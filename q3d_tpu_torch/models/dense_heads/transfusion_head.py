@@ -16,19 +16,58 @@ Module slots follow OpenPCDet's ``TransFusionHead`` (``shared_conv``,
 
 The head's BNs return the promotion of their input's dtype and f32, as the
 reference's flax BNs do, so in a bf16 forward the heatmap and the decoder
-past its position embeddings run in f32, as the reference's do.  Training
-(the Hungarian assignment and the set loss) is not ported
-(``ROADMAP.md``).
+past its position embeddings run in f32, as the reference's do.
+
+In train mode (``nn.Module.training``) the head returns the set loss
+instead of predictions (reference ``compute_loss``, :174-266): each
+query is matched to at most one gt box by a Hungarian assignment on the
+host (``hungarian_assignment``), then the sigmoid focal loss of the
+queries' classes, the L1 loss of the matched queries' encoded boxes and
+the dense heatmap's gaussian focal loss.  The BNs run in train mode; the
+heatmap that picks the queries is detached, as the reference's
+``stop_gradient``, while the dense heatmap keeps its gradient through its
+own loss.
 """
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...utils import loss_utils
 from ..layers import BatchNorm, Conv1d, Conv2d
+from ..model_utils import centernet_utils
 from ..model_utils.centernet_utils import topk_stable
 from ..model_utils.transfusion_utils import (TransformerDecoderLayer,
-                                             promoting_bn1d)
+                                             clip_sigmoid, promoting_bn1d)
+
+
+def hungarian_assignment(scores, boxes, gt_boxes):
+    """The reference's assignment (:184-200): scores (B, P, classes), the
+    queries' sigmoid class scores; boxes (B, P, 7+) decoded; gt_boxes (B,
+    M, 8+) [box, class id], the valid rows first -> (B, P) int64, each
+    query's gt row or -1.
+
+    The batch goes to the host once; per frame scipy's
+    ``linear_sum_assignment`` minimises the cost 0.15 * -score of the gt's
+    class + 0.25 * the BEV centre distance over the frame's valid gts, in
+    f32 as the reference's callback computes it (the cost weights of
+    HUNGARIAN_ASSIGNER are not read, as there); one tensor goes back.  The
+    assignment is piecewise constant, so it takes no gradient."""
+    from scipy.optimize import linear_sum_assignment
+    s, bx, gt = (t.detach().float().cpu().numpy()
+                 for t in (scores, boxes, gt_boxes))
+    out = np.full(s.shape[:2], -1, np.int64)
+    for b in range(s.shape[0]):
+        n_gt = int((gt[b, :, -1] > 0).sum())
+        if n_gt == 0:
+            continue
+        g = gt[b, :n_gt]
+        cls_cost = -s[b][:, g[:, -1].astype(np.int32) - 1]       # (P, n_gt)
+        d = np.linalg.norm(bx[b][:, None, :2] - g[None, :, :2], axis=-1)
+        row, col = linear_sum_assignment(0.15 * cls_cost + 0.25 * d)
+        out[b, row] = col
+    return torch.from_numpy(out).to(scores.device)
 
 
 class _BasicBlock2D(nn.Module):
@@ -205,12 +244,93 @@ class TransFusionHead(nn.Module):
             & (boxes[..., :3] <= lim[3:6]).all(-1)
         return boxes, scores, labels + 1, valid
 
+    def heatmap_targets(self, gt_boxes, h, w):
+        """The dense heatmap's gaussian targets (reference :241-259) ->
+        (B, classes, H, W): each gt's gaussian (radius from
+        ``gaussian_radius``, at least MIN_RADIUS) at its cell, in its
+        class's plane."""
+        cfg = self.model_cfg.TARGET_ASSIGNER_CONFIG
+        pcr, vs, stride = self.point_cloud_range, self.voxel_size, \
+            self.feature_map_stride
+        cx = (gt_boxes[..., 0] - pcr[0]) / vs[0] / stride
+        cy = (gt_boxes[..., 1] - pcr[1]) / vs[1] / stride
+        dx = gt_boxes[..., 3] / vs[0] / stride
+        dy = gt_boxes[..., 4] / vs[1] / stride
+        radius = torch.clamp_min(centernet_utils.gaussian_radius(
+            dx, dy, cfg.GAUSSIAN_OVERLAP).to(torch.int32), cfg.MIN_RADIUS)
+        valid = (gt_boxes[..., -1] > 0) & (dx > 0) & (dy > 0)
+        return centernet_utils.splat_gaussians(
+            torch.stack([cx, cy], dim=-1), radius,
+            gt_boxes[..., -1].to(torch.int32) - 1, valid, self.num_class, h, w)
+
+    def compute_loss(self, res, gt_boxes):
+        """The set loss of ``predict``'s outputs against gt_boxes (B, M,
+        8+) -> (loss, tb_dict) (reference :174-266): the queries matched by
+        ``hungarian_assignment``; ``trans_cls_loss``, the sigmoid focal
+        loss of every query's class logits against its matched gt's class
+        (none for an unmatched query), over the batch's matched count;
+        ``trans_bbox_loss``, the L1 of the matched queries' [centre, height,
+        dim, rot (sin, cos), vel] against the encoded gt [cells, z, log
+        dims, sin, cos, the box's columns past its class id], over the
+        matched count; ``trans_hm_loss``, the gaussian focal loss of the
+        clipped sigmoid dense heatmap.  A gt without velocity columns
+        trains ``vel`` on velocity 0 (the reference takes its class id
+        there and cannot build the loss with ``vel``, ``ROADMAP.md`` §3)."""
+        cfg = self.model_cfg
+        lw = cfg.LOSS_CONFIG.LOSS_WEIGHTS
+        gt_boxes = gt_boxes.float()
+        cls_logits = res["heatmap"]                               # (B, P, C)
+        with torch.no_grad():
+            assigned = hungarian_assignment(torch.sigmoid(cls_logits),
+                                            self.decode_boxes(res), gt_boxes)
+        b, p = assigned.shape
+        matched = assigned >= 0
+        gt_matched = gt_boxes.gather(1, assigned.clamp_min(0)[..., None].expand(
+            -1, -1, gt_boxes.shape[-1]))                          # (B, P, 8+)
+        labels = torch.where(matched, gt_matched[..., -1].long() - 1,
+                             self.num_class)
+        one_hot = F.one_hot(labels, self.num_class + 1)[..., :-1].to(
+            cls_logits.dtype)
+        n_matched = matched.sum()
+        cls_weights = torch.ones((b, p), device=cls_logits.device) \
+            / torch.clamp_min(n_matched, 1)
+        loss_cls = cfg.LOSS_CONFIG.LOSS_CLS
+        cls_loss = loss_utils.sigmoid_focal_cls_loss(
+            cls_logits, one_hot, cls_weights, alpha=loss_cls.alpha,
+            gamma=loss_cls.gamma).sum() * lw["cls_weight"]
+
+        preds = torch.cat([res["center"], res["height"], res["dim"],
+                           res["rot"]] + ([res["vel"]] if "vel" in res
+                                          else []), dim=-1)
+        pcr, vs, stride = self.point_cloud_range, self.voxel_size, \
+            self.feature_map_stride
+        extra = centernet_utils.extra_targets(gt_matched, preds.shape[-1] - 8)
+        target = torch.cat([
+            ((gt_matched[..., 0] - pcr[0]) / (stride * vs[0]))[..., None],
+            ((gt_matched[..., 1] - pcr[1]) / (stride * vs[1]))[..., None],
+            gt_matched[..., 2:3],
+            torch.log(torch.clamp_min(gt_matched[..., 3:6], 1e-6)),
+            torch.sin(gt_matched[..., 6:7]), torch.cos(gt_matched[..., 6:7]),
+            extra], dim=-1)
+        m = matched[..., None].to(preds.dtype)
+        bbox_loss = (torch.abs(preds - target) * m).sum() \
+            / torch.clamp_min(m.sum(), 1.0) * lw["bbox_weight"]
+
+        dense = res["dense_heatmap"]
+        hm_target = self.heatmap_targets(gt_boxes, *dense.shape[2:])
+        hm_loss = loss_utils.FocalLossCenterNet()(
+            clip_sigmoid(dense.float()), hm_target) * lw["hm_weight"]
+        return cls_loss + bbox_loss + hm_loss, {
+            "trans_cls_loss": cls_loss, "trans_bbox_loss": bbox_loss,
+            "trans_hm_loss": hm_loss}
+
     def forward(self, batch_dict):
-        if self.training:
-            raise NotImplementedError(
-                "TransFusion training (the Hungarian assignment and the set "
-                "loss) is not ported yet (ROADMAP.md)")
         res = self.predict(batch_dict["spatial_features_2d"])
+        if self.training:
+            loss, tb = self.compute_loss(res, batch_dict["gt_boxes"])
+            batch_dict["loss"] = batch_dict.get("loss", 0.0) + loss
+            batch_dict["tb_dict"] = {**batch_dict.get("tb_dict", {}), **tb}
+            return batch_dict
         (batch_dict["final_boxes"], batch_dict["final_scores"],
          batch_dict["final_labels"], batch_dict["final_valid"]) = \
             self.final_predictions(res)

@@ -11,8 +11,15 @@ plus the centre offset), each frame keeps its top MAX_OBJ_PER_SAMPLE
 topk_stable``: the off-frame rows tie at -1), and the (heads x frames)
 candidate sets go to kernel 2 in one NMS.  Module slots follow pcdet's
 (``heads_list.{i}.{name}.{k}.0/.1``, ``{name}.{num_conv - 1}``), so a
-pcdet-named state dict loads strictly.  Training (the sparse targets and
-losses) is not ported (``ROADMAP.md``).
+pcdet-named state dict loads strictly.
+
+In train mode (``nn.Module.training``) the head computes its losses
+instead (reference ``__call__``'s train branch, :164-193): per head and
+frame the sparse gaussian targets over the frame's active voxel rows
+(``assign_targets_one_head``), the heatmap target the max over the frames,
+then ``FocalLossSparse`` on the clipped sigmoid heatmap and
+``RegLossSparse`` on the regression branches at each object's nearest
+active voxel.  Training runs no double flip.
 """
 
 import numpy as np
@@ -21,6 +28,7 @@ from torch import nn
 
 from ...ops.spconv import SubMConv2d
 from ...ops.spconv.sparse_tensor import BIG_KEY
+from ...utils import loss_utils
 from ..backbones_3d.spconv_backbone_voxelnext import (_Sparse2dConvBNReLU,
                                                       segment_sum,
                                                       sort_segments)
@@ -88,17 +96,127 @@ class VoxelNeXtHead(nn.Module):
         self.heads_list = nn.ModuleList(heads)
         self.kernel_impl = None
 
+    code_size = CenterHead.code_size
+
+    def assign_targets_one_head(self, gt_boxes, head_class_ids, num_classes,
+                                voxel_xy, voxel_batch, voxel_valid, b_idx):
+        """The sparse targets of one head and one frame (reference :93-149):
+        gt_boxes (M, 8+) of frame ``b_idx`` [box, class id], voxel_xy (N, 2)
+        [x, y] cells of the rows -> heatmap (N, C), boxes (M, code), inds
+        (M,), mask (M,).
+
+        Each object's gaussian (radius from ``gaussian_radius``, at least
+        MIN_RADIUS) is evaluated at the frame's active rows within the
+        radius of its continuous centre, and the class rows take the max.
+        ``inds`` is each object's nearest active row of the frame (the
+        lowest row among ties, as ``jnp.argmin``), ``mask`` marks the
+        objects of this head's classes that have one.  The regression
+        target is [centre - nearest cell, z, log dims, cos, sin, the box's
+        columns past its class id] (``centernet_utils.extra_targets``: a
+        box without velocity columns trains ``vel`` on velocity 0, as
+        CenterHead's does)."""
+        cfg = self.model_cfg.TARGET_ASSIGNER_CONFIG
+        stride = self.feature_map_stride
+        dev = gt_boxes.device
+        m = gt_boxes.shape[0]
+        n_names = len(self.class_names)
+        mapping = torch.full((n_names + 1,), -1, dtype=torch.long, device=dev)
+        for local, gid in enumerate(np.asarray(head_class_ids)):
+            mapping[int(gid)] = local
+        gt_cls = gt_boxes[:, -1].to(torch.int32) - 1
+        local_cls = mapping[gt_cls.clamp(0, n_names).long()]
+        pcr, vs = self.point_cloud_range, self.voxel_size
+        cx = (gt_boxes[:, 0] - pcr[0]) / vs[0] / stride
+        cy = (gt_boxes[:, 1] - pcr[1]) / vs[1] / stride
+        dx = gt_boxes[:, 3] / vs[0] / stride
+        dy = gt_boxes[:, 4] / vs[1] / stride
+        radius = torch.clamp_min(centernet_utils.gaussian_radius(
+            dx, dy, cfg.GAUSSIAN_OVERLAP).to(torch.int32),
+            cfg.MIN_RADIUS).float()
+        valid_obj = (gt_boxes[:, -1] > 0) & (local_cls >= 0) & (dx > 0) \
+            & (dy > 0)
+
+        in_frame = (voxel_batch == b_idx) & voxel_valid              # (N,)
+        xy = voxel_xy.float()
+        ddx = xy[None, :, 0] - cx[:, None]                           # (M, N)
+        ddy = xy[None, :, 1] - cy[:, None]
+        d2 = ddx ** 2 + ddy ** 2
+        r = radius[:, None]
+        inside = (ddx.abs() <= r) & (ddy.abs() <= r)
+        del ddx, ddy
+        sigma = (2 * r + 1) / 6.0
+        g = torch.exp(-d2 / torch.clamp_min(2 * sigma ** 2, 1e-6))
+        g = torch.where(inside & valid_obj[:, None] & in_frame[None, :], g,
+                        0.0)
+        del inside
+        n = voxel_xy.shape[0]
+        cls_row = torch.where(valid_obj, local_cls, num_classes)
+        heatmap = g.new_zeros((num_classes + 1, n))
+        heatmap.scatter_reduce_(0, cls_row[:, None].expand(m, n), g,
+                                reduce="amax")
+        del g
+        d2 = torch.where(in_frame[None, :], d2, torch.inf)
+        inds = torch.argmin(d2, dim=1)                               # (M,)
+        mask = valid_obj & torch.isfinite(d2.gather(1, inds[:, None])[:, 0])
+        del d2
+        nearest = xy[inds]
+        extra = centernet_utils.extra_targets(gt_boxes, self.code_size - 8)
+        ret_boxes = torch.cat([
+            torch.stack([cx, cy], 1) - nearest, gt_boxes[:, 2:3],
+            torch.log(torch.clamp_min(gt_boxes[:, 3:6], 1e-6)),
+            torch.cos(gt_boxes[:, 6:7]), torch.sin(gt_boxes[:, 6:7]), extra],
+            dim=1)
+        ret_boxes = torch.where(mask[:, None], ret_boxes, 0.0)
+        return heatmap[:num_classes].t(), ret_boxes, inds, mask
+
     def forward(self, batch_dict):
-        if self.training:
-            raise NotImplementedError(
-                "VoxelNeXt training (sparse targets and losses) is not "
-                "ported yet (ROADMAP.md)")
         st = batch_dict["encoded_spconv_tensor"]
         cache = {}
         pred_dicts = [head(st, cache) for head in self.heads_list]
         batch_dict["pred_dicts"] = pred_dicts
-        self._nms(batch_dict, *self._candidates(st, pred_dicts))
+        if self.training:
+            self._losses(batch_dict, st, pred_dicts)
+        else:
+            self._nms(batch_dict, *self._candidates(st, pred_dicts))
         return batch_dict
+
+    def _losses(self, batch_dict, st, pred_dicts):
+        """The train branch (reference :164-193): per head, the targets of
+        each frame (without gradient, one frame at a time), the heatmap
+        target the max over the frames; ``FocalLossSparse`` over the valid
+        rows and ``RegLossSparse`` of the HEAD_ORDER branches; ``loss`` is
+        their weighted sum, ``tb_dict`` holds ``hm_loss_head_i`` and
+        ``loc_loss_head_i``."""
+        cfg = self.model_cfg
+        lw = cfg.LOSS_CONFIG.LOSS_WEIGHTS
+        voxel_xy = torch.stack([st.indices[:, 2], st.indices[:, 1]], dim=1)
+        voxel_batch, voxel_valid = st.indices[:, 0], st.valid
+        gt_boxes = batch_dict["gt_boxes"].float()
+        total, tb = 0.0, {}
+        for idx, pred in enumerate(pred_dicts):
+            ids = self.class_id_mapping_each_head[idx]
+            with torch.no_grad():
+                targets = [self.assign_targets_one_head(
+                    gt_boxes[b], ids, len(ids), voxel_xy, voxel_batch,
+                    voxel_valid, b) for b in range(st.batch_size)]
+                heat = torch.stack([t[0] for t in targets]).amax(0)
+                boxes, inds, mask = (torch.stack([t[i] for t in targets])
+                                     for i in (1, 2, 3))
+                del targets
+            hm = torch.clamp(torch.sigmoid(pred["hm"].float()), 1e-4,
+                             1 - 1e-4)
+            hm_loss = loss_utils.FocalLossSparse()(
+                hm, heat, valid=voxel_valid) * lw["cls_weight"]
+            preds = torch.cat([pred[k].float()
+                               for k in cfg.SEPARATE_HEAD_CFG.HEAD_ORDER],
+                              dim=-1)
+            loc_loss = loss_utils.RegLossSparse()(preds, mask, inds, boxes) \
+                * lw["loc_weight"]
+            total = total + hm_loss + loc_loss
+            tb[f"hm_loss_head_{idx}"] = hm_loss
+            tb[f"loc_loss_head_{idx}"] = loc_loss
+        batch_dict["loss"] = batch_dict.get("loss", 0.0) + total
+        batch_dict["tb_dict"] = {**batch_dict.get("tb_dict", {}), **tb}
 
     def _candidates(self, st, pred_dicts):
         """The NMS candidate sets of the branch outputs over the rows of

@@ -1,6 +1,7 @@
 """CenterNet heatmap utilities (port of
 ``q3d_tpu/models/model_utils/centernet_utils.py``): the gaussian targets
-(``gaussian_radius``, ``splat_gaussians``) and the top-K decode
+(``gaussian_radius``, ``splat_gaussians``; ``extra_targets``, the
+velocity columns of the heads' regression targets) and the top-K decode
 (``decode_bbox_from_heatmap``), batched over frames, NCHW."""
 
 import numpy as np
@@ -28,6 +29,19 @@ def gaussian_radius(dx, dy, min_overlap=0.5):
     sq3 = torch.sqrt(torch.clamp_min(b3 ** 2 - 4 * a3 * c3, 0))
     r3 = (b3 + sq3) / 2
     return torch.minimum(torch.minimum(r1, r2), r3)
+
+
+def extra_targets(gt_boxes, n_extra):
+    """The regression target's channels past [box, rot] (velocity): the gt
+    box's columns past its class id, cut or padded with 0 to ``n_extra``.
+    A box without them (the synthetic scenes are single static sweeps)
+    trains a ``vel`` branch on velocity 0; the reference's targets have no
+    such columns there (``ROADMAP.md`` §3)."""
+    extra = gt_boxes[..., 7:-1]
+    if extra.shape[-1] >= n_extra:
+        return extra[..., :n_extra]
+    return torch.cat([extra, extra.new_zeros(
+        (*extra.shape[:-1], n_extra - extra.shape[-1]))], dim=-1)
 
 
 def splat_gaussians(centers, radii, class_ids, obj_valid, num_classes, H, W):

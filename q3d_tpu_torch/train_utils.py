@@ -34,17 +34,22 @@ MODEL_KEYS = ("voxels", "voxel_coords", "voxel_num_points", "gt_boxes")
 
 def biases_before_bn(model):
     """Names of the conv biases that feed a BatchNorm directly (the head's
-    convs under USE_BIAS_BEFORE_NORM).  In train mode their gradient is 0
-    in exact arithmetic, since the BN takes out any per-channel constant,
-    so what a step gives them is rounding noise."""
-    from .models.layers import BatchNorm, Conv2d
+    convs under USE_BIAS_BEFORE_NORM, TransFusion's position embeddings,
+    VoxelNeXt's shared_conv).  In train mode their gradient is 0 in exact
+    arithmetic, since the BN takes out any per-channel constant, so what a
+    step gives them is rounding noise."""
+    from .models.layers import BatchNorm, Conv1d, Conv2d
+    from .ops.spconv.modules import SparseBatchNorm, _SparseConvBase
+    pairs = ((Conv2d, BatchNorm), (Conv1d, BatchNorm),
+             (_SparseConvBase, SparseBatchNorm))
     out = set()
     for name, mod in model.named_modules():
         if isinstance(mod, torch.nn.Sequential):
             kids = list(mod.named_children())
             for (n0, a), (_, b) in zip(kids, kids[1:]):
-                if isinstance(a, Conv2d) and isinstance(b, BatchNorm) \
-                        and a.bias is not None:
+                if getattr(a, "bias", None) is not None and any(
+                        isinstance(a, c) and isinstance(b, n)
+                        for c, n in pairs):
                     out.add(f"{name}.{n0}.bias")
     return out
 

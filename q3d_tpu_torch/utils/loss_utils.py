@@ -1,9 +1,10 @@
 """Losses (port of ``q3d_tpu/utils/loss_utils.py``): the anchor heads'
 sigmoid focal classification loss, weighted smooth-L1 and weighted
-cross-entropy (:16-79), and the CenterNet losses (:86-134), the gaussian
+cross-entropy (:16-79), the CenterNet losses (:86-134), the gaussian
 focal loss on the heatmaps and the L1 regression at the objects' heatmap
-peaks.  Each returns per-element losses (the CenterNet ones their reduced
-value), as the reference's do.  The other losses of the reference come
+peaks, and their sparse forms over (N, C) voxel rows (:137-166,
+VoxelNeXt's).  Each returns per-element losses (the CenterNet ones their
+reduced value), as the reference's do.  The other losses of the reference come
 with the heads that use them."""
 
 import torch
@@ -100,4 +101,40 @@ class RegLossCenterNet:
                 .transpose(1, 2)                                # (B, K, C)
         m = mask[..., None].to(pred.dtype)
         loss = torch.abs(pred * m - target * m)
+        return loss.sum() / torch.clamp_min(m.sum(), 1e-4)
+
+
+class FocalLossSparse:
+    """The gaussian focal loss over (N, C) voxel-row heatmaps (reference
+    ``FocalLossSparse``): pred the clipped sigmoid, gt the targets;
+    ``valid`` (N,) masks the pad rows out of both terms.  Without a
+    positive row the loss is the negative term alone."""
+
+    def __call__(self, pred, gt, valid=None):
+        pos_inds = (gt == 1.0).to(pred.dtype)
+        neg_inds = (gt < 1.0).to(pred.dtype)
+        if valid is not None:
+            v = valid[..., None].to(pred.dtype)
+            pos_inds = pos_inds * v
+            neg_inds = neg_inds * v
+        neg_weights = torch.pow(1.0 - gt, 4)
+        pred = torch.clamp(pred, 1e-4, 1 - 1e-4)
+        pos_loss = (torch.log(pred) * torch.pow(1 - pred, 2)
+                    * pos_inds).sum()
+        neg_loss = (torch.log(1 - pred) * torch.pow(pred, 2) * neg_weights
+                    * neg_inds).sum()
+        num_pos = pos_inds.sum()
+        return torch.where(num_pos == 0, -neg_loss,
+                           -(pos_loss + neg_loss)
+                           / torch.clamp_min(num_pos, 1.0))
+
+
+class RegLossSparse:
+    """L1 regression at gathered voxel rows (reference ``RegLossSparse``):
+    pred (N, C), ind (B, K) rows of N, mask (B, K), target (B, K, C)."""
+
+    def __call__(self, pred, mask, ind, target):
+        gathered = pred[ind]                                  # (B, K, C)
+        m = mask[..., None].to(pred.dtype)
+        loss = torch.abs(gathered * m - target * m)
         return loss.sum() / torch.clamp_min(m.sum(), 1e-4)

@@ -10,10 +10,20 @@
   the reference's on identical inputs (the trained model's detections);
 * ``eval_one_epoch`` in f32 on the CPU over the 16 test frames (batch 2):
   the port's NDS and mAP equal the reference's within 1e-6.
+
+The reference's ``statistics_info`` calls its eager ``boxes_iou3d`` once a
+frame on that frame's gt and detection counts, and each new pair of counts
+compiles every op of it again (~45 s of the file's CPU).  Here it runs on
+its inputs padded with unit boxes to fixed row counts, and the padding's
+rows are cut off its result (``padded_iou3d``): each pair's IoU is
+computed by the same ops, and was bit-equal to the unpadded one on all 16
+frames.
 """
 
+import contextlib
 import io
 import pickle
+from unittest import mock
 
 import flax
 import jax
@@ -31,6 +41,7 @@ from q3d_tpu.eval_utils import statistics_info as jax_statistics_info
 from q3d_tpu.models import build_network as jax_build_network
 from q3d_tpu.models import load_data_to_device as jax_load_data_to_device
 from q3d_tpu.ops.iou3d_nms import boxes_iou3d as jax_boxes_iou3d
+from q3d_tpu.ops import iou3d_nms as jax_iou3d_nms
 from q3d_tpu.utils import simple_eval as jax_simple_eval
 from q3d_tpu.utils.checkpoint import load_checkpoint
 
@@ -47,6 +58,27 @@ from q3d_tpu_torch.utils.weights import state_dict_from_jax
 from test_torch_port_centerpoint import CFG_DIR, CKPT
 
 torch.set_num_threads(2)
+
+
+@contextlib.contextmanager
+def padded_iou3d():
+    """While open, the reference's ``statistics_info`` (which imports
+    ``boxes_iou3d`` from the package at each call) gets its inputs padded
+    with unit boxes to the next power of two rows (at least 64), and the
+    padding's rows and columns cut off the result."""
+    real = jax_iou3d_nms.boxes_iou3d
+
+    def pad(x):
+        n = x.shape[0]
+        rows = max(64, 1 << (n - 1).bit_length())
+        filler = jnp.tile(jnp.asarray([[0, 0, 0, 1, 1, 1, 0]], x.dtype),
+                          (rows - n, 1))
+        return jnp.concatenate([x, filler])
+
+    def iou(a, b):
+        return real(pad(a), pad(b))[:a.shape[0], :b.shape[0]]
+    with mock.patch.object(jax_iou3d_nms, "boxes_iou3d", iou):
+        yield
 
 
 def _flat(tree, prefix=()):
@@ -82,8 +114,9 @@ def reference():
         annos.append((raw, host))
         return real(raw, host, names, output_path)
     ds.generate_prediction_dicts = keep
-    res = jax_eval_one_epoch(model, variables, loader, ds,
-                             list(cfg.CLASS_NAMES), cfg)
+    with padded_iou3d():
+        res = jax_eval_one_epoch(model, variables, loader, ds,
+                                 list(cfg.CLASS_NAMES), cfg)
     ds.generate_prediction_dicts = real
     return {"cfg": cfg, "ds": ds, "variables": variables, "result": res,
             "batches": annos}
@@ -164,8 +197,11 @@ def test_statistics_info_and_evaluators_match_reference(reference):
     thresh = [0.3, 0.5, 0.7]
     for raw, host in reference["batches"]:
         fresh = {"gt_num": 0, **{f"recall_rcnn_{t}": 0 for t in thresh}}
-        assert statistics_info(host, raw["gt_boxes"], thresh, dict(fresh)) \
-            == jax_statistics_info(host, raw["gt_boxes"], thresh, dict(fresh))
+        with padded_iou3d():
+            want = jax_statistics_info(host, raw["gt_boxes"], thresh,
+                                       dict(fresh))
+        assert statistics_info(host, raw["gt_boxes"], thresh,
+                               dict(fresh)) == want
     ds = reference["ds"]
     port_ds = build_dataloader(reference["cfg"].DATA_CONFIG,
                                reference["cfg"].CLASS_NAMES, batch_size=2,

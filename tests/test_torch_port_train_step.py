@@ -28,6 +28,7 @@ The JAX side compiles once per optimizer and rule set, on first use (a
 module fixture per file keeps it so).
 """
 
+import functools
 import pickle
 
 import flax
@@ -294,12 +295,16 @@ def _dense_layer(jrule, rng):
         lambda y: y.permute(0, 2, 3, 1), lambda g: g.permute(2, 3, 1, 0)
 
 
+@functools.partial(jax.jit, static_argnums=2)
+def _jitted_sq_scale(a, w, alpha):
+    return jnp.maximum(jnp.power(a, alpha) / jnp.power(w, 1.0 - alpha), 1e-5)
+
+
 def _reference_sq_scale(a_amax, w_amax, alpha):
     """The reference's SmoothQuant column scale (XLA's jitted ``pow``),
-    as a tensor without gradient."""
-    scale = jax.jit(lambda a, w: jnp.maximum(
-        jnp.power(a, alpha) / jnp.power(w, 1.0 - alpha), 1e-5))(
-            a_amax.detach().numpy(), w_amax.detach().numpy())
+    as a tensor without gradient; compiled once per shape and alpha."""
+    scale = _jitted_sq_scale(a_amax.detach().numpy(),
+                             w_amax.detach().numpy(), alpha)
     return torch.from_numpy(np.array(scale))
 
 
