@@ -225,7 +225,36 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
                 tiny config: the loss falls by at least 10%) and
                 ``train_<model>`` (``train_model``, 8 steps, the yaml's
                 OPTIMIZATION, timed as ``train_ref``);
- 18. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+ 18. SECOND-MultiHead at the Lyft config's width (``lyft_phases``;
+                ``lyft_models/cbgs_second_multihead.yaml``'s MODEL as
+                written: VoxelResBackBone8x, BaseBEVBackbone [5, 5],
+                AnchorHeadMulti's five towers over 9 classes, the
+                multi-class NMS; on SyntheticDataset scenes at the Lyft
+                dataset yaml's geometry, ``datasets/lyft_synthetic.py``:
+                +-80 m at 0.1 x 0.1 x 0.2 m, five point features with a
+                zero timestamp, 52.9-54k voxels of the 60,000 cap, 720,000
+                anchors a frame; seeded weights, every tower's conv_cls bias
+                0): ``data_lyft`` (voxels against the cap and the 40,000
+                floor, objects present), ``kernel_conv`` for its 21 convs,
+                ``serving_lyft`` (4 bf16 requests: 21 kernel-1 launches and
+                one boxes-form launch of 18 candidate sets at K = 1024 each;
+                host ms apart from device ms), ``stages_lyft``,
+                ``model_lyft`` (f32, TF32 off, kernels vs plain: maps, kernel
+                2 on identical candidates in both forms, post_processing on
+                identical inputs, detections end to end within the maps'
+                tolerance carried through the decode), ``kernel_nms_lyft``
+                (the boxes form on those 18 sets, and the IoU form on the
+                same sets' axis-aligned IoU as ``nms_normal_bev`` runs it,
+                against plain, timed, bounds), ``recipes_lyft``
+                (``second_recipe()``, ``int8_deploy_recipe()``, the
+                residency deploy: each launch held on its own operands, the
+                int8 forms equal end to end), ``train_grad_lyft``,
+                ``kernel_fwd_lyft`` / ``kernel_dx_lyft``, ``qat_lyft``,
+                ``train_tiny_lyft`` (``lyft_synthetic.small_config``: the
+                loss falls by at least 10% in 8 steps) and ``train_lyft``
+                (``train_model`` at the yaml's batch 4, 16 frames, 2 epochs,
+                its OPTIMIZATION and DATA_AUGMENTOR);
+ 19. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises and exits nonzero without the last line.  Without
 CUDA, or outside a checkout of the repo, it exits 1 and prints no result.
@@ -384,7 +413,9 @@ def stage_times(model, batch, reps=5):
     methods, not modules (CenterHead's ``_decode`` / ``_nms``; an anchor
     head's ``generate_predicted_boxes`` and the detector's
     ``post_processing``), so they are timed through instance attributes
-    that shadow them for the run."""
+    that shadow them for the run.  AnchorHeadMulti's head convs are its
+    shared conv and towers; putting the towers' maps into the anchor
+    order counts in ``dense_head`` only."""
     import torch
     head = model.dense_head
     stages = {"vfe": model.vfe}
@@ -396,9 +427,11 @@ def stage_times(model, batch, reps=5):
         stages["head_convs"] = [head.shared_conv, head.shared_requant,
                                 *head.heads_list]
         methods = ((head, "_decode", "decode"), (head, "_nms", "nms"))
-    else:                                           # AnchorHeadSingle
-        stages["head_convs"] = [c for c in (head.conv_cls, head.conv_box,
-                                            head.conv_dir_cls) if c is not None]
+    else:                           # AnchorHeadSingle, AnchorHeadMulti
+        stages["head_convs"] = [head.shared_conv, *head.heads] \
+            if hasattr(head, "heads") else [
+                c for c in (head.conv_cls, head.conv_box, head.conv_dir_cls)
+                if c is not None]
         methods = ((head, "generate_predicted_boxes", "decode"),
                    (model, "post_processing", "nms"))
     stages["dense_head"] = head
@@ -756,10 +789,12 @@ def detections_near(a, b, min_score, box_tol, score_tol):
     return n, matched, worst
 
 
-def matched_detections(a, b, frames):
+def matched_detections(a, b, frames, box_tol=1e-3, score_tol=1e-4,
+                       box_floor=None):
     """Valid detections of either run with a partner in the other (same
-    frame and label, box within 1e-3, score within 1e-4) -> (matched,
-    total)."""
+    frame and label, each box element within ``box_tol``, or with
+    ``box_floor`` within ``box_tol`` x max(box_floor, |element|), the
+    score within ``score_tol``) -> (matched, total)."""
     matched = total = 0
     for x, y in ((a, b), (b, a)):
         for i in range(frames):
@@ -768,11 +803,13 @@ def matched_detections(a, b, frames):
             total += len(bx)
             if len(bx) == 0 or len(by) == 0:
                 continue
-            ok = ((bx[:, None, :] - by[None, :, :]).abs().amax(-1) <= 1e-3) \
+            tol = box_tol if box_floor is None \
+                else box_tol * by.abs().clamp_min(box_floor)[None]
+            ok = ((bx[:, None, :] - by[None, :, :]).abs() <= tol).all(-1) \
                 & (x["final_labels"][i][vx][:, None]
                    == y["final_labels"][i][vy][None, :]) \
                 & ((x["final_scores"][i][vx][:, None]
-                    - y["final_scores"][i][vy][None, :]).abs() <= 1e-4)
+                    - y["final_scores"][i][vy][None, :]).abs() <= score_tol)
             matched += int(ok.any(1).sum())
     return matched, total
 
@@ -3884,6 +3921,646 @@ def nuscenes_kernel_rows(nu):
     return rows
 
 
+# ==================================================================== Lyft
+# tools/cfgs/lyft_models/cbgs_second_multihead.yaml (MODEL as written):
+# VoxelResBackBone8x's 21 sparse convs on kernel 1, AnchorHeadMulti's five
+# towers, the multi-class NMS as one kernel-2 launch of BATCH x 9 candidate
+# sets at K = NMS_PRE_MAXSIZE; on SyntheticDataset scenes at the Lyft
+# dataset yaml's geometry (datasets/lyft_synthetic.py)
+LYFT_CONVS, LYFT_SETS, LYFT_K = 21, 9, 1024
+# a Lyft frame's voxels: the scenes fill at least this many of the cap
+LYFT_MIN_VOXELS = 40000
+LYFT_TRAIN_FRAMES = 16
+# the largest anchor's BEV diagonal (bus: 12.70 x 2.92 m)
+LYFT_DIAGONAL = 13.03
+
+
+def lyft_model(dev, frames, training=False, augment=False):
+    """The Lyft config on ``frames`` synthetic frames from SEED (a test
+    loader of BATCH frames, or with ``training`` a training loader at the
+    yaml's BATCH_SIZE_PER_GPU, points shuffled, the yaml's DATA_AUGMENTOR
+    with ``augment``) and the seeded model, on the card -> (cfg, ds,
+    loader, model)."""
+    import dataclasses
+    import numpy as np
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.datasets.lyft_synthetic import (SCENE_CLASSES,
+                                                       lyft_config)
+    from q3d_tpu_torch.models import build_network
+    from q3d_tpu_torch.models.builder import dataset_info
+    cfg = lyft_config(frames, SEED)
+    if not augment:
+        del cfg.DATA_CONFIG["DATA_AUGMENTOR"]
+    np.random.seed(SEED)
+    ds, loader, _ = build_dataloader(
+        cfg.DATA_CONFIG, list(SCENE_CLASSES),
+        batch_size=int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU) if training
+        else BATCH, training=training, seed=SEED)
+    info = dataclasses.replace(dataset_info(ds),
+                               class_names=tuple(cfg.CLASS_NAMES))
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), info, device=dev)
+    return cfg, ds, loader, model
+
+
+def lyft_idle_box_convs(model, gt_boxes):
+    """The towers' conv_box parameters none of whose classes the gt boxes
+    hold (the scenes label classes 1-3: car, truck, bus): their regression
+    loss has no term, so their gradient is exactly 0 -> set of names."""
+    present = {int(c) - 1 for c in gt_boxes[..., -1].reshape(-1).tolist()
+               if c > 0}
+    return {f"dense_head.heads.{g}.conv_box.{p}"
+            for g, (ids, _) in enumerate(model.dense_head.groups)
+            if not present & set(ids) for p in ("weight", "bias")}
+
+
+def lyft_candidates(out, nms_cfg, score_thresh):
+    """The candidate sets that post_processing's multi-class NMS gives
+    kernel 2 for a forward's outputs: per frame and class the top
+    NMS_PRE_MAXSIZE rows by the class's score -> (boxes (B*C, K, 7), valid
+    (B*C, K))."""
+    import torch
+    from q3d_tpu_torch.ops.iou3d_nms import top_candidates
+    cls = torch.sigmoid(out["batch_cls_preds"].float())
+    b, n, c = cls.shape
+    scores = cls.permute(0, 2, 1).reshape(b * c, n)
+    _, boxes, valid = top_candidates(
+        out["batch_box_preds"][..., :7].float(), scores,
+        scores >= score_thresh, int(nms_cfg.NMS_PRE_MAXSIZE))
+    return boxes.contiguous(), valid.contiguous()
+
+
+def lyft_phases(dev, conv_k, nms_k, mode, strict_f32, flush, clock_mhz):
+    """SECOND-MultiHead at the Lyft config's width (MODEL as written; seeded
+    weights, every tower's conv_cls bias 0 so that each class's scores sit
+    near 0.5 and all NMS_PRE_MAXSIZE candidates of a set are valid, kernel
+    2's worst case; BN statistics from the first request, f32, TF32 off):
+    ``data_lyft`` (points, voxels kept against the 60,000 cap and the
+    LYFT_MIN_VOXELS floor, objects present), ``kernel_conv`` for the 21
+    convs (bf16 and s8 against plain, times, bound, library),
+    ``serving_lyft`` (4 bf16 requests: 21 kernel-1 launches and one
+    boxes-form launch of BATCH x 9 sets at K = 1024 each; host ms apart
+    from device ms), ``stages_lyft``, ``model_lyft`` (f32 through the
+    kernels and the plain versions: maps, kernel 2 on identical candidates
+    in both forms, post_processing on identical inputs, detections),
+    ``kernel_nms_lyft`` (the boxes form on those 18 sets against plain,
+    timed, its bound; the IoU form under ``nms_normal_bev`` on the same
+    sets), ``recipes_lyft`` (``second_recipe()``, ``int8_deploy_recipe()``
+    and the residency deploy: launches per recipe, each launch held
+    against its plain version on its own operands; the int8 forms' maps
+    and detections equal end to end, the fake-quant form's end-to-end
+    distance reported), then training at the yaml's batch (``train_grad_lyft``,
+    ``kernel_fwd_lyft`` / ``kernel_dx_lyft``, ``qat_lyft``,
+    ``train_tiny_lyft``, ``train_lyft``) -> summaries for the kernels
+    line."""
+    import numpy as np
+    import torch
+    from q3d_tpu_torch.datasets.lyft_synthetic import scene_counts
+    from q3d_tpu_torch.eval_utils import to_host
+    from q3d_tpu_torch.models import load_data_to_device
+    from q3d_tpu_torch.models.dense_heads.anchor_head_multi import \
+        ABSENT_LOGIT
+    from q3d_tpu_torch.models.layers import Conv2d
+    from q3d_tpu_torch.models.model_utils import model_nms_utils
+    from q3d_tpu_torch.ops.iou3d_nms import aligned_iou_bev
+    from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as nms_mod
+    from q3d_tpu_torch.quant import api as quant_api
+    from q3d_tpu_torch.utils.bn_calibration import calibrate_bns
+    config = "lyft_models/cbgs_second_multihead.yaml"
+
+    # ---------------------------------------------------------------- data
+    cfg, ds, _, model = lyft_model(dev, BATCH * REQUESTS)
+    counts = scene_counts(ds)
+    cap = int(cfg.DATA_CONFIG.DATA_PROCESSOR[-1].MAX_NUMBER_OF_VOXELS["test"])
+    check(all(LYFT_MIN_VOXELS <= c["voxels_kept"] == c["voxels_occupied"]
+              < cap for c in counts),
+          f"data_lyft: voxels kept {[c['voxels_kept'] for c in counts]}, "
+          f"occupied {[c['voxels_occupied'] for c in counts]}, floor "
+          f"{LYFT_MIN_VOXELS}, cap {cap}")
+    check(all(c["objects_present"] == c["objects_labelled"] > 0
+              for c in counts), f"data_lyft: objects lost: {counts}")
+    emit("data_lyft", config=config,
+         dataset="SyntheticDataset at the Lyft dataset yaml's geometry",
+         point_cloud_range=list(cfg.DATA_CONFIG.POINT_CLOUD_RANGE),
+         point_features=list(cfg.DATA_CONFIG.POINT_FEATURE_ENCODING
+                             .used_feature_list),
+         voxel_size=[float(v) for v in ds.voxel_size],
+         grid_size=[int(g) for g in ds.grid_size], voxel_cap=cap,
+         voxel_floor=LYFT_MIN_VOXELS,
+         anchors_per_frame=int(model.dense_head.anchors.shape[0]),
+         frames=counts,
+         cuts="one sweep (timestamp 0); objects of class ids 1-3 only "
+              "(car, truck, bus)")
+    head = model.dense_head
+    with torch.no_grad():
+        for tower in head.heads:
+            tower.conv_cls.bias.zero_()
+
+    def request(r):
+        return make_request(ds, r, lambda d, j: d.scene(j))
+    raw0, _, _ = request(0)
+    strict_f32(True)
+    batch_f32 = load_data_to_device(raw0, device=dev)
+    calibrate_bns(model, batch_f32)
+    convs, _ = record_sparse_convs(model, batch_f32)
+    check(len(convs) == LYFT_CONVS, f"lyft: {len(convs)} sparse convs")
+    totals, worst, conv_rows = kernel_conv(convs, flush, mode, "lyft")
+    s8_totals = {k: sum(r[f"{k}_s8"] or 0.0 for r in conv_rows)
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    del convs
+    strict_f32(False)
+
+    # ------------------------------------------------------------- serving
+    nms_cfg = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+    post_max = int(nms_cfg.NMS_POST_MAXSIZE)
+    sets_seen = []
+    real_boxes_cuda = nms_mod.greedy_suppress_boxes_cuda
+
+    def seen(corners, *args, **kw):
+        sets_seen.append(list(corners.shape[:2]))
+        return real_boxes_cuda(corners, *args, **kw)
+    nms_mod.greedy_suppress_boxes_cuda = seen
+    clear_launches(conv_k, nms_k)
+    per_request = []
+    try:
+        for r in range(REQUESTS):
+            raw, scene_ms, vox_ms = request(r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = load_data_to_device(raw, device=dev,
+                                        compute_dtype=torch.bfloat16)
+            with torch.no_grad():
+                out = model(batch)
+            n_valid = out["final_valid"].sum(dim=1).tolist()
+            torch.cuda.synchronize()
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+            check(all(torch.isfinite(out[k].float()).all() for k in (
+                "spatial_features_2d", "batch_box_preds", "final_boxes",
+                "final_scores")), f"lyft request {r}: non-finite outputs")
+            check(out["final_boxes"].shape == (BATCH, post_max, 7)
+                  and out["batch_cls_preds"].dtype == torch.float32,
+                  f"lyft request {r}: final_boxes "
+                  f"{tuple(out['final_boxes'].shape)}, class map "
+                  f"{out['batch_cls_preds'].dtype}")
+            per_request.append({"request": r,
+                                "frames": list(range(BATCH * r,
+                                                     BATCH * (r + 1))),
+                                "scene_ms": scene_ms, "voxelize_ms": vox_ms,
+                                "host_ms": scene_ms + vox_ms,
+                                "device_forward_ms": fwd_ms,
+                                "valid_detections": n_valid})
+            emit("serving_lyft_request", **per_request[-1])
+    finally:
+        nms_mod.greedy_suppress_boxes_cuda = real_boxes_cuda
+    launches = kernel_launches(conv_k, nms_k)
+    want = {"conv": LYFT_CONVS * REQUESTS, "nms_boxes": REQUESTS,
+            "nms_iou": 0, "sets": [[BATCH * LYFT_SETS, LYFT_K]] * REQUESTS}
+    got = {"conv": sum(conv_k.launches.values()),
+           "nms_boxes": launches["greedy_nms_boxes"],
+           "nms_iou": launches["greedy_nms_iou"], "sets": sets_seen}
+    check(got == want, f"serving_lyft launches {got}, expected {want}")
+    emit("serving_lyft", config=config, batch=BATCH, dtype="bf16",
+         requests=REQUESTS, launches=launches, nms_sets_k=sets_seen,
+         mode=mode(), steady_forward_ms=statistics.median(
+             p["device_forward_ms"] for p in per_request[1:]),
+         steady_host_ms=statistics.median(
+             p["host_ms"] for p in per_request[1:]))
+    stages = stage_times(model, batch)
+    emit("stages_lyft", dtype="bf16", batch=BATCH, mode=mode(), ms=stages,
+         sparse_conv_kernels_ms=totals["ms"])
+    del out, batch
+
+    # ------------------------------------- whole model, kernels vs plain
+    strict_f32(True)
+    score_thresh = float(cfg.MODEL.POST_PROCESSING.SCORE_THRESH)
+    thresh = float(nms_cfg.NMS_THRESH)
+    with torch.no_grad():
+        model.set_kernel_impl("cuda")
+        clear_launches(conv_k, nms_k)
+        out_k = model(dict(batch_f32))
+        torch.cuda.synchronize()
+        cuda_launches = kernel_launches(conv_k, nms_k)
+        model.set_kernel_impl("plain")
+        clear_launches(conv_k, nms_k)
+        out_p = model(dict(batch_f32))
+        torch.cuda.synchronize()
+        plain_launches = kernel_launches(conv_k, nms_k)
+        model.set_kernel_impl(None)
+    check(not any(plain_launches.values()),
+          f"model_lyft: the plain run launched {plain_launches}")
+    check(cuda_launches["greedy_nms_boxes"] == 1 and sum(
+        conv_k.launches.values()) == 0, f"model_lyft: {cuda_launches}")
+    map_err = {}
+    for key in ("spatial_features", "spatial_features_2d", "cls_preds",
+                "box_preds"):
+        a, b = out_k[key], out_p[key]
+        if key == "cls_preds":                # the absent channels: equal
+            absent = b == ABSENT_LOGIT
+            check(torch.equal(a[absent], b[absent]),
+                  "model_lyft: absent class channels differ")
+            a, b = a[~absent], b[~absent]
+        err, mag = float((a - b).abs().max()), float(b.abs().max())
+        map_err[key] = {"max_abs": err, "scale": mag}
+        check(err <= KITTI_MAP_RTOL * max(1.0, mag),
+              f"model_lyft f32 {key}: kernels vs plain max err {err} "
+              f"(scale {mag})")
+    cand, cand_valid = lyft_candidates(out_k, nms_cfg, score_thresh)
+    check(tuple(cand_valid.shape) == (BATCH * LYFT_SETS, LYFT_K),
+          f"model_lyft: candidate sets {tuple(cand_valid.shape)}")
+    aabb_iou = aligned_iou_bev(cand)
+    with torch.no_grad():
+        check(torch.equal(
+            nms_mod.greedy_nms_boxes(cand, cand_valid, thresh, impl="cuda"),
+            nms_mod.greedy_nms_boxes(cand, cand_valid, thresh, impl="plain")),
+            "model_lyft: boxes-form keep masks differ on identical "
+            "candidates")
+        check(torch.equal(
+            nms_mod.greedy_nms(aabb_iou, cand_valid, thresh, impl="cuda"),
+            nms_mod.greedy_nms(aabb_iou, cand_valid, thresh, impl="plain")),
+            "model_lyft: IoU-form keep masks (nms_normal_bev's IoU) differ")
+        finals = []
+        for impl in ("cuda", "plain"):
+            model.kernel_impl = impl
+            finals.append(model.post_processing(
+                {k: out_k[k] for k in ("batch_cls_preds", "batch_box_preds",
+                                       "cls_preds_normalized")}))
+        model.kernel_impl = None
+        normal = []
+        for impl in ("cuda", "plain"):
+            normal.append(model_nms_utils.multi_classes_nms(
+                torch.sigmoid(out_k["batch_cls_preds"]),
+                out_k["batch_box_preds"],
+                type(nms_cfg)({**nms_cfg, "NMS_TYPE": "nms_normal_gpu"}),
+                score_thresh, impl=impl))
+    for key in ("final_boxes", "final_scores", "final_labels", "final_valid"):
+        check(torch.equal(finals[0][key], finals[1][key]),
+              f"model_lyft: {key} differs between NMS kernel and plain on "
+              f"identical inputs")
+    check(all(torch.equal(a, b) for a, b in zip(*normal)),
+          "model_lyft: multi_classes_nms under nms_normal_gpu differs")
+    # end to end: every detection of one run has its partner in the other
+    # within the tolerances the maps' (KITTI_MAP_RTOL of their scale)
+    # carry through the decode and the sigmoid: x and y move by the
+    # encoded error times the anchor's BEV diagonal (up to the bus's
+    # LYFT_DIAGONAL), sizes by it times themselves, so boxes of 13 m
+    # anchors move by more than the default 1 mm
+    box_tol = KITTI_MAP_RTOL * max(1.0, map_err["box_preds"]["scale"])
+    score_tol = 0.25 * KITTI_MAP_RTOL * max(1.0, map_err["cls_preds"]["scale"])
+    matched, total = matched_detections(out_k, out_p, BATCH, box_tol,
+                                        score_tol, LYFT_DIAGONAL)
+    frac = matched / max(total, 1)
+    labels = out_k["final_labels"][out_k["final_valid"]]
+    first_diff = first_difference(model, batch_f32)
+    emit("model_lyft", dtype="f32", mode=mode(), map_max_abs_err=map_err,
+         map_tolerance=f"max|k-p| <= {KITTI_MAP_RTOL} * max(1, max|p|)",
+         launches=cuda_launches,
+         nms_identical_inputs=f"keep masks (boxes form, and the IoU form on "
+         f"nms_normal_bev's IoU; {BATCH * LYFT_SETS} sets, K={LYFT_K}), "
+         "post_processing's detections and multi_classes_nms under "
+         "nms_normal_gpu equal",
+         candidates_valid=int(cand_valid.sum()),
+         labels=labels.unique().tolist(), first_difference=first_diff,
+         detection_tolerance={"box": f"{box_tol} x max({LYFT_DIAGONAL}, "
+                                     "|value|) per element",
+                              "score": score_tol},
+         detections_matched=matched, detections=total,
+         matched_fraction=frac,
+         matched_within_1mm=matched_detections(out_k, out_p, BATCH)[0])
+    check(total > 0 and frac >= 0.99 and len(labels.unique()) > 1,
+          f"model_lyft: {matched}/{total} detections matched, labels "
+          f"{labels.unique().tolist()}")
+
+    # ------------------------------------------- kernel 2 on the 18 sets
+    near, needed, most = check_boxes_form(cand, cand_valid, thresh, "lyft")
+    corners, areas = nms_mod.bev_corners_areas(cand)
+    s_, k_ = cand_valid.shape
+    terms = boxes_bound(s_, k_, needed, near, clock_mhz)
+    nms_row = {"entry": "q3d_greedy_nms_boxes", "sets": s_, "K": k_,
+               "valid": int(cand_valid.sum()), "candidate_pairs": needed,
+               "near_pairs": near, "near_pairs_most_in_a_tile": most,
+               "kept": int(nms_mod.greedy_nms_boxes(cand, cand_valid,
+                                                    thresh).sum()),
+               "ms": time_ms(lambda: nms_mod.greedy_suppress_boxes_cuda(
+                   corners, areas, cand_valid, thresh), flush=flush),
+               "plain_ms": time_ms(lambda: nms_mod.greedy_suppress_boxes_plain(
+                   cand, cand_valid, thresh), reps=3, flush=flush),
+               "multi_classes_nms_ms": time_ms(
+                   lambda: model_nms_utils.multi_classes_nms(
+                       torch.sigmoid(out_k["batch_cls_preds"]),
+                       out_k["batch_box_preds"], nms_cfg, score_thresh),
+                   flush=flush),
+               **{f"{k}_ms": v for k, v in terms.items()},
+               "kernel_us": kernel_device_us(
+                   lambda: nms_mod.greedy_suppress_boxes_cuda(
+                       corners, areas, cand_valid, thresh),
+                   ("nms_box_pairs_kernel", "nms_box_iou_kernel",
+                    "nms_sweep_kernel"), flush)}
+    nms_row["bound_by"] = max(terms, key=terms.get)
+    nms_row["bound_ms"] = terms[nms_row["bound_by"]]
+    # the IoU form on the same sets, as nms_normal_bev runs it: the
+    # entries the function needs (j < i, both valid) read once, one
+    # compare each, valid read and keep written once; the sweep's chain
+    n_c = cand_valid.sum(1).double()
+    pairs = float((n_c * (n_c - 1) / 2).sum())
+    iou_terms = {"bytes": 1e3 * (pairs * 4 + 2 * s_ * k_) / HBM_BYTES_PER_S,
+                 "operations": 1e3 * pairs / PEAK_OPS_PER_S["f32"],
+                 "latency": 1e3 * k_ * 4 / (clock_mhz * 1e6)}
+    iou_row = {"entry": "q3d_greedy_nms", "sets": s_, "K": k_,
+               "kept": int(nms_mod.greedy_nms(aabb_iou, cand_valid,
+                                              thresh).sum()),
+               "ms": time_ms(lambda: nms_mod.greedy_suppress_cuda(
+                   aabb_iou, cand_valid, thresh), flush=flush),
+               "plain_ms": time_ms(lambda: nms_mod.greedy_suppress_plain(
+                   aabb_iou, cand_valid, thresh), reps=3, flush=flush),
+               "aabb_iou_ms": time_ms(lambda: aligned_iou_bev(cand),
+                                      flush=flush),
+               **{f"{k}_ms": v for k, v in iou_terms.items()}}
+    iou_row["bound_by"] = max(iou_terms, key=iou_terms.get)
+    iou_row["bound_ms"] = iou_terms[iou_row["bound_by"]]
+    emit("kernel_nms_lyft", form="boxes", **nms_row, max_abs_err=0,
+         mode=mode(), clock_max_sm_mhz=clock_mhz,
+         tolerance="keep masks exactly equal, IoU bit-equal at every "
+         "evaluated pair, plain IoU exactly 0 at every skipped needed pair")
+    emit("kernel_nms_lyft", form="iou (nms_normal_bev)", **iou_row,
+         max_abs_err=0, mode=mode(), clock_max_sm_mhz=clock_mhz,
+         tolerance="keep masks exactly equal")
+    del aabb_iou, corners, areas, out_k, out_p, finals, normal
+
+    # ------------------------------------------------------------ recipes
+    recipes = {}
+    cases = (("second_recipe()", lambda m: quant_api.quantize_model(
+                 m, quant_api.second_recipe(), batch_f32)),
+             ("int8_deploy_recipe()", lambda m: quant_api.quantize_model(
+                 m, quant_api.int8_deploy_recipe(), batch_f32)),
+             ("int8 residency", lambda m: quant_api.prepare_int8_deploy(
+                 m, [batch_f32, batch_f32])))
+    for tag, prepare in cases:
+        m = copy.deepcopy(model)
+        t0 = time.perf_counter()
+        prepare(m)
+        prep_s = time.perf_counter() - t0
+        k1 = set(kernel1_convs(m))
+        q_sparse = sum(getattr(mod, "rule", None) is not None
+                       for n, mod in m.named_modules() if n in k1)
+        q_dense = sum(isinstance(mod, Conv2d) and mod.rule is not None
+                      for mod in m.modules())
+        calls, outs, runs = [], {}, {}
+        with recording_launches(calls):
+            with torch.no_grad():
+                for impl in ("cuda", "plain"):
+                    m.set_kernel_impl(impl)
+                    clear_launches(conv_k, nms_k)
+                    outs[impl] = m(dict(batch_f32))
+                    torch.cuda.synchronize()
+                    runs[impl] = {k: v for k, v in
+                                  kernel_launches(conv_k, nms_k).items() if v}
+                m.set_kernel_impl(None)
+        got = runs["cuda"]
+        int8 = tag != "second_recipe()"
+        conv_sum = sum(v for k, v in got.items()
+                       if k.startswith("sparse_gather_conv"))
+        want_int8 = got.get("sparse_gather_conv_s8", 0) \
+            + got.get("sparse_gather_conv_s8_requant", 0)
+        check(conv_sum == LYFT_CONVS and got.get("greedy_nms_boxes") == 1
+              and want_int8 == (q_sparse if int8 else 0)
+              and got.get("int_mm_conv2d", 0) == (q_dense if int8 else 0)
+              and ("residency" not in tag
+                   or got.get("sparse_gather_conv_s8_requant", 0) > 0)
+              and not runs["plain"],
+              f"recipes_lyft {tag}: launches {runs}, {q_sparse} int8 sparse "
+              f"convs, {q_dense} int8 dense convs")
+        check(len(calls) == conv_sum, f"recipes_lyft {tag}: {len(calls)} "
+                                      f"launches recorded, {conv_sum} counted")
+        held = hold_launches_on_operands(calls, f"recipes_lyft {tag}")
+        del calls
+        ok_, op = outs["cuda"], outs["plain"]
+        row = {"launches": got, "quantized_sparse": q_sparse,
+               "quantized_dense": q_dense, "prepare_s": prep_s,
+               "valid": [int(ok_["final_valid"].sum()),
+                         int(op["final_valid"].sum())], **held}
+        if int8:
+            for key in ("spatial_features", "spatial_features_2d",
+                        "batch_cls_preds", "final_boxes", "final_scores",
+                        "final_labels", "final_valid"):
+                check(torch.equal(ok_[key], op[key]),
+                      f"recipes_lyft {tag}: {key} differs, kernels vs plain")
+            row["equal"] = "maps, class scores and detections, kernels vs " \
+                           "plain"
+        else:
+            # fake-quant: a summation-order difference flips a rounding of
+            # 1/127 of a tensor's amax, and each flip spreads through the
+            # [5, 5] BEV layers on these random weights, so the whole
+            # forward is held launch by launch on its own operands (above)
+            # and its end-to-end distance is reported
+            for key in ("spatial_features", "spatial_features_2d",
+                        "box_preds"):
+                a, b = ok_[key], op[key]
+                check(bool(torch.isfinite(a).all()),
+                      f"recipes_lyft {tag}: {key} not finite")
+                row[f"{key}_max_abs_err"] = {
+                    "max_abs": float((a - b).abs().max()),
+                    "scale": float(b.abs().max())}
+            n, matched, worst_fq = detections_near(
+                [to_host(ok_)], [to_host(op)], FQ_MIN_SCORE, FQ_BOX_TOL,
+                FQ_SCORE_TOL)
+            row.update(detections=n, matched_within_fq_tolerances=matched)
+        recipes[tag] = row
+        emit("recipes_lyft", recipe=tag, dtype="f32", batch=BATCH,
+             mode=mode(), **row)
+        del m, outs
+    strict_f32(False)
+    del model, batch_f32
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- training
+    from q3d_tpu_torch.config import EDict
+    from q3d_tpu_torch.optimization import build_optimizer
+    from q3d_tpu_torch.train_utils import MODEL_KEYS, train_step
+    tcfg, _, loader, tmodel = lyft_model(dev, LYFT_TRAIN_FRAMES,
+                                         training=True)
+    raw = next(iter(loader))
+    tbatch = load_data_to_device({k: v for k, v in raw.items()
+                                  if k in MODEL_KEYS}, device=dev)
+    idle = lyft_idle_box_convs(tmodel, raw["gt_boxes"])
+    strict_f32(True)
+    recorded, run = train_grad(tmodel, tbatch, conv_k, mode,
+                               "train_grad_lyft", config, LYFT_CONVS, idle)
+    fwd = kernel_forward(recorded, flush, mode, "kernel_fwd_lyft", config)
+    dx = kernel_dx(recorded, flush, mode, "kernel_dx_lyft", config)
+    del recorded
+
+    # QAT under second_recipe() (no tower's output conv in its no_list)
+    qmodel = copy.deepcopy(tmodel)
+    quant_api.quantize_model(qmodel, quant_api.second_recipe(), tbatch)
+    quantized = [n for n, mod in qmodel.named_modules()
+                 if getattr(mod, "rule", None) is not None
+                 and getattr(mod, "weight", None) is not None]
+    qruns = {}
+    for impl in ("cuda", "plain"):
+        mq = copy.deepcopy(qmodel)
+        mq.set_kernel_impl(impl)
+        opt = build_optimizer(mq.parameters(), EDict(QAT_OPTIM), QAT_STEPS)
+        conv_k.launches.clear()
+        with recording_backward(mq) as rec_q:
+            loss = float(train_step(mq, tbatch, opt)[0])
+        qruns[impl] = (mq, loss, sum(conv_k.launches.values()), rec_q)
+    del qmodel
+    mk, loss_k, q_launches, rec_q = qruns["cuda"]
+    check(q_launches == 2 * LYFT_CONVS - 1 and qruns["plain"][2] == 0,
+          f"qat_lyft: kernel-1 launches {q_launches} / {qruns['plain'][2]}")
+    layers = hold_conv_launches(rec_q)
+    del rec_q
+    params = dict(mk.named_parameters())
+    for n in quantized:
+        g = params[f"{n}.weight"].grad
+        check(bool(torch.isfinite(g).all())
+              and (f"{n}.weight" in idle or bool(g.abs().max() > 0)),
+              f"qat_lyft: {n}.weight gradient")
+    summary = compare_training(mk, qruns["plain"][0], loss_k,
+                               qruns["plain"][1], qat=True, zero_extra=idle)
+    emit("qat_lyft", config=config, recipe="second_recipe()",
+         batch=int(tbatch["voxels"].shape[0]), mode=mode(),
+         quantized_convs=len(quantized), launches_step=q_launches,
+         tolerance=QAT_TOL, layers=layers, **summary)
+    del qruns, mk, params, tmodel, tbatch
+    strict_f32(False)
+    torch.cuda.empty_cache()
+
+    # the small Lyft model learning on one batch
+    import dataclasses
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.datasets.lyft_synthetic import (SCENE_CLASSES,
+                                                       lyft_config,
+                                                       small_config)
+    from q3d_tpu_torch.models import build_network
+    from q3d_tpu_torch.models.builder import dataset_info
+    scfg = small_config(lyft_config(BATCH, SEED), BATCH, SEED)
+    sds, sloader, _ = build_dataloader(scfg.DATA_CONFIG, list(SCENE_CLASSES),
+                                       batch_size=BATCH, training=False)
+    smodel = build_network(scfg.MODEL, len(scfg.CLASS_NAMES),
+                           dataclasses.replace(dataset_info(sds),
+                                               class_names=tuple(
+                                                   scfg.CLASS_NAMES)),
+                           device=dev)
+    sraw = next(iter(sloader))
+    sbatch = load_data_to_device({k: v for k, v in sraw.items()
+                                  if k in MODEL_KEYS}, device=dev)
+    opt = build_optimizer(smodel.parameters(), EDict(
+        {"OPTIMIZER": "adam", "LR": 0.003, "WEIGHT_DECAY": 0.0}), TINY_STEPS)
+    losses = [float(train_step(smodel, sbatch, opt)[0])
+              for _ in range(TINY_STEPS)]
+    check(losses[-1] < 0.9 * losses[0], f"train_tiny_lyft: losses {losses}")
+    emit("train_tiny_lyft", config=f"{config}, lyft_synthetic.small_config",
+         batch=BATCH, mode=mode(),
+         optimizer="adam, lr 3e-3, no weight decay, clip 10", losses=losses,
+         fall=1 - losses[-1] / losses[0])
+    del smodel, sbatch
+
+    # train_model at the yaml's batch, its OPTIMIZATION and DATA_AUGMENTOR
+    import shutil
+    tcfg, tds, tloader, tmodel = lyft_model(dev, LYFT_TRAIN_FRAMES,
+                                            training=True, augment=True)
+    queue = tds.data_augmentor.data_augmentor_queue
+    check([q.func.__name__ for q in queue]
+          == ["random_world_flip", "random_world_rotation",
+              "random_world_scaling"], f"train_lyft: augmentor {queue}")
+    ckpt_dir = ROOT / "output" / "chip_smoke_train_lyft"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    nms_k.launches.clear()
+    try:
+        _, steps, t_launches, run_s = timed_train_model(
+            tmodel, tcfg.OPTIMIZATION, tds, tloader, ckpt_dir, conv_k, dev,
+            "train_lyft", no_signal=idle, any_step=True)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n_steps = len(steps)
+    check(t_launches == {"q3d_sparse_gather_conv_f32":
+                         (2 * LYFT_CONVS - 1) * n_steps}
+          and not any(nms_k.launches.values()),
+          f"train_lyft: launches {t_launches}, NMS {dict(nms_k.launches)}")
+    med = median_after_first(steps)
+    batch_size = int(tcfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    emit("train_lyft", config=config, batch=batch_size,
+         frames=LYFT_TRAIN_FRAMES, epochs=TRAIN_EPOCHS, steps=n_steps,
+         mode=mode(),
+         optimization={k: tcfg.OPTIMIZATION[k] for k in (
+             "OPTIMIZER", "LR", "WEIGHT_DECAY", "GRAD_NORM_CLIP")},
+         augmentor=[c.NAME for c in
+                    tcfg.DATA_CONFIG.DATA_AUGMENTOR.AUG_CONFIG_LIST],
+         losses=[s["loss"] for s in steps], launches=t_launches,
+         run_s=run_s, zero_gradient_allowed=sorted(idle),
+         median_after_first=med)
+    del tmodel
+    torch.cuda.empty_cache()
+    return {"launches": launches, "totals": totals, "worst": worst,
+            "s8": s8_totals, "stages": stages, "nms": nms_row,
+            "nms_iou": iou_row, "recipes": recipes, "fwd": fwd, "dx": dx,
+            "peak_mib": run["peak_mib"], "batch": batch_size,
+            "trained": {"launches_forward": sum(s["launches_forward"]
+                                                for s in steps),
+                        "launches_dx": sum(s["launches_dx"] for s in steps),
+                        "median": med, "steps": n_steps}}
+
+
+def lyft_kernel_rows(lyft):
+    """The kernels line's Lyft entries: kernel 1 on the 21 convs of a bf16
+    forward (its s8 times beside), as the f32 forward and the input
+    gradient of a training step, and kernel 2 on the forward's BATCH x 9
+    candidate sets (the IoU form under nms_normal_bev beside)."""
+    config = "lyft_models/cbgs_second_multihead.yaml"
+    common = {"route": "cuda",
+              "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
+              "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",
+              "library_ms": None, "checks": "passed"}
+    t = lyft["totals"]
+    rows = [{**common, "name": "sparse_gather_conv_lyft",
+             "entry": "q3d_sparse_gather_conv_bf16",
+             "use": f"{config}: VoxelResBackBone8x's 21 convs, bf16",
+             "launches": lyft["launches"]["sparse_gather_conv_bf16"],
+             "max_abs_err": lyft["worst"]["bf16"], "ms": t["ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
+             else "operations", "library_ms": t["library_ms"],
+             "s8": {**lyft["s8"], "max_abs_err": lyft["worst"]["s8"]},
+             "times_cover": f"one bf16 forward at batch {BATCH} (21 convs); "
+                            f"launches: serving_lyft's {REQUESTS} requests"}]
+    steps = lyft["trained"]["steps"]
+    for use, tot, launches in (
+            ("forward", lyft["fwd"], lyft["trained"]["launches_forward"]),
+            ("dx", lyft["dx"], lyft["trained"]["launches_dx"])):
+        row = {**common, "name": f"sparse_gather_conv_{use}_lyft_train",
+               "entry": "q3d_sparse_gather_conv_f32",
+               "use": f"{config} training, batch {lyft['batch']}: the "
+                      + ("forward of its 21 sparse convs" if use == "forward"
+                         else "input gradient of every sparse conv but "
+                              "conv_input, over the inverse book"),
+               "launches": launches,
+               **{k: tot[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "library_ms")},
+               "times_cover": f"one f32 training step's launches; launches: "
+                              f"train_lyft's {steps} steps",
+               "peak_mib_train_grad": lyft["peak_mib"]}
+        if use == "dx":
+            row.update(dw_torch_ms=tot["dw_ms"],
+                       inverse_book_ms=tot["inverse_ms"])
+        rows.append(row)
+    n, i = lyft["nms"], lyft["nms_iou"]
+    rows.append({"name": "greedy_nms_lyft", "route": "cuda",
+                 "source": "q3d_tpu_torch/csrc/greedy_nms.cu",
+                 "replaces": "q3d_tpu/ops/iou3d_nms/pallas_nms.py:45",
+                 "entry": "q3d_greedy_nms_boxes",
+                 "launches": lyft["launches"]["greedy_nms_boxes"],
+                 "max_abs_err": 0.0, "ms": n["ms"], "plain_ms": n["plain_ms"],
+                 "bound_ms": n["bound_ms"], "bound_by": n["bound_by"],
+                 "library_ms": None, "checks": "passed",
+                 "times_cover": f"one forward's multi-class NMS: {n['sets']} "
+                                f"sets, K={n['K']}",
+                 "iou_form_nms_normal_bev": {k: i[k] for k in (
+                     "entry", "sets", "K", "ms", "plain_ms", "bound_ms",
+                     "bound_by")}})
+    return rows
+
+
 def main():
     import numpy as np
     import torch
@@ -4559,6 +5236,12 @@ def main():
     torch.cuda.empty_cache()
     nu = nuscenes_training(dev, conv_k, nms_k, mode, strict_f32, flush)
 
+    # ============================================== SECOND-MultiHead, Lyft
+    # inference, the multi-class NMS (kernel 2 on BATCH x 9 sets), its
+    # quant forms and training at the Lyft config's width
+    torch.cuda.empty_cache()
+    lyft = lyft_phases(dev, conv_k, nms_k, mode, strict_f32, flush, clock_mhz)
+
     # ---------------------------------------------------------- kernels line
     kernels = [
         {"name": "sparse_gather_conv", "route": "cuda",
@@ -4576,6 +5259,7 @@ def main():
              "launches_forward", "launches_dx")} for n, v in nu.items()},
          "launches_voxelnext": vn["launches"]["sparse_gather_conv"],
          "launches_transfusion": tf["launches"]["sparse_gather_conv"],
+         "launches_lyft": lyft["launches"]["sparse_gather_conv_bf16"],
          "transfusion": {"ms": tf["totals"]["ms"],
                          "plain_ms": tf["totals"]["plain_ms"],
                          "bound_ms": tf["totals"]["bound_ms"],
@@ -4648,6 +5332,7 @@ def main():
          "times_cover": "one f32 SECOND training step's 11 input gradients; "
                         "launches: train_kitti's 4 steps"},
         *nuscenes_kernel_rows(nu),
+        *lyft_kernel_rows(lyft),
         {"name": "sparse_gather_conv_s8_requant", "route": "cuda",
          "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
          "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",
@@ -4693,6 +5378,7 @@ def main():
                             for n, v in kitti_launches.items()},
          "launches_voxelnext": vn["launches"]["greedy_nms_boxes"],
          "launches_transfusion": tf["launches"]["greedy_nms_boxes"],
+         "launches_lyft": lyft["launches"]["greedy_nms_boxes"],
          "voxelnext": {k: vn["nms"][k] for k in (
              "sets", "K", "ms", "plain_ms", "bound_ms", "bound_by")},
          "k4096": {n: {k: r[k] for k in ("sets", "K", "ms", "plain_ms",

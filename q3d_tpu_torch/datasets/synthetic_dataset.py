@@ -107,12 +107,22 @@ class SyntheticDataset(DatasetTemplate):
         """Frame ``index`` -> (points, gt_boxes, gt_names); under
         ``FOV_POINTS_ONLY`` (the KITTI configs) cropped to the front
         camera's FOV with only the objects it sees labelled
-        (``kitti_synthetic.kitti_scene``)."""
+        (``kitti_synthetic.kitti_scene``).  The scenes' points carry x, y,
+        z and intensity; a source feature past those (the Lyft configs'
+        timestamp, a point's sweep time lag) is 0, as in a single sweep."""
         if self.dataset_cfg.get("FOV_POINTS_ONLY", False):
             from .kitti_synthetic import kitti_scene
-            return kitti_scene(self, int(index))[:3]
-        rng = np.random.RandomState(self.base_seed + int(index))
-        return make_scene(rng, self.point_cloud_range, **self.scene_kwargs)
+            points, boxes, names = kitti_scene(self, int(index))[:3]
+        else:
+            rng = np.random.RandomState(self.base_seed + int(index))
+            points, boxes, names = make_scene(rng, self.point_cloud_range,
+                                              **self.scene_kwargs)
+        extra = len(self.point_feature_encoder.src_feature_list) \
+            - points.shape[1]
+        if extra > 0:
+            points = np.concatenate(
+                [points, np.zeros((len(points), extra), points.dtype)], axis=1)
+        return points, boxes, names
 
     def __getitem__(self, index):
         points, gt_boxes, gt_names = self.scene(index)

@@ -20,6 +20,7 @@ from .backbones_3d.spconv_backbone_voxelnext import (
     VoxelResBackBone8xVoxelNeXt)
 from .backbones_3d.vfe.mean_vfe import MeanVFE
 from .backbones_3d.vfe.pillar_vfe import PillarVFE
+from .dense_heads.anchor_head_multi import AnchorHeadMulti
 from .dense_heads.anchor_head_single import AnchorHeadSingle
 from .dense_heads.center_head import CenterHead
 from .dense_heads.transfusion_head import TransFusionHead
@@ -38,7 +39,8 @@ _BACKBONE_3D = {"VoxelBackBone8x": VoxelBackBone8x,
 _MAP_TO_BEV = {"HeightCompression": HeightCompression,
                "PointPillarScatter": PointPillarScatter}
 _BACKBONE_2D = {"BaseBEVBackbone": BaseBEVBackbone}
-_DENSE_HEAD = {"AnchorHeadSingle": AnchorHeadSingle, "CenterHead": CenterHead,
+_DENSE_HEAD = {"AnchorHeadMulti": AnchorHeadMulti,
+               "AnchorHeadSingle": AnchorHeadSingle, "CenterHead": CenterHead,
                "TransFusionHead": TransFusionHead,
                "VoxelNeXtHead": VoxelNeXtHead}
 _DETECTORS = {"CenterPoint": CenterPoint, "PointPillar": PointPillar,

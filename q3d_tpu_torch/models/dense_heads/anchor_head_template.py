@@ -30,10 +30,15 @@ class AnchorHeadTemplate(nn.Module):
         self.num_class = num_class
         self.class_names = tuple(class_names)
         self.predict_boxes_when_training = predict_boxes_when_training
+        # the coder where the configs put it and OpenPCDet's template reads
+        # it, in TARGET_ASSIGNER_CONFIG (the reference reads the head's own
+        # level, so it drops the Lyft config's encode_angle_by_sincos:
+        # ROADMAP.md §3)
+        coder_cfg = cfg.get("TARGET_ASSIGNER_CONFIG", None) or cfg
         self.box_coder = getattr(box_coder_utils,
-                                 cfg.get("BOX_CODER", "ResidualCoder"))(
+                                 coder_cfg.get("BOX_CODER", "ResidualCoder"))(
             num_dir_bins=cfg.get("NUM_DIR_BINS", 6),
-            **cfg.get("BOX_CODER_CONFIG", {}))
+            **coder_cfg.get("BOX_CODER_CONFIG", {}))
         anchors, self.num_anchors_per_location = generate_anchors_from_cfg(
             cfg.ANCHOR_GENERATOR_CONFIG, np.asarray(grid_size),
             point_cloud_range, anchor_ndim=max(self.box_coder.code_size, 7))
@@ -83,10 +88,15 @@ class AnchorHeadTemplate(nn.Module):
 
     def assign_targets(self, gt_boxes):
         """gt_boxes (B, M, 8), zero-padded -> the assigner's targets, in the
-        head's anchor order."""
+        head's anchor order.  The padding columns past the batch's last gt
+        are dropped first: the assigner's IoU is (B, Na, M) (Lyft's M = 500
+        at 720,000 anchors a frame would be 1.44e9 entries at batch 4), and
+        a padded gt matches no anchor, so the targets are the same."""
+        present = (gt_boxes[..., -1] > 0).any(dim=0)
+        m = int(present.nonzero().max()) + 1 if bool(present.any()) else 1
         return self.target_assigner.assign_targets(
             self.anchors, self.anchor_cls, self.matched_thresh,
-            self.unmatched_thresh, gt_boxes)
+            self.unmatched_thresh, gt_boxes[:, :m])
 
     @staticmethod
     def add_sin_difference(boxes1, boxes2, dim=6):

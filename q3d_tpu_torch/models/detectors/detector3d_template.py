@@ -2,8 +2,8 @@
 post-processing (port of ``q3d_tpu/models/detectors/detector3d_template.py``:
 the slots the ported detectors use — vfe, backbone_3d, map_to_bev_module,
 backbone_2d, dense_head (fed by the 3D backbone in a fully sparse
-detector) — and ``post_processing``'s class-agnostic
-branch, batched over the frames).  In training mode (``nn.Module.
+detector) — and ``post_processing``, class-agnostic or per class
+(``MULTI_CLASSES_NMS``), batched over the frames).  In training mode (``nn.Module.
 training``) a detector's forward returns the batch dict with the head's
 ``loss`` and ``tb_dict`` and runs no post-processing."""
 
@@ -81,18 +81,37 @@ class Detector3DTemplate(nn.Module):
                 m.kernel_impl = impl
 
     def post_processing(self, batch_dict):
-        """Sigmoid, the best class per box, then one class-agnostic NMS over
-        the frames (reference :127-164; each frame is one candidate set of
-        kernel 2) -> fixed-size final_boxes/scores/labels/valid (B, P)."""
+        """Sigmoid, then NMS over the frames in one call (reference
+        :127-164) -> fixed-size final_boxes/scores/labels/valid (B, P).
+        Class-agnostic: the best class per box, each frame one candidate
+        set of kernel 2.  ``MULTI_CLASSES_NMS``: an NMS per class over the
+        class's column (B x C sets), then per frame the C x P results,
+        invalid ones scored -1, of which the best NMS_POST_MAXSIZE are
+        kept, ties in index order as ``lax.top_k`` keeps them; labels are
+        the classes, 1..C."""
         post_cfg = self.model_cfg.POST_PROCESSING
         nms_cfg = post_cfg.NMS_CONFIG
-        if nms_cfg.get("MULTI_CLASSES_NMS", False):
-            raise NotImplementedError(
-                "multi_classes_nms is not ported yet (ROADMAP.md)")
         cls_preds = batch_dict["batch_cls_preds"]           # (B, Na, C)
         box_preds = batch_dict["batch_box_preds"]           # (B, Na, 7+)
         if not batch_dict.get("cls_preds_normalized", False):
             cls_preds = torch.sigmoid(cls_preds)
+        if nms_cfg.get("MULTI_CLASSES_NMS", False):
+            idx, valid, scores = model_nms_utils.multi_classes_nms(
+                cls_preds, box_preds, nms_cfg, post_cfg.SCORE_THRESH,
+                impl=self.kernel_impl)
+            b, c, p = idx.shape
+            labels = torch.arange(1, c + 1, device=idx.device)[:, None] \
+                .expand(c, p).reshape(-1)
+            top_s, top_i = model_nms_utils.stable_top(
+                torch.where(valid, scores, scores.new_tensor(-1.0))
+                .reshape(b, c * p), int(nms_cfg.NMS_POST_MAXSIZE))
+            sel = idx.reshape(b, c * p).gather(1, top_i)
+            batch_dict["final_boxes"] = box_preds.gather(
+                1, sel[..., None].expand(-1, -1, box_preds.shape[-1]))
+            batch_dict["final_scores"] = top_s
+            batch_dict["final_labels"] = labels[top_i]
+            batch_dict["final_valid"] = top_s > 0
+            return batch_dict
         max_scores = cls_preds.amax(dim=-1)
         # argmax: the first of tied classes, as the reference's
         labels = cls_preds.argmax(dim=-1) + 1

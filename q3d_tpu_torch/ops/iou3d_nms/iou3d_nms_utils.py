@@ -1,7 +1,8 @@
 """Rotated BEV IoU and rotated greedy NMS, batched over candidate sets.
 
 Port of ``q3d_tpu/ops/iou3d_nms/iou3d_nms_utils.py`` (``boxes_iou_bev``,
-``boxes_iou3d`` and ``_nms_impl`` with its presorted path and cumsum compaction).  The
+``boxes_iou3d`` and ``_nms_impl`` with its presorted path and cumsum compaction,
+for ``nms_bev`` and the axis-aligned ``nms_normal_bev``).  The
 intersection area is computed data-parallel over all pairs: each quad edge
 is interval-clipped to the other quad's half-planes (Liang-Barsky) and
 contributes its shoelace term.  Every 4-term sum and the mean are written
@@ -14,7 +15,7 @@ kernel computes the IoU itself and no (K, K) matrix is built).
 import torch
 
 from ...utils import box_utils
-from .greedy_nms import greedy_nms_boxes
+from .greedy_nms import greedy_nms, greedy_nms_boxes
 
 _EPS = 1e-8
 _BIAS = 1e-3   # collinear-boundary exclusion margin (scaled distance units)
@@ -124,44 +125,96 @@ def candidate_iou(boxes, valid):
     return boxes_iou_bev(box7, box7).contiguous(), valid.contiguous()
 
 
-def nms_bev(boxes, scores, thresh, pre_maxsize=4096, post_maxsize=500,
-            score_valid=None, presorted=False, impl=None):
-    """Rotated greedy NMS (reference ``nms_gpu``) over S candidate sets.
-
-    boxes (S, N, 7+); scores, score_valid (S, N).  presorted=True: rows are
-    already in descending score order.  Returns (idx, valid): (S, P) int64
-    indices into each set's rows in descending score order and a mask of the
-    surviving entries, P = min(post_maxsize, pre_maxsize, N)."""
-    s, n = scores.shape
+def top_candidates(boxes, scores, score_valid, k, presorted=False):
+    """Each set's top-``k`` rows in descending score order -> (order (S, k)
+    row indices, boxes (S, k, 7+), valid (S, k)).  boxes (S, N, 7+), or
+    (F, N, 7+) shared by the S = F x G sets, set s reading frame s // G:
+    each set's rows are then selected by index, without a copy of the
+    frame's boxes per set."""
+    s = scores.shape[0]
     if score_valid is None:
         score_valid = torch.ones_like(scores, dtype=torch.bool)
-    k = min(int(pre_maxsize), n)
     if presorted:
         order = torch.arange(k, device=scores.device).expand(s, k)
-        top_boxes = boxes[:, :k]
-        top_valid = score_valid[:, :k]
-    else:
-        masked = torch.where(score_valid, scores,
-                             torch.full_like(scores, -1e9))
-        # stable descending sort: ties keep the lower index first, as
-        # lax.top_k does (torch.topk promises no order among ties)
-        top_scores, order = torch.sort(masked, dim=1, descending=True,
-                                       stable=True)
-        top_scores, order = top_scores[:, :k], order[:, :k]
+        return order, boxes[:, :k], score_valid[:, :k]
+    masked = torch.where(score_valid, scores, torch.full_like(scores, -1e9))
+    # stable descending sort: ties keep the lower index first, as lax.top_k
+    # does (torch.topk promises no order among ties)
+    top_scores, order = torch.sort(masked, dim=1, descending=True,
+                                   stable=True)
+    top_scores, order = top_scores[:, :k], order[:, :k]
+    if boxes.shape[0] == s:
         top_boxes = boxes.gather(
             1, order[..., None].expand(-1, -1, boxes.shape[-1]))
-        top_valid = top_scores > -1e9 / 2
-    keep = greedy_nms_boxes(top_boxes, top_valid.contiguous(), float(thresh),
-                            impl=impl)
-    # rows are score-ordered, so a stable cumsum compaction selects the
-    # first P kept rows in order
+    else:
+        frame = torch.arange(s, device=scores.device) \
+            // (s // boxes.shape[0])
+        top_boxes = boxes[frame[:, None], order]
+    return order, top_boxes, top_scores > -1e9 / 2
+
+
+def _first_kept(keep, order, post_maxsize):
+    """keep (S, K) over score-ordered rows -> (idx, valid) (S, P): the
+    first P kept rows' indices (``order``) and a mask of the filled slots.
+    The rows are score-ordered, so a stable cumsum compaction selects
+    them in order."""
+    s, k = keep.shape
     p = min(int(post_maxsize), k)
     kpos = torch.cumsum(keep.long(), dim=1) - 1
     slot = torch.where(keep & (kpos < p), kpos, torch.full_like(kpos, p))
-    sel_pos = torch.full((s, p + 1), k, dtype=torch.long, device=scores.device)
-    sel_pos.scatter_(1, slot, torch.arange(k, device=scores.device).expand(s, k))
+    sel_pos = torch.full((s, p + 1), k, dtype=torch.long, device=keep.device)
+    sel_pos.scatter_(1, slot, torch.arange(k, device=keep.device).expand(s, k))
     sel_pos = sel_pos[:, :p]
     sel_valid = sel_pos < k
     sel_idx = torch.where(sel_valid, order.gather(1, sel_pos.clamp(max=k - 1)),
                           torch.zeros_like(sel_pos))
     return sel_idx, sel_valid
+
+
+def nms_bev(boxes, scores, thresh, pre_maxsize=4096, post_maxsize=500,
+            score_valid=None, presorted=False, impl=None):
+    """Rotated greedy NMS (reference ``nms_gpu``) over S candidate sets, in
+    one launch of kernel 2's boxes form.
+
+    boxes (S, N, 7+), or (F, N, 7+) shared by the S = F x G sets (set s
+    reads frame s // G; not with presorted); scores, score_valid (S, N).
+    presorted=True: rows are already in descending score order.  Returns
+    (idx, valid): (S, P) int64 indices into each set's rows in descending
+    score order and a mask of the surviving entries, P = min(post_maxsize,
+    pre_maxsize, N)."""
+    k = min(int(pre_maxsize), scores.shape[1])
+    order, top_boxes, top_valid = top_candidates(boxes, scores, score_valid,
+                                                 k, presorted)
+    keep = greedy_nms_boxes(top_boxes, top_valid.contiguous(), float(thresh),
+                            impl=impl)
+    return _first_kept(keep, order, post_maxsize)
+
+
+def nms_normal_bev(boxes, scores, thresh, pre_maxsize=4096, post_maxsize=500,
+                   score_valid=None, impl=None):
+    """Axis-aligned greedy NMS (reference ``nms_normal_gpu``,
+    ``iou3d_nms_utils.py:272``): the BEV IoU of the boxes' axis-aligned
+    extents, rotation ignored, then kernel 2's IoU form (``greedy_nms``).
+    K is padded to a multiple of 128 with invalid rows, as the reference
+    pads.  Arguments and result as ``nms_bev``'s (no presorted form)."""
+    k = min(int(pre_maxsize), scores.shape[1])
+    order, top_boxes, top_valid = top_candidates(boxes, scores, score_valid,
+                                                 k)
+    kp = -(-k // 128) * 128
+    if kp != k:
+        top_boxes = torch.nn.functional.pad(top_boxes, (0, 0, 0, kp - k))
+        top_valid = torch.nn.functional.pad(top_valid, (0, kp - k))
+    keep = greedy_nms(aligned_iou_bev(top_boxes), top_valid.contiguous(),
+                      float(thresh), impl=impl)
+    return _first_kept(keep[:, :k], order, post_maxsize)
+
+
+def aligned_iou_bev(boxes):
+    """The BEV IoU of each set's boxes' axis-aligned extents, rotation
+    ignored: (S, K, 7+) -> (S, K, K), contiguous (kernel 2's IoU form
+    takes it)."""
+    aabb = torch.stack([boxes[..., 0] - boxes[..., 3] / 2,
+                        boxes[..., 1] - boxes[..., 4] / 2,
+                        boxes[..., 0] + boxes[..., 3] / 2,
+                        boxes[..., 1] + boxes[..., 4] / 2], dim=-1)
+    return box_utils.boxes_iou_normal(aabb, aabb).contiguous()

@@ -17,8 +17,11 @@ def sigmoid_focal_cls_loss(pred, target, weights, alpha=0.25, gamma=2.0):
     alpha_weight = target * alpha + (1 - target) * (1 - alpha)
     pt = target * (1.0 - pred_sigmoid) + (1.0 - target) * pred_sigmoid
     focal_weight = alpha_weight * torch.pow(pt, gamma)
-    # the numerically stable BCE with logits
-    bce = torch.clamp_min(pred, 0) - pred * target \
+    # the numerically stable BCE with logits; max(x, 0) written (x + |x|) / 2
+    # (the same values), so that at x = 0 the gradient is the true
+    # sigmoid(0) - t (torch's clamp passes 1 there, the reference's clip and
+    # abs give 0.5 - 0.5: ROADMAP.md §3)
+    bce = (pred + torch.abs(pred)) / 2 - pred * target \
         + torch.log1p(torch.exp(-torch.abs(pred)))
     loss = focal_weight * bce
     if weights.dim() == 2 or weights.dim() + 1 == pred.dim():

@@ -21,6 +21,12 @@ tensors in the port's layouts:
     it requantizes, ``shared_requant/quant`` to the head's DenseRequant,
     a static SmoothQuant conv's ``sq_act_amax`` to that conv.
 
+AnchorHeadMulti's towers keep the reference's names,
+``dense_head.heads.<g>.{conv<i>, norm<i>, conv_cls, conv_box, conv_dir}``
+(the reference's ``pcdet_names.py`` has no rule for this head, so the
+``.pth`` import has none either); its shared conv and BN are
+``shared_conv.0 / .1``, as CenterHead's.
+
 TransFusion's head takes OpenPCDet's ``TransFusionHead`` names (the
 reference's ``pcdet_names.py`` has no rules for it): ``shared_conv`` (a bare
 conv there, CenterHead's ``shared_conv.0`` otherwise), ``heatmap_head.0.conv
@@ -92,6 +98,10 @@ def _module_rules(module, toks, transfusion=False):
             return "shared_requant"
         if t == "shared_norm":
             return "shared_conv.1"
+        m = re.fullmatch(r"heads_(\d+)\.(conv\d+|norm\d+|conv_cls|conv_box"
+                         r"|conv_dir)", t)                  # AnchorHeadMulti
+        if m:
+            return f"heads.{m.group(1)}.{m.group(2)}"
         m = re.fullmatch(r"heads_list_(\d+)\.([a-z_]+?)_(\d+)", t)
         if m:
             return f"heads_list.{m.group(1)}.{m.group(2)}.{m.group(3)}.0"
@@ -212,6 +222,8 @@ def _quant_name(module, mod_toks, leaf, out_index):
 _REFERENCE_PATHS = (
     (r"vfe\.pfn_layers\.(\d+)\.linear", "vfe.pfn_layers_{0}.linear"),
     (r"dense_head\.(conv_cls|conv_box|conv_dir_cls)", "dense_head.{0}"),
+    (r"dense_head\.heads\.(\d+)\.(conv\d+|conv_cls|conv_box|conv_dir)",
+     "dense_head.heads_{0}.{1}"),
     (r"backbone_3d\.(conv_input|conv_out|shared_conv)\.0",
      "backbone_3d.{0}.conv"),
     (r"backbone_3d\.conv(\d)\.(\d+)\.0", "backbone_3d.conv{0}_{1}.conv"),

@@ -34,6 +34,7 @@ from q3d_tpu_torch.config import cfg_from_yaml_file, EDict
 from q3d_tpu_torch.models import build_network
 from q3d_tpu_torch.models.detectors.detector3d_template import DatasetInfo
 from q3d_tpu_torch.quant import api as port_api
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -64,6 +64,7 @@ from q3d_tpu_torch.utils.weights import state_dict_from_jax
 
 import torch_port_anchor_common as common
 from test_torch_port_train_step import SGD, _np, _recording
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -19,6 +19,7 @@ from q3d_tpu_torch.models import build_network
 from q3d_tpu_torch.utils.weights import state_dict_from_jax
 
 from test_torch_port_anchor import _jax_head, _kitti
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

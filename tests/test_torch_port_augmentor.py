@@ -52,6 +52,7 @@ from q3d_tpu_torch.datasets.kitti_synthetic import (kitti_config,
                                                     write_gt_database)
 
 from test_torch_port_centerpoint import CFG_DIR, ROOT
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

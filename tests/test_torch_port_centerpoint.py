@@ -35,6 +35,7 @@ from q3d_tpu_torch.config import cfg_from_yaml_file, EDict
 from q3d_tpu_torch.datasets import build_dataloader
 from q3d_tpu_torch.models import build_network, load_data_to_device
 from q3d_tpu_torch.utils.weights import state_dict_from_jax
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -20,6 +20,7 @@ from q3d_tpu_torch.models import build_network, load_data_to_device
 from q3d_tpu_torch.utils.weights import state_dict_from_jax
 
 from test_torch_port_centerpoint import CFG_DIR, ROOT, _jax_model, _port_model
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

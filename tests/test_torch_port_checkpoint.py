@@ -28,6 +28,7 @@ import torch_port_quant_common as common
 from q3d_tpu_torch.utils.checkpoint import (import_torch_state_dict,
                                             load_pth_file)
 from q3d_tpu_torch.utils.weights import state_dict_from_jax
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 FINAL = ("final_boxes", "final_scores", "final_labels", "final_valid")

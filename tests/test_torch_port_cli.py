@@ -29,6 +29,7 @@ from q3d_tpu_torch.tools import quant_driver, test as test_cli
 from q3d_tpu_torch.utils.checkpoint import load_params_from_file
 
 from test_torch_port_centerpoint import CFG_DIR, CKPT
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 CFG = str(CFG_DIR / "centerpoint_tiny.yaml")

@@ -258,6 +258,25 @@ def test_int8_conv2d_int_mm_matches_exact_product(card):
         assert torch.equal(out_p.cpu(), ref.to(torch.int32))
 
 
+@pytest.mark.parametrize("m,k,n", [(80000, 64, 2), (80000, 576, 14),
+                                   (5, 64, 8), (100, 27, 3)])
+def test_int8_matmul_pads_to_int_mm_shapes(card, m, k, n):
+    """``_int_mm`` takes M > 16 and K, N multiples of 8: an anchor tower's
+    1x1 conv_cls (2 outputs), its conv_box (14) and other shapes are padded
+    with zeros; the s32 product equals the exact one."""
+    from q3d_tpu_torch.models import layers
+    g = torch.Generator(device=card).manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=card,
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, device=card,
+                      dtype=torch.int8)
+    calls = layers.INT_MM_CALLS["held"]
+    got = layers.int8_matmul(a, b, "cuda", tag="held")
+    assert layers.INT_MM_CALLS["held"] == calls + 1
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, layers.int8_matmul(a, b, "plain"))
+
+
 @pytest.mark.parametrize("k", [1, 65, 128, 200, 1024, 2048, 2049, 4096])
 def test_greedy_nms_kernel_matches_plain(card, k):
     """The IoU form, on the sweep it shares with the boxes form: one row
@@ -312,6 +331,42 @@ def test_greedy_nms_boxes_kernel_matches_plain(card, k):
         assert torch.equal(iou_k[done].view(torch.int32),
                            iou_p[done].view(torch.int32))
         assert not (iou_p[need & ~done] != 0).any()
+
+
+@pytest.mark.parametrize("nms_type", ["nms_gpu", "nms_normal_gpu"])
+def test_multi_class_nms_kernels_match_plain(card, nms_type):
+    """``multi_classes_nms`` as SECOND-MultiHead runs it: 2 frames of 4,000
+    crowded boxes scored for 9 classes, K = NMS_PRE_MAXSIZE = 1024, so 18
+    candidate sets in one launch (the boxes form for ``nms_gpu``, the IoU
+    form on the axis-aligned IoU for ``nms_normal_gpu``): indices, valid
+    flags and scores equal to the plain version's, every survivor kept
+    (NMS_POST_MAXSIZE 1024), some suppressed."""
+    from q3d_tpu_torch.models.model_utils import model_nms_utils
+    rng = np.random.RandomState(13)
+    b, n, c = 2, 4000, 9
+    x = np.zeros((b, n, 7), np.float32)
+    x[..., 0:2] = rng.uniform(-30, 30, (b, n, 2))
+    x[..., 3:6] = rng.uniform(0.5, 6.0, (b, n, 3))
+    x[..., 6] = rng.uniform(-np.pi, np.pi, (b, n))
+    x[:, 10:20] = x[:, 0:10]
+    boxes = torch.from_numpy(x).to(card)
+    scores = torch.from_numpy(rng.uniform(0, 1, (b, n, c)).astype(
+        np.float32)).to(card)
+    cfg = EDict({"NMS_TYPE": nms_type, "NMS_THRESH": 0.2,
+                 "NMS_PRE_MAXSIZE": 1024, "NMS_POST_MAXSIZE": 1024})
+    entry = "q3d_greedy_nms_boxes" if nms_type == "nms_gpu" \
+        else "q3d_greedy_nms"
+    port_nms.KERNEL.launches.clear()
+    got = model_nms_utils.multi_classes_nms(scores, boxes, cfg, 0.1,
+                                            impl="cuda")
+    torch.cuda.synchronize()
+    assert dict(port_nms.KERNEL.launches) == {entry: 1}
+    want = model_nms_utils.multi_classes_nms(scores, boxes, cfg, 0.1,
+                                             impl="plain")
+    assert got[0].shape == (b, c, 1024)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert 0 < int(got[1].sum()) < got[1].numel()
 
 
 def test_tiny_model_kernels_match_plain(card):

@@ -18,6 +18,7 @@ from q3d_tpu.datasets import build_dataloader as jax_build_dataloader
 from q3d_tpu_torch.config import cfg_from_yaml_file, cfg_from_list, EDict
 from q3d_tpu_torch.datasets import build_dataloader
 from q3d_tpu_torch.ops import voxelizer as port_vox
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -57,6 +57,7 @@ from tests.test_pallas_conv import _sorted_sparse
 from q3d_tpu_torch.models.layers import Conv2d
 from q3d_tpu_torch.quant import api as port_api
 from q3d_tpu_torch.quant.rules import LayerRule, SmoothQuantCfg
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 RESCALE_RTOL = 1e-6       # the rescale's association: last bits only

@@ -28,6 +28,7 @@ from q3d_tpu_torch.quant.rules import LayerRule, SmoothQuantCfg
 from test_torch_port_deploy import (RESCALE_RTOL, SQ_OFF_BY_ONE_SHARE, SQ_RTOL,
                                     SQ_SCALE_RTOL, _dense_inputs, _dense_pair,
                                     _port_tiny, _sparse_input)
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -33,6 +33,7 @@ import torch_port_quant_common as common
 from q3d_tpu.quant.tensor_quant import TensorQuantizer as JaxTensorQuantizer
 from q3d_tpu_torch.models.layers import Conv2d
 from q3d_tpu_torch.utils.weights import reference_module_path
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 RECIPE = dict(sq=True)

@@ -56,6 +56,7 @@ from q3d_tpu_torch.utils import simple_eval as port_simple_eval
 from q3d_tpu_torch.utils.weights import state_dict_from_jax
 
 from test_torch_port_centerpoint import CFG_DIR, CKPT
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

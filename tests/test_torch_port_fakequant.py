@@ -47,6 +47,7 @@ from q3d_tpu_torch.quant import calib as port_calib
 from q3d_tpu_torch.quant import sensitivity as port_sens
 from q3d_tpu_torch.quant import tensor_quant as port_tq
 from q3d_tpu_torch.quant.rules import LayerRule, SmoothQuantCfg
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 RECIPE = dict(sq=True, alpha=0.5, static=False)

@@ -17,6 +17,7 @@ from q3d_tpu.quant.rules import QuantSpec as JaxQuantSpec
 
 from q3d_tpu_torch.quant import calib as port_calib
 from q3d_tpu_torch.quant import tensor_quant as port_tq
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -32,6 +32,7 @@ from q3d_tpu.quant.rules import quant_rules_scope
 import torch_port_quant_common as common
 from q3d_tpu_torch.quant import api as port_api
 from q3d_tpu_torch.quant import sensitivity as port_sens
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 RECIPE = dict(sq=True, alpha=0.5, static=False)

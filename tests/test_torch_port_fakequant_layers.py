@@ -30,6 +30,7 @@ from q3d_tpu_torch.quant import tensor_quant as port_tq
 from q3d_tpu_torch.quant.rules import LayerRule, SmoothQuantCfg
 
 from test_torch_port_fakequant import DENSE_RTOL, SPARSE_RTOL, _calibrate_layer
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

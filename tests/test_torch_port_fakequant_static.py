@@ -38,6 +38,7 @@ from q3d_tpu.quant import tensor_quant as jax_tq
 
 import torch_port_quant_common as common
 from q3d_tpu_torch.quant import calib as port_calib
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 RECIPE = dict(sq=False, static=True)

@@ -21,6 +21,7 @@ from q3d_tpu_torch.datasets.kitti_synthetic import (CAMERA, kitti_config,
                                                     kitti_fov, kitti_scene,
                                                     scene_counts)
 from q3d_tpu_torch.tools import nms_ab
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -19,6 +19,7 @@ from q3d_tpu.ops.iou3d_nms import pallas_nms
 
 from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as port_nms
 from q3d_tpu_torch.ops.iou3d_nms import iou3d_nms_utils as port_iou
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

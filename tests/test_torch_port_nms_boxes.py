@@ -15,6 +15,7 @@ from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as port_nms
 from q3d_tpu_torch.ops.iou3d_nms import iou3d_nms_utils as port_iou
 
 from test_torch_port_nms import _crowded_sets, _random_boxes
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -39,6 +39,7 @@ import pytest
 import torch
 
 import torch_port_quant_common as common
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 RECIPE = common.ENTRY

@@ -20,6 +20,7 @@ from q3d_tpu_torch.utils.weights import state_dict_from_jax
 
 import torch_port_quant_common as common
 from test_torch_port_centerpoint import CKPT
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -20,6 +20,7 @@ from q3d_tpu_torch.quant import tensor_quant as port_tq
 from q3d_tpu_torch.utils.weights import _module_rules, reference_module_path
 
 from test_torch_port_centerpoint import _port_model
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -23,6 +23,7 @@ from q3d_tpu.quant import api as jax_api
 
 import torch_port_anchor_common as common
 from q3d_tpu_torch.quant import api as port_api
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

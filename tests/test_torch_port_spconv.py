@@ -29,6 +29,7 @@ from q3d_tpu_torch.datasets import build_dataloader
 from q3d_tpu_torch.models.backbones_3d import spconv_backbone as port_backbone
 from q3d_tpu_torch.ops.spconv import SparseConvTensor, engine, gather_conv
 from q3d_tpu_torch.ops.spconv.modules import SubMConv3d, SparseConv3d
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -16,6 +16,7 @@ from q3d_tpu_torch.ops.spconv import SparseConvTensor, engine, gather_conv
 
 from test_torch_port_spconv import (  # noqa: F401 (tiny_input: a fixture)
     _chunk_refs, _eq, _port_tensor, tiny_input)
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

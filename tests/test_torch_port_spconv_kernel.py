@@ -16,6 +16,7 @@ from q3d_tpu_torch.ops.spconv import engine, gather_conv
 
 from test_torch_port_spconv import (RANDOM_CASES, WIDE_CASES, _chunk_refs,
                                     _port_tensor)
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -47,6 +47,7 @@ from q3d_tpu_torch.utils import checkpoint as ckpt_utils
 from q3d_tpu_torch.utils import loss_utils
 
 from test_torch_port_centerpoint import CFG_DIR
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -52,6 +52,7 @@ from q3d_tpu_torch.utils.checkpoint import (load_params_from_file,
                                             save_checkpoint)
 from q3d_tpu_torch.utils.weights import (reference_module_path,
                                          state_dict_from_jax)
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 LAYER_RTOL = 1e-5

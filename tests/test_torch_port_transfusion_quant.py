@@ -62,6 +62,7 @@ from q3d_tpu_torch.ops.spconv import SparseConv3d, SubMConv3d
 from q3d_tpu_torch.quant import api as port_api
 from q3d_tpu_torch.utils.weights import (reference_module_path,
                                          state_dict_from_jax)
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 SQ_RTOL = 2e-3

@@ -54,6 +54,7 @@ from q3d_tpu_torch.ops.spconv import modules as pmodules
 from q3d_tpu_torch.utils.checkpoint import import_torch_state_dict
 from q3d_tpu_torch.utils.weights import (pcdet_name, reference_module_path,
                                          state_dict_from_jax)
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 CONV_RTOL = 1e-5

@@ -60,6 +60,7 @@ from q3d_tpu_torch.models.backbones_3d import spconv_backbone_voxelnext as pvn
 from q3d_tpu_torch.ops.spconv import modules as pmodules
 from q3d_tpu_torch.quant import api as port_api
 from q3d_tpu_torch.utils.weights import pcdet_name, reference_module_path
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 SQ_RTOL = 2e-3

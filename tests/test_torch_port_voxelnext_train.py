@@ -62,6 +62,7 @@ import torch_port_anchor_common as common
 from test_torch_port_anchor_train import _frames
 from test_torch_port_train_step import SGD, _np, _reference_sq_scale
 from test_torch_port_voxelnext import fresh_probes
+from torch_port_jax_cache import jax_compile_cache  # noqa: F401
 
 torch.set_num_threads(2)
 LOSS_RTOL, GRAD_RTOL, STATS_TOL, TARGET_TOL = 1e-5, 1e-4, 1e-5, 1e-6

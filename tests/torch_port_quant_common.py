@@ -365,7 +365,8 @@ def residency_layers(model, ref):
                 results.append((path, y.data.permute(0, 2, 3, 1).numpy(),
                                 want["data"]))
         head = model.dense_head
-        if head.shared_requant.residency:
+        if getattr(head, "shared_requant", None) is not None \
+                and head.shared_requant.residency:
             x = _dense(layers["dense_head.shared_conv"][0])
             y = head.shared_requant(head.shared_conv(x))
             results.append(("dense_head.shared_requant",
