@@ -254,7 +254,34 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
                 loss falls by at least 10% in 8 steps) and ``train_lyft``
                 (``train_model`` at the yaml's batch 4, 16 frames, 2 epochs,
                 its OPTIMIZATION and DATA_AUGMENTOR);
- 19. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+ 19. PillarNet at the nuScenes width (``pillarnet_phases``;
+                ``q3d_tpu_torch/cfgs/nuscenes_models/
+                cbgs_pillar0075_res2d_centerpoint.yaml``: DynamicPillarVFE,
+                PillarRes18BackBone8x's 19 sparse 2D convs, four of them 256
+                x 256 and the strided 128 -> 256 on kernel 1's 256-channel
+                instances, the dense conv5, BaseBEVBackboneV1 [5, 5],
+                CenterHead's six heads; on centerpoint_ref's scenes with the
+                raw points collated, 1440 x 1440 pillars of 0.075 m, seeded
+                weights): ``data_pillarnet`` (points and pillars a frame,
+                none dropped by MAX_RAW_POINTS or MAX_PILLARS),
+                ``kernel_conv`` for the 19 convs and
+                ``kernel_conv_pillarnet_256``, ``serving_pillarnet`` (4 bf16
+                requests: 19 kernel-1 launches and one boxes-form NMS launch
+                each; the raw points stay f32, the VFE's output is bf16),
+                ``stages_pillarnet`` (vfe, the sparse 2D backbone, conv5,
+                backbone_2d, head convs, decode + NMS), ``model_pillarnet``
+                (f32, kernels vs plain), ``kernel_nms_pillarnet``,
+                ``recipes_pillarnet`` (``int8_deploy_recipe()``: 19 s8
+                sparse launches, the dense convs through ``_int_mm``, each
+                launch on its operands, maps and detections equal),
+                ``train_grad_pillarnet`` (19 forward and 19 dX launches: the
+                first conv's input carries the VFE's gradient),
+                ``kernel_fwd_pillarnet`` / ``kernel_dx_pillarnet`` and
+                ``train_pillarnet`` (``train_model``, 8 steps at batch 2);
+ 20. ``dynvoxel_ref`` — centerpoint_ref's MODEL with DynamicVoxelVFE
+                (NUM_FILTERS [16, 16], MAX_VOXELS 160,000), then with
+                DynamicMeanVFE, one f32 request each, kernels vs plain;
+ 21. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises and exits nonzero without the last line.  Without
 CUDA, or outside a checkout of the repo, it exits 1 and prints no result.
@@ -407,11 +434,12 @@ def forward_trace(model, batch, reps=3):
                         for e in top]}
 
 
-def stage_times(model, batch, reps=5):
+def stage_times(model, batch, reps=5, extra=None):
     """CUDA-event time of each stage of one forward of ``model`` on
-    ``batch``, median of ``reps`` -> {stage: ms}.  Decode and NMS are
-    methods, not modules (CenterHead's ``_decode`` / ``_nms``; an anchor
-    head's ``generate_predicted_boxes`` and the detector's
+    ``batch``, median of ``reps`` -> {stage: ms}; ``extra`` adds stages by
+    name -> module (PillarNet's conv5, inside its backbone_3d).  Decode and
+    NMS are methods, not modules (CenterHead's ``_decode`` / ``_nms``; an
+    anchor head's ``generate_predicted_boxes`` and the detector's
     ``post_processing``), so they are timed through instance attributes
     that shadow them for the run.  AnchorHeadMulti's head convs are its
     shared conv and towers; putting the towers' maps into the anchor
@@ -421,8 +449,10 @@ def stage_times(model, batch, reps=5):
     stages = {"vfe": model.vfe}
     if hasattr(model, "backbone_3d"):
         stages["backbone_3d"] = model.backbone_3d
-    stages.update(map_to_bev=model.map_to_bev_module,
-                  backbone_2d=model.backbone_2d)
+    if hasattr(model, "map_to_bev_module"):
+        stages["map_to_bev"] = model.map_to_bev_module
+    stages["backbone_2d"] = model.backbone_2d
+    stages.update(extra or {})
     if hasattr(head, "heads_list"):                 # CenterHead
         stages["head_convs"] = [head.shared_conv, head.shared_requant,
                                 *head.heads_list]
@@ -826,7 +856,7 @@ def first_difference(model, batch):
     import torch
     from q3d_tpu_torch.models.layers import BatchNorm, Conv2d
     from q3d_tpu_torch.ops.spconv.modules import (SparseBatchNorm,
-                                                  SparseConv3d, SubMConv3d)
+                                                  _SparseConvBase)
     from q3d_tpu_torch.quant.tensor_quant import TensorQuantizer
 
     def tensor(x):
@@ -840,7 +870,7 @@ def first_difference(model, batch):
             lambda mod, args, out: rec.append(
                 (names[mod], tensor(args[0]), tensor(out))))
             for m in model.modules()
-            if isinstance(m, (SubMConv3d, SparseConv3d, SparseBatchNorm,
+            if isinstance(m, (_SparseConvBase, SparseBatchNorm,
                               Conv2d, BatchNorm, TensorQuantizer))]
         model.set_kernel_impl(impl)
         try:
@@ -1960,14 +1990,16 @@ def kernel1_convs(model, two_d=False):
 
 
 def train_grad(model, batch, conv_k, mode, tag="train_grad", config=CFG.name,
-               convs=21, zero_extra=()):
+               convs=21, zero_extra=(), dx_convs=None):
     """Phase ``train_grad`` (and ``train_kitti_grad``, ``train_grad_*``):
     one training forward and backward of ``model`` (seeded weights, f32,
     TF32 off) through the kernels and through the plain versions on the
     same batch, held by ``compare_training``; kernel-1 launches of the
     step, forward and input gradient apart, the 2D books' dX launches
     counted apart too (``convs`` forward; every sparse conv on kernel 1
-    but conv_input, whose input takes no gradient, launches a dX); every
+    but conv_input, whose input takes no gradient, launches a dX, or
+    ``dx_convs`` of them: PillarNet's first conv takes its input's
+    gradient, the VFE's); every
     such conv's weight gets a gradient; peak memory of each step.  -> (the
     kernels' backward calls: (conv name, features, weight, book, out_valid,
     inverse book, grad_out) each, the kernels' run).  ``zero_extra``: as
@@ -2004,8 +2036,9 @@ def train_grad(model, batch, conv_k, mode, tag="train_grad", config=CFG.name,
     two_d = kernel1_convs(mk, two_d=True)
     out["cuda"]["launches_dx_2d"] = sum(r[0].rsplit(".", 1)[0] in two_d
                                         for r in recorded)
+    dx_convs = max(convs - 1, 0) if dx_convs is None else dx_convs
     check(len(sparse) == convs and out["cuda"]["launches_forward"] == convs
-          and out["cuda"]["launches_dx"] == max(convs - 1, 0)
+          and out["cuda"]["launches_dx"] == dx_convs
           and set(out["cuda"]["launches_by_entry"])
           <= {"q3d_sparse_gather_conv_f32"},
           f"{tag} {config}: kernel-1 launches {out['cuda']}")
@@ -2018,12 +2051,13 @@ def train_grad(model, batch, conv_k, mode, tag="train_grad", config=CFG.name,
         g = pk[f"{n}.weight"].grad
         check(g is not None and bool(g.abs().max() > 0),
               f"{tag}: {n}.weight has no gradient")
-    check(len(recorded) == convs and sum(r[0] == FIRST_CONV
-                                         for r in recorded) == min(convs, 1),
+    first = 0 if dx_convs == convs else min(convs, 1)    # conv_input's
+    check(len(recorded) == convs
+          and sum(r[0] == FIRST_CONV for r in recorded) == first,
           f"{tag}: {len(recorded)} sparse conv backward calls")
     summary = compare_training(mk, mp, out["cuda"]["loss"],
                                out["plain"]["loss"], zero_extra=zero_extra)
-    emit(tag, config=config, batch=int(batch["voxels"].shape[0]),
+    emit(tag, config=config, batch=int(batch["gt_boxes"].shape[0]),
          dtype="f32", mode=mode(), kernels=out["cuda"], plain=out["plain"],
          sparse_convs=len(sparse), sparse_convs_2d=len(two_d),
          tolerance=TRAIN_TOL,
@@ -4561,9 +4595,563 @@ def lyft_kernel_rows(lyft):
     return rows
 
 
+PN_CFG = ROOT / "q3d_tpu_torch" / "cfgs" / "nuscenes_models" / \
+    "cbgs_pillar0075_res2d_centerpoint.yaml"
+PN_CONFIG = "q3d_tpu_torch/cfgs/nuscenes_models/" \
+    "cbgs_pillar0075_res2d_centerpoint.yaml"
+# PillarRes18BackBone8x's sparse convs: four SubM 32, a strided 32 -> 64,
+# four SubM 64, a strided 64 -> 128, four SubM 128, a strided 128 -> 256,
+# four SubM 256; all 19 take an input gradient in training
+PN_CONVS = 19
+PN_TRAIN_FRAMES = 8
+# dynvoxel_ref: centerpoint_ref's voxel size and per-frame voxel cap
+DV_VOXEL_SIZE, DV_MAX_VOXELS = [0.075, 0.075, 0.2], 160000
+
+
+def pillar_data_config(cfg_path, frames):
+    """``cfg_path``'s config, and centerpoint_ref's with ``cfg_path``'s
+    DATA_PROCESSOR (only the grid's size; no voxelizer) and MAX_RAW_POINTS
+    (the raw points collated) over ``frames`` frames -> (config, scene
+    config)."""
+    from q3d_tpu_torch.config import cfg_from_yaml_file, EDict
+    vcfg = cfg_from_yaml_file(str(cfg_path), EDict())
+    scfg = cfg_from_yaml_file(str(CFG), EDict())
+    dc = scfg.DATA_CONFIG
+    dc.DATA_PROCESSOR = vcfg.DATA_CONFIG.DATA_PROCESSOR
+    dc.MAX_RAW_POINTS = vcfg.DATA_CONFIG.MAX_RAW_POINTS
+    dc.NUM_FRAMES = frames
+    return vcfg, scfg
+
+
+def raw_points_model(dev, vcfg, scfg, batch, training=False):
+    """A model of ``vcfg``'s MODEL and CLASS_NAMES (seeded weights) on the
+    synthetic scenes of ``scfg`` (a test loader, or a training loader with
+    the points shuffled) -> (dataset, loader, model)."""
+    import dataclasses
+    import numpy as np
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.models import build_network
+    from q3d_tpu_torch.models.builder import dataset_info
+    np.random.seed(SEED)
+    ds, loader, _ = build_dataloader(scfg.DATA_CONFIG, scfg.CLASS_NAMES,
+                                     batch_size=batch, training=training,
+                                     seed=SEED)
+    info = dataclasses.replace(dataset_info(ds),
+                               class_names=tuple(vcfg.CLASS_NAMES))
+    return ds, loader, build_network(vcfg.MODEL, len(vcfg.CLASS_NAMES), info,
+                                     device=dev)
+
+
+def pillar_counts(ds, raw):
+    """One numpy batch's frames: points collated against MAX_RAW_POINTS
+    and the 2D cells they occupy on the grid -> [{points, occupied}]."""
+    import numpy as np
+    nx, ny = (int(g) for g in ds.grid_size[:2])
+    vx, vy = (np.float32(v) for v in ds.voxel_size[:2])
+    x0, y0 = (np.float32(v) for v in ds.point_cloud_range[:2])
+    out = []
+    for pts, mask in zip(raw["points"], raw["points_mask"]):
+        p = pts[mask]
+        cx = np.floor((p[:, 0] - x0) / vx).astype(np.int64)
+        cy = np.floor((p[:, 1] - y0) / vy).astype(np.int64)
+        ok = (cx >= 0) & (cx < nx) & (cy >= 0) & (cy < ny)
+        out.append({"points": int(mask.sum()),
+                    "occupied": int(np.unique(cy[ok] * nx + cx[ok]).size)})
+    return out
+
+
+def kernels_vs_plain_centerhead(model, batch, conv_k, nms_k, tag, convs):
+    """A CenterHead model's request (f32, TF32 off) through the kernels and
+    through the plain versions: the launches (``convs`` kernel-1 launches
+    and one boxes-form NMS through the kernels, none through the plain
+    versions), the BEV map and every head map within 1e-4 of max(1,
+    scale) (f32 sums in another order), kernel 2's keep masks and the
+    head's detections equal on identical candidates, 99% of the
+    detections end to end matched (box 1e-3, score 1e-4), as
+    ``model_check`` holds centerpoint_ref -> summary."""
+    import torch
+    from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as nms_mod
+    head = model.dense_head
+    outs, launches = {}, {}
+    with torch.no_grad():
+        for impl in ("cuda", "plain"):
+            model.set_kernel_impl(impl)
+            clear_launches(conv_k, nms_k)
+            outs[impl] = model(dict(batch))
+            torch.cuda.synchronize()
+            launches[impl] = {k: v for k, v in kernel_launches(
+                conv_k, nms_k).items() if v}
+        model.set_kernel_impl(None)
+    got = launches["cuda"]
+    check(not launches["plain"] and got.get("greedy_nms_boxes") == 1
+          and sum(v for k, v in got.items()
+                  if k.startswith("sparse_gather_conv")) == convs,
+          f"{tag}: launches {launches}")
+    ok_, op = outs["cuda"], outs["plain"]
+    maps = {"spatial_features_2d": (ok_["spatial_features_2d"],
+                                    op["spatial_features_2d"])}
+    for h, (pk, pp) in enumerate(zip(ok_["pred_dicts"], op["pred_dicts"])):
+        for key in pk:
+            maps[f"head{h}.{key}"] = (pk[key], pp[key])
+    map_err = {}
+    for key, (a, b) in maps.items():
+        err, mag = float((a - b).abs().max()), float(b.abs().max())
+        map_err[key] = {"max_abs": err, "scale": mag}
+        check(bool(torch.isfinite(a).all()) and err <= 1e-4 * max(1.0, mag),
+              f"{tag} {key}: kernels vs plain max err {err} (scale {mag})")
+    nms_cfg = head.model_cfg.POST_PROCESSING.NMS_CONFIG
+    thresh = float(nms_cfg.NMS_THRESH)
+    with torch.no_grad():
+        cand = head._decode(ok_["pred_dicts"])
+        kc = min(int(nms_cfg.NMS_PRE_MAXSIZE), cand[0].shape[1])
+        bx, bv = cand[0][:, :kc, :7].contiguous(), cand[3][:, :kc].contiguous()
+        check(torch.equal(
+            nms_mod.greedy_nms_boxes(bx, bv, thresh, impl="cuda"),
+            nms_mod.greedy_nms_boxes(bx, bv, thresh, impl="plain")),
+            f"{tag}: NMS keep masks differ on identical candidates")
+        finals = []
+        for impl in ("cuda", "plain"):
+            head.kernel_impl = impl
+            bd = {}
+            head._nms(bd, *cand)
+            finals.append(bd)
+        head.kernel_impl = None
+    for key in ("final_boxes", "final_scores", "final_labels", "final_valid"):
+        check(torch.equal(finals[0][key], finals[1][key]),
+              f"{tag}: {key} differs between NMS kernel and plain on "
+              f"identical candidates")
+    matched, total = matched_detections(ok_, op, BATCH)
+    frac = matched / max(total, 1)
+    check(total > 0 and frac >= 0.99,
+          f"{tag}: only {matched}/{total} detections matched")
+    return {"launches": got, "map_max_abs_err": map_err,
+            "map_tolerance": "max|k-p| <= 1e-4 * max(1, max|p|)",
+            "nms_sets_k": list(bv.shape), "detections": total,
+            "detections_matched": matched, "matched_fraction": frac,
+            "nms_identical_inputs": "keep masks and the head's detections "
+            "equal"}, ok_, (bx, bv, thresh)
+
+
+def pillarnet_phases(dev, conv_k, nms_k, mode, strict_f32, flush, clock_mhz):
+    """PillarNet at the nuScenes width (``PN_CONFIG``: DynamicPillarVFE,
+    PillarRes18BackBone8x's 19 sparse 2D convs, the dense conv5,
+    BaseBEVBackboneV1 [5, 5], CenterHead's six heads; seeded weights, BN
+    statistics from the first request, f32 with TF32 off where held against
+    plain) on centerpoint_ref's scenes: ``data_pillarnet`` (points and
+    pillars a frame against MAX_RAW_POINTS and MAX_PILLARS: none dropped),
+    ``kernel_conv`` for the 19 convs (f32, bf16, s8 against plain; the
+    256-wide instances among them), ``serving_pillarnet`` (4 bf16 requests:
+    19 kernel-1 launches and one boxes-form NMS launch each; host ms apart
+    from device ms), ``stages_pillarnet``, ``model_pillarnet`` (f32,
+    kernels vs plain), ``kernel_nms_pillarnet`` (that forward's candidate
+    sets against plain, timed, its bound), ``recipes_pillarnet``
+    (``int8_deploy_recipe()``: the 19 sparse convs on kernel 1's s8 entry,
+    the dense convs through ``_int_mm``, each launch held against its plain
+    version on its own operands, maps and detections equal end to end),
+    ``train_grad_pillarnet`` (one training step at batch 2, kernels vs
+    plain, 19 forward and 19 dX launches), ``kernel_fwd_pillarnet`` /
+    ``kernel_dx_pillarnet`` and ``train_pillarnet`` (``train_model``, 8
+    steps at batch 2) -> summaries for the kernels line."""
+    import numpy as np
+    import torch
+    from q3d_tpu_torch.models import load_data_to_device
+    from q3d_tpu_torch.models.layers import Conv2d
+    from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as nms_mod
+    from q3d_tpu_torch.quant import api as quant_api
+    from q3d_tpu_torch.utils.bn_calibration import calibrate_bns
+
+    # ---------------------------------------------------------------- data
+    cfg, scfg = pillar_data_config(PN_CFG, BATCH * REQUESTS)
+    dc = scfg.DATA_CONFIG
+    ds, _, model = raw_points_model(dev, cfg, scfg, BATCH)
+    cap = int(cfg.MODEL.VFE.MAX_PILLARS)
+    frames, kept = [], []
+    strict_f32(True)
+    with torch.no_grad():
+        for r in range(REQUESTS):
+            raw, _, _ = make_request(ds, r)
+            counts = pillar_counts(ds, raw)
+            sizes = [len(ds.prepare_data({"points": p, "gt_boxes": b,
+                                          "gt_names": n, "frame_id": j})
+                         ["points"])
+                     for j, (p, b, n) in ((j, plain_scene(ds, j)[:3])
+                                          for j in range(r * BATCH,
+                                                         (r + 1) * BATCH))]
+            for c, n in zip(counts, sizes):
+                c["points_before_collate"] = n
+            vfe_out = model.vfe(load_data_to_device(raw, device=dev))
+            kept.append(int((vfe_out["pillar_coords"][:, 0] >= 0).sum()))
+            frames += counts
+    batch_occupied = [frames[2 * r]["occupied"] + frames[2 * r + 1]["occupied"]
+                      for r in range(REQUESTS)]
+    check(all(c["points"] == c["points_before_collate"]
+              < int(dc.MAX_RAW_POINTS) for c in frames)
+          and kept == batch_occupied and max(kept) < cap,
+          f"data_pillarnet: frames {frames}, pillars kept {kept}, occupied "
+          f"{batch_occupied}, cap {cap}")
+    emit("data_pillarnet", config=PN_CONFIG, scenes=CFG.name,
+         point_cloud_range=list(dc.POINT_CLOUD_RANGE),
+         pillar_size=[float(v) for v in ds.voxel_size],
+         grid_size=[int(g) for g in ds.grid_size],
+         max_raw_points=int(dc.MAX_RAW_POINTS), max_pillars=cap,
+         frames=frames, pillars_kept_per_batch=kept,
+         points_dropped=sum(c["points_before_collate"] - c["points"]
+                            for c in frames),
+         pillars_dropped=sum(batch_occupied) - sum(kept),
+         cuts="4 point features, one sweep (no timestamp column), "
+              "synthetic scenes, seeded weights")
+
+    def request(r):
+        return make_request(ds, r)
+    raw0, _, _ = request(0)
+    batch_f32 = load_data_to_device(raw0, device=dev)
+    calibrate_bns(model, batch_f32)
+    convs, _ = record_sparse_convs(model, batch_f32)
+    check(len(convs) == PN_CONVS and sum(c[3].shape[1:] == (256, 256)
+                                         for c in convs) == 4,
+          f"pillarnet: {len(convs)} sparse convs")
+    totals, worst, conv_rows = kernel_conv(convs, flush, mode, "pillarnet")
+    wide = [r for r in conv_rows if 256 in (r["Cin"], r["Cout"])]
+    s8_totals = {k: sum(r[f"{k}_s8"] or 0.0 for r in conv_rows)
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    wide_totals = {f"{k}_{t}": sum(r[f"{k}_{t}"] or 0.0 for r in wide)
+                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")
+                   for t in ("f32", "bf16", "s8")}
+    emit("kernel_conv_pillarnet_256", convs=len(wide), **wide_totals,
+         widths=sorted({(r["Cin"], r["Cout"]) for r in wide}),
+         times="sums over the convs with a 256-wide side")
+    del convs
+    strict_f32(False)
+
+    # ------------------------------------------------------------- serving
+    sets_seen = []
+    real_boxes_cuda = nms_mod.greedy_suppress_boxes_cuda
+
+    def seen(corners, *args, **kw):
+        sets_seen.append(list(corners.shape[:2]))
+        return real_boxes_cuda(corners, *args, **kw)
+    nms_mod.greedy_suppress_boxes_cuda = seen
+    clear_launches(conv_k, nms_k)
+    per_request = []
+    try:
+        for r in range(REQUESTS):
+            raw, scene_ms, prep_ms = request(r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = load_data_to_device(raw, device=dev,
+                                        compute_dtype=torch.bfloat16)
+            with torch.no_grad():
+                out = model(batch)
+            n_valid = out["final_valid"].sum(dim=1).tolist()
+            torch.cuda.synchronize()
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+            check(all(torch.isfinite(out[k].float()).all() for k in (
+                "spatial_features_2d", "final_boxes", "final_scores"))
+                and out["pillar_features"].dtype == torch.bfloat16,
+                f"pillarnet request {r}: non-finite outputs or "
+                f"{out['pillar_features'].dtype} pillars")
+            per_request.append({"request": r,
+                                "frames": list(range(BATCH * r,
+                                                     BATCH * (r + 1))),
+                                "scene_ms": scene_ms, "pipeline_ms": prep_ms,
+                                "host_ms": scene_ms + prep_ms,
+                                "device_forward_ms": fwd_ms,
+                                "valid_detections": n_valid})
+            emit("serving_pillarnet_request", **per_request[-1])
+    finally:
+        nms_mod.greedy_suppress_boxes_cuda = real_boxes_cuda
+    launches = kernel_launches(conv_k, nms_k)
+    got = {"conv_bf16": launches["sparse_gather_conv_bf16"],
+           "conv_other": sum(conv_k.launches.values())
+           - launches["sparse_gather_conv_bf16"],
+           "nms_boxes": launches["greedy_nms_boxes"],
+           "nms_iou": launches["greedy_nms_iou"]}
+    check(got == {"conv_bf16": PN_CONVS * REQUESTS, "conv_other": 0,
+                  "nms_boxes": REQUESTS, "nms_iou": 0}
+          and len({tuple(s) for s in sets_seen}) == 1,
+          f"serving_pillarnet launches {got}, NMS sets {sets_seen}")
+    emit("serving_pillarnet", config=PN_CONFIG, batch=BATCH, dtype="bf16",
+         requests=REQUESTS, launches=launches, nms_sets_k=sets_seen[0],
+         mode=mode(), steady_forward_ms=statistics.median(
+             p["device_forward_ms"] for p in per_request[1:]),
+         steady_host_ms=statistics.median(
+             p["host_ms"] for p in per_request[1:]))
+    stages = stage_times(model, batch, extra={
+        "conv5": model.backbone_3d.conv5})
+    stages["sparse_backbone_2d"] = stages["backbone_3d"] - stages["conv5"]
+    emit("stages_pillarnet", dtype="bf16", batch=BATCH, mode=mode(),
+         ms=stages, sparse_conv_kernels_ms=totals["ms"],
+         note="sparse_backbone_2d = backbone_3d (to x_conv5) - conv5; "
+              "decode and nms inside dense_head")
+    del out, batch
+
+    # ------------------------------------- whole model, kernels vs plain
+    strict_f32(True)
+    summary, out_k, (bx, bv, thresh) = kernels_vs_plain_centerhead(
+        model, batch_f32, conv_k, nms_k, "model_pillarnet", PN_CONVS)
+    emit("model_pillarnet", dtype="f32", mode=mode(), **summary,
+         first_difference=first_difference(model, batch_f32))
+
+    # ------------------------------------- kernel 2 on the forward's sets
+    near, needed, most = check_boxes_form(bx, bv, thresh, "pillarnet")
+    corners, areas = nms_mod.bev_corners_areas(bx)
+    s_, k_ = bv.shape
+    terms = boxes_bound(s_, k_, needed, near, clock_mhz)
+    nms_row = {"entry": "q3d_greedy_nms_boxes", "sets": s_, "K": k_,
+               "valid": int(bv.sum()), "candidate_pairs": needed,
+               "near_pairs": near, "near_pairs_most_in_a_tile": most,
+               "kept": int(nms_mod.greedy_nms_boxes(bx, bv, thresh).sum()),
+               "ms": time_ms(lambda: nms_mod.greedy_suppress_boxes_cuda(
+                   corners, areas, bv, thresh), flush=flush),
+               "plain_ms": time_ms(lambda: nms_mod.greedy_suppress_boxes_plain(
+                   bx, bv, thresh), reps=3, flush=flush),
+               **{f"{k}_ms": v for k, v in terms.items()}}
+    nms_row["bound_by"] = max(terms, key=terms.get)
+    nms_row["bound_ms"] = terms[nms_row["bound_by"]]
+    emit("kernel_nms_pillarnet", form="boxes", **nms_row, max_abs_err=0,
+         mode=mode(), clock_max_sm_mhz=clock_mhz,
+         tolerance="keep masks exactly equal, IoU bit-equal at every "
+         "evaluated pair, plain IoU exactly 0 at every skipped needed pair")
+    del out_k, corners, areas
+
+    # ------------------------------------------- int8_deploy_recipe()
+    m8 = copy.deepcopy(model)
+    t0 = time.perf_counter()
+    quant_api.quantize_model(m8, quant_api.int8_deploy_recipe(), batch_f32)
+    prep_s = time.perf_counter() - t0
+    k1 = set(kernel1_convs(m8))
+    q_sparse = sum(getattr(mod, "rule", None) is not None
+                   for n, mod in m8.named_modules() if n in k1)
+    q_dense = sum(isinstance(mod, Conv2d) and mod.rule is not None
+                  for mod in m8.modules())
+    calls, outs, runs, fwd_ms = [], {}, {}, {}
+    with recording_launches(calls):
+        with torch.no_grad():
+            for impl in ("cuda", "plain"):
+                m8.set_kernel_impl(impl)
+                clear_launches(conv_k, nms_k)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[impl] = m8(dict(batch_f32))
+                torch.cuda.synchronize()
+                fwd_ms[impl] = (time.perf_counter() - t0) * 1e3
+                runs[impl] = {k: v for k, v in
+                              kernel_launches(conv_k, nms_k).items() if v}
+            m8.set_kernel_impl(None)
+    got = runs["cuda"]
+    check(q_sparse == PN_CONVS and got.get("sparse_gather_conv_s8") == PN_CONVS
+          and sum(v for k, v in got.items()
+                  if k.startswith("sparse_gather_conv")) == PN_CONVS
+          and got.get("int_mm_conv2d") == q_dense > 0
+          and got.get("greedy_nms_boxes") == 1 and not runs["plain"],
+          f"recipes_pillarnet: launches {runs}, {q_sparse} int8 sparse "
+          f"convs, {q_dense} int8 dense convs")
+    check(len(calls) == PN_CONVS, f"recipes_pillarnet: {len(calls)} "
+                                  f"launches recorded")
+    held = hold_launches_on_operands(calls, "recipes_pillarnet")
+    del calls
+    for key in ("spatial_features_2d", "final_boxes", "final_scores",
+                "final_labels", "final_valid"):
+        check(torch.equal(outs["cuda"][key], outs["plain"][key]),
+              f"recipes_pillarnet: {key} differs, kernels vs plain")
+    recipes = {"launches": got, "quantized_sparse": q_sparse,
+               "quantized_dense": q_dense, "prepare_s": prep_s,
+               "forward_ms": fwd_ms, **held,
+               "valid": int(outs["cuda"]["final_valid"].sum()),
+               "first_conv_quantized": getattr(
+                   m8.backbone_3d.conv1[0].conv1, "rule", None) is not None}
+    emit("recipes_pillarnet", recipe="int8_deploy_recipe()", dtype="f32",
+         batch=BATCH, mode=mode(), **recipes,
+         equal="maps and detections, kernels vs plain")
+    del m8, outs
+    strict_f32(False)
+    del model, batch_f32
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- training
+    from q3d_tpu_torch.train_utils import MODEL_KEYS
+    tcfg, tscfg = pillar_data_config(PN_CFG, PN_TRAIN_FRAMES)
+    tds, tloader, tmodel = raw_points_model(dev, tcfg, tscfg, BATCH,
+                                            training=True)
+    raw = next(iter(tloader))
+    tbatch = load_data_to_device({k: v for k, v in raw.items()
+                                  if k in MODEL_KEYS}, device=dev)
+    quiet = zero_grads(tmodel, "pillarnet", raw["gt_boxes"])
+    strict_f32(True)
+    recorded, run = train_grad(tmodel, tbatch, conv_k, mode,
+                               "train_grad_pillarnet", PN_CONFIG, PN_CONVS,
+                               quiet, dx_convs=PN_CONVS)
+    fwd = kernel_forward(recorded, flush, mode, "kernel_fwd_pillarnet",
+                         PN_CONFIG)
+    dx = kernel_dx(recorded, flush, mode, "kernel_dx_pillarnet", PN_CONFIG)
+    del recorded, tbatch
+    strict_f32(False)
+    torch.cuda.empty_cache()
+
+    import shutil
+    ckpt_dir = ROOT / "output" / "chip_smoke_train_pillarnet"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    nms_k.launches.clear()
+    try:
+        _, steps, t_launches, run_s = timed_train_model(
+            tmodel, tcfg.OPTIMIZATION, tds, tloader, ckpt_dir, conv_k, dev,
+            "train_pillarnet", no_signal=quiet, any_step=True)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n_steps = len(steps)
+    check(t_launches == {"q3d_sparse_gather_conv_f32": 2 * PN_CONVS * n_steps}
+          and not any(nms_k.launches.values()),
+          f"train_pillarnet: launches {t_launches}, NMS "
+          f"{dict(nms_k.launches)}")
+    med = median_after_first(steps)
+    emit("train_pillarnet", config=PN_CONFIG, scenes=CFG.name, batch=BATCH,
+         frames=PN_TRAIN_FRAMES, epochs=TRAIN_EPOCHS, steps=n_steps,
+         mode=mode(),
+         optimization={k: tcfg.OPTIMIZATION[k] for k in (
+             "OPTIMIZER", "LR", "WEIGHT_DECAY", "GRAD_NORM_CLIP")},
+         losses=[s["loss"] for s in steps], launches=t_launches, run_s=run_s,
+         zero_gradient_allowed=sorted(quiet), median_after_first=med,
+         cut="batch 2 (the yaml's BATCH_SIZE_PER_GPU is 4), 8 frames, no "
+             "augmentor")
+    del tmodel
+    torch.cuda.empty_cache()
+    return {"launches": launches, "totals": totals, "worst": worst,
+            "s8": s8_totals, "wide": wide_totals, "stages": stages,
+            "nms": nms_row, "recipes": recipes, "fwd": fwd, "dx": dx,
+            "peak_mib": run["peak_mib"],
+            "trained": {"launches_forward": sum(s["launches_forward"]
+                                                for s in steps),
+                        "launches_dx": sum(s["launches_dx"] for s in steps),
+                        "median": med, "steps": n_steps}}
+
+
+def dynvoxel_ref(dev, conv_k, nms_k, mode, strict_f32):
+    """Phase ``dynvoxel_ref``: centerpoint_ref's MODEL with its MeanVFE
+    replaced by ``DynamicVoxelVFE`` (NUM_FILTERS [16, 16], the tiny
+    config's, MAX_VOXELS 160,000 a frame, the ref's cap) and then by
+    ``DynamicMeanVFE`` (MAX_VOXELS 160,000), on centerpoint_ref's scenes
+    with the grid's size only (0.075 x 0.075 x 0.2 m) and the raw points
+    collated (MAX_RAW_POINTS 250,000): one f32 request each, voxels kept
+    against the cap, kernels vs plain as ``model_check`` holds them."""
+    import torch
+    from q3d_tpu_torch.config import cfg_from_yaml_file, EDict
+    from q3d_tpu_torch.models import load_data_to_device
+    from q3d_tpu_torch.utils.bn_calibration import calibrate_bns
+    strict_f32(True)
+    for vfe in ({"NAME": "DynamicVoxelVFE", "WITH_DISTANCE": False,
+                 "USE_ABSLOTE_XYZ": True, "USE_NORM": True,
+                 "NUM_FILTERS": [16, 16], "MAX_VOXELS": DV_MAX_VOXELS},
+                {"NAME": "DynamicMeanVFE", "MAX_VOXELS": DV_MAX_VOXELS}):
+        cfg = cfg_from_yaml_file(str(CFG), EDict())
+        cfg.MODEL.VFE = EDict(vfe)
+        dc = cfg.DATA_CONFIG
+        dc.DATA_PROCESSOR = dc.DATA_PROCESSOR[:2] + [EDict({
+            "NAME": "calculate_grid_size", "VOXEL_SIZE": DV_VOXEL_SIZE})]
+        dc.MAX_RAW_POINTS = 250000
+        ds, _, model = raw_points_model(dev, cfg, cfg, BATCH)
+        raw, _, _ = make_request(ds, 0)
+        batch = load_data_to_device(raw, device=dev)
+        with torch.no_grad():
+            vout = model.vfe(dict(batch))
+        voxels = (vout["voxel_num_points"] > 0).sum(1).tolist()
+        check(max(voxels) < vfe["MAX_VOXELS"],
+              f"dynvoxel_ref {vfe['NAME']}: voxels {voxels}")
+        calibrate_bns(model, batch)
+        summary, _, _ = kernels_vs_plain_centerhead(
+            model, batch, conv_k, nms_k, f"dynvoxel_ref {vfe['NAME']}", 21)
+        emit("dynvoxel_ref", vfe=vfe, scenes=CFG.name, dtype="f32",
+             mode=mode(), voxels_per_frame=voxels, **summary,
+             cut="NUM_FILTERS [16, 16] (centerpoint_dynvoxel_tiny's); "
+                 "centerpoint_ref's MODEL otherwise")
+        del model, batch, vout
+        torch.cuda.empty_cache()
+    strict_f32(False)
+
+
+def pillarnet_kernel_rows(pn):
+    """The kernels line's PillarNet entries: kernel 1 on the 19 convs of a
+    bf16 forward (its s8 times and the 256-wide convs beside), as the f32
+    forward and the input gradient of a training step, and kernel 2 on the
+    forward's candidate sets."""
+    common = {"route": "cuda",
+              "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
+              "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",
+              "checks": "passed"}
+    t = pn["totals"]
+    rows = [{**common, "name": "sparse_gather_conv_pillarnet",
+             "entry": "q3d_sparse_gather_conv_bf16",
+             "use": f"{PN_CONFIG}: PillarRes18BackBone8x's 19 sparse 2D convs "
+                    "(K = 9), bf16",
+             "launches": pn["launches"]["sparse_gather_conv_bf16"],
+             "max_abs_err": pn["worst"]["bf16"], "ms": t["ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
+             else "operations", "library_ms": t["library_ms"],
+             "s8": {**pn["s8"], "max_abs_err": pn["worst"]["s8"]},
+             "wide_256": pn["wide"],
+             "times_cover": f"one bf16 forward at batch {BATCH} (19 convs); "
+                            f"launches: serving_pillarnet's {REQUESTS} "
+                            "requests"}]
+    steps = pn["trained"]["steps"]
+    for use, tot, launches in (
+            ("forward", pn["fwd"], pn["trained"]["launches_forward"]),
+            ("dx", pn["dx"], pn["trained"]["launches_dx"])):
+        row = {**common, "name": f"sparse_gather_conv_{use}_pillarnet_train",
+               "entry": "q3d_sparse_gather_conv_f32",
+               "use": f"{PN_CONFIG} training, batch {BATCH}: the "
+                      + ("forward of its 19 sparse convs" if use == "forward"
+                         else "input gradient of all 19 sparse convs, over "
+                              "the inverse book"),
+               "launches": launches,
+               **{k: tot[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by",
+                                      "library_ms")},
+               "times_cover": f"one f32 training step's launches; launches: "
+                              f"train_pillarnet's {steps} steps",
+               "peak_mib_train_grad": pn["peak_mib"]}
+        if use == "dx":
+            row.update(dw_torch_ms=tot["dw_ms"],
+                       inverse_book_ms=tot["inverse_ms"])
+        rows.append(row)
+    n = pn["nms"]
+    rows.append({"name": "greedy_nms_pillarnet", "route": "cuda",
+                 "source": "q3d_tpu_torch/csrc/greedy_nms.cu",
+                 "replaces": "q3d_tpu/ops/iou3d_nms/pallas_nms.py:45",
+                 "entry": "q3d_greedy_nms_boxes",
+                 "launches": pn["launches"]["greedy_nms_boxes"],
+                 "max_abs_err": 0.0, "ms": n["ms"], "plain_ms": n["plain_ms"],
+                 "bound_ms": n["bound_ms"], "bound_by": n["bound_by"],
+                 "library_ms": None, "checks": "passed",
+                 "times_cover": f"one forward's NMS: {n['sets']} sets, "
+                                f"K={n['K']}"})
+    return rows
+
+
+def ptxas_spills(libraries):
+    """From each build's ``-Xptxas -v`` log: the kernels that spill ->
+    [{library, kernel (mangled), registers, spill stores, spill loads}]."""
+    import re
+    out = []
+    for lib in libraries:
+        for so in lib.so_paths:
+            kernel = None
+            for line in so.with_suffix(".log").read_text().splitlines():
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                if m:
+                    kernel = m.group(1)
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+                if m and (int(m.group(1)) or int(m.group(2))):
+                    out.append({"library": so.name, "kernel": kernel,
+                                "spill_stores": int(m.group(1)),
+                                "spill_loads": int(m.group(2))})
+    return out
+
+
 def main():
     import numpy as np
     import torch
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -4606,7 +5194,8 @@ def main():
         lib.lib()
     emit("build", seconds=build_s, libraries=[str(so.relative_to(ROOT))
                                               for lib in (conv_k, nms_k)
-                                              for so in lib.so_paths])
+                                              for so in lib.so_paths],
+         spills=ptxas_spills([conv_k, nms_k]), nvidia_smi=smi)
 
     # ---------------------------------------------------------- data/model
     cfg = cfg_from_yaml_file(str(CFG), EDict())
@@ -5242,6 +5831,15 @@ def main():
     torch.cuda.empty_cache()
     lyft = lyft_phases(dev, conv_k, nms_k, mode, strict_f32, flush, clock_mhz)
 
+    # ================================================== PillarNet, nuScenes
+    # the dynamic pillar VFE, the sparse 2D pillar backbone (kernel 1 at 256
+    # channels), BaseBEVBackboneV1: inference, int8 and training; then the
+    # dynamic 3D VFEs on centerpoint_ref's MODEL
+    torch.cuda.empty_cache()
+    pn = pillarnet_phases(dev, conv_k, nms_k, mode, strict_f32, flush,
+                          clock_mhz)
+    dynvoxel_ref(dev, conv_k, nms_k, mode, strict_f32)
+
     # ---------------------------------------------------------- kernels line
     kernels = [
         {"name": "sparse_gather_conv", "route": "cuda",
@@ -5260,6 +5858,7 @@ def main():
          "launches_voxelnext": vn["launches"]["sparse_gather_conv"],
          "launches_transfusion": tf["launches"]["sparse_gather_conv"],
          "launches_lyft": lyft["launches"]["sparse_gather_conv_bf16"],
+         "launches_pillarnet": pn["launches"]["sparse_gather_conv_bf16"],
          "transfusion": {"ms": tf["totals"]["ms"],
                          "plain_ms": tf["totals"]["plain_ms"],
                          "bound_ms": tf["totals"]["bound_ms"],
@@ -5333,6 +5932,7 @@ def main():
                         "launches: train_kitti's 4 steps"},
         *nuscenes_kernel_rows(nu),
         *lyft_kernel_rows(lyft),
+        *pillarnet_kernel_rows(pn),
         {"name": "sparse_gather_conv_s8_requant", "route": "cuda",
          "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
          "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",
@@ -5379,6 +5979,7 @@ def main():
          "launches_voxelnext": vn["launches"]["greedy_nms_boxes"],
          "launches_transfusion": tf["launches"]["greedy_nms_boxes"],
          "launches_lyft": lyft["launches"]["greedy_nms_boxes"],
+         "launches_pillarnet": pn["launches"]["greedy_nms_boxes"],
          "voxelnext": {k: vn["nms"][k] for k in (
              "sets", "K", "ms", "plain_ms", "bound_ms", "bound_by")},
          "k4096": {n: {k: r[k] for k in ("sets", "K", "ms", "plain_ms",
@@ -5390,6 +5991,7 @@ def main():
               "bound_by": f["bound_by"]}
              for f, key in ((boxes_form, "greedy_nms_boxes"),
                             (iou_form, "greedy_nms_iou"))]}]
+    emit("script", seconds=time.perf_counter() - t_script, nvidia_smi=smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

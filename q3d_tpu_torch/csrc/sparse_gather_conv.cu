@@ -26,8 +26,12 @@
 // bf16, so there the ldmatrix reads bound the kernel, and at the narrow
 // widths the per-step latency does.
 //
-// Design, per block of BM = 128 output rows x all of Cout (no column
-// blocks, so every row is gathered once and W[k] is read once per 128 rows):
+// Design, per block of BM = 128 output rows x a column tile of Cout (all
+// of it up to 128 channels, so every row is gathered once and W[k] is read
+// once per 128 rows; at Cout = 256 a second grid dimension walks the two
+// 128-column tiles, each block gathering its rows again, so that the
+// accumulators, the ring and the staged output tile stay those of the
+// 128-wide instances):
 //   1. the tile's (BM, K) block of the book is loaded once into shared
 //      memory, coalesced; out-of-range entries become -1.  Warp ballots give
 //      each warp's tap mask over its rows; the block walks only the taps
@@ -44,7 +48,8 @@
 //      at every Cin and Cout from 16 to 128;
 //   3. bf16 runs mma.sync.m16n8k16 (f32 accumulators), s8 runs
 //      mma.sync.m16n8k32 (s32 accumulators, bit-exact).  A warp owns 16
-//      rows x Cout, or 32 rows x Cout/2 at Cout >= 64, so that B fragments
+//      rows x the tile, or 32 rows x half the tile at tiles of 64 or more
+//      columns, so that B fragments
 //      are read once per 32 rows.  A fragments come from ldmatrix, B from
 //      ldmatrix.trans on the (Cin, Cout) weight tile; for s8 the 16-bit
 //      transpose pairs are re-sorted with byte permutes into k-contiguous
@@ -67,8 +72,13 @@
 //      rows are bit-equal to the plain version's.  Fusing it keeps the f32
 //      rows (4 B an element, against 1) and five elementwise passes over
 //      them out of device memory.
-// Instances: Cin, Cout in {16, 32, 64, 128}; K <= 27 at run time (27 for
-// the 3x3x3 convs, 3 for conv_out).  Built once per entry: -DQ3D_GC_F32,
+// Instances: Cin, Cout in {16, 32, 64, 128, 256}; K <= 27 at run time (27
+// for the 3x3x3 convs, 9 for the 2D ones, 3 for conv_out).  Cout = 256 (the
+// pillar backbone's conv4 stage) takes two column tiles: a 256-column tile
+// would need 128 f32 accumulators a thread and ~133 KB of f32 staging, and
+// BM = 64 would halve every other instance's reuse of W[k]; gathering the
+// rows twice costs bytes, which at these convs' occupancy are few.  Cin =
+// 256 only adds steps (tap, Cin slice) to a tap.  Built once per entry: -DQ3D_GC_F32,
 // -DQ3D_GC_BF16, -DQ3D_GC_S8 or -DQ3D_GC_S8_REQUANT selects the function a
 // build exports, so the four builds run in parallel.
 
@@ -100,6 +110,10 @@ struct Epilogue {
 template <typename T, int CIN, int COUT, bool RQ = false>
 struct Cfg {
   static constexpr int ES = sizeof(T);
+  // a block's column tile: all of Cout up to 128, else 128-column tiles
+  // along the grid's second dimension
+  static constexpr int CT = COUT > 128 ? 128 : COUT;
+  static constexpr int NCT = COUT / CT;
   static constexpr bool TC = !std::is_same<T, float>::value;   // tensor cores
   using Out = std::conditional_t<
       RQ, int8_t,
@@ -112,19 +126,19 @@ struct Cfg {
   static constexpr int NSL = CIN / KC;                          // steps per tap
   // mma depth is 32 bytes: s8 at Cin 16 pads its 16-byte rows with zeros
   static constexpr int KCP = (TC && KC * ES < 32) ? 32 / ES : KC;
-  // warp tile: 16 rows x Cout, or (tensor cores, Cout >= 64) 32 rows x
-  // Cout/2, where two A fragments share each B fragment: a fifth to a
-  // third fewer ldmatrix reads of shared memory per mma
-  static constexpr int WC = (TC && COUT >= 64) ? 2 : 1;   // warps across Cout
+  // warp tile: 16 rows x CT, or (tensor cores, CT >= 64) 32 rows x CT/2,
+  // where two A fragments share each B fragment: a fifth to a third fewer
+  // ldmatrix reads of shared memory per mma
+  static constexpr int WC = (TC && CT >= 64) ? 2 : 1;     // warps across CT
   static constexpr int RW = BM * WC / WARPS;               // rows per warp
-  static constexpr int MT = RW / 16, CW = COUT / WC;
+  static constexpr int MT = RW / 16, CW = CT / WC;
   // an odd number of 16-byte units per row: 8 consecutive rows fall in 8
   // distinct 16-byte bank groups
   static constexpr int A_PITCH = ((KCP * ES / 16) | 1) * 16;
-  static constexpr int W_PITCH = ((COUT * ES / 16) | 1) * 16;
+  static constexpr int W_PITCH = ((CT * ES / 16) | 1) * 16;
   static constexpr int A_BYTES = BM * A_PITCH;
   static constexpr int STAGE_BYTES = A_BYTES + KCP * W_PITCH;
-  static constexpr int O_PITCH = ((COUT * (int)sizeof(Stage) / 16) | 1) * 16;
+  static constexpr int O_PITCH = ((CT * (int)sizeof(Stage) / 16) | 1) * 16;
   static constexpr int BOOK_BYTES = BM * KMAX * 4;
   // cp.async ring depth: 3 stages, or 2 where 3 would leave room for only
   // one block per SM (no other block to hide a step's barrier behind)
@@ -133,7 +147,8 @@ struct Cfg {
   static constexpr int RING_BYTES = NSTAGE * STAGE_BYTES > BM * O_PITCH
                                         ? NSTAGE * STAGE_BYTES : BM * O_PITCH;
   static constexpr int SMEM = BOOK_BYTES + RING_BYTES;
-  static_assert(CIN % 16 == 0 && COUT % 16 == 0 && (KC * ES) % 16 == 0, "");
+  static_assert(CIN % 16 == 0 && COUT % CT == 0 && CT % 16 == 0
+                    && (KC * ES) % 16 == 0, "");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -224,6 +239,8 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
   const int pb = warp % C::WC * C::CW / 16;   // its first 16-column block
   const int m0 = blockIdx.x * BM;
   const int rows = min(BM, M - m0);
+  // the block's first output column (0 unless Cout spans two tiles)
+  const int n0 = C::NCT > 1 ? blockIdx.y * C::CT : 0;
 
   // 1. the tile's book, once and coalesced; misses become -1
   const int32_t* gidx = idx + (size_t)m0 * K;
@@ -267,9 +284,9 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
       if (src >= 0) g += ((size_t)src * CIN + c0) * ES + c * 16;
       cp_async16(sa + r * C::A_PITCH + c * 16, g, src >= 0 ? 16 : 0);
     }
-    constexpr int WCH = COUT * ES / 16;
+    constexpr int WCH = C::CT * ES / 16;
     const unsigned char* wk = reinterpret_cast<const unsigned char*>(w)
-                              + ((size_t)tap * CIN + c0) * COUT * ES;
+                              + (((size_t)tap * CIN + c0) * COUT + n0) * ES;
     for (int e = tid; e < KC * WCH; e += THREADS) {
       const int r = e / WCH, c = e % WCH;
       cp_async16(sw + w_row<T>(r) * C::W_PITCH + c * 16,
@@ -278,10 +295,10 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
   };
 
   // accumulators: tensor cores keep MT x (CW/8 tiles) x 4 per thread; the
-  // f32 CUDA-core path keeps 8 rows x Cout/16 columns per thread
+  // f32 CUDA-core path keeps 8 rows x CT/16 columns per thread
   constexpr int MT = C::TC ? C::MT : 1;
   constexpr int NT = C::TC ? C::CW / 8 : 8;
-  constexpr int NJ = C::TC ? 4 : COUT / 16;
+  constexpr int NJ = C::TC ? 4 : C::CT / 16;
   Acc acc[MT][NT][NJ];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -376,7 +393,7 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
   constexpr int OP = C::O_PITCH / (int)sizeof(Stage);
   auto emit = [&](int r, int n, Acc a) {
     float v = static_cast<float>(a);
-    if (scale != nullptr) v *= scale[n];
+    if (scale != nullptr) v *= scale[n0 + n];
     const int m = m0 + r;
     v *= (m >= M || valid == nullptr || valid[m]) ? 1.f : 0.f;
     put(so + r * OP + n, v);
@@ -417,9 +434,9 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
   }
   __syncthreads();
   if constexpr (!RQ) {
-    constexpr int OCH = COUT * (int)sizeof(Out) / 16;
+    constexpr int OCH = C::CT * (int)sizeof(Out) / 16;
     unsigned char* gout = reinterpret_cast<unsigned char*>(out)
-                          + (size_t)m0 * COUT * sizeof(Out);
+                          + ((size_t)m0 * COUT + n0) * sizeof(Out);
     for (int e = tid; e < rows * OCH; e += THREADS) {
       const int r = e / OCH, c = e % OCH;
       *reinterpret_cast<int4*>(gout + (size_t)r * COUT * sizeof(Out) + c * 16) =
@@ -428,12 +445,12 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
   } else {
     // 6. the fused residency epilogue, 16 outputs of a row per thread, each
     //    op rounded on its own in the plain version's order
-    constexpr int OCH = COUT / 16;
+    constexpr int OCH = C::CT / 16;
     const float s = *ep.s;
     const float ids = ep.id_s8 != nullptr ? *ep.id_scale : 0.f;
     for (int e = tid; e < rows * OCH; e += THREADS) {
       const int r = e / OCH, c0 = (e % OCH) * 16;
-      const size_t at = (size_t)(m0 + r) * COUT + c0;
+      const size_t at = (size_t)(m0 + r) * COUT + n0 + c0;
       const float* y = reinterpret_cast<const float*>(ring + r * C::O_PITCH) + c0;
       const float rv =
           (ep.row_valid == nullptr || ep.row_valid[m0 + r]) ? 1.f : 0.f;
@@ -444,8 +461,8 @@ gather_conv_kernel(const T* __restrict__ feat, const int32_t* __restrict__ idx,
       alignas(16) int8_t q[16];
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        float v = y[j] * ep.k[c0 + j];
-        v = v + ep.b[c0 + j];
+        float v = y[j] * ep.k[n0 + c0 + j];
+        v = v + ep.b[n0 + c0 + j];
         if (ep.id_s8 != nullptr)
           v = v + static_cast<float>(id8[j]) * ids;
         else if (ep.id_f32 != nullptr)
@@ -468,7 +485,7 @@ int launch_one(const void* feat, const void* idx, const void* w,
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kern<<<(M + BM - 1) / BM, THREADS, C::SMEM, stream>>>(
+  kern<<<dim3((M + BM - 1) / BM, C::NCT), THREADS, C::SMEM, stream>>>(
       static_cast<const T*>(feat), static_cast<const int32_t*>(idx),
       static_cast<const T*>(w), static_cast<const float*>(scale),
       static_cast<const uint8_t*>(valid),
@@ -487,9 +504,10 @@ int launch(const void* feat, const void* idx, const void* w, const void* scale,
   if (Cin == CI && Cout == CO)                                               \
     return launch_one<T, CI, CO, RQ>(feat, idx, w, scale, valid, out, N, M, \
                                      K, ep, s);
-#define Q3D_GC_ROW(CI) \
-  Q3D_GC_CASE(CI, 16) Q3D_GC_CASE(CI, 32) Q3D_GC_CASE(CI, 64) Q3D_GC_CASE(CI, 128)
-  Q3D_GC_ROW(16) Q3D_GC_ROW(32) Q3D_GC_ROW(64) Q3D_GC_ROW(128)
+#define Q3D_GC_ROW(CI)                                                       \
+  Q3D_GC_CASE(CI, 16) Q3D_GC_CASE(CI, 32) Q3D_GC_CASE(CI, 64)                \
+  Q3D_GC_CASE(CI, 128) Q3D_GC_CASE(CI, 256)
+  Q3D_GC_ROW(16) Q3D_GC_ROW(32) Q3D_GC_ROW(64) Q3D_GC_ROW(128) Q3D_GC_ROW(256)
 #undef Q3D_GC_ROW
 #undef Q3D_GC_CASE
   return static_cast<int>(cudaErrorInvalidValue);   // no instance
@@ -498,7 +516,7 @@ int launch(const void* feat, const void* idx, const void* w, const void* scale,
 }  // namespace
 
 // Pointers are device pointers, feat / w / out 16-byte aligned; scale (Cout,)
-// f32 and valid (M,) u8 may be null.  Cin, Cout in {16, 32, 64, 128} and
+// f32 and valid (M,) u8 may be null.  Cin, Cout in {16, 32, 64, 128, 256} and
 // 1 <= K <= 27 (the wrapper checks).  Returns the cudaError_t of the launch.
 #define Q3D_GC_EXPORT(SUFFIX, T)                                             \
   extern "C" int q3d_sparse_gather_conv_##SUFFIX(                            \

@@ -12,6 +12,12 @@ capacity-padded per-frame arrays into fixed shapes —
     voxel_num_points  (B, V)       int32
     gt_boxes          (B, M, 8)    float32 (7 box + 1 class id), zero-padded
                                    to MAX_GT_BOXES
+and, for a config that sets ``MAX_RAW_POINTS`` (the dynamic VFEs read the
+raw points), the points of each frame padded to it (reference :133-143):
+    points            (B, N, C)    float32, zero rows past a frame's points
+    points_mask       (B, N)       bool
+A frame with more points than the cap keeps its first ``MAX_RAW_POINTS``.
+Without the key the raw points are not collated: no other model reads them.
 """
 
 from collections import defaultdict
@@ -52,6 +58,7 @@ class DatasetTemplate:
         self.grid_size = self.data_processor.grid_size
         self.voxel_size = self.data_processor.voxel_size
         self.max_gt_boxes = int(dataset_cfg.get("MAX_GT_BOXES", 128))
+        self.max_raw_points = int(dataset_cfg.get("MAX_RAW_POINTS", 0))
 
     @property
     def mode(self):
@@ -116,8 +123,16 @@ class DatasetTemplate:
                         out[i, :k] = v[:k]
                 ret[key] = out
             elif key == "points":
-                # raw points are ragged and the model path does not read them
-                continue
+                if not self.max_raw_points:
+                    continue
+                cap, width = self.max_raw_points, vals[0].shape[-1]
+                out = np.zeros((batch_size, cap, width), np.float32)
+                mask = np.zeros((batch_size, cap), bool)
+                for i, v in enumerate(vals):
+                    k = min(len(v), cap)
+                    out[i, :k] = v[:k]
+                    mask[i, :k] = True
+                ret["points"], ret["points_mask"] = out, mask
             else:
                 ret[key] = np.array(vals)
         ret["batch_size"] = batch_size

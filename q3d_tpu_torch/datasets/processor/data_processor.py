@@ -2,7 +2,8 @@
 
 Port of the steps of ``q3d_tpu/datasets/processor/data_processor.py`` that
 the synthetic CenterPoint configs queue: range masking, point shuffling and
-voxelization.  Outputs stay numpy, padded to capacity, until
+voxelization, or only the grid's size for the dynamic VFEs
+(``calculate_grid_size``).  Outputs stay numpy, padded to capacity, until
 ``models.load_data_to_device`` moves them.
 """
 
@@ -74,6 +75,18 @@ class DataProcessor:
         data_dict["voxel_coords"] = coords
         data_dict["voxel_num_points"] = num_points
         data_dict["num_voxels"] = num_voxels
+        return data_dict
+
+    def calculate_grid_size(self, data_dict=None, config=None):
+        """The grid of ``VOXEL_SIZE`` over the range, for models that bin
+        the raw points themselves (the dynamic VFEs); the points pass
+        through."""
+        if data_dict is None:
+            self.voxel_size = np.asarray(config.VOXEL_SIZE, np.float32)
+            grid_size = (self.point_cloud_range[3:6] - self.point_cloud_range[0:3]) \
+                / self.voxel_size
+            self.grid_size = np.round(grid_size).astype(np.int64)
+            return partial(self.calculate_grid_size, config=config)
         return data_dict
 
     def forward(self, data_dict):

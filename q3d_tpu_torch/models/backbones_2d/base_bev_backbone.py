@@ -1,5 +1,7 @@
 """Dense BEV conv pyramid + transposed-conv upsample concat (port of
-``q3d_tpu/models/backbones_2d/base_bev_backbone.py::BaseBEVBackbone``).
+``q3d_tpu/models/backbones_2d/base_bev_backbone.py``: ``BaseBEVBackbone``,
+``BaseBEVBackboneV1`` (PillarNet's: block 0 on the pillar backbone's
+x_conv4, block 1 on its x_conv5, not chained) and ``BaseBEVResBackbone``).
 NCHW; module slots follow pcdet's ``blocks`` / ``deblocks`` Sequentials.
 Under an int8 deploy rule without residency (SmoothQuant or not) each conv
 is int8 and returns its input's dtype to the float BN and ReLU after it.
@@ -90,6 +92,94 @@ class BaseBEVBackbone(nn.Module):
             xr = dequantize(x, spatial.dtype)
             batch_dict[f"spatial_features_{spatial.shape[2] // xr.shape[2]}x"] = xr
             ups.append(self.deblocks[i](xr) if len(self.deblocks) else xr)
+        batch_dict["spatial_features_2d"] = torch.cat(ups, dim=1) \
+            if len(ups) > 1 else ups[0]
+        return batch_dict
+
+
+class BaseBEVBackboneV1(nn.Module):
+    """The 2D backbone over the sparse pillar backbone's dense outputs
+    (reference :127-156): block i (stride 1) on x_conv4 / x_conv5, its
+    output dequantized to its input's dtype, then deblock i; the deblocks'
+    maps concatenated.  ``input_channels``: the two maps' channels."""
+
+    def __init__(self, model_cfg, input_channels):
+        super().__init__()
+        cfg = model_cfg
+        layer_nums = list(cfg.LAYER_NUMS)
+        num_filters = list(cfg.NUM_FILTERS)
+        num_up_filters = list(cfg.NUM_UPSAMPLE_FILTERS)
+        self.blocks = nn.ModuleList(
+            _Block(input_channels[i], num_filters[i], 1, layer_nums[i])
+            for i in range(len(layer_nums)))
+        self.deblocks = nn.ModuleList(
+            _Deblock(num_filters[i], num_up_filters[i], s)
+            for i, s in enumerate(cfg.UPSAMPLE_STRIDES))
+        self.num_bev_features = sum(num_up_filters)
+
+    def forward(self, batch_dict):
+        ms = batch_dict["multi_scale_2d_features"]
+        ups = []
+        for block, deblock, x in zip(self.blocks, self.deblocks,
+                                     (ms["x_conv4"], ms["x_conv5"])):
+            ups.append(deblock(dequantize(block(x), x.dtype)))
+        batch_dict["spatial_features_2d"] = torch.cat(ups, dim=1)
+        return batch_dict
+
+
+class _ResBlock(nn.Module):
+    """conv0 (stride) BN ReLU, then ``layer_num`` residual pairs (conv BN
+    ReLU conv BN, + the pair's input, ReLU) (reference :159-176; its module
+    names, which OpenPCDet's BasicBlock tree does not share)."""
+
+    def __init__(self, in_channels, features, stride, layer_num):
+        super().__init__()
+        self.layer_num = layer_num
+        self.conv0 = Conv2d(in_channels, features, 3, stride, 1, bias=False)
+        self.norm0 = BatchNorm(features)
+        for k in range(1, layer_num + 1):
+            for s in "ab":
+                setattr(self, f"conv{k}{s}",
+                        Conv2d(features, features, 3, 1, 1, bias=False))
+                setattr(self, f"norm{k}{s}", BatchNorm(features))
+
+    def forward(self, x):
+        x = torch.relu(self.norm0(self.conv0(dequantize(x))))
+        for k in range(1, self.layer_num + 1):
+            y = torch.relu(getattr(self, f"norm{k}a")(
+                getattr(self, f"conv{k}a")(x)))
+            y = getattr(self, f"norm{k}b")(getattr(self, f"conv{k}b")(y))
+            x = torch.relu(y + x)
+        return x
+
+
+class BaseBEVResBackbone(nn.Module):
+    """The residual BEV backbone (reference :179-211): chained ``_ResBlock``
+    stages, each deblocked (when UPSAMPLE_STRIDES is set), concatenated."""
+
+    def __init__(self, model_cfg, input_channels):
+        super().__init__()
+        cfg = model_cfg
+        layer_nums = list(cfg.LAYER_NUMS)
+        num_filters = list(cfg.NUM_FILTERS)
+        upsample_strides = list(cfg.get("UPSAMPLE_STRIDES", []) or [])
+        num_up_filters = list(cfg.get("NUM_UPSAMPLE_FILTERS", []) or [])
+        c_in = [input_channels, *num_filters[:-1]]
+        self.blocks = nn.ModuleList(
+            _ResBlock(c_in[i], num_filters[i], cfg.LAYER_STRIDES[i],
+                      layer_nums[i]) for i in range(len(layer_nums)))
+        self.deblocks = nn.ModuleList(
+            _Deblock(num_filters[i], num_up_filters[i], upsample_strides[i])
+            for i in range(len(upsample_strides)))
+        self.num_bev_features = (sum(num_up_filters) if upsample_strides
+                                 else num_filters[-1])
+
+    def forward(self, batch_dict):
+        x = batch_dict["spatial_features"]
+        ups = []
+        for i, block in enumerate(self.blocks):
+            x = block(x)
+            ups.append(self.deblocks[i](x) if len(self.deblocks) else x)
         batch_dict["spatial_features_2d"] = torch.cat(ups, dim=1) \
             if len(ups) > 1 else ups[0]
         return batch_dict

@@ -20,9 +20,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.spconv import (SparseConvTensor, SubMConv3d, SparseConv3d,
-                           SparseBatchNorm)
-from ...ops.spconv.modules import Requant, dequantize_tensor
+from ...ops.spconv import (SparseConvTensor, SubMConv2d, SubMConv3d,
+                           SparseConv2d, SparseConv3d, SparseBatchNorm)
+from ...ops.spconv.modules import Requant, _SparseConv, dequantize_tensor
 
 # narrow VFE outputs (4-5 channels) are zero-padded to this many lanes, so
 # the conv_input weights the reference exports (I = 16) load unchanged; the
@@ -45,17 +45,23 @@ def _capacity_schedule(model_cfg, input_capacity):
     return {k: cap(k) for k in ("x_conv2", "x_conv3", "x_conv4", "out")}
 
 
+# the SubM and strided sparse convs of a 3D (nd 3) or 2D (nd 2) backbone
+_CONVS = {3: (SubMConv3d, SparseConv3d), 2: (SubMConv2d, SparseConv2d)}
+
+
 class _SparseConvBNReLU(nn.Sequential):
-    """post_act_block: conv (slot 0) -> BN (slot 1) -> ReLU."""
+    """post_act_block: conv (slot 0) -> BN (slot 1) -> ReLU; ``nd`` 2 for
+    the pillar backbones' 2D convs."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
-                 padding=0, conv_type="subm", indice_key=""):
+                 padding=0, conv_type="subm", indice_key="", nd=3):
+        subm, strided = _CONVS[nd]
         if conv_type == "subm":
-            conv = SubMConv3d(in_channels, out_channels, kernel_size, 1,
-                              padding, indice_key=indice_key)
+            conv = subm(in_channels, out_channels, kernel_size, 1, padding,
+                        indice_key=indice_key)
         elif conv_type == "spconv":
-            conv = SparseConv3d(in_channels, out_channels, kernel_size, stride,
-                                padding, indice_key=indice_key)
+            conv = strided(in_channels, out_channels, kernel_size, stride,
+                           padding, indice_key=indice_key)
         else:
             raise ValueError(conv_type)
         super().__init__(conv, SparseBatchNorm(out_channels))
@@ -64,7 +70,7 @@ class _SparseConvBNReLU(nn.Sequential):
         conv, norm = self[0], self[1]
         requant = Requant(*norm.fold(), conv.rule.act) \
             if conv.residency else None
-        if isinstance(conv, SparseConv3d):
+        if isinstance(conv, _SparseConv):
             st = conv(st, cache, out_capacity, requant=requant)
         else:
             st = conv(st, cache, requant=requant)
@@ -75,15 +81,22 @@ class _SparseConvBNReLU(nn.Sequential):
 
 
 class SparseBasicBlock(nn.Module):
-    """Residual pair of SubM convs (reference spconv_backbone.py:20-66)."""
+    """Residual pair of SubM convs (reference spconv_backbone.py:20-66;
+    with ``nd`` 2 and a bias, ``spconv_backbone_2d.py``'s
+    Sparse2DBasicBlock).  A bias feeds its BN, so in train mode its
+    gradient is 0 (``train_utils.biases_before_bn``)."""
 
-    def __init__(self, channels, indice_key="", use_bias=False):
+    # child pairs (conv, its BN), for ``train_utils.biases_before_bn``
+    CONV_BN = (("conv1", "bn1"), ("conv2", "bn2"))
+
+    def __init__(self, channels, indice_key="", use_bias=False, nd=3):
         super().__init__()
-        self.conv1 = SubMConv3d(channels, channels, 3, 1, 1, bias=use_bias,
-                                indice_key=indice_key)
+        subm = _CONVS[nd][0]
+        self.conv1 = subm(channels, channels, 3, 1, 1, bias=use_bias,
+                          indice_key=indice_key)
         self.bn1 = SparseBatchNorm(channels)
-        self.conv2 = SubMConv3d(channels, channels, 3, 1, 1, bias=use_bias,
-                                indice_key=indice_key)
+        self.conv2 = subm(channels, channels, 3, 1, 1, bias=use_bias,
+                          indice_key=indice_key)
         self.bn2 = SparseBatchNorm(channels)
 
     def forward(self, st, cache):

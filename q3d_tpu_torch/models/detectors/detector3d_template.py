@@ -1,14 +1,15 @@
 """Detector3DTemplate — cfg-driven module slots and the generic
 post-processing (port of ``q3d_tpu/models/detectors/detector3d_template.py``:
 the slots the ported detectors use — vfe, backbone_3d, map_to_bev_module,
-backbone_2d, dense_head (fed by the 3D backbone in a fully sparse
-detector) — and ``post_processing``, class-agnostic or per class
-(``MULTI_CLASSES_NMS``), batched over the frames).  In training mode (``nn.Module.
+backbone_2d (PillarNet's fed by its 3D backbone's multi-scale maps),
+dense_head (fed by the 3D backbone in a fully sparse detector) — and
+``post_processing``, class-agnostic or per class (``MULTI_CLASSES_NMS``),
+batched over the frames).  In training mode (``nn.Module.
 training``) a detector's forward returns the batch dict with the head's
 ``loss`` and ``tb_dict`` and runs no post-processing."""
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -24,6 +25,8 @@ class DatasetInfo:
     grid_size: Tuple[int, int, int]            # [nx, ny, nz]
     point_cloud_range: Tuple[float, ...]
     voxel_size: Tuple[float, float, float]
+    # the data processor's MAX_NUMBER_OF_VOXELS (None without voxelization)
+    max_voxels: Optional[int] = None
 
 
 class Detector3DTemplate(nn.Module):
@@ -36,6 +39,7 @@ class Detector3DTemplate(nn.Module):
         self.dataset = dataset
         cfg = model_cfg
         num_point_features = dataset.num_point_features
+        num_bev_features = backbone_channels = None
         if cfg.get("VFE", None) is not None:
             self.vfe = B.build_vfe(cfg.VFE, dataset)
             num_point_features = self.vfe.get_output_feature_dim()
@@ -43,13 +47,15 @@ class Detector3DTemplate(nn.Module):
             self.backbone_3d = B.build_backbone_3d(
                 cfg.BACKBONE_3D, num_point_features, dataset)
             num_point_features = self.backbone_3d.num_point_features
+            backbone_channels = getattr(self.backbone_3d,
+                                        "backbone_channels", None)
         if cfg.get("MAP_TO_BEV", None) is not None:
             self.map_to_bev_module = B.build_map_to_bev(cfg.MAP_TO_BEV,
                                                         dataset)
             num_bev_features = self.map_to_bev_module.num_bev_features
         if cfg.get("BACKBONE_2D", None) is not None:
-            self.backbone_2d = B.build_backbone_2d(cfg.BACKBONE_2D,
-                                                   num_bev_features)
+            self.backbone_2d = B.build_backbone_2d(
+                cfg.BACKBONE_2D, num_bev_features, backbone_channels)
             num_bev_features = self.backbone_2d.num_bev_features
         if cfg.get("DENSE_HEAD", None) is not None:
             # decoded boxes in training only for a second stage (reference

@@ -508,6 +508,37 @@ class BatchNorm1d(BatchNorm):
         return super()._batch_stats(x.reshape(-1, x.shape[-1]))
 
 
+class MaskedBatchNorm(BatchNorm1d):
+    """BatchNorm over the last dim of (N, C) rows whose train-mode
+    statistics take only the rows ``mask`` marks (reference
+    ``MaskedBatchNorm`` / ``_MaskedBNCore``, ``layers.py:550-603``): the
+    dynamic VFEs keep every point slot of the padded (B, N) layout, and the
+    padded and out-of-range points must not move the statistics.  Train
+    mode: the masked rows' mean, then their biased variance in a second
+    pass (n clipped at 1); the running mean and the (biased) variance move
+    by ``momentum``, as flax's do.  Eval mode: the running statistics.
+    ``(x - mean) * rsqrt(var + eps) * weight + bias`` in the reference's
+    order, in f32; the same parameter and buffer names as ``BatchNorm``."""
+
+    def forward(self, x, mask=None):
+        xf = x.float()
+        mean, var = self.running_mean, self.running_var
+        if self.training:
+            m = xf.new_ones((xf.shape[0], 1)) if mask is None \
+                else mask.reshape(-1, 1).to(xf.dtype)
+            n = m.sum().clamp_min(1.0)
+            mean = (xf * m).sum(0) / n
+            var = (((xf - mean) ** 2) * m).sum(0) / n
+            with torch.no_grad():
+                keep = 1.0 - self.momentum
+                self.running_mean.copy_(keep * self.running_mean
+                                        + self.momentum * mean)
+                self.running_var.copy_(keep * self.running_var
+                                       + self.momentum * var)
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return y if self.out_f32 else y.to(x.dtype)
+
+
 class DenseRequant(QuantLayer, nn.Module):
     """Quantize a dense map once into a QTensor (reference :98-125): the
     CenterHead's shared feature, so that its int8 branch convs start from

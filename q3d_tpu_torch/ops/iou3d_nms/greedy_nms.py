@@ -54,11 +54,21 @@ def greedy_suppress_plain(iou, valid, thresh):
 
 
 def greedy_suppress_boxes_plain(boxes, valid, thresh):
-    """boxes (S, K, 7+) score-ordered; valid (S, K) bool -> keep (S, K)."""
+    """boxes (S, K, 7+) score-ordered; valid (S, K) bool -> keep (S, K).
+    The IoU of the pairs the sweep reads (j < i, both valid), each computed
+    as ``boxes_iou_bev`` computes it (per pair, the same operations), the
+    rest of the (S, K, K) matrix 0."""
     # iou3d_nms_utils imports this module for nms_bev
     from .iou3d_nms_utils import boxes_iou_bev
     box7 = boxes[..., :7]
-    return greedy_suppress_plain(boxes_iou_bev(box7, box7), valid, thresh)
+    k = box7.shape[1]
+    need = valid[:, :, None] & valid[:, None, :] & torch.ones(
+        (k, k), dtype=torch.bool, device=boxes.device).triu(1)
+    s, j, i = need.nonzero(as_tuple=True)
+    iou = box7.new_zeros(need.shape)
+    iou[s, j, i] = boxes_iou_bev(box7[s, j][:, None],
+                                 box7[s, i][:, None])[:, 0, 0]
+    return greedy_suppress_plain(iou, valid, thresh)
 
 
 def _scratch(s, k, boxes, dev):

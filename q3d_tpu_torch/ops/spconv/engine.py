@@ -177,10 +177,19 @@ def weight_grad(features, gather_idx, grad_out):
     return dw
 
 
+# the CPU gather view's storage, kept from one conv to the next by dtype: a
+# fresh (M, K*Cin) tensor a conv spends most of the gather faulting in new
+# pages (4-5x the gather into a kept buffer, on this repository's tests)
+_GATHER_SCRATCH = {}
+
+
 def gather_view(features, gather_idx):
     """The (M, K*Cin) matrix of ``features`` gathered over the book
     ``gather_idx`` (None: a 1x1 SubM conv's rows as they are), columns
-    k-major, c-minor; a miss reads a zero row."""
+    k-major, c-minor; a miss reads a zero row.  On the CPU with gradients
+    off, the matrix lives in a buffer that the next call overwrites: the
+    caller uses it before gathering again (with gradients on, autograd may
+    keep it for the backward)."""
     if gather_idx is None:
         return features
     n, cin = features.shape
@@ -188,18 +197,34 @@ def gather_view(features, gather_idx):
     padded = torch.cat([features, features.new_zeros((1, cin))])
     idx = gather_idx.long()
     idx = torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))
-    return padded.index_select(0, idx.reshape(-1)).reshape(m, k * cin)
+    if features.is_cuda or torch.is_grad_enabled():
+        return padded.index_select(0, idx.reshape(-1)).reshape(m, k * cin)
+    buf = _GATHER_SCRATCH.get(features.dtype)
+    if buf is None or buf.numel() < m * k * cin:
+        buf = _GATHER_SCRATCH[features.dtype] = torch.empty(
+            m * k * cin, dtype=features.dtype)
+    out = buf[:m * k * cin].view(m * k, cin)
+    torch.index_select(padded, 0, idx.reshape(-1), out=out)
+    return out.view(m, k * cin)
 
 
 # the s8 product's columns per f32 GEMM: every partial sum of 1024 s8 x s8
 # products is an integer below 2^24, so f32 holds it exactly
 _S8_CHUNK = 1024
+# an s32 sum of K s8 x s8 products is exact while K * 127^2 < 2^31
+_S32_MAX_K = (2 ** 31 - 1) // 127 ** 2
 
 
 def s8_matmul_exact(a, b):
-    """s8 (M, K) x s8 (K, N) -> the exact integer product as f64 (M, N):
-    f32 GEMMs over chunks of 1024 columns, each exact, their sums added in
-    f64 (the same integers as one f64 GEMM, 1.5-2x faster on the CPU)."""
+    """s8 (M, K) x s8 (K, N) -> the exact integer product as f64 (M, N).
+    CPU tensors: one ``torch._int_mm`` (s32 sums, exact for K below
+    133,143; ~4x faster than the f32 chunks on the CPU).  Otherwise f32
+    GEMMs over chunks of 1024 columns, each exact, their sums added in f64
+    (the same integers as one f64 GEMM, 1.5-2x faster on the CPU); on the
+    card this keeps the plain version off ``torch._int_mm``, the library
+    route ``models.layers.int8_matmul`` is held against."""
+    if not a.is_cuda and a.shape[1] <= _S32_MAX_K:
+        return torch._int_mm(a, b).double()
     out = None
     for c0 in range(0, a.shape[1], _S8_CHUNK):
         part = (a[:, c0:c0 + _S8_CHUNK].float()
@@ -216,7 +241,15 @@ def gather_conv(features, gather_idx, weight, out_scale=None, out_valid=None):
     (M, K*Cin) @ (K*Cin, Cout) GEMM.  Float inputs accumulate in f32 and
     return the input dtype; s8 inputs accumulate exactly and return f32,
     like the s32 kernel (``s8_matmul_exact``)."""
-    if features.dtype == torch.int8:
+    if features.dtype == torch.int8 and not features.is_cuda:
+        # on the CPU only the rows with a present tap: the others' exact
+        # sums are 0 (most of a deep stage's rows are padding)
+        n = features.shape[0]
+        rows = ((gather_idx >= 0) & (gather_idx < n)).any(1).nonzero()[:, 0]
+        g = gather_view(features, gather_idx.index_select(0, rows))
+        out = torch.zeros((gather_idx.shape[0], weight.shape[-1]))
+        out[rows] = s8_matmul_exact(g, weight.reshape(g.shape[1], -1)).float()
+    elif features.dtype == torch.int8:
         g = gather_view(features, gather_idx)
         out = s8_matmul_exact(g, weight.reshape(g.shape[1], -1)).float()
     else:

@@ -13,8 +13,10 @@ is ``engine.gather_conv`` (gather + one GEMM in the accumulation dtype).
 
 Dtypes: f32 and bf16 inputs accumulate in f32 and return the input dtype;
 s8 x s8 accumulates in s32 and returns f32 after ``out_scale``.  The kernel
-has instances for Cin, Cout in {16, 32, 64, 128} and books of K <= 27 taps;
-the wrapper raises on any other shape.
+has instances for Cin, Cout in {16, 32, 64, 128, 256} (256 for the pillar
+backbone's conv4 stage, whose 256 output columns are two 128-column tiles
+of the grid) and books of K <= 27 taps; the wrapper raises on any other
+shape.
 
 The s8 variant has a second entry for int8 residency,
 ``sparse_gather_conv_requant``: the same conv with the residency epilogue
@@ -56,7 +58,7 @@ from .engine import gather_conv as gather_conv_plain, inverse_book, weight_grad
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "s8"}
 REQUANT_ENTRY = "q3d_sparse_gather_conv_s8_requant"
-# one build per dtype (16 width instances each), and one for the fused
+# one build per dtype (25 width instances each), and one for the fused
 # requant entry (-fmad=false: its epilogue rounds op by op as PyTorch
 # does), compiled in parallel
 KERNEL = CudaLibrary(
@@ -66,7 +68,7 @@ KERNEL = CudaLibrary(
      REQUANT_ENTRY: [_P] * 6 + [_I] * 5 + [_P] * 8},
     variants=[(f"-DQ3D_GC_{s.upper()}",) for s in _SUFFIX.values()]
     + [("-DQ3D_GC_S8_REQUANT", "-fmad=false")])
-WIDTHS = (16, 32, 64, 128)
+WIDTHS = (16, 32, 64, 128, 256)
 MAX_TAPS = 27
 
 

@@ -6,9 +6,9 @@ numpy on the host, as the reference runs them: ``max`` (the top filled
 bin's edge), ``percentile``, ``mse`` (the quantization error on bin centres)
 and ``entropy`` (TensorRT's KL-divergence sweep, scipy's ``entropy``).
 
-``_entropy_amax`` builds each candidate's 128-level distribution with
-``np.add.reduceat`` / ``np.repeat`` where the reference loops over the
-levels in Python.  The histogram holds integer counts, so every sum of
+``_entropy_amax`` builds each candidate's 128-level distribution from
+running sums of the bins and ``np.repeat`` where the reference loops over
+the levels in Python.  The histogram holds integer counts, so every sum of
 bins is exact in float64 whatever its order, and the arrays handed to
 ``expanded.sum()`` and the divergence are bit-for-bit the reference's: the
 result is equal (``tests/test_torch_port_fakequant.py`` holds it equal on
@@ -16,6 +16,8 @@ seeded histograms).  The divergence is scipy's ``entropy(p, q)`` written
 out op for op (``_relative_entropy``): scipy's array-API wrapper costs
 ~1 ms a call, and the sweep makes ~1,900 calls a histogram.
 """
+
+import functools
 
 import numpy as np
 
@@ -65,9 +67,20 @@ def _relative_entropy(pk, qk):
     return np.sum(rel_entr(pk, qk), axis=0)
 
 
+@functools.lru_cache(maxsize=None)
+def _level_edges(i, levels):
+    """The first bin of each of ``levels`` target levels over ``i`` bins,
+    and ``i`` (the reference's ``np.linspace(0, i, levels + 1)``)."""
+    return np.linspace(0, i, num=levels + 1, dtype=np.int64)
+
+
 def _entropy_amax(hist, bin_width, num_bits=8, start_bin=128, stride=1):
     """TensorRT-style KL calibration (pytorch_quantization's
-    ``HistogramCalibrator._compute_amax_entropy``)."""
+    ``HistogramCalibrator._compute_amax_entropy``).  The bins hold integer
+    counts, so the candidate distribution's total (every candidate's is the
+    histogram's), its clamped last bin and the levels' sums and nonzero
+    counts come from running sums, exactly; the expanded distribution's sum
+    and the divergence take the reference's arrays as they are."""
     nbins = len(hist)
     levels = 1 << (num_bits - 1)  # 128 target levels for signed int8
     starting = max(start_bin, levels)
@@ -76,22 +89,25 @@ def _entropy_amax(hist, bin_width, num_bits=8, start_bin=128, stride=1):
     bins[0] = bins[1] if nbins > 1 else bins[0]  # zero-bin smoothing
 
     nonzero = bins != 0
+    total = bins.sum()
+    if total == 0:
+        return float(best_i * bin_width)
+    csum = np.concatenate([[0.0], np.cumsum(bins)])
+    cnz = np.concatenate([[0], np.cumsum(nonzero)])
     for i in range(starting, nbins + 1, stride):
-        ref = bins[:i].copy()
-        ref[i - 1] += bins[i:].sum()          # clamp outliers into last bin
-        if ref.sum() == 0:
-            continue
         # quantize the i-bin distribution down to `levels` bins and expand
-        space = np.linspace(0, i, num=levels + 1, dtype=np.int64)
-        q = np.add.reduceat(bins[:i], space[:-1])
-        nnz = np.add.reduceat(nonzero[:i].astype(np.int64), space[:-1])
+        space = _level_edges(i, levels)
+        q = csum[space[1:]] - csum[space[:-1]]
+        nnz = cnz[space[1:]] - cnz[space[:-1]]
         share = np.repeat(q / np.maximum(nnz, 1), np.diff(space))
         expanded = np.where(nonzero[:i], share, 0.0)
-        p = ref / ref.sum()
-        total = expanded.sum()
-        if total == 0:
+        esum = expanded.sum()
+        if esum == 0:
             continue
-        qn = expanded / total
+        p = bins[:i] / total
+        # the outliers clamped into the last bin
+        p[i - 1] = (bins[i - 1] + (total - csum[i])) / total
+        qn = expanded / esum
         div = _relative_entropy(p, np.where(qn == 0, 1e-12, qn))
         if div <= best_div:
             best_div, best_i = div, i

@@ -29,21 +29,26 @@ from .utils import checkpoint as ckpt_utils
 from .utils.common_utils import AverageMeter
 
 # the batch keys a training forward reads
-MODEL_KEYS = ("voxels", "voxel_coords", "voxel_num_points", "gt_boxes")
+MODEL_KEYS = ("voxels", "voxel_coords", "voxel_num_points", "gt_boxes",
+              "points", "points_mask")
 
 
 def biases_before_bn(model):
     """Names of the conv biases that feed a BatchNorm directly (the head's
     convs under USE_BIAS_BEFORE_NORM, TransFusion's position embeddings,
-    VoxelNeXt's shared_conv).  In train mode their gradient is 0 in exact
-    arithmetic, since the BN takes out any per-channel constant, so what a
-    step gives them is rounding noise."""
+    VoxelNeXt's shared_conv, the pillar backbone's residual blocks: a
+    module's ``CONV_BN`` pairs).  In train mode their gradient is 0 in
+    exact arithmetic, since the BN takes out any per-channel constant, so
+    what a step gives them is rounding noise."""
     from .models.layers import BatchNorm, Conv1d, Conv2d
     from .ops.spconv.modules import SparseBatchNorm, _SparseConvBase
     pairs = ((Conv2d, BatchNorm), (Conv1d, BatchNorm),
              (_SparseConvBase, SparseBatchNorm))
     out = set()
     for name, mod in model.named_modules():
+        for conv, bn in getattr(mod, "CONV_BN", ()):
+            if getattr(mod, conv).bias is not None:
+                out.add(f"{name}.{conv}.bias")
         if isinstance(mod, torch.nn.Sequential):
             kids = list(mod.named_children())
             for (n0, a), (_, b) in zip(kids, kids[1:]):

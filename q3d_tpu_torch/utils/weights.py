@@ -13,8 +13,14 @@ tensors in the port's layouts:
     VoxelNeXt's 2D convs alike; VoxelNeXt's ``backbone_3d.shared_conv`` is
     (conv, BN) like ``conv_out``, apart from the CenterHead's
     ``dense_head.shared_conv``);
-  * BN scale/bias/mean/var and LayerNorm scale/bias ->
-    weight/bias/running_mean/running_var;
+  * BN scale/bias/mean/var (a ``MaskedBatchNorm``'s too) and LayerNorm
+    scale/bias -> weight/bias/running_mean/running_var;
+  * the dynamic VFEs' ``pfn_linear_<i>`` / ``pfn_norm_<i>`` ->
+    OpenPCDet's ``pfn_layers.<i>.linear / .norm``; the pillar backbones'
+    ``conv<s>_<i>`` blocks -> ``conv<s>.<i>`` (as the 3D backbones'),
+    their dense conv5 too; BaseBEVBackboneV1's blocks and deblocks as
+    BaseBEVBackbone's; BaseBEVResBackbone's ``blocks_<i>.conv<k>[ab]`` keep
+    the reference's names (OpenPCDet's BasicBlock tree differs);
   * the ``quant`` collection's amax leaves -> the quantizer buffers of an
     int8 model (``quant.api``): a conv's ``act_quant`` / ``weight_quant``
     stay on the conv, a block's ``out_quant{i}`` goes to the conv ``conv{i}``
@@ -52,16 +58,20 @@ _LEAF = {"kernel": "weight", "weight": "weight", "bias": "bias",
          "scale": "weight", "mean": "running_mean", "var": "running_var"}
 
 
-def _module_rules(module, toks, transfusion=False):
+def _module_rules(module, toks, transfusion=False, res_bev=False):
     """toks: reference module-path tokens (bn dropped) inside ``module`` ->
     the pcdet module path, ("OUT", head, branch) for a SeparateHead output
     conv (head None: TransFusion's prediction head), or None.
     ``transfusion``: the head is TransFusion's, whose shared_conv is a bare
-    conv."""
+    conv; ``res_bev``: the 2D backbone is ``BaseBEVResBackbone``, whose
+    blocks keep the reference's module names."""
     t = ".".join(toks)
     if module == "vfe":
         m = re.fullmatch(r"pfn_layers_(\d+)\.(linear|norm)", t)
-        return f"pfn_layers.{m.group(1)}.{m.group(2)}" if m else None
+        if m:                                   # PillarVFE
+            return f"pfn_layers.{m.group(1)}.{m.group(2)}"
+        m = re.fullmatch(r"pfn_(linear|norm)_(\d+)", t)   # the dynamic VFEs
+        return f"pfn_layers.{m.group(2)}.{m.group(1)}" if m else None
     if module == "backbone_3d":
         for pat, fmt in ((r"(conv_input|conv_out|shared_conv)\.conv", "{0}.0"),
                          (r"(conv_input|conv_out|shared_conv)\.norm", "{0}.1"),
@@ -73,6 +83,9 @@ def _module_rules(module, toks, transfusion=False):
                 return fmt.format(*m.groups())
         return None
     if module == "backbone_2d":
+        m = re.fullmatch(r"blocks_(\d+)\.((?:conv|norm)\d+[ab]?)", t)
+        if m and res_bev:
+            return f"blocks.{m.group(1)}.{m.group(2)}"
         m = re.fullmatch(r"blocks_(\d+)\.conv(\d+)", t)
         if m:
             return f"blocks.{m.group(1)}.{1 + 3 * int(m.group(2))}"
@@ -155,12 +168,15 @@ class _Layout:
     """What the reference's names leave open, read off its whole tree: a
     branch's output-conv index, ``self(head, branch)`` = the branch's
     hidden-conv count (its position in pcdet's nn.Sequential; head None for
-    TransFusion's prediction head), and whether the head is TransFusion's
-    (it has a ``decoder``)."""
+    TransFusion's prediction head), whether the head is TransFusion's (it
+    has a ``decoder``), and whether the 2D backbone is BaseBEVResBackbone
+    (its blocks have residual pairs ``conv<k>a / conv<k>b``)."""
 
     def __init__(self, flat_paths):
-        self.counts, self.transfusion = {}, False
+        self.counts, self.transfusion, self.res_bev = {}, False, False
         for path in flat_paths:
+            self.res_bev |= len(path) > 3 and path[1] == "backbone_2d" \
+                and re.fullmatch(r"conv\d+[ab]", path[3]) is not None
             if len(path) < 4 or path[1] != "dense_head":
                 continue
             self.transfusion |= path[2] == "decoder"
@@ -192,7 +208,8 @@ def pcdet_name(path, out_index):
 def _port_module(module, toks, out_index):
     """``_module_rules`` with a branch's output conv resolved to its slot
     (``out_index``: a ``_Layout``, or any (head, branch) -> index)."""
-    r = _module_rules(module, toks, getattr(out_index, "transfusion", False))
+    r = _module_rules(module, toks, getattr(out_index, "transfusion", False),
+                      getattr(out_index, "res_bev", False))
     if isinstance(r, tuple):
         _, head, branch = r
         r = (f"heads_list.{head}.{branch}" if head is not None
@@ -264,10 +281,17 @@ def reference_module_path(name, module=None):
     """Port module name -> the reference's dotted module path (inverse of
     ``_module_rules`` for convs and the head's DenseRequant), or None.  A
     deblock's slot 0 is the reference's ``deconv``, or its ``conv`` when
-    ``module`` is a (1x1) Conv2d (``USE_CONV_FOR_NO_STRIDE``)."""
+    ``module`` is a (1x1) Conv2d (``USE_CONV_FOR_NO_STRIDE``); a PFN
+    linear is ``pfn_linear_<i>`` when ``module`` is a dynamic VFE's."""
     m = re.fullmatch(r"backbone_2d\.blocks\.(\d+)\.(\d+)", name)
     if m and (int(m.group(2)) - 1) % 3 == 0:
         return f"backbone_2d.blocks_{m.group(1)}.conv{(int(m.group(2)) - 1) // 3}"
+    m = re.fullmatch(r"backbone_2d\.blocks\.(\d+)\.(conv\d+[ab]?)", name)
+    if m:                                       # BaseBEVResBackbone
+        return f"backbone_2d.blocks_{m.group(1)}.{m.group(2)}"
+    m = re.fullmatch(r"vfe\.pfn_layers\.(\d+)\.linear", name)
+    if m and getattr(module, "dynamic_pfn", False):
+        return f"vfe.pfn_linear_{m.group(1)}"
     m = re.fullmatch(r"backbone_2d\.deblocks\.(\d+)\.0", name)
     if m:
         kind = getattr(module, "QUANT_KIND", "conv_transpose2d")

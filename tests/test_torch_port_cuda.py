@@ -593,3 +593,39 @@ def test_gather_conv_backward_2d_books_match_plain(card, kind):
         assert torch.isfinite(a).all()
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
     assert not grads["cuda"][0][~st.valid].any()
+
+
+# the pillar backbone's widths at 256 channels (PillarRes18BackBone8x's
+# conv4 stage: the strided 128 -> 256 conv, the SubM 256 -> 256 convs and
+# the strided conv's input gradient, 256 -> 128) and the narrowest pairs
+# with a 256-wide side; K = 9, the 2D books' taps
+WIDE_WIDTHS = [(128, 256), (256, 256), (256, 128), (16, 256), (256, 16)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "s8"])
+@pytest.mark.parametrize("cin,cout", WIDE_WIDTHS)
+def test_gather_conv_256_kernel_matches_plain(card, cin, cout, dtype):
+    """Cout = 256 runs as two 128-column tiles of the grid, Cin = 256 as
+    more steps a tap: the same cases as at the narrower widths."""
+    test_gather_conv_kernel_matches_plain(card, cin, cout, 9, dtype)
+
+
+@pytest.mark.parametrize("identity", ["none", "s8", "f32"])
+@pytest.mark.parametrize("cin,cout", WIDE_WIDTHS)
+def test_gather_conv_requant_256_kernel_matches_plain(card, cin, cout,
+                                                      identity):
+    """The fused s8 entry at 256 channels, bit for bit: the BN fold, the
+    identity and the row mask read at each tile's own columns."""
+    test_gather_conv_requant_kernel_matches_plain(card, cin, cout, 9,
+                                                  identity)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["subm", "strided"])
+@pytest.mark.parametrize("cin,cout", [(128, 256), (256, 256)])
+def test_gather_conv_backward_256_kernel_matches_plain(card, cin, cout, kind,
+                                                       dtype):
+    """dX and dW at 256 channels (dX of a 128 -> 256 conv is kernel 1 at
+    256 -> 128 over the inverse book)."""
+    test_gather_conv_backward_kernel_matches_plain(card, cin, cout, kind,
+                                                   dtype)
