@@ -281,7 +281,30 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
  20. ``dynvoxel_ref`` — centerpoint_ref's MODEL with DynamicVoxelVFE
                 (NUM_FILTERS [16, 16], MAX_VOXELS 160,000), then with
                 DynamicMeanVFE, one f32 request each, kernels vs plain;
- 21. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+ 21. PV-RCNN and Voxel R-CNN inference at the KITTI width
+                (``two_stage_phases``; the port's
+                ``q3d_tpu_torch/cfgs/kitti_models/pv_rcnn.yaml`` and
+                ``voxel_rcnn_car.yaml`` on the FOV-cropped KITTI scenes of
+                phase 12, batch 2, seeded weights, conv_cls's bias 0, BN
+                statistics from the first request): ``data_pvrcnn`` (raw
+                points a frame against MAX_RAW_POINTS, voxels against the
+                40,000 cap: none dropped), ``kernel_conv`` for each model's
+                12 convs, ``serving_<model>`` (4 bf16 requests: 12 kernel-1
+                launches and one kernel-2 launch of 2 candidate sets of K =
+                1024 a forward, the proposal layer's; host ms apart from
+                device ms), ``stages_<model>`` (``two_stage_stage_times``:
+                VFE, sparse backbone, BEV map, 2D backbone, RPN head, the
+                proposal layer, FPS apart, each source's regrouping, ball
+                query, MLP + pool and grouping, the fusion, the point head,
+                the ROI pooling, FCs and decode; the forward's peak
+                memory), ``model_<model>`` (f32, TF32 off, kernels vs plain:
+                spatial features equal, the rois the same keep set,
+                detections matched at 1e-3 / 1e-4), ``kernel_nms_<model>``
+                (kernel 2 on the proposal sets against plain, timed, its
+                bound) and ``recipes_pvrcnn`` (``int8_deploy_recipe()``:
+                every launch held on its own operands, maps, rois and
+                detections equal);
+ 22. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises and exits nonzero without the last line.  Without
 CUDA, or outside a checkout of the repo, it exits 1 and prints no result.
@@ -5127,6 +5150,429 @@ def pillarnet_kernel_rows(pn):
     return rows
 
 
+# ======================================================= two-stage detectors
+# PV-RCNN and Voxel R-CNN at the KITTI width (the port's own configs); the
+# VoxelBackBone8x's 12 convs on kernel 1, the proposal layer's one launch
+# of kernel 2 (B sets of NMS_PRE_MAXSIZE = 1024, all valid: no score
+# threshold there)
+TS_CFG = {"pvrcnn": "pv_rcnn", "voxelrcnn": "voxel_rcnn_car"}
+TS_CONVS = 12
+TS_PROPOSAL_K = 1024
+
+
+def ts_config_path(name):
+    return f"q3d_tpu_torch/cfgs/kitti_models/{TS_CFG[name]}.yaml"
+
+
+def two_stage_stage_times(model, batch, reps=5):
+    """CUDA-event time of each stage of one forward of a two-stage model on
+    ``batch``, median of ``reps`` -> {stage: ms}: the modules (vfe,
+    backbone_3d, map_to_bev, pfe, backbone_2d, dense_head, point_head,
+    roi_head), the proposal layer (sigmoid, best class, kernel 2), and
+    inside the PFE and the ROI head: FPS (``pfe.fps``), the BEV sample,
+    each source's regrouping, ball query, MLP + pool and its whole set
+    abstraction (``<slot>.<source>.total``; the grouping is the total less
+    the query and the MLP), the fusion, and the ROI head's FCs + decode.
+    Functions are timed through module attributes that shadow them for
+    the run; every stage's start and end events are recorded on the
+    stream, so a stage's time is the device's time between them."""
+    import collections
+    import torch
+    from q3d_tpu_torch.models.backbones_3d.pfe import (
+        voxel_set_abstraction as vsa_mod)
+    from q3d_tpu_torch.models.roi_heads import pvrcnn_head as pvh
+    from q3d_tpu_torch.models.roi_heads import voxelrcnn_head as vrh
+    names = {m: n for n, m in model.named_modules()}
+    events = collections.defaultdict(list)
+    current = []
+
+    def mark(label, at):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[label].append((at, ev))
+
+    def sa_label(blocks):
+        return names[blocks[0]].rsplit("_r", 1)[0]
+
+    def timed(fn, label):
+        def run(*args, **kw):
+            tag = label(args) if callable(label) else label
+            current.append(tag)
+            mark(tag, 0)
+            try:
+                out = fn(*args, **kw)
+            finally:
+                mark(tag, 1)
+                current.pop()
+            return out
+        return run
+    modules = {k: getattr(model, attr) for k, attr in (
+        ("vfe", "vfe"), ("backbone_3d", "backbone_3d"),
+        ("map_to_bev", "map_to_bev_module"), ("pfe", "pfe"),
+        ("backbone_2d", "backbone_2d"), ("dense_head", "dense_head"),
+        ("point_head", "point_head"), ("roi_head", "roi_head"))
+        if getattr(model, attr, None) is not None}
+    hooks = []
+    for label, mod in modules.items():
+        hooks += [mod.register_forward_pre_hook(
+                      lambda *_, t=label: mark(t, 0)),
+                  mod.register_forward_hook(lambda *_, t=label: mark(t, 1))]
+    for mod, n in names.items():
+        if isinstance(mod, vsa_mod.SAMLPBlock):
+            t = n.rsplit("_r", 1)[0] + ".mlp"
+        elif n in ("pfe.vsa_point_feature_fusion", "pfe.fusion_norm"):
+            t = "pfe.fusion"
+        else:
+            continue
+        hooks += [mod.register_forward_pre_hook(lambda *_, t=t: mark(t, 0)),
+                  mod.register_forward_hook(lambda *_, t=t: mark(t, 1))]
+    patches = [(model, "proposal_layer", "proposal_layer")]
+    if "pfe" in modules:
+        patches += [(model.pfe, "sample_keypoints", "pfe.fps"),
+                    (vsa_mod, "bilinear", "pfe.bev_sample"),
+                    (vsa_mod, "stage_points", "pfe.regroup")]
+    patches += [(vrh, "stage_points", "roi_head.regroup"),
+                (model.roi_head, "finish", "roi_head.fcs_decode")]
+    for mod in (vsa_mod, pvh, vrh):
+        patches.append((mod, "set_abstraction",
+                        lambda a: sa_label(a[0]) + ".total"))
+    patches.append((vsa_mod, "ball_query",
+                    lambda a: current[-1].rsplit(".", 1)[0] + ".ball_query"))
+    saved = [(owner, attr, owner.__dict__.get(attr))
+             for owner, attr, _ in patches]
+    for owner, attr, label in patches:
+        setattr(owner, attr, timed(getattr(owner, attr), label))
+    out = collections.defaultdict(list)
+    try:
+        with torch.no_grad():
+            for _ in range(reps):
+                events.clear()
+                model(dict(batch))
+                torch.cuda.synchronize()
+                for label, evs in events.items():
+                    starts = [e for at, e in evs if at == 0]
+                    ends = [e for at, e in evs if at == 1]
+                    out[label].append(sum(a.elapsed_time(b)
+                                          for a, b in zip(starts, ends)))
+    finally:
+        for h in hooks:
+            h.remove()
+        for owner, attr, orig in saved:
+            if orig is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, orig)
+    ms = {k: statistics.median(v) for k, v in sorted(out.items())}
+    for total in [k for k in ms if k.endswith(".total")]:
+        base = total[:-len(".total")]
+        ms[base + ".grouping"] = ms[total] - ms.get(base + ".ball_query", 0) \
+            - ms.get(base + ".mlp", 0)
+    return ms
+
+
+def proposal_candidates(out, k):
+    """The proposal layer's candidate sets for a forward's outputs: per
+    frame the top ``k`` anchors by their best class's sigmoid -> (boxes
+    (B, k, 7), valid (B, k)), kernel 2's input."""
+    import torch
+    from q3d_tpu_torch.ops.iou3d_nms import top_candidates
+    scores = torch.sigmoid(out["batch_cls_preds"].float()).amax(dim=-1)
+    _, boxes, valid = top_candidates(out["batch_box_preds"][..., :7].float(),
+                                     scores, None, k)
+    return boxes.contiguous(), valid.contiguous()
+
+
+def two_stage_phases(name, dev, conv_k, nms_k, mode, strict_f32, flush,
+                     clock_mhz):
+    """One two-stage model at the KITTI width (``ts_config_path(name)``:
+    PV-RCNN or Voxel R-CNN, seeded weights, conv_cls's bias 0, BN
+    statistics from the first request, f32 with TF32 off where held
+    against plain) on the FOV-cropped KITTI scenes, batch 2:
+    ``data_pvrcnn`` (points against MAX_RAW_POINTS and voxels against the
+    40,000 cap a frame, none dropped), ``kernel_conv`` for the 12 convs,
+    ``serving_<name>`` (4 bf16 requests: 12 kernel-1 launches and one
+    kernel-2 launch of 2 sets of K = 1024 a forward; host ms apart from
+    device ms), ``stages_<name>`` (``two_stage_stage_times``; the forward's
+    peak memory), ``model_<name>`` (f32, kernels vs plain: the spatial
+    features exactly equal, the rois the same keep set, the detections
+    matched at 1e-3 / 1e-4), ``kernel_nms_<name>`` (kernel 2 on the
+    proposal sets against plain, timed, its bound) and, for PV-RCNN,
+    ``recipes_pvrcnn`` (``int8_deploy_recipe()``: 11 s8 launches and the
+    float conv_input, the quantized BEV convs through ``_int_mm``, each
+    launch held against its plain version on its own operands, the maps
+    and detections equal) -> summary for the kernels line."""
+    import torch
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.datasets.kitti_synthetic import (kitti_config,
+                                                        kitti_scene,
+                                                        scene_counts)
+    from q3d_tpu_torch.models import build_network, load_data_to_device
+    from q3d_tpu_torch.models.layers import Conv2d
+    from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as nms_mod
+    from q3d_tpu_torch.quant import api as quant_api
+    from q3d_tpu_torch.utils.bn_calibration import calibrate_bns
+    config = ts_config_path(name)
+    cfg = kitti_config(TS_CFG[name], BATCH * REQUESTS, SEED)
+    dc = cfg.DATA_CONFIG
+    ds, _, _ = build_dataloader(dc, cfg.CLASS_NAMES, batch_size=BATCH,
+                                training=False)
+    cap = int(dc.DATA_PROCESSOR[-1].MAX_NUMBER_OF_VOXELS["test"])
+    raw_cap = int(dc.get("MAX_RAW_POINTS", 0))
+
+    def request(r):
+        return make_request(ds, r, kitti_scene)
+
+    # ---------------------------------------------------------------- data
+    if raw_cap:
+        counts = scene_counts(ds)
+        for r in range(REQUESTS):
+            raw, _, _ = request(r)
+            for j, m in enumerate(raw["points_mask"]):
+                counts[r * BATCH + j]["points_collated"] = int(m.sum())
+        check(all(c["voxels_kept"] == c["voxels_occupied"] < cap
+                  and c["points_collated"] == c["points_in_range"] < raw_cap
+                  and c["objects_present"] == c["objects_labelled"] > 0
+                  for c in counts),
+              f"data_{name}: frames {counts}, caps {raw_cap} / {cap}")
+        emit(f"data_{name}", config=config,
+             dataset="SyntheticDataset at the config's geometry, FOV-cropped",
+             max_raw_points=raw_cap, voxel_cap=cap, frames=counts,
+             points_dropped=0, voxels_dropped=0,
+             cuts="synthetic scenes, seeded weights")
+
+    t0 = time.perf_counter()
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=dev)
+    with torch.no_grad():
+        model.dense_head.conv_cls.bias.zero_()
+    build_s = time.perf_counter() - t0
+    raw0, _, _ = request(0)
+    strict_f32(True)
+    batch_f32 = load_data_to_device(raw0, device=dev)
+    calibrate_bns(model, batch_f32)
+    convs, _ = record_sparse_convs(model, batch_f32)
+    check(len(convs) == TS_CONVS, f"{name}: {len(convs)} sparse convs")
+    totals, worst, _ = kernel_conv(convs, flush, mode, name)
+    del convs
+    strict_f32(False)
+
+    # ------------------------------------------------------------- serving
+    roi_cfg = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST
+    post = int(roi_cfg.NMS_POST_MAXSIZE)
+    sets_seen = []
+    real_boxes_cuda = nms_mod.greedy_suppress_boxes_cuda
+
+    def seen(corners, *args, **kw):
+        sets_seen.append(list(corners.shape[:2]))
+        return real_boxes_cuda(corners, *args, **kw)
+    nms_mod.greedy_suppress_boxes_cuda = seen
+    clear_launches(conv_k, nms_k)
+    per_request = []
+    try:
+        for r in range(REQUESTS):
+            raw, scene_ms, prep_ms = request(r)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = load_data_to_device(raw, device=dev,
+                                        compute_dtype=torch.bfloat16)
+            with torch.no_grad():
+                out = model(batch)
+            n_valid = out["final_valid"].sum(dim=1).tolist()
+            torch.cuda.synchronize()
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+            check(all(torch.isfinite(out[k].float()).all() for k in (
+                "spatial_features_2d", "rois", "final_boxes", "final_scores"))
+                and out["final_boxes"].shape == (BATCH, post, 7)
+                and out["spatial_features"].dtype == torch.bfloat16,
+                f"{name} request {r}: non-finite outputs or final_boxes "
+                f"{tuple(out['final_boxes'].shape)}")
+            per_request.append({"request": r,
+                                "frames": list(range(BATCH * r,
+                                                     BATCH * (r + 1))),
+                                "scene_ms": scene_ms, "pipeline_ms": prep_ms,
+                                "host_ms": scene_ms + prep_ms,
+                                "device_forward_ms": fwd_ms,
+                                "valid_rois": out["roi_valid"].sum(1).tolist(),
+                                "valid_detections": n_valid})
+            emit(f"serving_{name}_request", **per_request[-1])
+    finally:
+        nms_mod.greedy_suppress_boxes_cuda = real_boxes_cuda
+    launches = kernel_launches(conv_k, nms_k)
+    got = {"conv_bf16": launches["sparse_gather_conv_bf16"],
+           "conv_other": sum(conv_k.launches.values())
+           - launches["sparse_gather_conv_bf16"],
+           "nms_boxes": launches["greedy_nms_boxes"],
+           "nms_iou": launches["greedy_nms_iou"], "nms_sets": sets_seen}
+    want = {"conv_bf16": TS_CONVS * REQUESTS, "conv_other": 0,
+            "nms_boxes": REQUESTS, "nms_iou": 0,
+            "nms_sets": [[BATCH, TS_PROPOSAL_K]] * REQUESTS}
+    check(got == want, f"serving_{name}: launches {got}, expected {want}")
+    emit(f"serving_{name}", config=config, batch=BATCH, dtype="bf16",
+         requests=REQUESTS, launches=launches, nms_sets_k=sets_seen[0],
+         build_s=build_s, mode=mode(), steady_forward_ms=statistics.median(
+             p["device_forward_ms"] for p in per_request[1:]),
+         steady_host_ms=statistics.median(
+             p["host_ms"] for p in per_request[1:]),
+         note="raw points f32, the VFE's voxels and everything to the "
+              "proposals bf16; past each SA block's first BN f32, as the "
+              "reference's flax BNs give it")
+    stages = two_stage_stage_times(model, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2 ** 20
+    with torch.no_grad():
+        model(dict(batch))
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    emit(f"stages_{name}", dtype="bf16", batch=BATCH, mode=mode(), ms=stages,
+         sparse_conv_kernels_ms=totals["ms"], peak_mib=peak_mib,
+         peak_over_resident_mib=peak_mib - base_mib,
+         note="<slot>.<source>.grouping = total - ball_query - mlp; the "
+              "proposal layer holds kernel 2; roi_head.fcs_decode the "
+              "shared / cls / reg FCs and the decode")
+    del out, batch
+
+    # ------------------------------------- whole model, kernels vs plain
+    strict_f32(True)
+    outs, runs = {}, {}
+    with torch.no_grad():
+        for impl in ("cuda", "plain"):
+            model.set_kernel_impl(impl)
+            clear_launches(conv_k, nms_k)
+            outs[impl] = model(dict(batch_f32))
+            torch.cuda.synchronize()
+            runs[impl] = {k: v for k, v in kernel_launches(
+                conv_k, nms_k).items() if v}
+        model.set_kernel_impl(None)
+    ok_, op = outs["cuda"], outs["plain"]
+    check(runs["cuda"] == {"sparse_gather_conv_f32": TS_CONVS,
+                           "greedy_nms_boxes": 1} and not runs["plain"],
+          f"model_{name}: launches {runs}")
+    check(torch.equal(ok_["spatial_features"], op["spatial_features"]),
+          f"model_{name}: spatial_features differ, kernels vs plain")
+    roi_err = float((ok_["rois"] - op["rois"]).abs().max())
+    check(torch.equal(ok_["roi_valid"], op["roi_valid"])
+          and torch.equal(ok_["roi_labels"], op["roi_labels"])
+          and roi_err <= 1e-4, f"model_{name}: rois differ ({roi_err})")
+    matched, total = matched_detections(ok_, op, BATCH)
+    frac = matched / max(total, 1)
+    check(total > 0 and frac >= 0.99,
+          f"model_{name}: only {matched}/{total} detections matched")
+    emit(f"model_{name}", dtype="f32", mode=mode(), launches=runs["cuda"],
+         spatial_features="equal", rois_max_abs=roi_err,
+         rois_valid=ok_["roi_valid"].sum(1).tolist(), detections=total,
+         detections_matched=matched, matched_fraction=frac,
+         tolerance="spatial_features exactly equal; rois: valid flags and "
+                   "labels equal, boxes within 1e-4; detections matched "
+                   "(same label, box within 1e-3, score within 1e-4)")
+
+    # -------------------------------- kernel 2 on the proposal sets
+    bx, bv = proposal_candidates(ok_, int(roi_cfg.NMS_PRE_MAXSIZE))
+    thresh = float(roi_cfg.NMS_THRESH)
+    check(bv.shape == (BATCH, TS_PROPOSAL_K) and bool(bv.all()),
+          f"kernel_nms_{name}: sets {tuple(bv.shape)}, valid "
+          f"{bv.sum(1).tolist()}")
+    near, needed, most = check_boxes_form(bx, bv, thresh, name)
+    corners, areas = nms_mod.bev_corners_areas(bx)
+    terms = boxes_bound(BATCH, TS_PROPOSAL_K, needed, near, clock_mhz)
+    nms_row = {"entry": "q3d_greedy_nms_boxes", "sets": BATCH,
+               "K": TS_PROPOSAL_K, "thresh": thresh,
+               "valid": int(bv.sum()), "candidate_pairs": needed,
+               "near_pairs": near, "near_pairs_most_in_a_tile": most,
+               "kept": int(nms_mod.greedy_nms_boxes(bx, bv, thresh).sum()),
+               "ms": time_ms(lambda: nms_mod.greedy_suppress_boxes_cuda(
+                   corners, areas, bv, thresh), flush=flush),
+               "plain_ms": time_ms(lambda: nms_mod.greedy_suppress_boxes_plain(
+                   bx, bv, thresh), reps=3, flush=flush),
+               **{f"{k}_ms": v for k, v in terms.items()}}
+    nms_row["bound_by"] = max(terms, key=terms.get)
+    nms_row["bound_ms"] = terms[nms_row["bound_by"]]
+    emit(f"kernel_nms_{name}", form="boxes", **nms_row, max_abs_err=0,
+         mode=mode(), clock_max_sm_mhz=clock_mhz,
+         tolerance="keep masks exactly equal, IoU bit-equal at every "
+         "evaluated pair, plain IoU exactly 0 at every skipped needed pair")
+    del outs, ok_, op, corners, areas
+    summary = {"launches": launches, "totals": totals, "worst": worst,
+               "nms": nms_row}
+
+    # ------------------------------------------- int8_deploy_recipe()
+    if name == "pvrcnn":
+        m8 = copy.deepcopy(model)
+        quant_api.quantize_model(m8, quant_api.int8_deploy_recipe(),
+                                 batch_f32)
+        q_dense = sum(isinstance(mod, Conv2d) and mod.rule is not None
+                      for mod in m8.modules())
+        calls, outs, runs = [], {}, {}
+        with recording_launches(calls):
+            with torch.no_grad():
+                for impl in ("cuda", "plain"):
+                    m8.set_kernel_impl(impl)
+                    clear_launches(conv_k, nms_k)
+                    outs[impl] = m8(dict(batch_f32))
+                    torch.cuda.synchronize()
+                    runs[impl] = {k: v for k, v in kernel_launches(
+                        conv_k, nms_k).items() if v}
+                m8.set_kernel_impl(None)
+        want = {"sparse_gather_conv_s8": TS_CONVS - 1,
+                "sparse_gather_conv_f32": 1, "int_mm_conv2d": q_dense,
+                "greedy_nms_boxes": 1}
+        check(runs["cuda"] == want and q_dense > 0 and not runs["plain"],
+              f"recipes_{name}: launches {runs}, expected {want}")
+        check(len(calls) == TS_CONVS,
+              f"recipes_{name}: {len(calls)} launches recorded")
+        held = hold_launches_on_operands(calls, f"recipes_{name}")
+        del calls
+        for key in ("spatial_features", "spatial_features_2d", "rois",
+                    "final_boxes", "final_scores", "final_labels",
+                    "final_valid"):
+            check(torch.equal(outs["cuda"][key], outs["plain"][key]),
+                  f"recipes_{name}: {key} differs, kernels vs plain")
+        emit(f"recipes_{name}", recipe="int8_deploy_recipe()", dtype="f32",
+             batch=BATCH, mode=mode(), launches=runs["cuda"],
+             quantized_dense=q_dense, **held,
+             valid=int(outs["cuda"]["final_valid"].sum()),
+             equal="spatial maps, rois and detections, kernels vs plain")
+        del m8, outs
+    strict_f32(False)
+    del model, batch_f32
+    torch.cuda.empty_cache()
+    return summary
+
+
+def two_stage_kernel_rows(ts):
+    """The kernels line's entries of the two-stage models: kernel 1 on the
+    12 convs of a bf16 forward and kernel 2 on the proposal sets."""
+    rows = []
+    for name, s in ts.items():
+        t, n = s["totals"], s["nms"]
+        rows += [
+            {"name": f"sparse_gather_conv_{name}", "route": "cuda",
+             "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
+             "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",
+             "entry": "q3d_sparse_gather_conv_bf16",
+             "use": f"{ts_config_path(name)}: VoxelBackBone8x's 12 convs, "
+                    "bf16",
+             "launches": s["launches"]["sparse_gather_conv_bf16"],
+             "max_abs_err": s["worst"]["bf16"], "ms": t["ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
+             else "operations", "library_ms": t["library_ms"],
+             "checks": "passed",
+             "times_cover": f"one bf16 forward at batch {BATCH} (12 convs); "
+                            f"launches: serving_{name}'s {REQUESTS} "
+                            "requests"},
+            {"name": f"greedy_nms_{name}", "route": "cuda",
+             "source": "q3d_tpu_torch/csrc/greedy_nms.cu",
+             "replaces": "q3d_tpu/ops/iou3d_nms/pallas_nms.py:45",
+             "entry": "q3d_greedy_nms_boxes",
+             "launches": s["launches"]["greedy_nms_boxes"],
+             "max_abs_err": 0.0, "ms": n["ms"], "plain_ms": n["plain_ms"],
+             "bound_ms": n["bound_ms"], "bound_by": n["bound_by"],
+             "library_ms": None, "checks": "passed",
+             "times_cover": f"the proposal layer's NMS: {n['sets']} sets, "
+                            f"K={n['K']}"}]
+    return rows
+
+
 def ptxas_spills(libraries):
     """From each build's ``-Xptxas -v`` log: the kernels that spill ->
     [{library, kernel (mangled), registers, spill stores, spill loads}]."""
@@ -5840,6 +6286,14 @@ def main():
                           clock_mhz)
     dynvoxel_ref(dev, conv_k, nms_k, mode, strict_f32)
 
+    # ======================================= PV-RCNN and Voxel R-CNN, KITTI
+    # the two-stage detectors' inference: the keypoint set abstraction, the
+    # proposal layer on kernel 2, the ROI grid pooling
+    torch.cuda.empty_cache()
+    ts = {name: two_stage_phases(name, dev, conv_k, nms_k, mode, strict_f32,
+                                 flush, clock_mhz)
+          for name in ("pvrcnn", "voxelrcnn")}
+
     # ---------------------------------------------------------- kernels line
     kernels = [
         {"name": "sparse_gather_conv", "route": "cuda",
@@ -5859,6 +6313,8 @@ def main():
          "launches_transfusion": tf["launches"]["sparse_gather_conv"],
          "launches_lyft": lyft["launches"]["sparse_gather_conv_bf16"],
          "launches_pillarnet": pn["launches"]["sparse_gather_conv_bf16"],
+         "launches_two_stage": {n: v["launches"]["sparse_gather_conv_bf16"]
+                                for n, v in ts.items()},
          "transfusion": {"ms": tf["totals"]["ms"],
                          "plain_ms": tf["totals"]["plain_ms"],
                          "bound_ms": tf["totals"]["bound_ms"],
@@ -5933,6 +6389,7 @@ def main():
         *nuscenes_kernel_rows(nu),
         *lyft_kernel_rows(lyft),
         *pillarnet_kernel_rows(pn),
+        *two_stage_kernel_rows(ts),
         {"name": "sparse_gather_conv_s8_requant", "route": "cuda",
          "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
          "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",
@@ -5980,6 +6437,8 @@ def main():
          "launches_transfusion": tf["launches"]["greedy_nms_boxes"],
          "launches_lyft": lyft["launches"]["greedy_nms_boxes"],
          "launches_pillarnet": pn["launches"]["greedy_nms_boxes"],
+         "launches_two_stage": {n: v["launches"]["greedy_nms_boxes"]
+                                for n, v in ts.items()},
          "voxelnext": {k: vn["nms"][k] for k in (
              "sets", "K", "ms", "plain_ms", "bound_ms", "bound_by")},
          "k4096": {n: {k: r[k] for k in ("sets", "K", "ms", "plain_ms",

@@ -28,7 +28,14 @@
 //   is a pair whose circumscribed circles (inflated by 0.05% + 5 mm each)
 //   are apart: the formula gives exactly 0 there, which is not above
 //   thresh (pinned by tests/test_torch_port_nms.py and by chip_smoke.py,
-//   which checks the plain IoU of every pair the kernel skipped).  B: a
+//   which checks the plain IoU of every pair the kernel skipped).  That
+//   holds for a convex quad, which its half-planes bound.  A quad whose
+//   corners do not turn strictly left at every corner (an edge of length
+//   0, or corners rounded onto each other: a box whose width is below f32
+//   resolution at its position) is no convex quad; its half-planes can
+//   leave a wedge open to infinity, and the formula gave a pair 56 m
+//   apart an IoU of 8.3e-5 (a seeded PV-RCNN's proposals).  Such a quad
+//   gets an infinite radius, so its pairs are always evaluated.  B: a
 //   grid-stride loop over each set's listed pairs evaluates one IoU per
 //   lane and ORs its bit in with a global atomic.  Balancing over the whole
 //   card matters: the duplicates of one object crowd one tile (1184 of a
@@ -187,17 +194,24 @@ __device__ __forceinline__ void origin(const Quad& q, float& ox, float& oy) {
   oy = (((q.y[0] + q.y[1]) + q.y[2]) + q.y[3]) * 0.25f;
 }
 
-// The origin and the circumscribed radius, inflated for the skip.
+// The origin and the circumscribed radius, inflated for the skip; infinite
+// for a quad that does not turn strictly left at every corner (no convex
+// quad, so never skipped).
 __device__ __forceinline__ void circle(const Quad& q, float& ox, float& oy,
                                        float& r) {
   origin(q, ox, oy);
   float r2 = 0.f;
+  bool convex = true;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const float dx = q.x[k] - ox, dy = q.y[k] - oy;
     r2 = fmaxf(r2, dx * dx + dy * dy);
+    const int k1 = (k + 1) & 3, k2 = (k + 2) & 3;
+    const float ax = q.x[k1] - q.x[k], ay = q.y[k1] - q.y[k];
+    const float bx = q.x[k2] - q.x[k1], by = q.y[k2] - q.y[k1];
+    convex = convex && ax * by - ay * bx > 0.f;
   }
-  r = sqrtf(r2) * 1.0005f + 0.005f;
+  r = convex ? sqrtf(r2) * 1.0005f + 0.005f : __int_as_float(0x7f800000);
 }
 
 __device__ __forceinline__ Quad load_quad(const float* __restrict__ corners,

@@ -29,6 +29,9 @@ from .synthetic_dataset import make_scene
 
 KITTI_DIR = Path(__file__).resolve().parents[2] / "tools" / "cfgs" / \
     "kitti_models"
+# the KITTI configs of the port's own (the two-stage detectors')
+PORT_KITTI_DIR = Path(__file__).resolve().parents[1] / "cfgs" / \
+    "kitti_models"
 SCENE = {"NUM_BG_POINTS": 110000, "NUM_OBJECTS": 20, "POINTS_PER_OBJECT": 500}
 # FOV_POINTS_ONLY keeps the points that project into the front camera's
 # image: a typical KITTI calibration's P2 (fx, fy, cx, cy), the 1242 x 375
@@ -43,10 +46,15 @@ MIN_OBJECT_POINTS = 5
 
 
 def kitti_config(name, num_frames, seed):
-    """The KITTI config ``name`` ("second", "pointpillar") with a
+    """The KITTI config ``name`` ("second", "pointpillar" in ``tools/``;
+    "pv_rcnn", "voxel_rcnn_car" in the port's ``cfgs/``) with a
     ``SyntheticDataset`` of ``num_frames`` frames from ``seed`` at its
-    geometry as its DATA_CONFIG."""
-    cfg = cfg_from_yaml_file(str(KITTI_DIR / f"{name}.yaml"), EDict())
+    geometry as its DATA_CONFIG (and its MAX_RAW_POINTS, where it collates
+    the raw points)."""
+    path = PORT_KITTI_DIR / f"{name}.yaml"
+    if not path.exists():
+        path = KITTI_DIR / f"{name}.yaml"
+    cfg = cfg_from_yaml_file(str(path), EDict())
     dc = cfg.DATA_CONFIG
     cfg.DATA_CONFIG = EDict({
         "DATASET": "SyntheticDataset", "NUM_FRAMES": num_frames,
@@ -56,6 +64,8 @@ def kitti_config(name, num_frames, seed):
         "FOV_POINTS_ONLY": dc.FOV_POINTS_ONLY,
         "DATA_AUGMENTOR": dc.DATA_AUGMENTOR,
         "DATA_PROCESSOR": dc.DATA_PROCESSOR, **SCENE})
+    if "MAX_RAW_POINTS" in dc:
+        cfg.DATA_CONFIG.MAX_RAW_POINTS = dc.MAX_RAW_POINTS
     return cfg
 
 

@@ -150,21 +150,31 @@ class _BackBone8x(nn.Module):
         x = self.conv_input(st, cache)
         for blk in self.conv1:
             x = blk(x, cache)
+        stages = {"x_conv1": x}
         for name, cap_key in (("conv2", "x_conv2"), ("conv3", "x_conv3"),
                               ("conv4", "x_conv4")):
             down, *blocks = getattr(self, name)
             x = down(x, cache, caps[cap_key])
             for blk in blocks:
                 x = blk(x, cache)
+            stages[cap_key] = x
         out = self.conv_out(x, cache, caps["out"])
         batch_dict["encoded_spconv_tensor"] = dequantize_tensor(out)
         batch_dict["encoded_spconv_tensor_stride"] = 8
+        # the stages as they come out (int8 under residency: a reader
+        # dequantizes what it takes, as the reference's exports do)
+        batch_dict["multi_scale_3d_features"] = stages
+        batch_dict["multi_scale_3d_strides"] = {
+            "x_conv1": 1, "x_conv2": 2, "x_conv3": 4, "x_conv4": 8}
         return batch_dict
 
 
 class VoxelBackBone8x(_BackBone8x):
     """SECOND's backbone (reference :134-197): 12 convs, 16 -> 32 -> 64 ->
     64 channels, conv4's downsample padded (0, 1, 1), conv_out to 128."""
+
+    backbone_channels = {"x_conv1": 16, "x_conv2": 32, "x_conv3": 64,
+                         "x_conv4": 64}
 
     def __init__(self, model_cfg, input_channels, grid_size):
         super().__init__(model_cfg, grid_size)

@@ -3,7 +3,10 @@
 The registries hold only what the port has; PillarVFE, the dynamic VFEs
 and PointPillarScatter take the dataset's geometry, as the reference's
 builders give it (:65-86, :99), and VoxelNeXtHead and TransFusionHead
-their voxel size, as CenterHead does.  ``build_network`` and
+their voxel size, as CenterHead does.  The two-stage slots (:131-163):
+the PFE takes the geometry, the BEV map's width and the 3D backbone's
+stage widths; the point head the PFE's output width; VoxelRCNNHead the
+geometry and the stage widths, PVRCNNHead the PFE's output width.  ``build_network`` and
 ``load_data_to_device`` default to the CUDA device and raise when there is
 none; pass ``device="cpu"`` explicitly to run on the CPU.
 """
@@ -27,18 +30,24 @@ from .backbones_3d.vfe.dynamic_pillar_vfe import DynamicPillarVFE
 from .backbones_3d.vfe.dynamic_voxel_vfe import DynamicVoxelVFE
 from .backbones_3d.vfe.mean_vfe import MeanVFE
 from .backbones_3d.vfe.pillar_vfe import PillarVFE
+from .backbones_3d.pfe.voxel_set_abstraction import VoxelSetAbstraction
 from .dense_heads.anchor_head_multi import AnchorHeadMulti
 from .dense_heads.anchor_head_single import AnchorHeadSingle
 from .dense_heads.center_head import CenterHead
+from .dense_heads.point_head_simple import PointHeadSimple
 from .dense_heads.transfusion_head import TransFusionHead
 from .dense_heads.voxelnext_head import VoxelNeXtHead
 from .detectors.centerpoint import CenterPoint
 from .detectors.detector3d_template import DatasetInfo
 from .detectors.pillarnet import PillarNet
 from .detectors.pointpillar import PointPillar
+from .detectors.pv_rcnn import PVRCNN
 from .detectors.second_net import SECONDNet
 from .detectors.transfusion import TransFusion
+from .detectors.voxel_rcnn import VoxelRCNN
 from .detectors.voxelnext import VoxelNeXt
+from .roi_heads.pvrcnn_head import PVRCNNHead
+from .roi_heads.voxelrcnn_head import VoxelRCNNHead
 
 _VFE = {"MeanVFE": MeanVFE, "PillarVFE": PillarVFE,
         "DynamicMeanVFE": DynamicMeanVFE,
@@ -58,10 +67,13 @@ _DENSE_HEAD = {"AnchorHeadMulti": AnchorHeadMulti,
                "AnchorHeadSingle": AnchorHeadSingle, "CenterHead": CenterHead,
                "TransFusionHead": TransFusionHead,
                "VoxelNeXtHead": VoxelNeXtHead}
+_PFE = {"VoxelSetAbstraction": VoxelSetAbstraction}
+_POINT_HEAD = {"PointHeadSimple": PointHeadSimple}
+_ROI_HEAD = {"PVRCNNHead": PVRCNNHead, "VoxelRCNNHead": VoxelRCNNHead}
 _DETECTORS = {"CenterPoint": CenterPoint, "PillarNet": PillarNet,
-              "PointPillar": PointPillar,
+              "PointPillar": PointPillar, "PVRCNN": PVRCNN,
               "SECONDNet": SECONDNet, "TransFusion": TransFusion,
-              "VoxelNeXt": VoxelNeXt}
+              "VoxelNeXt": VoxelNeXt, "VoxelRCNN": VoxelRCNN}
 
 INIT_SEED = 0
 
@@ -112,6 +124,31 @@ def build_dense_head(cfg, input_channels, dataset, num_class,
     else:
         args += (predict_boxes_when_training,)
     return _DENSE_HEAD[cfg.NAME](*args)
+
+
+def build_pfe(cfg, dataset, num_bev_features, backbone_channels):
+    """The keypoint feature module on the dataset's geometry; it samples
+    the BEV map of ``num_bev_features`` channels and the sparse stages of
+    ``backbone_channels``."""
+    return _PFE[cfg.NAME](cfg, dataset.voxel_size, dataset.point_cloud_range,
+                          num_bev_features, dataset.num_point_features,
+                          backbone_channels)
+
+
+def build_point_head(cfg, input_channels, num_class):
+    return _POINT_HEAD[cfg.NAME](
+        cfg, input_channels,
+        num_class if not cfg.get("CLASS_AGNOSTIC", False) else 1)
+
+
+def build_roi_head(cfg, input_channels, dataset, backbone_channels):
+    """The ROI head (one refinement score a roi, as CLASS_AGNOSTIC heads
+    score them): VoxelRCNNHead pools the sparse stages on the dataset's
+    geometry, PVRCNNHead the keypoints' ``input_channels`` features."""
+    if cfg.NAME == "VoxelRCNNHead":
+        return VoxelRCNNHead(cfg, backbone_channels, dataset.voxel_size,
+                             dataset.point_cloud_range)
+    return _ROI_HEAD[cfg.NAME](cfg, input_channels)
 
 
 def dataset_info(dataset):

@@ -1,12 +1,14 @@
 """Detector3DTemplate — cfg-driven module slots and the generic
 post-processing (port of ``q3d_tpu/models/detectors/detector3d_template.py``:
-the slots the ported detectors use — vfe, backbone_3d, map_to_bev_module,
-backbone_2d (PillarNet's fed by its 3D backbone's multi-scale maps),
-dense_head (fed by the 3D backbone in a fully sparse detector) — and
-``post_processing``, class-agnostic or per class (``MULTI_CLASSES_NMS``),
-batched over the frames).  In training mode (``nn.Module.
-training``) a detector's forward returns the batch dict with the head's
-``loss`` and ``tb_dict`` and runs no post-processing."""
+the slots of ``build_networks`` :47-97 — vfe, backbone_3d,
+map_to_bev_module, backbone_2d (PillarNet's fed by its 3D backbone's
+multi-scale maps), pfe (the keypoint features, which read the BEV map
+before the 2D backbone), dense_head (fed by the 3D backbone in a fully
+sparse detector), point_head and roi_head —, the two-stage detectors'
+``proposal_layer`` (:99) and ``post_processing``, class-agnostic or per
+class (``MULTI_CLASSES_NMS``), batched over the frames).  In training mode
+(``nn.Module.training``) a detector's forward returns the batch dict with
+the head's ``loss`` and ``tb_dict`` and runs no post-processing."""
 
 import dataclasses
 from typing import Optional, Tuple
@@ -53,10 +55,15 @@ class Detector3DTemplate(nn.Module):
             self.map_to_bev_module = B.build_map_to_bev(cfg.MAP_TO_BEV,
                                                         dataset)
             num_bev_features = self.map_to_bev_module.num_bev_features
+        bev_map_features = num_bev_features
         if cfg.get("BACKBONE_2D", None) is not None:
             self.backbone_2d = B.build_backbone_2d(
                 cfg.BACKBONE_2D, num_bev_features, backbone_channels)
             num_bev_features = self.backbone_2d.num_bev_features
+        if cfg.get("PFE", None) is not None:
+            self.pfe = B.build_pfe(cfg.PFE, dataset, bev_map_features,
+                                   backbone_channels)
+            num_point_features = self.pfe.num_point_features
         if cfg.get("DENSE_HEAD", None) is not None:
             # decoded boxes in training only for a second stage (reference
             # :88, :92); a fully sparse detector (VoxelNeXt) feeds its head
@@ -66,7 +73,15 @@ class Detector3DTemplate(nn.Module):
             self.dense_head = B.build_dense_head(
                 cfg.DENSE_HEAD, head_in, dataset, num_class,
                 predict_boxes_when_training=cfg.get("ROI_HEAD") is not None)
-        # the NMS kernel's route in post_processing (set_kernel_impl)
+        if cfg.get("POINT_HEAD", None) is not None:
+            self.point_head = B.build_point_head(cfg.POINT_HEAD,
+                                                 num_point_features,
+                                                 num_class)
+        if cfg.get("ROI_HEAD", None) is not None:
+            self.roi_head = B.build_roi_head(cfg.ROI_HEAD, num_point_features,
+                                             dataset, backbone_channels)
+        # the NMS kernel's route in post_processing and proposal_layer
+        # (set_kernel_impl)
         self.kernel_impl = None
 
     @property
@@ -85,6 +100,27 @@ class Detector3DTemplate(nn.Module):
         for m in self.modules():
             if hasattr(m, "kernel_impl"):
                 m.kernel_impl = impl
+
+    def proposal_layer(self, batch_dict, nms_config):
+        """The first stage's proposals: the sigmoid of the dense head's
+        scores, each anchor's best class, and one class-agnostic NMS over
+        the frames (one launch of kernel 2, B candidate sets of
+        NMS_PRE_MAXSIZE) -> fixed-size (B, R) ``rois``, ``roi_scores``,
+        ``roi_labels`` (1-based) and ``roi_valid`` (reference :99-125)."""
+        cls_preds = batch_dict["batch_cls_preds"]          # (B, Na, C)
+        box_preds = batch_dict["batch_box_preds"]
+        if not batch_dict.get("cls_preds_normalized", False):
+            cls_preds = torch.sigmoid(cls_preds)
+        max_scores = cls_preds.amax(dim=-1)
+        labels = cls_preds.argmax(dim=-1) + 1
+        idx, valid = model_nms_utils.class_agnostic_nms(
+            max_scores, box_preds[..., :7], nms_config, impl=self.kernel_impl)
+        batch_dict["rois"] = box_preds[..., :7].gather(
+            1, idx[..., None].expand(-1, -1, 7))
+        batch_dict["roi_scores"] = max_scores.gather(1, idx)
+        batch_dict["roi_labels"] = labels.gather(1, idx)
+        batch_dict["roi_valid"] = valid
+        return batch_dict
 
     def post_processing(self, batch_dict):
         """Sigmoid, then NMS over the frames in one call (reference

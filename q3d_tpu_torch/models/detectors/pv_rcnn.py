@@ -1,0 +1,26 @@
+"""PV-RCNN (port of ``q3d_tpu/models/detectors/pv_rcnn.py``): MeanVFE ->
+VoxelBackBone8x -> HeightCompression -> VoxelSetAbstraction (keypoints
+from the raw points, the sparse stages and the BEV map) ->
+BaseBEVBackbone -> AnchorHeadSingle -> PointHeadSimple (keypoint
+weights) -> the proposal layer (kernel 2) -> PVRCNNHead.  Inference
+only: two-stage training waits for the proposal target layer."""
+
+from .detector3d_template import Detector3DTemplate
+
+
+class PVRCNN(Detector3DTemplate):
+
+    def forward(self, batch_dict):
+        if self.training:
+            raise NotImplementedError("PVRCNN: training is not ported")
+        batch_dict = self.vfe(batch_dict)
+        batch_dict = self.backbone_3d(batch_dict)
+        batch_dict = self.map_to_bev_module(batch_dict)
+        batch_dict = self.pfe(batch_dict)
+        batch_dict = self.backbone_2d(batch_dict)
+        batch_dict = self.dense_head(batch_dict)
+        if getattr(self, "point_head", None) is not None:
+            batch_dict = self.point_head(batch_dict)
+        batch_dict = self.proposal_layer(
+            batch_dict, self.model_cfg.ROI_HEAD.NMS_CONFIG.TEST)
+        return self.roi_head(batch_dict)

@@ -1,9 +1,10 @@
-"""Host-side numpy helpers of the data pipeline, logging and seeding, and
+"""Helpers of the data pipeline and the heads, logging and seeding, and
 device resolution.
 
-The subset of ``q3d_tpu/utils/common_utils.py`` that the data path and the
-CLIs call, plus ``resolve_device``: the port's entry points run on the card
-unless the caller asks for the CPU, and never fall back to it silently.
+The subset of ``q3d_tpu/utils/common_utils.py`` that the data path, the
+CLIs and the two-stage heads call, plus ``resolve_device``: the port's
+entry points run on the card unless the caller asks for the CPU, and
+never fall back to it silently.
 """
 
 import logging
@@ -85,10 +86,17 @@ def limit_period(val, offset=0.5, period=np.pi):
 
 
 def rotate_points_along_z(points, angle):
-    """numpy: points (B, N, 3 + C) rotated about +z by angle (B,) radians,
-    counter-clockwise; extra columns pass through.  The reference's
-    formula, a product with the rotation matrix, so that the two packages
-    round alike."""
+    """points (B, N, 3 + C) rotated about +z by angle (B,) radians,
+    counter-clockwise; extra columns pass through (numpy arrays or torch
+    tensors).  The reference's formula, a product with the rotation
+    matrix, so that the two packages round alike."""
+    if isinstance(points, torch.Tensor):
+        angle = angle.to(points.dtype)
+        cosa, sina = torch.cos(angle), torch.sin(angle)
+        ones, zeros = torch.ones_like(cosa), torch.zeros_like(cosa)
+        rot = torch.stack([cosa, sina, zeros, -sina, cosa, zeros, zeros,
+                           zeros, ones], dim=-1).reshape(*angle.shape, 3, 3)
+        return torch.cat([points[..., 0:3] @ rot, points[..., 3:]], dim=-1)
     angle = np.asarray(angle, dtype=points.dtype)
     cosa, sina = np.cos(angle), np.sin(angle)
     ones, zeros = np.ones_like(cosa), np.zeros_like(cosa)
@@ -96,3 +104,19 @@ def rotate_points_along_z(points, angle):
                     zeros, zeros, ones], axis=-1).reshape(*angle.shape, 3, 3)
     xyz = points[..., 0:3] @ rot
     return np.concatenate([xyz, points[..., 3:]], axis=-1)
+
+
+def get_voxel_centers(voxel_coords, downsample_times, voxel_size,
+                      point_cloud_range):
+    """voxel_coords (N, 3) int [z, y, x] -> (N, 3) f32 centres [x, y, z] of
+    voxels ``downsample_times`` the base voxel size (the reference's
+    ``get_voxel_centers``, :76, in its order of operations)."""
+    coords = voxel_coords.flip(-1).to(torch.float32)
+
+    def const(values):
+        # filled on the device (a host copy would wait for the queue)
+        return torch.stack([torch.full((), float(v), dtype=torch.float32,
+                                       device=voxel_coords.device)
+                            for v in values])
+    vsz = const(voxel_size) * downsample_times
+    return (coords + 0.5) * vsz + const(point_cloud_range[0:3])

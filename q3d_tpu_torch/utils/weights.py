@@ -27,6 +27,15 @@ tensors in the port's layouts:
     it requantizes, ``shared_requant/quant`` to the head's DenseRequant,
     a static SmoothQuant conv's ``sq_act_amax`` to that conv.
 
+The two-stage modules keep the reference's names (the reference's
+``pcdet_names.py`` has no rule for them, so the ``.pth`` import has none
+either): the PFE's ``pfe.sa_<source>_r<radius>.{mlp<i>, norm<i>}``,
+``pfe.vsa_point_feature_fusion`` and ``pfe.fusion_norm``; the point
+head's ``point_head.cls_layers.{fc<i>, norm<i>, out}``; the ROI heads'
+``roi_head.pool_[<source>_]r<radius>.{mlp<i>, norm<i>}``,
+``roi_head.shared_fc_<i> / shared_norm_<i>``, ``roi_head.{cls,reg}_fc_<i>``
+and ``roi_head.{cls,reg}_out``.
+
 AnchorHeadMulti's towers keep the reference's names,
 ``dense_head.heads.<g>.{conv<i>, norm<i>, conv_cls, conv_box, conv_dir}``
 (the reference's ``pcdet_names.py`` has no rule for this head, so the
@@ -66,6 +75,8 @@ def _module_rules(module, toks, transfusion=False, res_bev=False):
     conv; ``res_bev``: the 2D backbone is ``BaseBEVResBackbone``, whose
     blocks keep the reference's module names."""
     t = ".".join(toks)
+    if module in _TWO_STAGE and re.fullmatch(_TWO_STAGE[module], t):
+        return t
     if module == "vfe":
         m = re.fullmatch(r"pfn_layers_(\d+)\.(linear|norm)", t)
         if m:                                   # PillarVFE
@@ -126,6 +137,15 @@ def _module_rules(module, toks, transfusion=False, res_bev=False):
             return ("OUT", m.group(1), m.group(2))
         return None
     return None
+
+
+# the two-stage modules, whose port names are the reference's
+_TWO_STAGE = {
+    "pfe": r"sa_\w+_r\d+_\d+\.(?:mlp|norm)\d+|vsa_point_feature_fusion"
+           r"|fusion_norm",
+    "point_head": r"cls_layers\.(?:fc\d+|norm\d+|out)",
+    "roi_head": r"pool_\w*r\d+_\d+\.(?:mlp|norm)\d+|shared_(?:fc|norm)_\d+"
+                r"|(?:cls|reg)_fc_\d+|(?:cls|reg)_out"}
 
 
 def _transfusion_rules(t):
@@ -301,6 +321,9 @@ def reference_module_path(name, module=None):
         m = re.fullmatch(pat, name)
         if m:
             return fmt.format(*m.groups())
+    module, _, rest = name.partition(".")
+    if module in _TWO_STAGE and re.fullmatch(_TWO_STAGE[module], rest):
+        return name
     return None
 
 

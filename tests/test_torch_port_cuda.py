@@ -25,6 +25,9 @@ from q3d_tpu_torch.datasets import build_dataloader
 from q3d_tpu_torch.models import build_network, load_data_to_device
 from q3d_tpu_torch.ops.iou3d_nms import boxes_iou_bev
 from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as port_nms
+from q3d_tpu_torch.ops.iou3d_nms import iou3d_nms_utils
+from q3d_tpu_torch.ops.pointnet2_utils import (ball_query,
+                                               farthest_point_sample)
 from q3d_tpu_torch.ops.spconv import gather_conv
 
 pytestmark = pytest.mark.cuda
@@ -629,3 +632,107 @@ def test_gather_conv_backward_256_kernel_matches_plain(card, cin, cout, kind,
     256 -> 128 over the inverse book)."""
     test_gather_conv_backward_kernel_matches_plain(card, cin, cout, kind,
                                                    dtype)
+
+
+def _kitti_like_points(rng, frames, n, valid_rows):
+    """KITTI-sized point sets: ``valid_rows`` points a frame in the FOV
+    crop's extent (0-70 m ahead, +-35 m, -3-1 m), zero padding past them."""
+    xyz = np.zeros((frames, n, 3), np.float32)
+    valid = np.zeros((frames, n), bool)
+    for f, m in enumerate(valid_rows):
+        xyz[f, :m] = rng.uniform((0, -35, -3), (70, 35, 1), (m, 3))
+        valid[f, :m] = True
+    return xyz, valid
+
+
+def test_farthest_point_sample_on_the_card_equals_cpu(card):
+    """PV-RCNN's keypoint sampling at KITTI size: 2048 picks from 2 x 30,000
+    padded points (24,641 and 22,091 valid), on the card and on the CPU:
+    the indices equal (distances summed x, y, z in order in both, the
+    first of equal distances picked)."""
+    xyz, valid = _kitti_like_points(np.random.RandomState(0), 2, 30000,
+                                    (24641, 22091))
+    got = farthest_point_sample(torch.from_numpy(xyz).to(card), 2048,
+                                torch.from_numpy(valid).to(card))
+    want = farthest_point_sample(torch.from_numpy(xyz), 2048,
+                                 torch.from_numpy(valid))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("centres,radius,nsample", [(2048, 0.8, 16),
+                                                     (2048, 4.8, 32),
+                                                     (21600, 1.6, 16)])
+def test_ball_query_on_the_card_equals_cpu(card, centres, radius, nsample):
+    """The chunked ball query at KITTI size: 2 frames x 40,000 rows (a
+    stage's cap; 21,260 and 20,540 valid), the VSA's 2048 keypoints or a
+    Voxel R-CNN forward's 100 rois x 216 grid points, on the card and on
+    the CPU: indices and masks equal."""
+    rng = np.random.RandomState(centres + nsample)
+    xyz, valid = _kitti_like_points(rng, 2, 40000, (21260, 20540))
+    pick = rng.randint(0, 20540, (2, centres))
+    new_xyz = np.take_along_axis(xyz, pick[..., None], axis=1) \
+        + rng.uniform(-0.5, 0.5, (2, centres, 3)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (xyz, new_xyz, valid)]
+    got = ball_query(radius, nsample, *(a.to(card) for a in args[:2]),
+                     args[2].to(card))
+    want = ball_query(radius, nsample, *args)
+    assert torch.equal(got[1].cpu(), want[1]) and bool(want[1].any())
+    assert torch.equal(got[0].cpu(), want[0])
+
+
+def test_tiny_pvrcnn_kernels_match_plain(card):
+    """pvrcnn_tiny in f32 on the card through the kernels and through the
+    plain versions: 12 kernel-1 launches and one kernel-2 launch (the
+    proposal layer's 2 sets) through the kernels, none through the plain
+    versions; the rois and the final outputs within 1e-4."""
+    cfg = cfg_from_yaml_file(str(CFG.parent / "pvrcnn_tiny.yaml"), EDict())
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
+                                     batch_size=2, training=False)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=card)
+    batch = load_data_to_device(next(iter(loader)), device=card)
+    outs, launches = {}, {}
+    with torch.no_grad():
+        for impl in ("cuda", "plain"):
+            gather_conv.KERNEL.launches.clear()
+            port_nms.KERNEL.launches.clear()
+            model.set_kernel_impl(impl)
+            outs[impl] = model(dict(batch))
+            torch.cuda.synchronize()
+            launches[impl] = (sum(gather_conv.KERNEL.launches.values()),
+                              port_nms.KERNEL.launches[
+                                  "q3d_greedy_nms_boxes"])
+    assert launches == {"cuda": (12, 1), "plain": (0, 0)}
+    for key in ("rois", "final_boxes", "final_scores"):
+        assert torch.allclose(outs["cuda"][key], outs["plain"][key],
+                              rtol=0, atol=1e-4), key
+    for key in ("roi_valid", "final_valid", "final_labels"):
+        assert torch.equal(outs["cuda"][key], outs["plain"][key]), key
+
+
+def test_greedy_nms_boxes_evaluates_degenerate_quads(card):
+    """A pair 56 m apart, one of whose quads has corners rounded onto each
+    other (a seeded PV-RCNN's proposals): the plain formula gives it an IoU
+    of 8.3e-5, so at thresh 0 the second box is suppressed.  The kernel's
+    circle test gives the degenerate quad an infinite radius, so it
+    evaluates the pair: keep masks equal and the IoU bit-equal."""
+    corners = torch.tensor([[
+        [[80.71006774902344, 33.170570373535156],
+         [70.947998046875, -17.62371253967285],
+         [70.94821166992188, -17.623754501342773],
+         [80.71028137207031, 33.1705322265625]],
+        [[30.93077850341797, 65.24694061279297],
+         [54.57554626464844, 41.308204650878906],
+         [54.57554626464844, 41.308204650878906],
+         [30.9307804107666, 65.24694061279297]]]], device=card)
+    areas = torch.tensor([[0.011400755494832993, 6.532079714816064e-05]],
+                         device=card)
+    valid = torch.ones((1, 2), dtype=torch.bool, device=card)
+    iou_k = torch.full((1, 2, 2), float("nan"), device=card)
+    keep = port_nms.greedy_suppress_boxes_cuda(corners, areas, valid, 0.0,
+                                               iou_out=iou_k)
+    overlap = iou3d_nms_utils._rotated_overlap_quads(corners[0, 0],
+                                                     corners[0, 1])
+    iou_p = overlap / (areas[0, 0] + areas[0, 1] - overlap).clamp(min=1e-6)
+    assert float(iou_p) > 0
+    assert iou_k[0, 0, 1].view(torch.int32) == iou_p.view(torch.int32)
+    assert keep.tolist() == [[True, False]]

@@ -160,6 +160,56 @@ def test_apart_circles_give_exactly_zero_iou():
     assert int((iou[apart] != 0).sum()) == 0
 
 
+# a seeded PV-RCNN's proposal pair on the card (its BEV corners as the
+# card's sin / cos gave them): box j 51.7 x 0.00022 m, box i 33.6 x
+# 1.9e-6 m, whose corners 1 and 2 coincide and 0 and 3 are one ulp apart
+DEGENERATE_PAIR = (
+    [[80.71006774902344, 33.170570373535156],
+     [70.947998046875, -17.62371253967285],
+     [70.94821166992188, -17.623754501342773],
+     [80.71028137207031, 33.1705322265625]],
+    [[30.93077850341797, 65.24694061279297],
+     [54.57554626464844, 41.308204650878906],
+     [54.57554626464844, 41.308204650878906],
+     [30.9307804107666, 65.24694061279297]])
+
+
+def kernel_circle(q):
+    """csrc/greedy_nms.cu's ``circle``: the corners' mean, the
+    circumscribed radius inflated by 0.05% + 5 mm, infinite for a quad that
+    does not turn strictly left at every corner."""
+    o = (((q[..., 0, :] + q[..., 1, :]) + q[..., 2, :]) + q[..., 3, :]) * 0.25
+    r2 = ((q - o[..., None, :]) ** 2).sum(-1).amax(-1)
+    e = torch.roll(q, -1, dims=-2) - q
+    en = torch.roll(e, -1, dims=-2)
+    convex = ((e[..., 0] * en[..., 1] - e[..., 1] * en[..., 0]) > 0).all(-1)
+    return o, torch.where(convex, r2.sqrt() * 1.0005 + 0.005, torch.inf)
+
+
+def test_degenerate_quads_are_never_skipped():
+    """A quad whose corners rounded onto each other is no convex quad: its
+    half-planes leave a wedge open, and the formula gives this pair, 56 m
+    apart and outside each other's circles, an overlap of 9.5e-7 (IoU
+    8.3e-5, above a threshold of 0).  The kernel's circle test gives such
+    a quad an infinite radius, so the pair is evaluated, as the plain
+    version evaluates it; every proper box keeps a finite radius."""
+    qa, qb = (torch.tensor(c) for c in DEGENERATE_PAIR)
+    overlap = port_iou._rotated_overlap_quads(qa, qb)
+    assert float(overlap) > 0
+    (oa, ra), (ob, rb) = kernel_circle(qa), kernel_circle(qb)
+    dist = float(((ob - oa) ** 2).sum().sqrt())
+    raw = [float((((q - o) ** 2).sum(-1).amax().sqrt()) * 1.0005 + 0.005)
+           for q, o in ((qa, oa), (qb, ob))]
+    assert dist > sum(raw)                    # the circles alone are apart
+    assert torch.isfinite(ra) and not torch.isfinite(rb)
+    rng = np.random.RandomState(6)
+    boxes = _random_boxes(rng, 5000, spread=60.0)
+    boxes[:, 3:5] = rng.uniform(1e-3, 12.0, (5000, 2))
+    _, r = kernel_circle(port_iou.box_utils.boxes_to_corners_bev(
+        torch.from_numpy(boxes)))
+    assert bool(torch.isfinite(r).all())
+
+
 def test_greedy_nms_boxes_wrapper_rejects_what_the_kernel_does_not_take():
     boxes = torch.zeros(2, 8, 7)
     valid = torch.ones(2, 8, dtype=torch.bool)
