@@ -564,13 +564,13 @@ def make_request(ds, r, scene=plain_scene):
 
 
 def check_boxes_form(boxes, valid, th, what):
-    """The boxes form against its plain version (boxes_iou_bev, then the
-    plain sweep): keep masks equal; the kernel's IoU bit-equal at every
-    pair it evaluated; every needed pair (j < i, both valid) it skipped
-    has a plain IoU of exactly 0.  -> (pairs evaluated, pairs needed,
-    the most pairs evaluated in one 64 x 64 tile)."""
+    """The boxes form against its plain version (the IoU of the needed
+    pairs as boxes_iou_bev computes it, ``greedy_nms.needed_pair_iou``,
+    then the plain sweep): keep masks equal; the kernel's IoU bit-equal at
+    every pair it evaluated; every needed pair (j < i, both valid) it
+    skipped has a plain IoU of exactly 0.  -> (pairs evaluated, pairs
+    needed, the most pairs evaluated in one 64 x 64 tile)."""
     import torch
-    from q3d_tpu_torch.ops.iou3d_nms import boxes_iou_bev
     from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as nms_mod
     dev = boxes.device
     s_, k_ = valid.shape
@@ -578,7 +578,7 @@ def check_boxes_form(boxes, valid, th, what):
     iou_k = torch.full((s_, k_, k_), float("nan"), device=dev)
     keep_k = nms_mod.greedy_suppress_boxes_cuda(corners, areas, valid, th,
                                                 iou_out=iou_k)
-    iou_p = boxes_iou_bev(boxes[..., :7], boxes[..., :7])
+    iou_p = nms_mod.needed_pair_iou(boxes, valid)
     keep_p = nms_mod.greedy_suppress_plain(iou_p, valid, th)
     diff = (keep_k != keep_p).nonzero()
     check(len(diff) == 0, f"greedy_nms_boxes {what} thresh={th}: "
@@ -5158,6 +5158,11 @@ def pillarnet_kernel_rows(pn):
 TS_CFG = {"pvrcnn": "pv_rcnn", "voxelrcnn": "voxel_rcnn_car"}
 TS_CONVS = 12
 TS_PROPOSAL_K = 1024
+# the training proposal layer's candidates a frame (ROI_HEAD.NMS_CONFIG.
+# TRAIN.NMS_PRE_MAXSIZE) and kernel 2's widths past 4096 held on crowded
+# boxes
+TS_TRAIN_K = 9000
+TS_WIDE_K = (4097, 9000)
 
 
 def ts_config_path(name):
@@ -5300,7 +5305,8 @@ def two_stage_phases(name, dev, conv_k, nms_k, mode, strict_f32, flush,
     ``recipes_pvrcnn`` (``int8_deploy_recipe()``: 11 s8 launches and the
     float conv_input, the quantized BEV convs through ``_int_mm``, each
     launch held against its plain version on its own operands, the maps
-    and detections equal) -> summary for the kernels line."""
+    and detections equal); then its training phases
+    (``two_stage_training``) -> summary for the kernels line."""
     import torch
     from q3d_tpu_torch.datasets import build_dataloader
     from q3d_tpu_torch.datasets.kitti_synthetic import (kitti_config,
@@ -5535,7 +5541,281 @@ def two_stage_phases(name, dev, conv_k, nms_k, mode, strict_f32, flush,
     strict_f32(False)
     del model, batch_f32
     torch.cuda.empty_cache()
+    summary["train"] = two_stage_training(name, dev, conv_k, nms_k, mode,
+                                          strict_f32, flush, clock_mhz)
     return summary
+
+
+def roi_head_inputs(model, batch):
+    """The batch dict a training forward of ``model`` (a copy: its BN
+    statistics move) hands its ROI head: the proposal layer's inputs
+    (``batch_cls_preds``, ``batch_box_preds``) and outputs (``rois``,
+    ``roi_labels`` ...)."""
+    import torch
+    seen = {}
+
+    def grab(module, args):
+        seen.update(args[0])
+        raise StopIteration
+    m = copy.deepcopy(model).train()
+    hook = m.roi_head.register_forward_pre_hook(grab)
+    try:
+        with torch.no_grad():
+            m(dict(batch))
+    except StopIteration:
+        pass
+    finally:
+        hook.remove()
+    return seen
+
+
+def plant_on_proposals(model, batch, per_frame=4):
+    """``batch`` with gt rows planted on the first proposals of a training
+    forward of ``model`` (``roi_head_inputs``) 0.5-10 m a side inside
+    the point cloud range: each shifted 0.1 m in x and y, with the
+    proposal's class, after the frame's own objects.  Seeded weights leave
+    every proposal far from the scene's objects, and then the ROI head's
+    regression has no foreground roi and no gradient; planted rows give it
+    both -> (batch, rows planted a frame)."""
+    import torch
+    seen = roi_head_inputs(model, batch)
+    pcr = torch.tensor(model.dataset.point_cloud_range,
+                       device=seen["rois"].device)
+    gt = batch["gt_boxes"].clone()
+    planted = []
+    for b in range(gt.shape[0]):
+        rois = seen["rois"][b]
+        ok = ((rois[:, 3:6] >= 0.5) & (rois[:, 3:6] <= 10.0)).all(1) \
+            & ((rois[:, 0:3] > pcr[0:3]) & (rois[:, 0:3] < pcr[3:6])).all(1)
+        n = int((gt[b, :, 7] > 0).sum())
+        pick = ok.nonzero()[:, 0][:min(per_frame, gt.shape[1] - n)]
+        boxes = rois[pick].clone()
+        boxes[:, 0:2] += 0.1
+        gt[b, n:n + len(pick), :7] = boxes
+        gt[b, n:n + len(pick), 7] = seen["roi_labels"][b, pick].to(gt.dtype)
+        planted.append(len(pick))
+    return dict(batch, gt_boxes=gt), planted
+
+
+def two_stage_training(name, dev, conv_k, nms_k, mode, strict_f32, flush,
+                       clock_mhz):
+    """The training phases of a two-stage model at the KITTI width
+    (``ts_config_path(name)``, seeded weights) on 8 synthetic KITTI frames
+    at the yaml's batch of 2 with its whole DATA_AUGMENTOR (gt_sampling
+    from a database ``write_gt_database`` writes to a temporary directory
+    from 8 frames of another seed, then the flip, rotation and scaling):
+
+    * ``kernel_nms_<name>_train``: kernel 2's boxes form on the training
+      proposal layer's input (ROI_HEAD.NMS_CONFIG.TRAIN: 2 sets of
+      TS_TRAIN_K candidates, all valid, conv_cls's bias 0, of a training
+      forward on the first batch) and on crowded boxes with duplicates
+      and a degenerate quad at K in TS_WIDE_K (also through the IoU form),
+      at the TRAIN thresh: keep masks equal to the plain versions', the
+      IoU bit-equal at every evaluated pair and 0 at every skipped needed
+      pair; timed beside the plain version (one call at K = 9000) and the
+      three-term bound;
+    * ``train_grad_<name>``: one f32 step (TF32 off) through the kernels
+      and through the plain versions on the first batch with gt rows
+      planted on its proposals (``plant_on_proposals``: the ROI head's
+      regression loss nonzero), held by ``train_grad`` (12 kernel-1
+      launches forward, 11 as dX) and one kernel-2 launch of 2 sets of
+      TS_TRAIN_K;
+    * ``kernel_fwd_<name>`` / ``kernel_dx_<name>``: kernel 1's f32 entry on
+      that step's forward and input-gradient operands, each launch against
+      its plain version;
+    * ``train_<name>``: ``train_model`` for 2 epochs of 4 steps (the
+      yaml's OPTIMIZATION: adam_onecycle, clip 10), timed by
+      ``timed_train_model`` (host, forward, backward with dX and dW, the
+      optimizer, peak memory), each step 12 + 11 kernel-1 launches and one
+      kernel-2 launch of 2 sets of TS_TRAIN_K, every loss finite, every
+      parameter a gradient in some step but the ROI head's reg branch when
+      no sampled roi of the run reached REG_FG_THRESH (the foreground
+      rois of each step are recorded).
+    -> summary for the kernels line."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.datasets.augmentor.database_sampler import \
+        DataBaseSampler
+    from q3d_tpu_torch.datasets.kitti_synthetic import (kitti_config,
+                                                        write_gt_database)
+    from q3d_tpu_torch.models import load_data_to_device
+    from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as nms_mod
+    from q3d_tpu_torch.tools.nms_ab import crowded_with_degenerate
+    from q3d_tpu_torch.train_utils import MODEL_KEYS
+    config = ts_config_path(name)
+    cname = TS_CFG[name]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "db"
+        written = write_gt_database(build_dataloader(
+            kitti_config(cname, KITTI_TRAIN_FRAMES, SEED + 1).DATA_CONFIG,
+            kitti_config(cname, 1, SEED).CLASS_NAMES, 1,
+            training=False)[0], root)
+        cfg, ds, loader, model = kitti_train_data(
+            cname, dev, KITTI_TRAIN_FRAMES, SEED, augment=True, root=root)
+        queue = ds.data_augmentor.data_augmentor_queue
+        check([type(q).__name__ if isinstance(q, DataBaseSampler)
+               else q.func.__name__ for q in queue]
+              == ["DataBaseSampler", "random_world_flip",
+                  "random_world_rotation", "random_world_scaling"],
+              f"train_{name}: augmentor queue {queue}")
+        train_nms = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN
+        check(int(train_nms.NMS_PRE_MAXSIZE) == TS_TRAIN_K,
+              f"train_{name}: NMS TRAIN {train_nms}")
+        thresh = float(train_nms.NMS_THRESH)
+        raw = next(iter(loader))
+        batch = load_data_to_device({k: v for k, v in raw.items()
+                                     if k in MODEL_KEYS}, device=dev)
+
+        # ----------------------- kernel 2 on the training proposal layer
+        strict_f32(True)
+        m0 = copy.deepcopy(model)
+        with torch.no_grad():
+            m0.dense_head.conv_cls.bias.zero_()
+        bx, bv = proposal_candidates(roi_head_inputs(m0, batch), TS_TRAIN_K)
+        del m0
+        check(bv.shape == (BATCH, TS_TRAIN_K) and bool(bv.all()),
+              f"kernel_nms_{name}_train: sets {tuple(bv.shape)}, valid "
+              f"{bv.sum(1).tolist()}")
+        near, needed, most = check_boxes_form(bx, bv, thresh,
+                                              f"{name} training proposals")
+        corners, areas = nms_mod.bev_corners_areas(bx)
+        terms = boxes_bound(BATCH, TS_TRAIN_K, needed, near, clock_mhz)
+        nms_row = {
+            "entry": "q3d_greedy_nms_boxes", "sets": BATCH, "K": TS_TRAIN_K,
+            "thresh": thresh, "valid": int(bv.sum()),
+            "candidate_pairs": needed, "near_pairs": near,
+            "near_pairs_most_in_a_tile": most,
+            "kept": int(nms_mod.greedy_nms_boxes(bx, bv, thresh).sum()),
+            "ms": time_ms(lambda: nms_mod.greedy_suppress_boxes_cuda(
+                corners, areas, bv, thresh), flush=flush),
+            "plain_ms": time_ms(lambda: nms_mod.greedy_suppress_boxes_plain(
+                bx, bv, thresh), reps=1, flush=flush),
+            "kernel_us": kernel_device_us(
+                lambda: nms_mod.greedy_suppress_boxes_cuda(
+                    corners, areas, bv, thresh),
+                ("nms_box_pairs_kernel", "nms_box_iou_kernel",
+                 "nms_sweep_kernel"), flush),
+            **{f"{k}_ms": v for k, v in terms.items()}}
+        nms_row["bound_by"] = max(terms, key=terms.get)
+        nms_row["bound_ms"] = terms[nms_row["bound_by"]]
+        del bx, bv, corners, areas
+        crowded = []
+        rng = np.random.RandomState(SEED + TS_TRAIN_K)
+        for kk in TS_WIDE_K:
+            r_boxes, r_valid = crowded_with_degenerate(rng, 2, kk, dev)
+            c_near, c_needed, _ = check_boxes_form(
+                r_boxes, r_valid, thresh, f"crowded K={kk}")
+            iou = nms_mod.needed_pair_iou(r_boxes, r_valid)
+            check(torch.equal(nms_mod.greedy_nms(iou, r_valid, thresh,
+                                                 impl="cuda"),
+                              nms_mod.greedy_suppress_plain(iou, r_valid,
+                                                            thresh)),
+                  f"greedy_nms: crowded K={kk} IoU-form keep masks differ")
+            crowded.append({"K": kk, "valid": r_valid.sum(1).tolist(),
+                            "candidate_pairs": c_needed, "near_pairs": c_near})
+            del r_boxes, r_valid, iou
+        emit(f"kernel_nms_{name}_train", form="boxes", **nms_row,
+             max_abs_err=0, crowded=crowded, mode=mode(),
+             clock_max_sm_mhz=clock_mhz,
+             tolerance="keep masks exactly equal, IoU bit-equal at every "
+             "evaluated pair, plain IoU exactly 0 at every skipped needed "
+             "pair (the training proposals; crowded boxes with duplicates "
+             "and a degenerate quad at K = 4097 / 9000, whose IoU-form keep "
+             "masks equal too)", plain_reps=1)
+        torch.cuda.empty_cache()
+
+        # ------------------------------- one step, kernels vs plain (f32)
+        # on the first batch with gt rows planted on its proposals, so that
+        # the ROI head's regression and its gradient are held too
+        planted_batch, planted = plant_on_proposals(model, batch)
+        nms_k.launches.clear()
+        recorded, run = train_grad(model, planted_batch, conv_k, mode,
+                                   f"train_grad_{name}", config, TS_CONVS)
+        grad_nms = {k: v for k, v in nms_k.launches.items() if v}
+        check(grad_nms == {"q3d_greedy_nms_boxes": 1}
+              and run["tb"]["rcnn_reg_loss"] > 0,
+              f"train_grad_{name}: kernel-2 launches {grad_nms}, planted "
+              f"{planted}, rcnn_reg_loss {run['tb']['rcnn_reg_loss']}")
+        emit(f"planted_{name}", gt_rows_planted_per_frame=planted,
+             rcnn_reg_loss=run["tb"]["rcnn_reg_loss"],
+             note="train_grad's batch: gt rows on the first proposals of "
+                  "0.5-10 m a side, shifted 0.1 m (plant_on_proposals)")
+        del planted_batch
+        fwd = kernel_forward(recorded, flush, mode, f"kernel_fwd_{name}",
+                             config)
+        dx = kernel_dx(recorded, flush, mode, f"kernel_dx_{name}", config)
+        del recorded
+        strict_f32(False)
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------- train_model
+        sets_seen = []
+        real_boxes_cuda = nms_mod.greedy_suppress_boxes_cuda
+
+        def seen(corners, *args, **kw):
+            sets_seen.append(list(corners.shape[:2]))
+            return real_boxes_cuda(corners, *args, **kw)
+        nms_mod.greedy_suppress_boxes_cuda = seen
+        # the sampled rois at or above REG_FG_THRESH a step; seeded weights
+        # may leave every proposal far from the gt boxes, and then the reg
+        # branch has no signal in the run
+        head = model.roi_head
+        real_assign = head.assign_targets
+        foreground = []
+        reg_branch = {n for n, _ in model.named_parameters()
+                      if n.startswith(("roi_head.reg_fc_", "roi_head.reg_out"))}
+        no_signal = set(reg_branch)
+
+        def assign(*args, **kw):
+            t = real_assign(*args, **kw)
+            foreground.append(int(t["reg_valid"].sum()))
+            if foreground[-1]:
+                no_signal.difference_update(reg_branch)
+            return t
+        head.assign_targets = assign
+        nms_k.launches.clear()
+        try:
+            _, steps, launches, run_s = timed_train_model(
+                model, cfg.OPTIMIZATION, ds, loader,
+                Path(tmp) / f"ckpt_{name}", conv_k, dev, f"train_{name}",
+                no_signal=no_signal, any_step=True)
+        finally:
+            nms_mod.greedy_suppress_boxes_cuda = real_boxes_cuda
+            del head.assign_targets
+        n_steps = len(steps)
+        t_nms = {k: v for k, v in nms_k.launches.items() if v}
+        check(launches == {"q3d_sparse_gather_conv_f32":
+                           (2 * TS_CONVS - 1) * n_steps}
+              and t_nms == {"q3d_greedy_nms_boxes": n_steps}
+              and sets_seen == [[BATCH, TS_TRAIN_K]] * n_steps,
+              f"train_{name}: launches {launches}, NMS {t_nms}, sets "
+              f"{sets_seen}")
+        med = median_after_first(steps)
+        emit(f"train_{name}", config=config,
+             batch=int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU),
+             frames=KITTI_TRAIN_FRAMES, epochs=TRAIN_EPOCHS, steps=n_steps,
+             mode=mode(),
+             optimization={k: cfg.OPTIMIZATION[k] for k in (
+                 "OPTIMIZER", "LR", "WEIGHT_DECAY", "GRAD_NORM_CLIP")},
+             augmentor=[c.NAME for c in
+                        cfg.DATA_CONFIG.DATA_AUGMENTOR.AUG_CONFIG_LIST],
+             gt_database=written, losses=[s["loss"] for s in steps],
+             launches=launches, nms_launches=t_nms, nms_sets=sets_seen[0],
+             foreground_rois_per_step=foreground,
+             zero_gradient_allowed=sorted(no_signal),
+             run_s=run_s, median_after_first=med)
+        out = {"nms": nms_row, "fwd": fwd, "dx": dx,
+               "peak_mib": run["peak_mib"], "median": med, "steps": n_steps,
+               "launches_forward": sum(s["launches_forward"] for s in steps),
+               "launches_dx": sum(s["launches_dx"] for s in steps),
+               "launches_nms": t_nms["q3d_greedy_nms_boxes"]}
+        del model, batch
+    torch.cuda.empty_cache()
+    return out
 
 
 def two_stage_kernel_rows(ts):
@@ -5570,6 +5850,46 @@ def two_stage_kernel_rows(ts):
              "library_ms": None, "checks": "passed",
              "times_cover": f"the proposal layer's NMS: {n['sets']} sets, "
                             f"K={n['K']}"}]
+        tr = s["train"]
+        n = tr["nms"]
+        rows.append(
+            {"name": f"greedy_nms_{name}_train", "route": "cuda",
+             "source": "q3d_tpu_torch/csrc/greedy_nms.cu",
+             "replaces": "q3d_tpu/ops/iou3d_nms/pallas_nms.py:45",
+             "entry": "q3d_greedy_nms_boxes", "launches": tr["launches_nms"],
+             "max_abs_err": 0.0, "ms": n["ms"], "plain_ms": n["plain_ms"],
+             "bound_ms": n["bound_ms"], "bound_by": n["bound_by"],
+             "library_ms": None, "checks": "passed",
+             "times_cover": f"the training proposal layer's NMS: "
+                            f"{n['sets']} sets, K={n['K']} (plain: one "
+                            f"call); launches: train_{name}'s "
+                            f"{tr['steps']} steps"})
+        for use, tot, launches in (
+                ("forward", tr["fwd"], tr["launches_forward"]),
+                ("dx", tr["dx"], tr["launches_dx"])):
+            row = {"name": f"sparse_gather_conv_{use}_{name}_train",
+                   "route": "cuda",
+                   "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
+                   "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",
+                   "entry": "q3d_sparse_gather_conv_f32",
+                   "use": f"{ts_config_path(name)} training, batch {BATCH}: "
+                          + ("the forward of its 12 sparse convs"
+                             if use == "forward" else
+                             "the input gradient of every sparse conv but "
+                             "conv_input, over the inverse book"),
+                   "launches": launches,
+                   **{k: tot[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")},
+                   "checks": "passed",
+                   "times_cover": f"one f32 training step's launches; "
+                                  f"launches: train_{name}'s {tr['steps']} "
+                                  "steps",
+                   "peak_mib_train_grad": tr["peak_mib"]}
+            if use == "dx":
+                row.update(dw_torch_ms=tot["dw_ms"],
+                           inverse_book_ms=tot["inverse_ms"])
+            rows.append(row)
     return rows
 
 
@@ -6288,7 +6608,9 @@ def main():
 
     # ======================================= PV-RCNN and Voxel R-CNN, KITTI
     # the two-stage detectors' inference: the keypoint set abstraction, the
-    # proposal layer on kernel 2, the ROI grid pooling
+    # proposal layer on kernel 2, the ROI grid pooling; and their training
+    # (proposal targets, point-head and ROI-head losses, kernel 2 on the
+    # training proposal layer's 2 x 9000 candidates)
     torch.cuda.empty_cache()
     ts = {name: two_stage_phases(name, dev, conv_k, nms_k, mode, strict_f32,
                                  flush, clock_mhz)

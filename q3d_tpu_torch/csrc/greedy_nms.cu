@@ -50,11 +50,19 @@
 // b + 1, the one the next step needs.  Warp 1 meanwhile stages block b + 2
 // into shared memory (16-byte cp.async), ORs block b - 1's kept rows into
 // the later words and writes its keep flags.  One barrier per block.
-// Widths: K <= 4096, 64 mask words a row.  The sweep and kernel B are
-// instantiated twice: up to 2048 (32 words, one per lane of warp 1) and
-// up to 4096 (two words per lane, and kernel B on
-// 256 blocks a set instead of 64, since 4096 anchor candidates list ~1M
-// near pairs a set).
+// Widths: K <= 9216, 144 mask words a row.  The sweep and kernel B are
+// instantiated three times: up to 2048 (32 words, one per lane of warp 1),
+// up to 4096 (two words per lane, and kernel B on 256 blocks a set
+// instead of 64, since 4096 anchor candidates list ~1M near pairs a set)
+// and up to 9216, for the two-stage detectors' training proposal layer
+// (NMS_PRE_MAXSIZE 9000: 141 words).  The widest instance stages three
+// row blocks instead of four (four of 141 x 64 words, 288,768 bytes, are
+// more than a block's 232,448), so warp 1 stages block b + 2 only after
+// its ORs of block b - 1, whose buffer it takes; its lanes own up to five
+// words each; kernel B runs 1024 blocks a set (a set of 9000 crowded
+// proposals can list ~20M near pairs) over a table of up to 10,440 tiles
+// (42 KB of static shared memory).  The sets are never split: greedy NMS
+// over 9000 candidates is not the union of NMS over parts of them.
 //
 // Exactness: the IoU is the port's plain formula (iou3d_nms_utils.py:
 // Liang-Barsky clipping of each edge to the other quad's half-planes,
@@ -90,16 +98,20 @@
 namespace {
 
 constexpr int TB = 64;          // boxes per tile side = bits per mask word
-// Mask words a row: one per lane of a warp (K <= 2048), or two (K <=
-// 4096, the anchor heads' NMS_PRE_MAXSIZE).  The sweep and kernel B are
-// instantiated for each width, so that K <= 2048 runs the narrow code.
+// Mask words a row: one per lane of a warp (K <= 2048), two (K <= 4096,
+// the anchor heads' NMS_PRE_MAXSIZE) or up to five (K <= 9216, the
+// training proposal layer's 9000).  The sweep and kernel B are
+// instantiated for each width, so that a narrower K runs narrower code.
 constexpr int NARROW_WORDS = 32;
-constexpr int MAX_WORDS = 64;
+constexpr int WIDE_WORDS = 64;
+constexpr int MAX_WORDS = 144;          // K <= 9216
 constexpr int BOX_THREADS = 256;
-// boxes form, kernel B's blocks per set: narrow, and wide (the ~1M near
-// pairs a set of 4096 anchor candidates lists need the whole card)
-constexpr int IOU_BLOCKS = 64, IOU_BLOCKS_WIDE = 256;
-constexpr int SWEEP_BUFS = 4;           // sweep: staged row blocks
+// boxes form, kernel B's blocks per set: narrow, wide (the ~1M near pairs
+// a set of 4096 anchor candidates lists need the whole card) and widest
+constexpr int IOU_BLOCKS = 64, IOU_BLOCKS_WIDE = 256, IOU_BLOCKS_MAX = 1024;
+// sweep: staged row blocks; three in the widest instance, whose four
+// would not fit a block's shared memory
+constexpr int SWEEP_BUFS = 4, SWEEP_BUFS_MAX = 3;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ void tile_of(int x, int nblk, int& rb, int& cb) {
@@ -439,9 +451,10 @@ __device__ __forceinline__ void cp_async_wait() {
 // of the sweep; in the same pass, in the chain's idle cycles, it ORs
 // the kept rows' words for word b + 1, which step b + 1 needs next.
 // Meanwhile warp 1 stages block b + 2, ORs block b - 1's kept rows into
-// words >= b + 1 (lane l owns words l and l + 32) and writes block b - 1's
-// keep flags.
-template <int WORDS>
+// words >= b + 1 (lane l owns words l, l + 32, ...) and writes block b -
+// 1's keep flags.  With BUFS = 3 block b + 2 takes block b - 1's buffer,
+// so warp 1 stages it after that block's ORs and flags.
+template <int WORDS, int BUFS>
 __global__ void __launch_bounds__(64)
 nms_sweep_kernel(const unsigned long long* __restrict__ mask,
                  const unsigned long long* __restrict__ init,
@@ -457,7 +470,7 @@ nms_sweep_kernel(const unsigned long long* __restrict__ mask,
   auto stage = [&](int b) {                    // warp 1
     if (b < nblk) {
       const unsigned long long* src = m + (size_t)b * words;
-      unsigned long long* dst = rows + (b % SWEEP_BUFS) * words;
+      unsigned long long* dst = rows + (b % BUFS) * words;
       for (int e = 2 * lane; e < words; e += 64) cp_async16(dst + e, src + e);
     }
     cp_async_commit();                         // one group per block, even empty
@@ -476,7 +489,7 @@ nms_sweep_kernel(const unsigned long long* __restrict__ mask,
     if (warp == 0) {
       if (lane == 0 && b < nblk) {
         // rows past K read stale words, but their bits are already removed
-        const unsigned long long* R = rows + (b % SWEEP_BUFS) * words;
+        const unsigned long long* R = rows + (b % BUFS) * words;
         const int b1 = b + 1 < nblk ? b + 1 : b;
         const unsigned long long rem = removed[b] | next;
         unsigned lo = static_cast<unsigned>(rem);
@@ -497,10 +510,10 @@ nms_sweep_kernel(const unsigned long long* __restrict__ mask,
                             : 0ull;
       }
     } else {
-      stage(b + 2);
+      if (BUFS > 3) stage(b + 2);
       if (b > 0) {
         const int pb = b - 1;
-        const unsigned long long* R = rows + (pb % SWEEP_BUFS) * words;
+        const unsigned long long* R = rows + (pb % BUFS) * words;
         const unsigned long long kept = kept_w[pb];
 #pragma unroll
         for (int w = lane; w < WORDS; w += 32) {
@@ -516,33 +529,42 @@ nms_sweep_kernel(const unsigned long long* __restrict__ mask,
         for (int r = lane; r < TB && i0 + r < K; r += 32)
           kp[i0 + r] = static_cast<uint8_t>((kept >> r) & 1ull);
       }
+      if (BUFS == 3) {
+        __syncwarp();                          // block b - 1 read by all lanes
+        stage(b + 2);
+      }
       cp_async_wait<1>();                      // block b + 1 has landed
     }
     __syncthreads();
   }
 }
 
-template <int WORDS>
+template <int WORDS, int BUFS>
 int launch_sweep_t(const unsigned long long* mask,
                    const unsigned long long* init, void* keep, int S, int K,
                    int nblk, cudaStream_t s) {
-  const int smem = SWEEP_BUFS * TB * nblk * 8;
+  const int smem = BUFS * TB * nblk * 8;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        nms_sweep_kernel<WORDS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        nms_sweep_kernel<WORDS, BUFS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  nms_sweep_kernel<WORDS><<<S, 64, smem, s>>>(
+  nms_sweep_kernel<WORDS, BUFS><<<S, 64, smem, s>>>(
       mask, init, static_cast<uint8_t*>(keep), K, nblk);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_sweep(const unsigned long long* mask, const unsigned long long* init,
                  void* keep, int S, int K, int nblk, cudaStream_t s) {
-  return nblk <= NARROW_WORDS
-             ? launch_sweep_t<NARROW_WORDS>(mask, init, keep, S, K, nblk, s)
-             : launch_sweep_t<MAX_WORDS>(mask, init, keep, S, K, nblk, s);
+  if (nblk <= NARROW_WORDS)
+    return launch_sweep_t<NARROW_WORDS, SWEEP_BUFS>(mask, init, keep, S, K,
+                                                    nblk, s);
+  if (nblk <= WIDE_WORDS)
+    return launch_sweep_t<WIDE_WORDS, SWEEP_BUFS>(mask, init, keep, S, K,
+                                                  nblk, s);
+  return launch_sweep_t<MAX_WORDS, SWEEP_BUFS_MAX>(mask, init, keep, S, K,
+                                                   nblk, s);
 }
 
 struct Scratch {
@@ -580,13 +602,14 @@ extern "C" long long q3d_greedy_nms_scratch_words(int S, int K, int boxes) {
 // corners: (S, K, 4, 2) f32; areas: (S, K) f32; valid, keep: (S, K) u8;
 // scratch: q3d_greedy_nms_scratch_words(S, K, 1) words; iou_out: (S, K, K)
 // f32 or null, written only at the pairs the kernel evaluated.  Requires
-// 0 < K <= 4096 and a 16-byte aligned scratch.  Returns the cudaError_t
+// 0 < K <= 9216 and a 16-byte aligned scratch.  Returns the cudaError_t
 // of the launches.
 extern "C" int q3d_greedy_nms_boxes(const void* corners, const void* areas,
                                     const void* valid, void* scratch,
                                     void* keep, void* iou_out, int S, int K,
                                     float thresh, void* stream) {
   if (S == 0 || K == 0) return 0;
+  if (K > MAX_WORDS * TB) return static_cast<int>(cudaErrorInvalidValue);
   const int nblk = (K + TB - 1) / TB, ntiles = nblk * (nblk + 1) / 2;
   const auto s = static_cast<cudaStream_t>(stream);
   Scratch w;
@@ -598,14 +621,18 @@ extern "C" int q3d_greedy_nms_boxes(const void* corners, const void* areas,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long pairs = (long long)K * (K - 1) / 2;
-  const bool wide = nblk > NARROW_WORDS;
+  const int width = nblk <= NARROW_WORDS ? 0 : nblk <= WIDE_WORDS ? 1 : 2;
+  const int per_set = width == 0 ? IOU_BLOCKS
+                      : width == 1 ? IOU_BLOCKS_WIDE : IOU_BLOCKS_MAX;
   const int blocks = std::max(1, static_cast<int>(std::min<long long>(
-      wide ? IOU_BLOCKS_WIDE : IOU_BLOCKS,
-      (pairs + BOX_THREADS - 1) / BOX_THREADS)));
+      per_set, (pairs + BOX_THREADS - 1) / BOX_THREADS)));
   const auto* ar = static_cast<const float*>(areas);
   auto* io = static_cast<float*>(iou_out);
-  if (wide)
+  if (width == 2)
     nms_box_iou_kernel<MAX_WORDS><<<dim3(blocks, S), BOX_THREADS, 0, s>>>(
+        cs, ar, w.counts, w.list, w.mask, io, K, nblk, thresh);
+  else if (width == 1)
+    nms_box_iou_kernel<WIDE_WORDS><<<dim3(blocks, S), BOX_THREADS, 0, s>>>(
         cs, ar, w.counts, w.list, w.mask, io, K, nblk, thresh);
   else
     nms_box_iou_kernel<NARROW_WORDS><<<dim3(blocks, S), BOX_THREADS, 0, s>>>(
@@ -616,12 +643,13 @@ extern "C" int q3d_greedy_nms_boxes(const void* corners, const void* areas,
 }
 
 // iou: (S, K, K) f32; valid, keep: (S, K) u8; scratch:
-// q3d_greedy_nms_scratch_words(S, K, 0) words.  Requires 0 < K <= 4096
+// q3d_greedy_nms_scratch_words(S, K, 0) words.  Requires 0 < K <= 9216
 // and a 16-byte aligned scratch.  Returns the cudaError_t of the launches.
 extern "C" int q3d_greedy_nms(const void* iou, const void* valid,
                               void* scratch, void* keep, int S, int K,
                               float thresh, void* stream) {
   if (S == 0 || K == 0) return 0;
+  if (K > MAX_WORDS * TB) return static_cast<int>(cudaErrorInvalidValue);
   const int nblk = (K + TB - 1) / TB;
   const auto s = static_cast<cudaStream_t>(stream);
   Scratch w;

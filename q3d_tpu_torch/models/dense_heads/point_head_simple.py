@@ -1,17 +1,30 @@
 """PointHeadSimple — a foreground score per keypoint (port of
-``q3d_tpu/models/dense_heads/point_head.py``: ``_MLP`` :22 and
-``PointHeadSimple`` :84, inference only).  ``cls_layers``: per CLS_FC
-width a Linear (no bias), BN and ReLU, then the ``out`` Linear to the
-classes; ``point_cls_scores`` is the largest sigmoid.  The head reads the
-fused ``point_features``, as the reference does whatever
-USE_POINT_FEATURES_BEFORE_FUSION says (``ROADMAP.md`` §3).  The targets
-and the focal loss come with training."""
+``q3d_tpu/models/dense_heads/point_head.py``: ``_MLP`` :22,
+``PointHeadTemplate.assign_targets`` :53 and ``PointHeadSimple`` :84).
+``cls_layers``: per CLS_FC width a Linear (no bias), BN and ReLU, then the
+``out`` Linear to the classes; ``point_cls_scores`` is the largest
+sigmoid.  The head reads the fused ``point_features``, as the reference
+does whatever USE_POINT_FEATURES_BEFORE_FUSION says (``ROADMAP.md`` §3).
+
+In training each keypoint gets a target: the class of the first gt box
+that holds it, -1 (ignored) if it lies only in a box grown by 0.2 m on
+each side (the default ``extra_width``; GT_EXTRA_WIDTH is not read, as in
+the reference), else 0; and the sigmoid focal loss over the cared
+keypoints, normalised by the positives, is ``point_cls_loss``.  A
+class-agnostic head (one class) takes every foreground keypoint as
+positive, as OpenPCDet's does; the reference gives the gt's class id,
+which its one-hot turns into a negative for every class but the first
+(``ROADMAP.md`` §3)."""
 
 import torch
 from torch import nn
 
+from ...ops.roiaware_pool3d import points_in_boxes
+from ...utils import box_utils, loss_utils
 from ..backbones_3d.pfe.voxel_set_abstraction import f32_batch_norm
 from ..layers import Linear
+
+EXTRA_WIDTH = (0.2, 0.2, 0.2)
 
 
 class MLP(nn.Module):
@@ -34,6 +47,32 @@ class MLP(nn.Module):
         return self.out(x)
 
 
+def assign_point_targets(xyz, batch_idx, gt_boxes, num_class,
+                         extra_width=EXTRA_WIDTH):
+    """Per-point class targets (the reference's ``assign_targets``): xyz
+    (N, 3), batch_idx (N,), gt_boxes (B, M, 8) -> (N,) int64: the class of
+    the first valid gt box holding the point (1 for a one-class head), -1
+    inside only an enlarged valid box, else 0."""
+    m = gt_boxes.shape[1]
+    labels = torch.zeros_like(batch_idx, dtype=torch.long)
+    for b in range(gt_boxes.shape[0]):
+        boxes = gt_boxes[b]
+        idx = points_in_boxes(xyz, boxes[:, :7])
+        idx_big = points_in_boxes(
+            xyz, box_utils.enlarge_box3d(boxes[:, :7], extra_width))
+        valid_box = boxes[:, -1] > 0
+        safe = idx.clamp(0, m - 1)
+        cls = boxes[safe, -1].long() if num_class > 1 \
+            else torch.ones_like(safe)
+        cls = torch.where((idx >= 0) & valid_box[safe], cls,
+                          torch.zeros_like(cls))
+        ignored = (idx < 0) & (idx_big >= 0) \
+            & valid_box[idx_big.clamp(0, m - 1)]
+        cls = torch.where(ignored, torch.full_like(cls, -1), cls)
+        labels = torch.where(batch_idx == b, cls, labels)
+    return labels
+
+
 class PointHeadSimple(nn.Module):
     def __init__(self, model_cfg, input_channels, num_class):
         super().__init__()
@@ -43,10 +82,31 @@ class PointHeadSimple(nn.Module):
                               num_class)
 
     def forward(self, batch_dict):
-        if self.training:
-            raise NotImplementedError(
-                "PointHeadSimple: the point targets and loss come with "
-                "two-stage training")
         logits = self.cls_layers(batch_dict["point_features"])
         batch_dict["point_cls_scores"] = torch.sigmoid(logits).amax(dim=-1)
+        if self.training:
+            loss = self.get_loss(logits, batch_dict["point_coords"],
+                                 batch_dict["gt_boxes"])
+            batch_dict["loss"] = batch_dict.get("loss", 0.0) + loss
+            batch_dict["tb_dict"] = {**batch_dict.get("tb_dict", {}),
+                                     "point_cls_loss": loss}
         return batch_dict
+
+    def get_loss(self, logits, point_coords, gt_boxes):
+        """The focal loss of the keypoints' logits against their targets
+        (reference :92-107); ``point_coords`` (N, 4) [b, x, y, z] as the
+        VSA gives them."""
+        with torch.no_grad():
+            labels = assign_point_targets(
+                point_coords[:, 1:4], point_coords[:, 0].long(),
+                gt_boxes.float(), self.num_class)
+        valid = point_coords[:, 0] >= 0
+        cared = (labels >= 0) & valid
+        one_hot = nn.functional.one_hot(
+            labels.clamp(min=0), self.num_class + 1)[..., 1:].float()
+        positives = ((labels > 0) & valid).sum().float().clamp_min(1.0)
+        weights = cared.float() / positives
+        weight = self.model_cfg.LOSS_CONFIG.LOSS_WEIGHTS["point_cls_weight"]
+        return loss_utils.sigmoid_focal_cls_loss(
+            logits[None].float(), one_hot[None], weights[None]).sum() \
+            * weight

@@ -101,12 +101,22 @@ class Detector3DTemplate(nn.Module):
             if hasattr(m, "kernel_impl"):
                 m.kernel_impl = impl
 
+    def roi_nms_config(self):
+        """The proposal layer's NMS: ROI_HEAD.NMS_CONFIG.TRAIN in training,
+        TEST else."""
+        return self.model_cfg.ROI_HEAD.NMS_CONFIG[
+            "TRAIN" if self.training else "TEST"]
+
+    @torch.no_grad()
     def proposal_layer(self, batch_dict, nms_config):
         """The first stage's proposals: the sigmoid of the dense head's
         scores, each anchor's best class, and one class-agnostic NMS over
         the frames (one launch of kernel 2, B candidate sets of
         NMS_PRE_MAXSIZE) -> fixed-size (B, R) ``rois``, ``roi_scores``,
-        ``roi_labels`` (1-based) and ``roi_valid`` (reference :99-125)."""
+        ``roi_labels`` (1-based) and ``roi_valid`` (reference :99-125).
+        Without gradient, as OpenPCDet computes its proposals: the
+        reference lets the ROI head's losses flow back through the rois
+        into the anchor head's box branch (``ROADMAP.md`` §3)."""
         cls_preds = batch_dict["batch_cls_preds"]          # (B, Na, C)
         box_preds = batch_dict["batch_box_preds"]
         if not batch_dict.get("cls_preds_normalized", False):

@@ -2,8 +2,10 @@
 VoxelBackBone8x -> HeightCompression -> VoxelSetAbstraction (keypoints
 from the raw points, the sparse stages and the BEV map) ->
 BaseBEVBackbone -> AnchorHeadSingle -> PointHeadSimple (keypoint
-weights) -> the proposal layer (kernel 2) -> PVRCNNHead.  Inference
-only: two-stage training waits for the proposal target layer."""
+weights) -> the proposal layer (kernel 2) -> PVRCNNHead.  In training
+(``nn.Module.training``) the proposal layer takes ROI_HEAD.NMS_CONFIG.
+TRAIN and ``loss`` is the anchor head's, the point head's and the ROI
+head's losses summed in that order (reference :24-35)."""
 
 from .detector3d_template import Detector3DTemplate
 
@@ -11,8 +13,6 @@ from .detector3d_template import Detector3DTemplate
 class PVRCNN(Detector3DTemplate):
 
     def forward(self, batch_dict):
-        if self.training:
-            raise NotImplementedError("PVRCNN: training is not ported")
         batch_dict = self.vfe(batch_dict)
         batch_dict = self.backbone_3d(batch_dict)
         batch_dict = self.map_to_bev_module(batch_dict)
@@ -21,6 +21,5 @@ class PVRCNN(Detector3DTemplate):
         batch_dict = self.dense_head(batch_dict)
         if getattr(self, "point_head", None) is not None:
             batch_dict = self.point_head(batch_dict)
-        batch_dict = self.proposal_layer(
-            batch_dict, self.model_cfg.ROI_HEAD.NMS_CONFIG.TEST)
+        batch_dict = self.proposal_layer(batch_dict, self.roi_nms_config())
         return self.roi_head(batch_dict)

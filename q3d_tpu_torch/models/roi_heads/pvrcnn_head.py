@@ -1,9 +1,11 @@
 """PVRCNNHead — keypoint-pooled ROI refinement (port of
-``q3d_tpu/models/roi_heads/pvrcnn_head.py``, inference): GRID_SIZE^3 grid
-points in each ROI (``roi_grid_points`` :22), a ball query of the grid
-points over the keypoints, whose fused features are weighted by the
+``q3d_tpu/models/roi_heads/pvrcnn_head.py``): GRID_SIZE^3 grid points
+in each ROI (``roi_grid_points`` :22; in training the sampled ROIs,
+``RoIHeadTemplate.pooled_rois``), a ball query of the grid points over
+the keypoints, whose fused features are weighted by the
 point head's scores, one ``SAMLPBlock`` per radius (``pool_r0_8`` ...),
-then the shared, cls and reg FCs and the decode.  The vector-pool grid
+then the shared, cls and reg FCs and the decode (in training the
+losses).  The vector-pool grid
 pooling (PV-RCNN++) raises."""
 
 import torch
@@ -48,7 +50,7 @@ class PVRCNNHead(RoIHeadTemplate):
             self.pool_names.append(name)
 
     def forward(self, batch_dict):
-        rois = batch_dict["rois"][..., :7]
+        rois = self.pooled_rois(batch_dict)
         b, r = rois.shape[:2]
         kp = batch_dict["keypoints"]                           # (B, K, 3)
         kp_feats = batch_dict["point_features"].reshape(b, kp.shape[1], -1)

@@ -1,10 +1,11 @@
 """VoxelRCNNHead — multi-scale voxel ROI grid pooling (port of
-``q3d_tpu/models/roi_heads/voxelrcnn_head.py``, inference): the ROI grid
-points of ``pvrcnn_head.roi_grid_points``; for each POOL_LAYERS source,
+``q3d_tpu/models/roi_heads/voxelrcnn_head.py``): the ROI grid points of
+``pvrcnn_head.roi_grid_points`` (in training around the sampled ROIs,
+``RoIHeadTemplate.pooled_rois``); for each POOL_LAYERS source,
 its rows regrouped per frame (``_regroup``) and a ball query of the grid
 points over their voxel centres, one ``SAMLPBlock`` per radius
 (``pool_x_conv2_r0_4`` ...); then the shared, cls and reg FCs and the
-decode.  The reference's ball query over voxel centres stands in for
+decode (in training the losses).  The reference's ball query over voxel centres stands in for
 OpenPCDet's voxel query, so QUERY_RANGES and PRE_MLP are not read
 (``ROADMAP.md`` §3)."""
 
@@ -39,7 +40,7 @@ class VoxelRCNNHead(RoIHeadTemplate):
                 self.pool_names[src].append(name)
 
     def forward(self, batch_dict):
-        rois = batch_dict["rois"][..., :7]
+        rois = self.pooled_rois(batch_dict)
         b, r = rois.shape[:2]
         grid = roi_grid_points(rois, self.grid_size)           # (B, R*g3, 3)
         ms = batch_dict["multi_scale_3d_features"]

@@ -34,7 +34,12 @@ KERNEL = CudaLibrary(
      "q3d_greedy_nms_boxes": [_P] * 6 + [_I, _I, _F, _P],
      "q3d_greedy_nms_scratch_words": ([_I, _I, _I], ctypes.c_longlong)},
     variants=(("-fmad=false",),))
-MAX_K = 4096
+# 144 mask words a row: the two-stage detectors' training proposal layer
+# keeps NMS_PRE_MAXSIZE 9000 candidates a frame
+MAX_K = 9216
+# the plain boxes form evaluates its pairs in chunks of about this many,
+# so that 2 sets of 9000 candidates (81M pairs) fit on the card
+PLAIN_CHUNK_PAIRS = 1 << 21
 
 
 def _require(cond, msg):
@@ -54,21 +59,32 @@ def greedy_suppress_plain(iou, valid, thresh):
 
 
 def greedy_suppress_boxes_plain(boxes, valid, thresh):
-    """boxes (S, K, 7+) score-ordered; valid (S, K) bool -> keep (S, K).
-    The IoU of the pairs the sweep reads (j < i, both valid), each computed
-    as ``boxes_iou_bev`` computes it (per pair, the same operations), the
-    rest of the (S, K, K) matrix 0."""
+    """boxes (S, K, 7+) score-ordered; valid (S, K) bool -> keep (S, K):
+    the plain sweep over ``needed_pair_iou``."""
+    return greedy_suppress_plain(needed_pair_iou(boxes, valid), valid, thresh)
+
+
+def needed_pair_iou(boxes, valid):
+    """boxes (S, K, 7+), valid (S, K) -> (S, K, K) f32: the IoU of the pairs
+    the sweep reads (j < i, both valid), each computed as ``boxes_iou_bev``
+    computes it (per pair, the same operations, so the chunks of about
+    ``PLAIN_CHUNK_PAIRS`` pairs, a block of rows j each, give the same bits
+    as one call), the rest 0."""
     # iou3d_nms_utils imports this module for nms_bev
     from .iou3d_nms_utils import boxes_iou_bev
     box7 = boxes[..., :7]
-    k = box7.shape[1]
-    need = valid[:, :, None] & valid[:, None, :] & torch.ones(
-        (k, k), dtype=torch.bool, device=boxes.device).triu(1)
-    s, j, i = need.nonzero(as_tuple=True)
-    iou = box7.new_zeros(need.shape)
-    iou[s, j, i] = boxes_iou_bev(box7[s, j][:, None],
-                                 box7[s, i][:, None])[:, 0, 0]
-    return greedy_suppress_plain(iou, valid, thresh)
+    n_sets, k = box7.shape[:2]
+    upper = torch.ones((k, k), dtype=torch.bool, device=boxes.device).triu(1)
+    iou = box7.new_zeros((n_sets, k, k))
+    rows = max(1, PLAIN_CHUNK_PAIRS // max(n_sets * k, 1))
+    for j0 in range(0, k, rows):
+        j1 = min(j0 + rows, k)
+        need = valid[:, j0:j1, None] & valid[:, None, :] & upper[j0:j1]
+        s, j, i = need.nonzero(as_tuple=True)
+        j = j + j0
+        iou[s, j, i] = boxes_iou_bev(box7[s, j][:, None],
+                                     box7[s, i][:, None])[:, 0, 0]
+    return iou
 
 
 def _scratch(s, k, boxes, dev):

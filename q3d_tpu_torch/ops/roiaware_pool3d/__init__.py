@@ -1,0 +1,1 @@
+from .roiaware_pool3d_utils import in_box_frame, points_in_boxes  # noqa: F401

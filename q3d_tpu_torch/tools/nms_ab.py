@@ -6,14 +6,16 @@ Builds ``csrc/greedy_nms.cu`` and the ``--baseline`` source (another
 revision of the same file, with the same C interface) and runs both on the
 same candidate sets: centerpoint_ref's decode (6 sets of K = 500, seeded
 weights, BN statistics from the first request), random crowded boxes (K =
-500, 2048 and 4096) and the KITTI SECOND and PointPillars configs' own
-NMS input (2 sets of K = 4096, each under the three validities of
-``validities``).  A source runs only up to the K its ``MAX_WORDS`` takes
-(the revision before the K = 4096 widening does not check K itself).  Each
-set's keep masks must equal the plain version's for both builds; then each
-build's median CUDA-event time (L2 flushed before each launch) is taken in
-the order baseline, current, current, baseline, and one JSON line per case
-gives the four medians (of REPS launches each).  Needs the card.
+500, 2048, 4096, and 9000 with a degenerate quad) and the KITTI SECOND
+and PointPillars configs' own NMS input (2 sets of K = 4096, each under
+the three validities of ``validities``).  A source runs only up to the K
+its ``MAX_WORDS`` takes (the revisions before the K = 4096 and K = 9216
+widenings do not check K themselves); a case only one source takes is
+timed on that source alone.  Each set's keep masks must equal the plain
+version's for both builds; then each build's median CUDA-event time (L2
+flushed before each launch) is taken in the order baseline, current,
+current, baseline, and one JSON line per case gives the four medians (of
+REPS launches each).  Needs the card.
 """
 
 import argparse
@@ -175,6 +177,17 @@ def _crowded(rng, s, k, dev):
             torch.from_numpy(rng.rand(s, k) > 0.1).to(dev))
 
 
+def crowded_with_degenerate(rng, s, k, dev):
+    """``_crowded`` with one degenerate quad, valid, inside the crowd: row
+    50 a box 1e-6 m wide at x = 20 m, whose corners f32 rounds onto each
+    other (kernel 2 never skips its pairs)."""
+    boxes, valid = _crowded(rng, s, k, dev)
+    boxes[:, 50, 0:2] = torch.tensor([20.0, 10.0])
+    boxes[:, 50, 3] = 1e-6
+    valid[:, 50] = True
+    return boxes, valid
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--baseline", required=True,
@@ -197,6 +210,8 @@ def main(argv=None):
     cases = [("centerpoint_ref decode", *_ref_decode_sets(dev))]
     for s, k in ((6, 500), (6, 2048), (2, 4096)):
         cases.append((f"crowded {s} x {k}", *_crowded(rng, s, k, dev), 0.5))
+    cases.append(("crowded 2 x 9000, a degenerate quad",
+                  *crowded_with_degenerate(rng, 2, 9000, dev), 0.5))
     for name in ("second", "pointpillar"):
         boxes, sets, thresh = _kitti_sets(name, dev)
         cases += [(f"{name} candidates, {share}", boxes, valid, thresh)

@@ -81,7 +81,14 @@ def remove_points_in_boxes3d(points, boxes3d):
 
 
 def enlarge_box3d(boxes3d, extra_width=(0, 0, 0)):
-    """numpy: boxes grown by ``extra_width`` on each side of each axis."""
+    """Boxes grown by ``extra_width`` on each side of each axis: numpy
+    arrays (the gt sampler's), or torch tensors on their device (the point
+    head's targets; the reference's jnp form, :81)."""
+    if isinstance(boxes3d, torch.Tensor):
+        extra = torch.tensor(extra_width, dtype=boxes3d.dtype,
+                             device=boxes3d.device)
+        return torch.cat([boxes3d[:, 0:3], boxes3d[:, 3:6] + extra[None] * 2,
+                          boxes3d[:, 6:]], dim=1)
     large = np.asarray(boxes3d).copy()
     large[:, 3:6] = large[:, 3:6] \
         + np.asarray(extra_width, dtype=boxes3d.dtype)[None, :] * 2

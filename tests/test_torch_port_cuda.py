@@ -709,6 +709,55 @@ def test_tiny_pvrcnn_kernels_match_plain(card):
         assert torch.equal(outs["cuda"][key], outs["plain"][key]), key
 
 
+@pytest.mark.parametrize("k", [4097, 6000, 9000])
+def test_greedy_nms_wide_kernels_match_plain(card, k):
+    """The widest instance (65 to 144 mask words a row; three staged row
+    blocks in the sweep; kernel B on 1024 blocks a set): both entries on
+    crowded boxes with duplicates and one degenerate quad
+    (``nms_ab.crowded_with_degenerate``), at thresh 0.8
+    (the training proposal layer's) and 0.3; the boxes form from the boxes,
+    the IoU form from their needed pairs' IoU.  Each keep mask bit-equal to
+    the plain version's."""
+    from q3d_tpu_torch.tools.nms_ab import crowded_with_degenerate
+    boxes, valid = crowded_with_degenerate(np.random.RandomState(k), 2, k,
+                                           card)
+    iou = port_nms.needed_pair_iou(boxes, valid)
+    corners = port_nms.bev_corners_areas(boxes)[0]
+    # the degenerate quad's short edges: corners within an ulp or two
+    assert float((corners[:, 50, 0] - corners[:, 50, 1]).abs().max()) < 4e-6
+    for thresh in (0.8, 0.3):
+        want = port_nms.greedy_suppress_plain(iou, valid, thresh)
+        assert torch.equal(want, port_nms.greedy_nms_boxes(
+            boxes, valid, thresh, impl="plain"))
+        assert torch.equal(port_nms.greedy_nms_boxes(boxes, valid, thresh),
+                           want)
+        assert torch.equal(port_nms.greedy_nms(iou, valid, thresh), want)
+        assert 0 < int(want.sum()) < int(valid.sum())
+
+
+def test_greedy_nms_wrappers_raise_above_max_k(card):
+    """Past MAX_K = 9216 both wrappers raise on CUDA tensors, and so do the
+    C entries if asked directly (cudaErrorInvalidValue, nothing launched)."""
+    k = port_nms.MAX_K + 1
+    valid = torch.ones((1, k), dtype=torch.bool, device=card)
+    with pytest.raises(ValueError, match=r"K must be in \[1, 9216\]"):
+        port_nms.greedy_suppress_boxes_cuda(
+            torch.zeros((1, k, 4, 2), device=card),
+            torch.ones((1, k), device=card), valid, 0.5)
+    with pytest.raises(ValueError, match=r"K must be in \[1, 9216\]"):
+        port_nms.greedy_suppress_cuda(torch.empty((1, k, k), device=card),
+                                      valid, 0.5)
+    keep = torch.empty((1, k), dtype=torch.bool, device=card)
+    stream = torch.cuda.current_stream().cuda_stream
+    with pytest.raises(RuntimeError, match="error 1"):
+        port_nms.KERNEL.call(
+            "q3d_greedy_nms_boxes", 0, 0, valid.data_ptr(), 0,
+            keep.data_ptr(), None, 1, k, 0.5, stream)
+    with pytest.raises(RuntimeError, match="error 1"):
+        port_nms.KERNEL.call("q3d_greedy_nms", 0, valid.data_ptr(), 0,
+                             keep.data_ptr(), 1, k, 0.5, stream)
+
+
 def test_greedy_nms_boxes_evaluates_degenerate_quads(card):
     """A pair 56 m apart, one of whose quads has corners rounded onto each
     other (a seeded PV-RCNN's proposals): the plain formula gives it an IoU

@@ -225,27 +225,30 @@ def test_greedy_nms_boxes_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="valid must be"):
         port_nms.greedy_suppress_boxes_cuda(corners, areas, valid[:1], 0.5)
     with pytest.raises(ValueError, match="K must be"):
-        big = torch.zeros(1, 4097, 4, 2)
+        k = port_nms.MAX_K + 1
         port_nms.greedy_suppress_boxes_cuda(
-            big, torch.zeros(1, 4097), torch.ones(1, 4097, dtype=torch.bool),
-            0.5)
+            torch.zeros(1, k, 4, 2), torch.zeros(1, k),
+            torch.ones(1, k, dtype=torch.bool), 0.5)
     with pytest.raises(ValueError, match="unknown impl"):
         port_nms.greedy_nms_boxes(boxes, valid, 0.5, impl="xla")
 
 
 @pytest.mark.parametrize("form", ["iou", "boxes"])
 def test_greedy_nms_wrappers_take_k_up_to_4096(form):
-    """Both entries take 0 < K <= 4096 (64 mask words a row) and raise above
-    it; nothing falls back to the plain version."""
-    for k, ok in ((4096, True), (4097, False)):
+    """Both entries take 0 < K <= MAX_K = 9216 (144 mask words a row; the
+    name is from when they stopped at 4096) and raise above it; nothing
+    falls back to the plain version."""
+    assert port_nms.MAX_K == 9216
+    for k, ok in ((4096, True), (9000, True), (9216, True), (9217, False)):
         valid = torch.ones(1, k, dtype=torch.bool)
         if form == "iou":
+            # left unfilled: the checks read its shape only
             call = lambda: port_nms.greedy_suppress_cuda(  # noqa: E731
-                torch.zeros(1, k, k), valid, 0.5)
+                torch.empty(1, k, k), valid, 0.5)
         else:
             call = lambda: port_nms.greedy_suppress_boxes_cuda(  # noqa: E731
                 torch.zeros(1, k, 4, 2), torch.zeros(1, k), valid, 0.5)
         # past the K check, a CPU tensor is refused: the kernel or nothing
         with pytest.raises(ValueError, match="CUDA tensor" if ok
-                           else r"K must be in \[1, 4096\] \(got 4097\)"):
+                           else r"K must be in \[1, 9216\] \(got 9217\)"):
             call()
