@@ -304,7 +304,39 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
                 bound) and ``recipes_pvrcnn`` (``int8_deploy_recipe()``:
                 every launch held on its own operands, maps, rois and
                 detections equal);
- 22. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
+ 22. the real-dataset entry points (``dataset_phases``, in a temporary
+                directory; no dataset is in the repository, so each tree is
+                written in its dataset's on-disk format from seeded synthetic
+                scenes, then read back only through the port's entry
+                points, on the configs as written with DATA_PATH set):
+                ``data_kitti_tree`` (``kitti_synthetic.write_kitti_tree``:
+                8 val frames, SECOND's phases' scenes, and 8 train frames of
+                another seed; ``create_infos kitti --with_gt_database``;
+                each val frame's FOV crop in ``KittiDataset`` equal to
+                ``kitti_scene``'s but for points within 1e-3 px of the image
+                edge, counted), ``eval_kitti_second`` (``tools/test.py`` on
+                ``kitti_models/second.yaml`` with a seeded checkpoint, f32
+                on the kernels with ``--save_to_file``, f32 on the plain
+                versions, bf16: launches 12 + 1 a forward, kernels vs plain
+                slot for slot and the same AP dict, one result file a frame
+                equal to its annos to 4 decimals; the gt boxes as
+                detections, through their result files, at the AP_R40
+                ceiling of every class and difficulty), ``train_kitti_tree``
+                (``tools/train.py``, 2 epochs at batch 4: 4 steps, gt
+                sampling from the written database; host and CUDA-event ms,
+                peak memory), ``data_nuscenes_tree``
+                (``nuscenes_synthetic.write_nuscenes_tree``: 8 val and 8
+                train frames of 10 sweeps, 5 point features; points and
+                voxels a frame under the 160,000 cap, the loader's host ms;
+                the train gt database), ``eval_nuscenes_centerpoint``
+                (``tools/test.py`` on ``cbgs_voxel0075_res3d_centerpoint.
+                yaml``, batch 2, ``--bf16`` and ``--quant int8``: 21 + 1
+                launches a forward; the first batch through the kernels and
+                the plain versions slot for slot; gt as detections mAP 1;
+                the stages at 10 sweeps) and ``train_nuscenes_tree``
+                (``tools/train.py`` at batch 4 with CBGS and gt sampling,
+                stopped after 2 steps);
+ 23. the ``kernels`` line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises and exits nonzero without the last line.  Without
 CUDA, or outside a checkout of the repo, it exits 1 and prints no result.
@@ -5893,6 +5925,722 @@ def two_stage_kernel_rows(ts):
     return rows
 
 
+# ================================================== the real-dataset paths
+# KITTI and nuScenes trees written in each dataset's on-disk format from
+# the port's seeded synthetic scenes (no dataset is in the repository), then
+# read back through the port's entry points: create_infos, the test CLI and
+# the train CLI, on the configs as written with only DATA_PATH set
+DS_KITTI_CFG = ROOT / "tools" / "cfgs" / "kitti_models" / "second.yaml"
+DS_KITTI_DATA = ROOT / "tools" / "cfgs" / "dataset_configs" / \
+    "kitti_dataset.yaml"
+DS_NU_CFG = ROOT / "tools" / "cfgs" / "nuscenes_models" / \
+    "cbgs_voxel0075_res3d_centerpoint.yaml"
+DS_KITTI_FRAMES = 8            # val: SECOND's phases' frames; train: seed + 1
+DS_NU_FRAMES = 8               # val and train each
+DS_NU_TRAIN_STEPS = 2
+DS_FOV_EDGE_PX = 1e-3          # a point may leave the crop only this near
+DS_CONVS = {"second": 12, "centerpoint": 21}
+
+
+@contextlib.contextmanager
+def cli_models(impl=None, store=None):
+    """While open, every model the port's CLIs build (through
+    ``q3d_tpu_torch.models.build_network``) routes its kernels through
+    ``impl`` ("plain": the plain versions on the card; None: by device)
+    and is appended to ``store``."""
+    from q3d_tpu_torch import models
+    real = models.build_network
+
+    def build(*args, **kw):
+        model = real(*args, **kw)
+        if impl is not None:
+            model.set_kernel_impl(impl)
+        if store is not None:
+            store.append(model)
+        return model
+    models.build_network = build
+    try:
+        yield
+    finally:
+        models.build_network = real
+
+
+def cli_output_dir(cfg_file, tag):
+    """Where the port's CLIs put a run of ``cfg_file`` under ``tag``."""
+    return ROOT / "output" / "/".join(Path(cfg_file).parts[-3:-1]) \
+        / Path(cfg_file).stem / tag
+
+
+def run_test_cli(cfg_file, tree, tag, dev, extra=(), impl=None):
+    """``q3d_tpu_torch.tools.test`` on ``tree`` (only DATA_PATH set) ->
+    (metrics, result.pkl's annos, {frame: result-file text} or None,
+    seconds, launches).  Launch counts are zeroed just before and read just
+    after; the run's output directory is removed."""
+    import pickle
+    import shutil
+    from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as nms_mod
+    from q3d_tpu_torch.ops.spconv import gather_conv
+    from q3d_tpu_torch.tools import test as test_cli
+    out = cli_output_dir(cfg_file, tag)
+    clear_launches(gather_conv.KERNEL, nms_mod.KERNEL)
+    t0 = time.perf_counter()
+    try:
+        with cli_models(impl):
+            ret = test_cli.main(["--cfg_file", str(cfg_file), "--extra_tag",
+                                 tag, "--device", str(dev), *extra, "--set",
+                                 "DATA_CONFIG.DATA_PATH", str(tree)])
+        seconds = time.perf_counter() - t0
+        launches = kernel_launches(gather_conv.KERNEL, nms_mod.KERNEL)
+        result_dir = out / "eval" / "default"
+        with open(result_dir / "result.pkl", "rb") as f:
+            annos = pickle.load(f)
+        files = result_dir / "final_result" / "data"
+        texts = {p.stem: p.read_text() for p in sorted(files.iterdir())} \
+            if files.is_dir() else None
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return ret, annos, texts, seconds, launches
+
+
+class StepTimer:
+    """Per training step of a model the train CLI builds: CUDA events from
+    a forward pre-hook and a forward hook, each parameter's
+    post-accumulate-grad hook (the last marks the backward's end) and the
+    torch optimizer's step post-hook: forward, backward, optimizer ms,
+    peak memory; kernel-1 launches forward and as dX."""
+
+    def __init__(self, conv_k):
+        self.conv_k, self.steps, self.cur, self.hooks = conv_k, [], {}, []
+
+    def attach(self, model):
+        import torch
+        from torch.optim.optimizer import register_optimizer_step_post_hook
+
+        def event():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+
+        def starts(module, args):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.cur = {"start": event(),
+                        "launches": sum(self.conv_k.launches.values())}
+
+        def forward_ends(module, args, out):
+            self.cur["forward_end"] = event()
+            self.cur["launches_forward"] = sum(
+                self.conv_k.launches.values()) - self.cur["launches"]
+
+        def grad_done(param):
+            self.cur["backward_end"] = event()
+
+        def stepped(optimizer, args, kwargs):
+            end = event()
+            torch.cuda.synchronize()
+            c = self.cur
+            self.steps.append({
+                "forward_ms": c["start"].elapsed_time(c["forward_end"]),
+                "backward_ms": c["forward_end"].elapsed_time(
+                    c["backward_end"]),
+                "optimizer_ms": c["backward_end"].elapsed_time(end),
+                "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+                "launches_forward": c["launches_forward"],
+                "launches_dx": sum(self.conv_k.launches.values())
+                - c["launches"] - c["launches_forward"]})
+        self.hooks += [model.register_forward_pre_hook(starts),
+                       model.register_forward_hook(forward_ends),
+                       register_optimizer_step_post_hook(stepped)]
+        self.hooks += [p.register_post_accumulate_grad_hook(grad_done)
+                       for p in model.parameters() if p.requires_grad]
+
+    def close(self):
+        for h in self.hooks:
+            h.remove()
+
+
+def run_train_cli(cfg_file, tree, tag, dev, conv_k, extra=(), steps=None):
+    """``q3d_tpu_torch.tools.train`` on ``tree`` (only DATA_PATH set),
+    stopped after ``steps`` batches when given -> (history with each step's
+    host ms and CUDA-event times, objects the gt sampler placed per frame,
+    training frames, seconds).  Its checkpoints are removed."""
+    import itertools
+    import shutil
+    from q3d_tpu_torch.datasets import SimpleLoader
+    from q3d_tpu_torch.datasets.augmentor.database_sampler import \
+        DataBaseSampler
+    from q3d_tpu_torch.tools import train as train_cli
+    models, placed, frames = [], [], []
+    timer = StepTimer(conv_k)
+    real_call, real_iter = DataBaseSampler.__call__, SimpleLoader.__iter__
+
+    def sampling(self, data_dict=None, **kw):
+        n0 = len(data_dict["gt_boxes"])
+        data_dict = real_call(self, data_dict=data_dict, **kw)
+        placed.append(len(data_dict["gt_boxes"]) - n0)
+        return data_dict
+
+    def batches(self):
+        frames.append(len(self.dataset))
+        return itertools.islice(real_iter(self), steps)
+
+    class Attach(list):
+        def append(self, model):
+            timer.attach(model)
+            super().append(model)
+    models = Attach()
+    DataBaseSampler.__call__, SimpleLoader.__iter__ = sampling, batches
+    t0 = time.perf_counter()
+    try:
+        with cli_models(store=models):
+            _, history = train_cli.main(
+                ["--cfg_file", str(cfg_file), "--extra_tag", tag, "--device",
+                 str(dev), "--fix_random_seed", *extra, "--set",
+                 "DATA_CONFIG.DATA_PATH", str(tree)])
+    finally:
+        DataBaseSampler.__call__, SimpleLoader.__iter__ = real_call, real_iter
+        timer.close()
+        shutil.rmtree(cli_output_dir(cfg_file, tag), ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    check(len(timer.steps) == len(history) > 0,
+          f"train CLI {cfg_file.name}: {len(timer.steps)} timed steps, "
+          f"history {len(history)}")
+    for h, st in zip(history, timer.steps):
+        h.update(st, host_ms=h["data_s"] * 1e3)
+    return history, placed, frames, seconds
+
+
+def held_launches(launches, run, convs, nms):
+    """A CLI run's launches: none in a plain run ("..._plain"); else
+    ``convs`` of kernel 1 (any entry) and ``nms`` of kernel 2's boxes form,
+    none of its IoU form."""
+    conv = sum(v for k, v in launches.items()
+               if k.startswith("sparse_gather_conv"))
+    if run.endswith("plain"):
+        return conv == 0 and launches["greedy_nms_boxes"] == 0 \
+            and launches["greedy_nms_iou"] == 0
+    return (conv, launches["greedy_nms_boxes"],
+            launches["greedy_nms_iou"]) == (convs, nms, 0)
+
+
+def same_slots(a, b, box_tol=1e-3, score_tol=1e-4):
+    """Two runs' annos (lists of frames' dicts with boxes_lidar or boxes,
+    score(s), name) slot for slot -> (slots matched, slots): the same
+    count a frame, and at each slot the same name, the box within
+    ``box_tol`` and the score within ``score_tol``."""
+    import numpy as np
+    matched = total = 0
+    for x, y in zip(a, b):
+        bx = np.asarray(x.get("boxes_lidar", x.get("boxes")))
+        by = np.asarray(y.get("boxes_lidar", y.get("boxes")))
+        total += max(len(bx), len(by))
+        if len(bx) != len(by):
+            continue
+        sx, sy = np.asarray(x["score"]), np.asarray(y["score"])
+        ok = (np.asarray(x["name"]) == np.asarray(y["name"])) \
+            & (np.abs(bx - by).max(-1, initial=0) <= box_tol) \
+            & (np.abs(sx - sy) <= score_tol)
+        matched += int(ok.sum())
+    return matched, total
+
+
+def kitti_tree_phases(dev, conv_k, nms_k, mode, strict_f32, tmp):
+    """Phases ``data_kitti_tree``, ``eval_kitti_second`` and
+    ``train_kitti_tree`` (see the module docstring) -> launches."""
+    import numpy as np
+    import pickle
+    import torch
+    from q3d_tpu_torch.config import EDict, cfg_from_yaml_file
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.datasets.kitti import kitti_eval
+    from q3d_tpu_torch.datasets.kitti.kitti_dataset import get_fov_flag
+    from q3d_tpu_torch.datasets.kitti_synthetic import (
+        kitti_config, kitti_fov, kitti_scene, read_results, write_kitti_tree)
+    from q3d_tpu_torch.models import build_network, load_data_to_device
+    from q3d_tpu_torch.tools import create_infos
+    from q3d_tpu_torch.utils.bn_calibration import calibrate_bns
+    from q3d_tpu_torch.utils.checkpoint import save_checkpoint
+
+    root = Path(tmp) / "kitti"
+    names = ["Car", "Pedestrian", "Cyclist"]
+
+    def synthetic(seed):
+        return build_dataloader(kitti_config("second", DS_KITTI_FRAMES,
+                                             seed).DATA_CONFIG, names, 1,
+                                training=False)[0]
+    # ------------------------------------------------------ data_kitti_tree
+    val_ids = [f"{j:06d}" for j in range(DS_KITTI_FRAMES)]
+    train_ids = [f"{DS_KITTI_FRAMES + j:06d}" for j in range(DS_KITTI_FRAMES)]
+    val_sds = synthetic(SEED)
+    t0 = time.perf_counter()
+    labelled = write_kitti_tree(val_sds, root, {"val": val_ids})
+    labelled.update(write_kitti_tree(synthetic(SEED + 1), root,
+                                     {"train": train_ids}))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    made = create_infos.main(["kitti", "--cfg_file", str(DS_KITTI_DATA),
+                              "--data_path", str(root), "--with_gt_database"])
+    infos_s = time.perf_counter() - t0
+    in_gt = {}
+    for split in ("train", "val"):
+        with open(root / f"kitti_infos_{split}.pkl", "rb") as f:
+            infos = pickle.load(f)
+        in_gt[split] = {
+            "frames": len(infos),
+            "objects": int(sum(len(i["annos"]["name"]) for i in infos)),
+            "points_in_gt": int(sum(i["annos"].get(
+                "num_points_in_gt", np.zeros(0)).sum() for i in infos))}
+    with open(made["gt_database"], "rb") as f:
+        db = {k: len(v) for k, v in pickle.load(f).items()}
+    check(made["infos"] == {"train": DS_KITTI_FRAMES,
+                            "val": DS_KITTI_FRAMES} and sum(db.values()) > 0,
+          f"create_infos kitti: {made}, database {db}")
+
+    cfg = cfg_from_yaml_file(str(DS_KITTI_CFG), EDict())
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, BATCH,
+                                     training=False)
+    check(type(ds).__name__ == "KittiDataset" and len(ds) == DS_KITTI_FRAMES,
+          f"second.yaml's dataset: {type(ds).__name__}, {len(ds)} frames")
+    frames, edge_points = [], 0
+    for j, info in enumerate(ds.kitti_infos):
+        idx = info["point_cloud"]["lidar_idx"]
+        points, calib = ds.get_lidar(idx), ds.get_calib(idx)
+        shape = info["image"]["image_shape"]
+        mine = get_fov_flag(calib.lidar_to_rect(points[:, :3]), shape, calib)
+        theirs = kitti_fov(points[:, :3])
+        check(np.array_equal(points[theirs], kitti_scene(val_sds, j)[0]),
+              f"data_kitti_tree frame {idx}: the scan is not kitti_scene's")
+        diff = mine != theirs
+        uv, _ = calib.rect_to_img(calib.lidar_to_rect(points[diff, :3]))
+        margin = np.minimum(np.minimum(np.abs(uv[:, 0]),
+                                       np.abs(uv[:, 0] - shape[1])),
+                            np.minimum(np.abs(uv[:, 1]),
+                                       np.abs(uv[:, 1] - shape[0])))
+        check(bool((margin <= DS_FOV_EDGE_PX).all()),
+              f"data_kitti_tree frame {idx}: {int(diff.sum())} points differ "
+              f"from kitti_scene's crop, up to {margin.max(initial=0)} px from an edge")
+        edge_points += int(diff.sum())
+        frame = ds[j]
+        frames.append({"frame": idx, "points": len(points),
+                       "points_in_fov": int(mine.sum()),
+                       "edge_points": int(diff.sum()),
+                       "voxels": int((frame["voxel_num_points"] > 0).sum()),
+                       "objects": len(info["annos"]["name"])})
+    emit("data_kitti_tree", config="kitti_models/second.yaml",
+         dataset="KittiDataset", written_s=write_s, create_infos_s=infos_s,
+         labelled=labelled, infos=in_gt, gt_database=db,
+         fov_edge_points=edge_points, fov_edge_px=DS_FOV_EDGE_PX,
+         frames=frames)
+
+    # ---------------------------------------------------- eval_kitti_second
+    torch.manual_seed(SEED)
+    model = build_network(cfg.MODEL, len(names), ds, device=dev)
+    with torch.no_grad():
+        model.dense_head.conv_cls.bias.zero_()
+    strict_f32(True)
+    calibrate_bns(model, load_data_to_device(next(iter(loader)), device=dev))
+    ckpt = save_checkpoint(Path(tmp) / "second_seeded.pth", model)
+    del model
+    runs = {}
+    for run, extra, impl in (("f32", ["--save_to_file"], None),
+                             ("f32_plain", [], "plain")):
+        runs[run] = run_test_cli(DS_KITTI_CFG, root, f"chip_{run}", dev,
+                                 ["--ckpt", str(ckpt), *extra], impl)
+    strict_f32(False)
+    runs["bf16"] = run_test_cli(DS_KITTI_CFG, root, "chip_bf16", dev,
+                                ["--ckpt", str(ckpt), "--bf16"])
+    forwards = -(-DS_KITTI_FRAMES // 2)       # the CLI's batch 2
+    for run, r in runs.items():
+        check(held_launches(r[4], run, DS_CONVS["second"] * forwards,
+                            forwards), f"eval_kitti_second {run}: launches "
+                                       f"{r[4]}")
+    ret_k, annos_k, texts, _, _ = runs["f32"]
+    ret_p, annos_p = runs["f32_plain"][:2]
+    matched, slots = same_slots(annos_k, annos_p)
+    check(slots > 0 and matched >= 0.99 * slots,
+          f"eval_kitti_second: kernels vs plain {matched}/{slots} slots")
+    ap_keys = [k for k in ret_k if "_R40" in k]
+    ap_diff = max(abs(ret_k[k] - ret_p[k]) for k in ap_keys)
+    check(ap_diff <= 1e-6, f"eval_kitti_second: AP dicts differ by {ap_diff}")
+    # one result file a frame, each equal to its annos to 4 decimals
+    check(sorted(texts) == val_ids, f"result files {sorted(texts)}")
+    file_err = 0.0
+    for anno in annos_k:
+        rows = [line.split() for line in
+                texts[anno["frame_id"]].splitlines()]
+        check([r[0] for r in rows] == list(anno["name"]),
+              f"result file {anno['frame_id']}: names differ")
+        back = np.array([[float(v) for v in r[3:]] for r in rows],
+                        np.float64).reshape(-1, 13)
+        want = np.concatenate([anno["alpha"][:, None], anno["bbox"],
+                               anno["dimensions"][:, [1, 2, 0]],
+                               anno["location"], anno["rotation_y"][:, None],
+                               anno["score"][:, None]], axis=1)
+        file_err = max(file_err, float(np.abs(back - want).max(initial=0)))
+    check(file_err <= 5e-5 + 1e-6, f"result files: {file_err} from annos")
+    # the gt boxes as detections, through their result files
+    gt_dir = Path(tmp) / "gt_as_detections"
+    dets, direct = [], []
+    for raw in loader:
+        gt = raw["gt_boxes"]
+        preds = {"final_boxes": gt[..., :7],
+                 "final_scores": np.ones(gt.shape[:2], np.float32),
+                 "final_labels": gt[..., 7], "final_valid": gt[..., 7] > 0}
+        direct += ds.generate_prediction_dicts(raw, preds, names,
+                                               output_path=gt_dir)
+    dets = read_results(gt_dir / "final_result" / "data", val_ids)
+    _, gt_res = ds.evaluation(dets, names, device=dev)
+    _, gt_direct = ds.evaluation(direct, names, device=dev)
+    gt_annos = [info["annos"] for info in ds.kitti_infos]
+    ceilings, below = {}, []
+    for cls in names:
+        for d, diff_name in enumerate(("easy", "moderate", "hard")):
+            n = sum(kitti_eval._clean_data(
+                g, dt, kitti_eval.CLASS_NAMES.index(cls), d)[0]
+                for g, dt in zip(gt_annos, dets))
+            ceilings[f"{cls}/{diff_name}"] = {
+                "valid_gt": n,
+                "ap_r40_ceiling": 100.0 * (min(n, 41) - 1) / 40 if n else 0.0}
+    for key, ap in gt_res.items():
+        if "aos" in key:
+            continue
+        want = ceilings[f"{key.split('_')[0]}/{key.split('/')[1][:-4]}"]
+        if abs(ap - want["ap_r40_ceiling"]) > 1e-9:
+            below.append((key, ap, want))
+    check(not below, f"eval_kitti_second: gt as detections below the "
+                     f"AP_R40 ceiling: {below}")
+    # the rotated IoU of each gt with its own unrounded round trip
+    from q3d_tpu_torch.datasets.kitti.kitti_eval import frame_overlaps
+    zero_iou = sum(int((np.diag(ov) == 0).sum()) for ov in frame_overlaps(
+        gt_annos, [{k: d[k] for k in ("location", "dimensions", "rotation_y")}
+                   for d in direct], 1, dev) if len(ov))
+    emit("eval_kitti_second", config="kitti_models/second.yaml",
+         entry="q3d_tpu_torch.tools.test --save_to_file", frames=len(ds),
+         batch=2, weights="seeded (torch.manual_seed), conv_cls bias 0, BN "
+         "statistics from the first batch", mode=mode(),
+         runs={run: {"seconds": r[3], "launches": r[4],
+                     "infer_time_ms": r[0]["infer_time_ms"],
+                     "detections": int(sum(len(a["name"]) for a in r[1])),
+                     "ap": {k: r[0][k] for k in ap_keys}}
+               for run, r in runs.items()},
+         kernels_vs_plain={"slots_matched": matched, "slots": slots,
+                           "ap_max_abs_diff": ap_diff},
+         result_files=len(texts), result_file_max_abs_err=file_err,
+         gt_as_detections={"ap": gt_res, "ceilings": ceilings,
+                           "unrounded_ap": gt_direct,
+                           "unrounded_zero_bev_iou": zero_iou})
+
+    # ----------------------------------------------------- train_kitti_tree
+    history, placed, train_frames, run_s = run_train_cli(
+        DS_KITTI_CFG, root, "chip_train", dev, conv_k, ["--epochs", "2"])
+    bs = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    n_steps = 2 * (DS_KITTI_FRAMES // bs)
+    check(len(history) == n_steps and all(np.isfinite(h["loss"])
+                                          for h in history),
+          f"train_kitti_tree: {[h['loss'] for h in history]}")
+    check(len(placed) == n_steps * bs and sum(placed) > 0,
+          f"train_kitti_tree: gt sampling placed {placed}")
+    check(all(h["launches_forward"] == DS_CONVS["second"] and
+              h["launches_dx"] == DS_CONVS["second"] - 1 for h in history),
+          f"train_kitti_tree: launches "
+          f"{[(h['launches_forward'], h['launches_dx']) for h in history]}")
+    emit("train_kitti_tree", config="kitti_models/second.yaml",
+         entry="q3d_tpu_torch.tools.train --epochs 2", batch=bs,
+         frames=train_frames[0], steps=len(history), mode=mode(),
+         placed_per_frame=placed, run_s=run_s,
+         steps_detail=[{k: h[k] for k in (
+             "loss", "host_ms", "forward_ms", "backward_ms", "optimizer_ms",
+             "peak_mib", "launches_forward", "launches_dx")}
+             for h in history])
+    return {"conv": {f"eval_kitti_second_{run}": r[4]["sparse_gather_conv_"
+                     + ("bf16" if run == "bf16" else "f32")]
+                     for run, r in runs.items() if run != "f32_plain"},
+            "nms": {f"eval_kitti_second_{run}": r[4]["greedy_nms_boxes"]
+                    for run, r in runs.items() if run != "f32_plain"},
+            "train_conv": sum(h["launches_forward"] + h["launches_dx"]
+                              for h in history)}
+
+
+def nuscenes_tree_phases(dev, conv_k, nms_k, mode, strict_f32, flush,
+                         clock_mhz, tmp):
+    """Phases ``data_nuscenes_tree``, ``eval_nuscenes_centerpoint`` (with
+    ``kernel_conv`` on the first batch's 21 convs and
+    ``kernel_nms_flagship`` on its 12 candidate sets), and
+    ``train_nuscenes_tree`` (see the module docstring) -> launches, and
+    kernel 1's and kernel 2's rows for the kernels line."""
+    import numpy as np
+    import torch
+    from q3d_tpu_torch.config import EDict, cfg_from_yaml_file
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.datasets.nuscenes.nuscenes_dataset import \
+        NuScenesDataset
+    from q3d_tpu_torch.datasets.nuscenes.nuscenes_infos import \
+        create_groundtruth_database
+    from q3d_tpu_torch.datasets.nuscenes_synthetic import (
+        SCENE, write_nuscenes_tree)
+    from q3d_tpu_torch.models import build_network, load_data_to_device
+    from q3d_tpu_torch.ops.iou3d_nms import greedy_nms as nms_mod
+    from q3d_tpu_torch.utils.bn_calibration import calibrate_bns
+    from q3d_tpu_torch.utils.checkpoint import save_checkpoint
+
+    root = Path(tmp) / "nuscenes"
+    cfg = cfg_from_yaml_file(str(DS_NU_CFG), EDict())
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    names = list(cfg.CLASS_NAMES)
+    sweeps = int(cfg.DATA_CONFIG.MAX_SWEEPS)
+    cap = int(cfg.DATA_CONFIG.DATA_PROCESSOR[-1].MAX_NUMBER_OF_VOXELS.test)
+    # --------------------------------------------------- data_nuscenes_tree
+    t0 = time.perf_counter()
+    write_nuscenes_tree(root, DS_NU_FRAMES, SEED + 200, split="val",
+                        sweeps=sweeps)
+    write_nuscenes_tree(root, DS_NU_FRAMES, SEED + 300, split="train",
+                        sweeps=sweeps)
+    write_s = time.perf_counter() - t0
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, names, 2,
+                                     training=False)
+    check(type(ds).__name__ == "NuScenesDataset" and len(ds) == DS_NU_FRAMES,
+          f"the flagship config's dataset: {type(ds).__name__}, {len(ds)}")
+    frames = []
+    lo = np.asarray(cfg.DATA_CONFIG.POINT_CLOUD_RANGE[:3], np.float32)
+    for j in range(len(ds)):
+        t0 = time.perf_counter()
+        frame = ds[j]
+        load_ms = (time.perf_counter() - t0) * 1e3
+        pts = frame["points"]
+        cells = np.floor((pts[:, :3] - lo) / ds.voxel_size).astype(np.int64)
+        inside = ((cells >= 0) & (cells < ds.grid_size)).all(1)
+        frames.append({"frame": frame["frame_id"],
+                       "points": int(len(ds.get_lidar_with_sweeps(
+                           j, max_sweeps=sweeps))),
+                       "points_in_range": int(inside.sum()),
+                       "voxels_occupied": len(np.unique(cells[inside],
+                                                        axis=0)),
+                       "voxels_kept": int((frame["voxel_num_points"] > 0)
+                                          .sum()),
+                       "point_features": int(frame["voxels"].shape[-1]),
+                       "time_lags": len(np.unique(frame["points"][:, 4])),
+                       "gt": int((frame["gt_boxes"][:, -1] > 0).sum()),
+                       "loader_host_ms": load_ms})
+    check(all(f["voxels_kept"] == f["voxels_occupied"] < cap
+              and f["point_features"] == 5 and f["time_lags"] == sweeps
+              for f in frames), f"data_nuscenes_tree: {frames} (cap {cap})")
+    train_ds = NuScenesDataset(cfg.DATA_CONFIG, names, training=True,
+                               rng=np.random.RandomState(SEED))
+    train_ds.include_nuscenes_data("train")          # without CBGS
+    t0 = time.perf_counter()
+    db_path = create_groundtruth_database(train_ds, max_sweeps=sweeps)
+    db_s = time.perf_counter() - t0
+    import pickle
+    with open(db_path, "rb") as f:
+        db = {k: len(v) for k, v in pickle.load(f).items()}
+    check(sorted(db) == sorted(names), f"nuScenes gt database: {db}")
+    emit("data_nuscenes_tree",
+         config="nuscenes_models/cbgs_voxel0075_res3d_centerpoint.yaml",
+         dataset="NuScenesDataset", scene=SCENE, sweeps=sweeps,
+         written_s=write_s, gt_database_s=db_s, gt_database=db,
+         voxel_cap=cap, frames=frames,
+         loader_host_ms_median=statistics.median(
+             f["loader_host_ms"] for f in frames))
+
+    # -------------------------------------------- eval_nuscenes_centerpoint
+    torch.manual_seed(SEED)
+    model = build_network(cfg.MODEL, len(names), ds, device=dev)
+    strict_f32(True)
+    first = next(iter(loader))
+    batch = load_data_to_device(first, device=dev)
+    calibrate_bns(model, batch)
+    ckpt = save_checkpoint(Path(tmp) / "centerpoint_seeded.pth", model)
+    outs = {}
+    with torch.no_grad():
+        for impl in ("cuda", "plain"):
+            model.set_kernel_impl(impl)
+            clear_launches(conv_k, nms_k)
+            outs[impl] = {k: v.cpu() for k, v in model(dict(batch)).items()
+                          if k.startswith("final_")}
+            outs[impl + "_launches"] = kernel_launches(conv_k, nms_k)
+        model.set_kernel_impl(None)
+    check(held_launches(outs["cuda_launches"], "f32", DS_CONVS["centerpoint"],
+                        1) and held_launches(outs["plain_launches"], "plain",
+                                             0, 0),
+          f"eval_nuscenes_centerpoint: first batch launches "
+          f"{outs['cuda_launches']}, plain {outs['plain_launches']}")
+    k_, p_ = outs["cuda"], outs["plain"]
+    valid_equal = torch.equal(k_["final_valid"], p_["final_valid"])
+    v = k_["final_valid"]
+    slot_box = float((k_["final_boxes"][v] - p_["final_boxes"][v]).abs()
+                     .max()) if v.any() else 0.0
+    slot_score = float((k_["final_scores"][v] - p_["final_scores"][v]).abs()
+                       .max()) if v.any() else 0.0
+    check(valid_equal and bool(v.any()) and torch.equal(
+        k_["final_labels"][v], p_["final_labels"][v]) and slot_box <= 1e-3
+        and slot_score <= 1e-4,
+        f"eval_nuscenes_centerpoint: kernels vs plain slots: valid equal "
+        f"{valid_equal}, box {slot_box}, score {slot_score}")
+    # kernel 1 on the first batch's 21 convs, kernel 2 on its 12 sets
+    convs, out_ref = record_sparse_convs(model, batch)
+    check(len(convs) == DS_CONVS["centerpoint"],
+          f"flagship: {len(convs)} sparse convs recorded")
+    totals, worst, _ = kernel_conv(convs, flush, mode,
+                                   "cbgs_voxel0075_res3d_centerpoint")
+    del convs
+    head = model.dense_head
+    nms_cfg = head.model_cfg.POST_PROCESSING.NMS_CONFIG
+    with torch.no_grad():
+        cand = head._decode(out_ref["pred_dicts"])
+    kc = min(int(nms_cfg.NMS_PRE_MAXSIZE), cand[0].shape[1])
+    bx, bv = cand[0][:, :kc, :7].contiguous(), cand[3][:, :kc].contiguous()
+    thresh = float(nms_cfg.NMS_THRESH)
+    near, needed, most = check_boxes_form(bx, bv, thresh, "flagship")
+    corners, areas = nms_mod.bev_corners_areas(bx)
+    terms = boxes_bound(*bv.shape, needed, near, clock_mhz)
+    nms_row = {"entry": "q3d_greedy_nms_boxes", "sets": int(bv.shape[0]),
+               "K": int(bv.shape[1]), "valid": int(bv.sum()),
+               "candidate_pairs": needed, "near_pairs": near,
+               "near_pairs_most_in_a_tile": most,
+               "ms": time_ms(lambda: nms_mod.greedy_suppress_boxes_cuda(
+                   corners, areas, bv, thresh), flush=flush),
+               "plain_ms": time_ms(lambda: nms_mod.greedy_suppress_boxes_plain(
+                   bx, bv, thresh), reps=3, flush=flush),
+               **{f"{k}_ms": v for k, v in terms.items()}}
+    nms_row["bound_by"] = max(terms, key=terms.get)
+    nms_row["bound_ms"] = terms[nms_row["bound_by"]]
+    emit("kernel_nms_flagship", form="boxes", **nms_row, max_abs_err=0,
+         mode=mode(), clock_max_sm_mhz=clock_mhz,
+         config="nuscenes_models/cbgs_voxel0075_res3d_centerpoint.yaml",
+         tolerance="keep masks exactly equal, IoU bit-equal at every "
+         "evaluated pair, plain IoU exactly 0 at every skipped needed pair")
+    del out_ref, cand, corners, areas
+    strict_f32(False)
+    bf16 = load_data_to_device(first, device=dev, compute_dtype=torch.bfloat16)
+    stages = stage_times(model, bf16)
+    del model, batch, bf16
+    torch.cuda.empty_cache()
+    runs = {}
+    for run, extra in (("bf16", ["--bf16"]), ("int8", ["--quant", "int8"])):
+        runs[run] = run_test_cli(DS_NU_CFG, root, f"chip_{run}", dev,
+                                 ["--ckpt", str(ckpt), *extra])
+    # the int8 run's quantize_model takes one calibration forward more
+    forwards = -(-DS_NU_FRAMES // 2)
+    for run, r in runs.items():
+        n = forwards + (run == "int8")
+        check(held_launches(r[4], run, DS_CONVS["centerpoint"] * n, n),
+              f"eval_nuscenes_centerpoint {run}: launches {r[4]}")
+    gts = []
+    for info in ds.infos:
+        gts.append({"frame_id": Path(info["lidar_path"]).stem,
+                    "boxes": info["gt_boxes"], "names": info["gt_names"],
+                    "scores": np.ones(len(info["gt_boxes"]))})
+    _, gt_res = ds.evaluation(gts, names)
+    check(abs(gt_res["mAP"] - 1.0) <= 1e-9,
+          f"eval_nuscenes_centerpoint: gt as detections mAP {gt_res['mAP']}")
+    emit("eval_nuscenes_centerpoint",
+         config="nuscenes_models/cbgs_voxel0075_res3d_centerpoint.yaml",
+         entry="q3d_tpu_torch.tools.test", frames=len(ds), batch=2,
+         sweeps=sweeps, weights="seeded (torch.manual_seed), BN statistics "
+         "from the first batch", mode=mode(),
+         kernels_vs_plain={"valid_equal": valid_equal,
+                           "detections": int(v.sum()),
+                           "box_max_abs_diff": slot_box,
+                           "score_max_abs_diff": slot_score,
+                           "launches": outs["cuda_launches"]},
+         runs={run: {"seconds": r[3], "launches": r[4],
+                     "forwards": forwards + (run == "int8"),
+                     "launches_per_forward": {
+                         "sparse_gather_conv": sum(
+                             n for k, n in r[4].items()
+                             if k.startswith("sparse_gather_conv"))
+                         / (forwards + (run == "int8")),
+                         "greedy_nms_boxes": r[4]["greedy_nms_boxes"]
+                         / (forwards + (run == "int8"))},
+                     "infer_time_ms": r[0]["infer_time_ms"],
+                     "detections": int(sum(len(a["name"]) for a in r[1])),
+                     "metrics": {k: r[0][k] for k in ("NDS", "mAP")}}
+               for run, r in runs.items()},
+         gt_as_detections={k: gt_res[k] for k in ("NDS", "mAP")},
+         stages_bf16_ms=stages)
+
+    # -------------------------------------------------- train_nuscenes_tree
+    bs = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    history, placed, train_frames, run_s = run_train_cli(
+        DS_NU_CFG, root, "chip_train", dev, conv_k, ["--epochs", "1"],
+        steps=DS_NU_TRAIN_STEPS)
+    check(len(history) == DS_NU_TRAIN_STEPS and all(
+        np.isfinite(h["loss"]) for h in history),
+        f"train_nuscenes_tree: {[h['loss'] for h in history]}")
+    check(train_frames and train_frames[0] > DS_NU_FRAMES,
+          f"train_nuscenes_tree: CBGS gave {train_frames} frames")
+    check(len(placed) == DS_NU_TRAIN_STEPS * bs and sum(placed) > 0,
+          f"train_nuscenes_tree: gt sampling placed {placed}")
+    check(all(h["launches_forward"] == DS_CONVS["centerpoint"]
+              and h["launches_dx"] == DS_CONVS["centerpoint"] - 1
+              for h in history),
+          f"train_nuscenes_tree: launches "
+          f"{[(h['launches_forward'], h['launches_dx']) for h in history]}")
+    emit("train_nuscenes_tree",
+         config="nuscenes_models/cbgs_voxel0075_res3d_centerpoint.yaml",
+         entry="q3d_tpu_torch.tools.train, stopped after "
+               f"{DS_NU_TRAIN_STEPS} steps", batch=bs,
+         frames_after_cbgs=train_frames[0], steps=len(history), mode=mode(),
+         placed_per_frame=placed, run_s=run_s,
+         steps_detail=[{k: h[k] for k in (
+             "loss", "host_ms", "forward_ms", "backward_ms", "optimizer_ms",
+             "peak_mib", "launches_forward", "launches_dx")}
+             for h in history])
+    conv = {f"eval_nuscenes_centerpoint_{run}": sum(
+        n for k, n in r[4].items() if k.startswith("sparse_gather_conv"))
+        for run, r in runs.items()}
+    bf16_launches = conv["eval_nuscenes_centerpoint_bf16"]
+    conv_row = {
+        "name": "sparse_gather_conv_flagship", "route": "cuda",
+        "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
+        "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",
+        "use": "nuscenes_models/cbgs_voxel0075_res3d_centerpoint.yaml as "
+               "written, 10 sweeps, 5 point features (tools/test.py --bf16)",
+        "launches": bf16_launches, "max_abs_err": worst["bf16"],
+        "ms": totals["ms"], "plain_ms": totals["plain_ms"],
+        "bound_ms": totals["bound_ms"],
+        "bound_by": "bytes" if totals["bytes_ms"] >= totals["ops_ms"]
+        else "operations", "library_ms": totals["library_ms"],
+        "checks": "passed",
+        "times_cover": "the first batch's 21 convs (batch 2, f32 features "
+                       "cast per dtype; the bf16 numbers)"}
+    nms_kernel_row = {
+        "name": "greedy_nms_flagship", "route": "cuda",
+        "source": "q3d_tpu_torch/csrc/greedy_nms.cu",
+        "replaces": "q3d_tpu/ops/iou3d_nms/pallas_nms.py:45",
+        "entry": "q3d_greedy_nms_boxes",
+        "use": conv_row["use"],
+        "launches": runs["bf16"][4]["greedy_nms_boxes"], "max_abs_err": 0.0,
+        "ms": nms_row["ms"], "plain_ms": nms_row["plain_ms"],
+        "bound_ms": nms_row["bound_ms"], "bound_by": nms_row["bound_by"],
+        "library_ms": None, "checks": "passed",
+        "times_cover": f"the first batch's {nms_row['sets']} candidate sets "
+                       f"(K={nms_row['K']})"}
+    return {"conv": conv,
+            "nms": {f"eval_nuscenes_centerpoint_{run}":
+                    r[4]["greedy_nms_boxes"] for run, r in runs.items()},
+            "train_conv": sum(h["launches_forward"] + h["launches_dx"]
+                              for h in history),
+            "rows": [conv_row, nms_kernel_row]}
+
+
+def dataset_phases(dev, conv_k, nms_k, mode, strict_f32, flush, clock_mhz):
+    """The KITTI and nuScenes tree phases in a temporary directory ->
+    their launches by path and the flagship's kernel rows, for the kernels
+    line."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        kitti = kitti_tree_phases(dev, conv_k, nms_k, mode, strict_f32, tmp)
+        nu = nuscenes_tree_phases(dev, conv_k, nms_k, mode, strict_f32,
+                                  flush, clock_mhz, tmp)
+    conv = {**kitti["conv"], **nu["conv"],
+            "train_kitti_tree": kitti["train_conv"],
+            "train_nuscenes_tree": nu["train_conv"]}
+    return {"conv": conv, "nms": {**kitti["nms"], **nu["nms"]},
+            "rows": nu["rows"]}
+
+
 def ptxas_spills(libraries):
     """From each build's ``-Xptxas -v`` log: the kernels that spill ->
     [{library, kernel (mangled), registers, spill stores, spill loads}]."""
@@ -6616,6 +7364,15 @@ def main():
                                  flush, clock_mhz)
           for name in ("pvrcnn", "voxelrcnn")}
 
+    # ======================================== KITTI and nuScenes on disk
+    # trees in each dataset's format, read through the port's entry points:
+    # create_infos, the test CLI (SECOND on KITTI with the official AP
+    # evaluator; the flagship CenterPoint at 10 sweeps, bf16 and int8) and
+    # the train CLI (gt sampling from the written databases, CBGS)
+    torch.cuda.empty_cache()
+    datasets = dataset_phases(dev, conv_k, nms_k, mode, strict_f32, flush,
+                              clock_mhz)
+
     # ---------------------------------------------------------- kernels line
     kernels = [
         {"name": "sparse_gather_conv", "route": "cuda",
@@ -6637,6 +7394,7 @@ def main():
          "launches_pillarnet": pn["launches"]["sparse_gather_conv_bf16"],
          "launches_two_stage": {n: v["launches"]["sparse_gather_conv_bf16"]
                                 for n, v in ts.items()},
+         "launches_datasets": datasets["conv"],
          "transfusion": {"ms": tf["totals"]["ms"],
                          "plain_ms": tf["totals"]["plain_ms"],
                          "bound_ms": tf["totals"]["bound_ms"],
@@ -6712,6 +7470,7 @@ def main():
         *lyft_kernel_rows(lyft),
         *pillarnet_kernel_rows(pn),
         *two_stage_kernel_rows(ts),
+        *datasets["rows"],
         {"name": "sparse_gather_conv_s8_requant", "route": "cuda",
          "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
          "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",
@@ -6761,6 +7520,7 @@ def main():
          "launches_pillarnet": pn["launches"]["greedy_nms_boxes"],
          "launches_two_stage": {n: v["launches"]["greedy_nms_boxes"]
                                 for n, v in ts.items()},
+         "launches_datasets": datasets["nms"],
          "voxelnext": {k: vn["nms"][k] for k in (
              "sets", "K", "ms", "plain_ms", "bound_ms", "bound_by")},
          "k4096": {n: {k: r[k] for k in ("sets", "K", "ms", "plain_ms",

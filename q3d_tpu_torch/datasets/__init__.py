@@ -6,9 +6,13 @@ static-shape ``collate_batch``; batches stay numpy until
 import numpy as np
 
 from .dataset import DatasetTemplate
+from .kitti.kitti_dataset import KittiDataset
+from .nuscenes.nuscenes_dataset import NuScenesDataset
 from .synthetic_dataset import SyntheticDataset
 
 _REGISTRY = {"DatasetTemplate": DatasetTemplate,
+             "KittiDataset": KittiDataset,
+             "NuScenesDataset": NuScenesDataset,
              "SyntheticDataset": SyntheticDataset}
 
 
@@ -47,6 +51,12 @@ class SimpleLoader:
 
 def build_dataloader(dataset_cfg, class_names, batch_size, root_path=None,
                      logger=None, training=True, seed=None):
+    """-> (dataset, loader, None); raises on a dataset the port does not
+    read yet (ROADMAP.md)."""
+    if dataset_cfg.DATASET not in _REGISTRY:
+        raise KeyError(f"dataset {dataset_cfg.DATASET} is not ported to "
+                       f"q3d_tpu_torch yet (ROADMAP.md); it reads "
+                       f"{sorted(_REGISTRY)}")
     dataset_cls = _REGISTRY[dataset_cfg.DATASET]
     dataset = dataset_cls(dataset_cfg=dataset_cfg, class_names=class_names,
                           root_path=root_path, training=training, logger=logger)

@@ -9,8 +9,8 @@ placed boxes (enlarged by ``REMOVE_EXTRA_WIDTH``), road-plane lifting
 The database is the reference's: a pickle ``{class_name: [{name, path,
 box3d_lidar (7,), num_points_in_gt, difficulty[, global_data_offset]}]}``
 whose ``path`` holds an object's (N, C) float32 points relative to its box
-centre (``.npy``, or raw float32 with ``num_features`` columns, 4 by
-default), or an integrated ``.npy`` (``DB_DATA_PATH``) that the infos'
+centre (``.npy``, or raw float32 with ``num_features`` columns, else the
+config's ``NUM_POINT_FEATURES``, else 4), or an integrated ``.npy`` (``DB_DATA_PATH``) that the infos'
 ``global_data_offset`` slice, memory-mapped and checked once against the
 largest offset.  A database that is not there logs a warning, and the
 sampler then places nothing.  Draws (the groups' shuffles) come from
@@ -231,5 +231,9 @@ class DataBaseSampler:
             return None
         if str(p).endswith(".npy"):
             return np.load(p).astype(np.float32)
-        num_feats = int(info.get("num_features", 4))
+        # the nuScenes database's infos carry no num_features: its points
+        # have the config's NUM_POINT_FEATURES columns (the reference
+        # reshapes them into 4, ROADMAP.md section 3)
+        num_feats = int(info.get("num_features", self.sampler_cfg.get(
+            "NUM_POINT_FEATURES", 4)))
         return np.fromfile(p, np.float32).reshape(-1, num_feats)

@@ -18,6 +18,13 @@ raw points), the points of each frame padded to it (reference :133-143):
     points_mask       (B, N)       bool
 A frame with more points than the cap keeps its first ``MAX_RAW_POINTS``.
 Without the key the raw points are not collated: no other model reads them.
+The real datasets' frame keys collate as the reference's do (:144-146):
+``calib`` stays a list of ``Calibration`` objects, ``frame_id``,
+``metadata`` and ``image_shape`` become arrays.
+
+Every random draw of the pipeline (the augmentor, the point shuffle, the
+empty-frame replacement) comes from ``rng`` (a ``np.random.RandomState``;
+by default numpy's global one, which the reference draws from).
 """
 
 from collections import defaultdict
@@ -33,11 +40,12 @@ from .processor.data_processor import DataProcessor
 
 class DatasetTemplate:
     def __init__(self, dataset_cfg=None, class_names=None, training=True,
-                 root_path=None, logger=None):
+                 root_path=None, logger=None, rng=None):
         self.dataset_cfg = dataset_cfg
         self.training = training
         self.class_names = class_names
         self.logger = logger
+        self.rng = rng if rng is not None else np.random.mtrand._rand
         if dataset_cfg is None or class_names is None:
             return
         self.root_path = Path(root_path if root_path is not None
@@ -50,11 +58,12 @@ class DatasetTemplate:
         if training and dataset_cfg.get("DATA_AUGMENTOR", None) is not None:
             self.data_augmentor = DataAugmentor(
                 self.root_path, dataset_cfg.DATA_AUGMENTOR, self.class_names,
-                logger=logger)
+                logger=logger, rng=self.rng)
         self.data_processor = DataProcessor(
             dataset_cfg.DATA_PROCESSOR, point_cloud_range=self.point_cloud_range,
             training=self.training,
-            num_point_features=self.point_feature_encoder.num_point_features)
+            num_point_features=self.point_feature_encoder.num_point_features,
+            rng=self.rng)
         self.grid_size = self.data_processor.grid_size
         self.voxel_size = self.data_processor.voxel_size
         self.max_gt_boxes = int(dataset_cfg.get("MAX_GT_BOXES", 128))
@@ -97,7 +106,7 @@ class DatasetTemplate:
             data_dict = self.point_feature_encoder.forward(data_dict)
         data_dict = self.data_processor.forward(data_dict)
         if self.training and len(data_dict.get("gt_boxes", [])) == 0:
-            return self.__getitem__(np.random.randint(self.__len__()))
+            return self.__getitem__(self.rng.randint(self.__len__()))
         data_dict.pop("gt_names", None)
         return data_dict
 
@@ -133,7 +142,15 @@ class DatasetTemplate:
                     out[i, :k] = v[:k]
                     mask[i, :k] = True
                 ret["points"], ret["points_mask"] = out, mask
-            else:
+            elif key == "calib":
+                ret[key] = vals
+            elif key in ("frame_id", "metadata", "image_shape", "num_voxels",
+                         "use_lead_xyz"):
                 ret[key] = np.array(vals)
+            else:
+                try:
+                    ret[key] = np.stack(vals, axis=0)
+                except ValueError:
+                    ret[key] = vals
         ret["batch_size"] = batch_size
         return ret

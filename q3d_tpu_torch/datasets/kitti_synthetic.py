@@ -16,6 +16,13 @@ repository: ``write_gt_database`` writes one in the reference's format
 from the labelled objects of such synthetic frames (test data, of another
 seed than the frames it is pasted into), for the augmentor's
 ``gt_sampling``.
+
+``write_kitti_tree`` writes such frames as a KITTI tree on disk (the whole
+scans, the calibration of ``CAMERA``, the labels of the objects
+``kitti_scene`` labels, in the camera frame with their 2D boxes), for
+``KittiDataset``, ``create_infos kitti`` and the CLIs; ``read_results``
+reads result files back into the evaluator's annos, as KITTI's official
+evaluation reads them.
 """
 
 import pickle
@@ -24,7 +31,9 @@ from pathlib import Path
 import numpy as np
 
 from ..config import EDict, cfg_from_yaml_file
+from ..utils import box_utils, object3d_kitti
 from ..utils.box_utils import points_in_boxes_cpu
+from ..utils.calibration_kitti import Calibration
 from .synthetic_dataset import make_scene
 
 KITTI_DIR = Path(__file__).resolve().parents[2] / "tools" / "cfgs" / \
@@ -154,3 +163,118 @@ def write_gt_database(ds, out_dir):
     with open(out_dir / "kitti_dbinfos_train.pkl", "wb") as f:
         pickle.dump(infos, f)
     return {k: len(v) for k, v in infos.items()}
+
+
+def camera_calibration():
+    """CAMERA as a KITTI calibration: P2 (no baseline), R0_rect the
+    identity, Tr_velo_to_cam the lidar -> camera axis swap (camera x =
+    -lidar y, y = -lidar z, z = lidar x) plus ``t_velo_to_cam``."""
+    c = CAMERA
+    p2 = np.array([[c["fx"], 0.0, c["cx"], 0.0], [0.0, c["fy"], c["cy"], 0.0],
+                   [0.0, 0.0, 1.0, 0.0]])
+    v2c = np.array([[0.0, -1.0, 0.0, 0.0], [0.0, 0.0, -1.0, 0.0],
+                    [1.0, 0.0, 0.0, 0.0]])
+    v2c[:, 3] = c["t_velo_to_cam"]
+    return {"P2": p2, "P3": p2, "R0": np.eye(3), "Tr_velo2cam": v2c}
+
+
+def _calib_text(calib):
+    def row(m):
+        return " ".join(f"{v:.12e}" for v in np.asarray(m).reshape(-1))
+    return (f"P0: {row(calib['P2'])}\nP1: {row(calib['P2'])}\n"
+            f"P2: {row(calib['P2'])}\nP3: {row(calib['P3'])}\n"
+            f"R0_rect: {row(calib['R0'])}\n"
+            f"Tr_velo_to_cam: {row(calib['Tr_velo2cam'])}\n"
+            f"Tr_imu_to_velo: {row(calib['Tr_velo2cam'])}\n")
+
+
+def kitti_labels(boxes, names, calib):
+    """Lidar boxes (N, 7) and names -> KITTI label lines: the camera box
+    (bottom centre, h w l, ry), its projected 2D box clipped to the image
+    and the truncation (the share of the projected box outside the image),
+    occlusion 0, alpha as the prediction export computes it; 4 decimals."""
+    if not len(boxes):
+        return []
+    shape = (CAMERA["height"], CAMERA["width"])
+    cam = box_utils.boxes3d_lidar_to_kitti_camera(boxes.astype(np.float64),
+                                                  calib)
+    full = box_utils.boxes3d_kitti_camera_to_imageboxes(cam, calib)
+    clipped = box_utils.boxes3d_kitti_camera_to_imageboxes(cam, calib, shape)
+
+    def area(b):
+        return np.maximum(b[:, 2] - b[:, 0], 0) * np.maximum(b[:, 3] - b[:, 1],
+                                                             0)
+    trunc = np.clip(1.0 - area(clipped) / np.maximum(area(full), 1e-9), 0, 1)
+    alpha = -np.arctan2(-boxes[:, 1], boxes[:, 0]) + cam[:, 6]
+    lines = []
+    for k, name in enumerate(names):
+        x1, y1, x2, y2 = clipped[k]
+        x, y, z, l, h, w, ry = cam[k]
+        lines.append(f"{name} {trunc[k]:.2f} 0 {alpha[k]:.4f} {x1:.4f} "
+                     f"{y1:.4f} {x2:.4f} {y2:.4f} {h:.4f} {w:.4f} {l:.4f} "
+                     f"{x:.4f} {y:.4f} {z:.4f} {ry:.4f}")
+    return lines
+
+
+def write_kitti_tree(ds, root, split_ids):
+    """Write the frames of ``ds`` (a SyntheticDataset at a KITTI geometry,
+    ``kitti_config``) as a KITTI tree under ``root``: ``split_ids`` maps a
+    split to its sample ids (6-digit strings), which take the frames of
+    ``ds`` in turn across the splits.  For each: ``training/velodyne/
+    <id>.bin`` (the whole scan, float32 x, y, z, intensity),
+    ``training/calib/<id>.txt`` (``camera_calibration``), ``training/
+    label_2/<id>.txt`` (``kitti_labels`` of the objects ``kitti_scene``
+    labels), and ``ImageSets/<split>.txt`` -> {split: objects labelled}."""
+    root = Path(root)
+    split_dir = root / "training"
+    for sub in ("velodyne", "calib", "label_2"):
+        (split_dir / sub).mkdir(parents=True, exist_ok=True)
+    (root / "ImageSets").mkdir(parents=True, exist_ok=True)
+    calib_dict = camera_calibration()
+    calib = Calibration(calib_dict)
+    text = _calib_text(calib_dict)
+    j, labelled = 0, {}
+    for split, ids in split_ids.items():
+        labelled[split] = 0
+        for sid in ids:
+            points, boxes, names = make_scene(
+                np.random.RandomState(ds.base_seed + j), ds.point_cloud_range,
+                **ds.scene_kwargs)
+            seen = kitti_fov(boxes[:, :3])
+            points.astype(np.float32).tofile(split_dir / "velodyne"
+                                             / f"{sid}.bin")
+            (split_dir / "calib" / f"{sid}.txt").write_text(text)
+            lines = kitti_labels(boxes[seen], names[seen], calib)
+            (split_dir / "label_2" / f"{sid}.txt").write_text(
+                "".join(line + "\n" for line in lines))
+            labelled[split] += len(lines)
+            j += 1
+        (root / "ImageSets" / f"{split}.txt").write_text(
+            "".join(f"{sid}\n" for sid in ids))
+    return labelled
+
+
+def read_results(result_dir, frame_ids):
+    """KITTI result files (``<result_dir>/<frame>.txt``, the label layout
+    with a score) -> one anno a frame, in the evaluator's format (name,
+    truncated, occluded, alpha, bbox, dimensions l h w, location,
+    rotation_y, score)."""
+    annos = []
+    for fid in frame_ids:
+        objs = object3d_kitti.get_objects_from_label(
+            str(Path(result_dir) / f"{fid}.txt"))
+        annos.append({
+            "name": np.asarray([o.cls_type for o in objs]),
+            "truncated": np.asarray([o.truncation for o in objs]),
+            "occluded": np.asarray([o.occlusion for o in objs]),
+            "alpha": np.asarray([o.alpha for o in objs]),
+            "bbox": np.stack([o.box2d for o in objs]) if objs
+            else np.zeros((0, 4)),
+            "dimensions": np.asarray([[o.l, o.h, o.w] for o in objs])
+            .reshape(-1, 3),
+            "location": np.stack([o.loc for o in objs]) if objs
+            else np.zeros((0, 3)),
+            "rotation_y": np.asarray([o.ry for o in objs]),
+            "score": np.asarray([o.score for o in objs]),
+            "frame_id": fid})
+    return annos

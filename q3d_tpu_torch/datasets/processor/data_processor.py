@@ -3,7 +3,9 @@
 Port of the steps of ``q3d_tpu/datasets/processor/data_processor.py`` that
 the synthetic CenterPoint configs queue: range masking, point shuffling and
 voxelization, or only the grid's size for the dynamic VFEs
-(``calculate_grid_size``).  Outputs stay numpy, padded to capacity, until
+(``calculate_grid_size``).  The shuffle draws from ``rng`` (a
+``np.random.RandomState``; by default numpy's global one, which the
+reference draws from).  Outputs stay numpy, padded to capacity, until
 ``models.load_data_to_device`` moves them.
 """
 
@@ -17,7 +19,8 @@ from ...utils import common_utils, box_utils
 
 class DataProcessor:
     def __init__(self, processor_configs, point_cloud_range, training,
-                 num_point_features):
+                 num_point_features, rng=None):
+        self.rng = rng if rng is not None else np.random.mtrand._rand
         self.point_cloud_range = np.asarray(point_cloud_range, np.float32)
         self.training = training
         self.num_point_features = num_point_features
@@ -54,7 +57,7 @@ class DataProcessor:
             return partial(self.shuffle_points, config=config)
         if config.SHUFFLE_ENABLED[self.mode]:
             pts = data_dict["points"]
-            data_dict["points"] = pts[np.random.permutation(pts.shape[0])]
+            data_dict["points"] = pts[self.rng.permutation(pts.shape[0])]
         return data_dict
 
     def transform_points_to_voxels(self, data_dict=None, config=None):

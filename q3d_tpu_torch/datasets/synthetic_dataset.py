@@ -134,9 +134,11 @@ class SyntheticDataset(DatasetTemplate):
         }
         return self.prepare_data(data_dict=input_dict)
 
-    def generate_prediction_dicts(self, batch_dict, pred_arrays, class_names):
+    def generate_prediction_dicts(self, batch_dict, pred_arrays, class_names,
+                                  output_path=None):
         """pred_arrays: host numpy final_boxes/scores/labels/valid -> one
-        annotation dict per frame."""
+        annotation dict per frame (no result files: ``output_path`` is
+        not read)."""
         annos = []
         for b in range(pred_arrays["final_boxes"].shape[0]):
             v = pred_arrays["final_valid"][b].astype(bool)

@@ -7,11 +7,17 @@ fake-quant / SmoothQuant, or int8 deploy.  Each batch goes to the device,
 through one forward, is synchronised and trimmed to the host; the recall
 stats use the 3D IoU of the port's ``boxes_iou3d``; the latency meter skips
 the first tenth of the batches (at least one), as the reference does; the
-dataset's ``evaluation`` gives the metrics.  The reference's logging and
-result-file options have no caller here and are not ported.
+dataset's ``evaluation`` gives the metrics (rotated overlaps on the same
+device).  With ``result_dir`` the detections of every frame go to
+``result_dir/result.pkl``, and with ``save_to_file`` the dataset writes its
+result files there too (KITTI: ``final_result/data/<frame>.txt``), as the
+reference's ``eval_one_epoch`` does.  The reference's logging has no
+caller here and is not ported.
 """
 
+import pickle
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -55,13 +61,16 @@ def to_host(out):
 
 
 def eval_one_epoch(model, dataloader, dataset, class_names, cfg,
-                   device=None, per_frame=None, compute_dtype=None):
+                   device=None, per_frame=None, compute_dtype=None,
+                   result_dir=None, save_to_file=False):
     """Evaluate ``model`` over ``dataloader`` -> metrics dict (recall,
     the dataset's metrics, ``infer_time_ms``).  Runs on the card unless
     ``device="cpu"``; ``infer_time_ms`` is the host clock around a forward
     that ends in ``torch.cuda.synchronize()`` on the card.  ``per_frame``
     (a list) receives each batch's host arrays, in order;
-    ``compute_dtype`` (e.g. bf16) casts the float inputs."""
+    ``compute_dtype`` (e.g. bf16) casts the float inputs; ``result_dir``
+    receives ``result.pkl`` (the annos of every frame) and, with
+    ``save_to_file``, the dataset's result files."""
     device = resolve_device(device)
     metric = {"gt_num": 0}
     thresh_list = list(cfg.MODEL.POST_PROCESSING.get("RECALL_THRESH_LIST",
@@ -92,15 +101,23 @@ def eval_one_epoch(model, dataloader, dataset, class_names, cfg,
             per_frame.append(host)
         if "gt_boxes" in raw:
             statistics_info(host, raw["gt_boxes"], thresh_list, metric)
-        det_annos += dataset.generate_prediction_dicts(raw, host, class_names)
+        det_annos += dataset.generate_prediction_dicts(
+            raw, host, class_names,
+            output_path=result_dir if save_to_file else None)
 
     ret_dict = {}
     gt_num = max(metric["gt_num"], 1)
     for th in thresh_list:
         ret_dict[f"recall/rcnn_{th}"] = metric[f"recall_rcnn_{th}"] / gt_num
+    if result_dir is not None:
+        result_dir = Path(result_dir)
+        result_dir.mkdir(parents=True, exist_ok=True)
+        with open(result_dir / "result.pkl", "wb") as f:
+            pickle.dump(det_annos, f)
     _, result_dict = dataset.evaluation(
         det_annos, class_names,
-        eval_metric=cfg.MODEL.POST_PROCESSING.get("EVAL_METRIC", "default"))
+        eval_metric=cfg.MODEL.POST_PROCESSING.get("EVAL_METRIC", "default"),
+        device=device)
     ret_dict.update(result_dict)
     ret_dict["infer_time_ms"] = time_meter.avg
     return ret_dict

@@ -1,19 +1,23 @@
 """Evaluation CLI (port of ``tools/test.py``): one checkpoint's eval.
 
     python -m q3d_tpu_torch.tools.test --cfg_file CFG [--ckpt CKPT]
-        [--quant none|fake|int8] [--bf16] [--infer_time] [--device cpu]
-        [--set KEY VALUE ...]
+        [--quant none|fake|int8] [--bf16] [--infer_time] [--save_to_file]
+        [--device cpu] [--set KEY VALUE ...]
 
 ``--quant fake`` runs ``centerpoint_recipe()`` (dynamic SmoothQuant
 fake-quant), ``--quant int8`` runs ``int8_deploy_recipe()`` (dynamic
 per-tensor int8, no residency), as ``tools/test.py:80`` does.  ``--ckpt``
 takes the reference's native checkpoint or a pcdet ``.pth`` (such as the
-``checkpoint_epoch_{n}.pth`` files of ``tools/train.py``).  Not ported
-(``ROADMAP.md``): ``--eval_all``, the checkpoint watcher, and
-``--save_to_file``, the result files.
+``checkpoint_epoch_{n}.pth`` files of ``tools/train.py``).  The results
+go to ``output/<cfg group>/<cfg name>/<extra_tag>/eval/default`` under the
+repository root: ``result.pkl`` (every frame's annos) and, with
+``--save_to_file``, the dataset's result files (KITTI:
+``final_result/data/<frame>.txt``).  Not ported (``ROADMAP.md``):
+``--eval_all``, the checkpoint watcher.
 """
 
 import argparse
+from pathlib import Path
 
 
 def parse_config(argv=None):
@@ -40,6 +44,8 @@ def parse_config(argv=None):
 
     from ..config import EDict, cfg_from_list, cfg_from_yaml_file
     cfg = cfg_from_yaml_file(args.cfg_file, EDict())
+    cfg.TAG = Path(args.cfg_file).stem
+    cfg.EXP_GROUP_PATH = "/".join(Path(args.cfg_file).parts[-3:-1])
     if args.set_cfgs is not None:
         cfg_from_list(args.set_cfgs, cfg)
     return args, cfg
@@ -52,11 +58,9 @@ def main(argv=None):
         raise NotImplementedError(
             "--eval_all (the checkpoint watcher) is not ported yet "
             "(ROADMAP.md)")
-    if args.save_to_file:
-        raise NotImplementedError("--save_to_file (result files) is not "
-                                  "ported (ROADMAP.md)")
     import torch
 
+    from ..config import ROOT_DIR
     from ..datasets import build_dataloader
     from ..eval_utils import eval_one_epoch
     from ..models import build_network, load_data_to_device
@@ -78,8 +82,12 @@ def main(argv=None):
     if rules is not None:
         quantize_model(model, rules(), load_data_to_device(
             next(iter(test_loader)), device=args.device, compute_dtype=dtype))
+    result_dir = ROOT_DIR / "output" / cfg.EXP_GROUP_PATH / cfg.TAG \
+        / args.extra_tag / "eval" / "default"
     ret = eval_one_epoch(model, test_loader, test_set, names, cfg,
-                         device=args.device, compute_dtype=dtype)
+                         device=args.device, compute_dtype=dtype,
+                         result_dir=result_dir,
+                         save_to_file=args.save_to_file)
     if args.infer_time:
         logger.info(f"inference: {ret['infer_time_ms']:.2f} ms a batch")
     logger.info(f"eval result [{args.extra_tag}]: {ret}")

@@ -3,7 +3,9 @@ the data pipeline's range mask.
 
 Port of the parts of ``q3d_tpu/utils/box_utils.py`` the ported paths use,
 and of ``q3d_tpu/ops/roiaware_pool3d/roiaware_pool3d_utils.py::
-points_in_boxes_cpu``.  The data pipeline's functions take numpy arrays;
+points_in_boxes_cpu``.  The data pipeline's functions and the KITTI camera conversions (the
+dataset's prediction export and the official AP evaluator) take numpy
+arrays;
 ``boxes_iou_normal`` and ``boxes3d_nearest_bev_iou`` torch tensors (the
 target assigner's, on the device, and the gt sampler's), each computed in
 the reference's order of operations.  Box convention: (x, y,
@@ -127,3 +129,71 @@ def boxes3d_nearest_bev_iou(boxes_a, boxes_b):
                            dim=-1)
 
     return boxes_iou_normal(to_aabb(boxes_a), to_aabb(boxes_b))
+
+
+# KITTI camera-frame conversions (host numpy; the KITTI dataset's
+# generate_prediction_dicts and the official AP evaluator)
+
+def boxes3d_lidar_to_kitti_camera(boxes3d_lidar, calib):
+    """(N, 7) lidar [x, y, z, dx, dy, dz, heading] -> (N, 7) camera [x, y,
+    z, l, h, w, ry]: the camera box sits on its bottom face, ry about the
+    camera's -y axis."""
+    boxes3d_lidar = boxes3d_lidar.copy()
+    xyz_lidar = boxes3d_lidar[:, 0:3].copy()
+    dx, dy, dz = boxes3d_lidar[:, 3:4], boxes3d_lidar[:, 4:5], \
+        boxes3d_lidar[:, 5:6]
+    r = boxes3d_lidar[:, 6:7]
+    xyz_lidar[:, 2] -= dz.reshape(-1) / 2
+    xyz_cam = calib.lidar_to_rect(xyz_lidar)
+    ry = -r - np.pi / 2
+    return np.concatenate([xyz_cam, dx, dz, dy, ry], axis=1)
+
+
+def boxes3d_kitti_camera_to_lidar(boxes3d_camera, calib):
+    """(N, 7) camera [x, y, z, l, h, w, ry] -> (N, 7) lidar [x, y, z, dx,
+    dy, dz, heading]."""
+    boxes3d_camera = boxes3d_camera.copy()
+    xyz_cam = boxes3d_camera[:, 0:3]
+    l, h, w = boxes3d_camera[:, 3:4], boxes3d_camera[:, 4:5], \
+        boxes3d_camera[:, 5:6]
+    ry = boxes3d_camera[:, 6:7]
+    xyz_lidar = calib.rect_to_lidar(xyz_cam)
+    xyz_lidar[:, 2] += h.reshape(-1) / 2
+    heading = -ry - np.pi / 2
+    return np.concatenate([xyz_lidar, l, w, h, heading], axis=1)
+
+
+def boxes3d_kitti_camera_to_imageboxes(boxes3d_camera, calib,
+                                       image_shape=None):
+    """(N, 7) camera boxes -> (N, 4) [x1, y1, x2, y2] image boxes: the
+    projected corners' extent, clipped to the image when its (H, W) is
+    given."""
+    corners = camera_boxes_to_corners_3d(boxes3d_camera)
+    pts_img, _ = calib.rect_to_img(corners.reshape(-1, 3))
+    pts_img = pts_img.reshape(-1, 8, 2)
+    boxes2d = np.concatenate([pts_img.min(axis=1), pts_img.max(axis=1)],
+                             axis=1)
+    if image_shape is not None:
+        boxes2d[:, 0] = np.clip(boxes2d[:, 0], 0, image_shape[1] - 1)
+        boxes2d[:, 1] = np.clip(boxes2d[:, 1], 0, image_shape[0] - 1)
+        boxes2d[:, 2] = np.clip(boxes2d[:, 2], 0, image_shape[1] - 1)
+        boxes2d[:, 3] = np.clip(boxes2d[:, 3], 0, image_shape[0] - 1)
+    return boxes2d
+
+
+def camera_boxes_to_corners_3d(boxes3d):
+    """(N, 7) camera [x, y, z, l, h, w, ry] -> (N, 8, 3) corners in the
+    rect camera frame."""
+    l, h, w = boxes3d[:, 3:4], boxes3d[:, 4:5], boxes3d[:, 5:6]
+    x_c = np.array([1, 1, -1, -1, 1, 1, -1, -1], dtype=np.float32) / 2
+    y_c = np.array([0, 0, 0, 0, -1, -1, -1, -1], dtype=np.float32)
+    z_c = np.array([1, -1, -1, 1, 1, -1, -1, 1], dtype=np.float32) / 2
+    corners = np.stack([l * x_c, h * y_c, w * z_c], axis=-1)
+    ry = boxes3d[:, 6]
+    cosa, sina = np.cos(ry), np.sin(ry)
+    zeros, ones = np.zeros_like(cosa), np.ones_like(cosa)
+    rot = np.stack([cosa, zeros, -sina,
+                    zeros, ones, zeros,
+                    sina, zeros, cosa], axis=-1).reshape(-1, 3, 3)
+    corners = corners @ rot
+    return corners + boxes3d[:, None, 0:3]

@@ -38,6 +38,21 @@ def keep_arrays_by_name(gt_names, used_classes):
     return np.array(inds, dtype=np.int64)
 
 
+def drop_info_with_name(info, name):
+    """An annos dict without the entries named ``name`` (every array with
+    one row an entry is cut)."""
+    ret_info = {}
+    keep = [i for i, x in enumerate(info["name"]) if x != name]
+    for key in info.keys():
+        if isinstance(info[key], np.ndarray) \
+                and info[key].shape[0] == len(info["name"]):
+            ret_info[key] = info[key][keep]
+        else:
+            ret_info[key] = info[key]
+    ret_info["name"] = info["name"][keep]
+    return ret_info
+
+
 class AverageMeter:
     """Running mean of a host-side measurement."""
 

@@ -785,3 +785,30 @@ def test_greedy_nms_boxes_evaluates_degenerate_quads(card):
     assert float(iou_p) > 0
     assert iou_k[0, 0, 1].view(torch.int32) == iou_p.view(torch.int32)
     assert keep.tolist() == [[True, False]]
+
+
+def test_kitti_eval_overlaps_on_the_card_equal_cpu(card):
+    """The KITTI evaluator's rotated overlaps (``kitti_eval.frame_overlaps``:
+    the port's ``boxes_iou_bev`` / ``boxes_iou3d`` on the device it is
+    given) on the card within 1e-6 of the CPU's, on camera-frame annos of
+    jittered boxes near each other (pairs that overlap and pairs that do
+    not)."""
+    from q3d_tpu_torch.datasets.kitti import kitti_eval
+    rng = np.random.RandomState(0)
+    gts, dts = [], []
+    for n, m in ((12, 30), (1, 7), (25, 25)):
+        loc = np.c_[rng.uniform(-10, 10, n), rng.uniform(0.5, 2, n),
+                    rng.uniform(5, 40, n)]
+        dims = rng.uniform([1, 1, 0.5], [5, 2, 2], (n, 3))
+        ry = rng.uniform(-np.pi, np.pi, n)
+        pick = rng.randint(0, n, m)
+        gts.append({"location": loc, "dimensions": dims, "rotation_y": ry})
+        dts.append({"location": loc[pick] + rng.normal(0, 0.4, (m, 3)),
+                    "dimensions": dims[pick] * rng.uniform(0.8, 1.2, (m, 3)),
+                    "rotation_y": ry[pick] + rng.normal(0, 0.2, m)})
+    for metric in (1, 2):
+        on_card = kitti_eval.frame_overlaps(gts, dts, metric, device=card)
+        on_cpu = kitti_eval.frame_overlaps(gts, dts, metric, device="cpu")
+        for a, b in zip(on_card, on_cpu):
+            assert a.shape == b.shape and (b > 0.3).sum() > 0
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
