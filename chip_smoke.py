@@ -281,29 +281,46 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
  20. ``dynvoxel_ref`` — centerpoint_ref's MODEL with DynamicVoxelVFE
                 (NUM_FILTERS [16, 16], MAX_VOXELS 160,000), then with
                 DynamicMeanVFE, one f32 request each, kernels vs plain;
- 21. PV-RCNN and Voxel R-CNN inference at the KITTI width
+ 21. PV-RCNN, Voxel R-CNN, PartA2 and SECOND-IoU at the KITTI width
                 (``two_stage_phases``; the port's
-                ``q3d_tpu_torch/cfgs/kitti_models/pv_rcnn.yaml`` and
-                ``voxel_rcnn_car.yaml`` on the FOV-cropped KITTI scenes of
-                phase 12, batch 2, seeded weights, conv_cls's bias 0, BN
-                statistics from the first request): ``data_pvrcnn`` (raw
+                ``q3d_tpu_torch/cfgs/kitti_models/pv_rcnn.yaml``,
+                ``voxel_rcnn_car.yaml``, ``PartA2.yaml`` and
+                ``second_iou.yaml`` on the FOV-cropped KITTI scenes of
+                phase 12, batch 2, seeded weights, conv_cls's bias 0,
+                the anchor head's conv_box and the ROI head's reg_out
+                scaled by 1e-2 (``seed_like_trained``: rois and boxes at
+                their anchors' size), BN statistics from the first
+                request): ``data_pvrcnn`` (raw
                 points a frame against MAX_RAW_POINTS, voxels against the
                 40,000 cap: none dropped), ``kernel_conv`` for each model's
-                12 convs, ``serving_<model>`` (4 bf16 requests: 12 kernel-1
-                launches and one kernel-2 launch of 2 candidate sets of K =
-                1024 a forward, the proposal layer's; host ms apart from
-                device ms), ``stages_<model>`` (``two_stage_stage_times``:
-                VFE, sparse backbone, BEV map, 2D backbone, RPN head, the
+                12 convs (PartA2: UNetV2's 19, and
+                ``kernel_conv_parta2_inverse``: its 3 inverse convs apart,
+                each book equal to the transpose of its strided conv's and
+                to the rule), ``serving_<model>`` (4 bf16 requests: 12 (19)
+                kernel-1 launches and one kernel-2 launch of 2 candidate
+                sets of K = 1024 a forward, the proposal layer's; the
+                launches inside PartA2's inverse convs read around them;
+                host ms apart from device ms), ``stages_<model>``
+                (``two_stage_stage_times``: VFE, sparse backbone (UNetV2's
+                decoder apart), BEV map, 2D backbone, RPN head, the
                 proposal layer, FPS apart, each source's regrouping, ball
                 query, MLP + pool and grouping, the fusion, the point head,
-                the ROI pooling, FCs and decode; the forward's peak
-                memory), ``model_<model>`` (f32, TF32 off, kernels vs plain:
-                spatial features equal, the rois the same keep set,
-                detections matched at 1e-3 / 1e-4), ``kernel_nms_<model>``
-                (kernel 2 on the proposal sets against plain, timed, its
-                bound) and ``recipes_pvrcnn`` (``int8_deploy_recipe()``:
-                every launch held on its own operands, maps, rois and
-                detections equal);
+                the ROI pooling (``roiaware_pool3d``, the BEV sample), FCs
+                and decode; the forward's peak memory), ``model_<model>``
+                (f32, TF32 off, kernels vs plain: spatial features equal,
+                the rois the same keep set, detections matched at 1e-3 /
+                1e-4), ``kernel_nms_<model>`` (kernel 2 on the proposal
+                sets against plain, timed, its bound) and
+                ``recipes_<model>`` for PV-RCNN, PartA2 and SECOND-IoU
+                (``int8_deploy_recipe()``: every launch held on its own
+                operands, maps and rois equal, detections equal, or matched
+                after PartA2's float inverse convs); then their training
+                (``two_stage_training``: kernel 2 on the training proposal
+                layer, one step kernels vs plain, kernel 1's forward and dX
+                launches on its operands, ``train_model`` for 8 steps at
+                the yaml's batch with its DATA_AUGMENTOR, the forward and
+                dX launches inside PartA2's inverse convs read around
+                them);
  22. the real-dataset entry points (``dataset_phases``, in a temporary
                 directory; no dataset is in the repository, so each tree is
                 written in its dataset's on-disk format from seeded synthetic
@@ -321,7 +338,11 @@ Phases, one JSON line each (plus the card line from nvidia-smi):
                 slot for slot and the same AP dict, one result file a frame
                 equal to its annos to 4 decimals; the gt boxes as
                 detections, through their result files, at the AP_R40
-                ceiling of every class and difficulty), ``train_kitti_tree``
+                ceiling of every class and difficulty),
+                ``eval_kitti_parta2`` (``tools/test.py`` on the port's
+                ``kitti_models/PartA2.yaml``, f32, kernels and plain: 19 +
+                1 launches a forward, slot for slot, the same AP dict),
+                ``train_kitti_tree``
                 (``tools/train.py``, 2 epochs at batch 4: 4 steps, gt
                 sampling from the written database; host and CUDA-event ms,
                 peak memory), ``data_nuscenes_tree``
@@ -646,8 +667,10 @@ def record_sparse_convs(model, batch):
     sparse conv with a book; a 1x1 SubM conv has none) recorded in order ->
     ([(name, features, book, weight, row mask)], the forward's outputs)."""
     import torch
-    from q3d_tpu_torch.ops.spconv.modules import (_SparseConv,
+    from q3d_tpu_torch.ops.spconv.modules import (SparseInverseConv3d,
+                                                  _SparseConv,
                                                   _SparseConvBase,
+                                                  inverse_cache_key,
                                                   subm_cache_key,
                                                   down_cache_key)
     convs = []
@@ -657,7 +680,13 @@ def record_sparse_convs(model, batch):
         st, cache = args[0], args[1]
         if mod.pointwise:
             return
-        if isinstance(mod, _SparseConv):
+        if isinstance(mod, SparseInverseConv3d):
+            target, cache = args[1], args[2]
+            idx = cache[inverse_cache_key(target.spatial_shape,
+                                          mod.kernel_size, mod.stride,
+                                          mod.padding)][0]
+            valid = target.valid
+        elif isinstance(mod, _SparseConv):
             key = down_cache_key(st.spatial_shape, mod.kernel_size, mod.stride,
                                  mod.padding, args[2] if len(args) > 2 else None)
             out_indices, idx, _ = cache[key]
@@ -2037,9 +2066,11 @@ def kernel1_convs(model, two_d=False):
     SubMConv / SparseConv but the 1x1 SubM convs of the pointwise route);
     only the 2D ones with ``two_d``."""
     from q3d_tpu_torch.ops.spconv.modules import (SparseConv2d, SparseConv3d,
+                                                  SparseInverseConv3d,
                                                   SubMConv2d, SubMConv3d)
     kinds = (SubMConv2d, SparseConv2d) if two_d else (
-        SubMConv3d, SparseConv3d, SubMConv2d, SparseConv2d)
+        SubMConv3d, SparseConv3d, SparseInverseConv3d, SubMConv2d,
+        SparseConv2d)
     return [n for n, mod in model.named_modules()
             if isinstance(mod, kinds) and not mod.pointwise]
 
@@ -2121,7 +2152,21 @@ def train_grad(model, batch, conv_k, mode, tag="train_grad", config=CFG.name,
     return recorded, out["cuda"]
 
 
-def kernel_dx(recorded, flush, mode, tag="kernel_dx", config=CFG.name):
+def summed_apart(rows, part):
+    """The rows of ``kernel_dx`` / ``kernel_forward`` whose conv name holds
+    ``part``, summed: times, bounds, launches, the worst error."""
+    mine = [r for r in rows if part in r["conv"]]
+    out = {k: sum(r[k] for r in mine) for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")}
+    out.update(convs=len(mine), max_abs_err=max(r["max_abs_err"]
+                                                for r in mine),
+               bound_by="bytes" if out["bytes_ms"] >= out["ops_ms"]
+               else "operations")
+    return out
+
+
+def kernel_dx(recorded, flush, mode, tag="kernel_dx", config=CFG.name,
+              apart=None):
     """Phase ``kernel_dx`` (and ``kernel_dx_second``): kernel 1's f32 entry
     as the input gradient of each sparse conv of a training step (the
     inverse book, the
@@ -2129,8 +2174,9 @@ def kernel_dx(recorded, flush, mode, tag="kernel_dx", config=CFG.name):
     its plain version (within 1e-5 of the largest |dX|), timed beside it,
     beside gather + ``torch.matmul`` (the library call of the same
     product) and beside its bound; the weight gradient's torch time
-    (``engine.weight_grad``) and the inverse book's build beside them.
-    -> totals."""
+    (``engine.weight_grad``) and the inverse book's build beside them;
+    ``apart``: the convs whose name holds it summed apart too
+    (``totals["apart"]``).  -> totals."""
     import torch
     from q3d_tpu_torch.ops.spconv import engine, gather_conv
     totals = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -2190,6 +2236,10 @@ def kernel_dx(recorded, flush, mode, tag="kernel_dx", config=CFG.name):
                 totals[key] += row[key]
     totals["bound_by"] = "bytes" if totals["bytes_ms"] >= totals["ops_ms"] \
         else "operations"
+    if apart is not None:
+        totals["apart"] = summed_apart(rows, apart)
+        emit(f"{tag}_apart", convs_named=apart, config=config,
+             **totals["apart"])
     emit(f"{tag}_total", config=config, convs=len(rows), dtype="f32",
          mode=mode(), max_abs_err=worst, **totals,
          tolerance="max|k-p| <= 1e-5 * max|p| per conv",
@@ -2199,20 +2249,21 @@ def kernel_dx(recorded, flush, mode, tag="kernel_dx", config=CFG.name):
     return totals
 
 
-def kernel_forward(recorded, flush, mode, tag, config):
+def kernel_forward(recorded, flush, mode, tag, config, apart=None):
     """Phase ``kernel_fwd_second``: kernel 1's f32 entry as each sparse
     conv's forward in a training step, on the operands
     ``recording_backward`` kept (features, book, weights, row mask),
     against its plain version (within 1e-5 of the largest |out|), timed
     beside it, beside gather + ``torch.matmul`` and beside its bound (the
     rows the book uses, the book and the weights read once, the output
-    written once; the present taps' f32 operations on the CUDA cores) ->
-    totals."""
+    written once; the present taps' f32 operations on the CUDA cores);
+    ``apart`` as in ``kernel_dx`` -> totals."""
     import torch
     from q3d_tpu_torch.ops.spconv import gather_conv
     totals = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                "bytes_ms", "ops_ms")}
     worst = 0.0
+    rows = []
     with torch.no_grad():
         for name, f, w, idx, ov, _, _ in recorded:
             n, cin = f.shape
@@ -2247,10 +2298,15 @@ def kernel_forward(recorded, flush, mode, tag, config):
                 / PEAK_OPS_PER_S["f32"]
             row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
             emit(tag, **row)
+            rows.append(row)
             for key in totals:
                 totals[key] += row[key]
     totals["bound_by"] = "bytes" if totals["bytes_ms"] >= totals["ops_ms"] \
         else "operations"
+    if apart is not None:
+        totals["apart"] = summed_apart(rows, apart)
+        emit(f"{tag}_apart", convs_named=apart, config=config,
+             **totals["apart"])
     emit(f"{tag}_total", config=config, convs=len(recorded), dtype="f32",
          mode=mode(), max_abs_err=worst, **totals,
          tolerance="max|k-p| <= 1e-5 * max|p| per conv",
@@ -5183,12 +5239,79 @@ def pillarnet_kernel_rows(pn):
 
 
 # ======================================================= two-stage detectors
-# PV-RCNN and Voxel R-CNN at the KITTI width (the port's own configs); the
-# VoxelBackBone8x's 12 convs on kernel 1, the proposal layer's one launch
-# of kernel 2 (B sets of NMS_PRE_MAXSIZE = 1024, all valid: no score
-# threshold there)
-TS_CFG = {"pvrcnn": "pv_rcnn", "voxelrcnn": "voxel_rcnn_car"}
-TS_CONVS = 12
+# the two-stage detectors at the KITTI width (the port's own configs):
+# VoxelBackBone8x's 12 convs (PartA2: UNetV2's 19, 3 of them inverse) on
+# kernel 1, the proposal layer's one launch of kernel 2 (B sets of
+# NMS_PRE_MAXSIZE = 1024, all valid: no score threshold there)
+TS_CFG = {"pvrcnn": "pv_rcnn", "voxelrcnn": "voxel_rcnn_car",
+          "parta2": "PartA2", "second_iou": "second_iou"}
+TS_CONVS = {"pvrcnn": 12, "voxelrcnn": 12, "parta2": 19, "second_iou": 12}
+TS_INVERSE = {"parta2": 3}
+TS_RECIPES = ("pvrcnn", "parta2", "second_iou")
+TS_BACKBONE = {"parta2": "UNetV2's 19 convs (12 SubM, 4 strided, 3 inverse)"}
+# a seeded anchor head's untrained box residuals, through the decode's
+# exp, give rois of up to ~1e8 m a side (PartA2's), and the ROI head's
+# decode multiplies those sizes again: the anchor head's conv_box and the
+# ROI head's reg_out scaled by this keep the rois near their anchors' size
+# and the boxes near their rois', as a trained model's residuals keep them,
+# so that boxes are held at 1e-3 m
+TS_BOX_SCALE = 1e-2
+
+
+def seed_like_trained(model):
+    """On a seeded two-stage model: conv_cls's prior bias 0, the anchor
+    head's ``conv_box`` and the ROI head's ``reg_out`` (where there is one)
+    scaled by ``TS_BOX_SCALE``."""
+    import torch
+    reg_out = getattr(model.roi_head, "reg_out", None)
+    with torch.no_grad():
+        model.dense_head.conv_cls.bias.zero_()
+        for layer in (model.dense_head.conv_box, reg_out):
+            for p in () if layer is None else layer.parameters():
+                p.mul_(TS_BOX_SCALE)
+
+
+def inverse_conv_launches(model, conv_k):
+    """Kernel 1's launches inside the model's SparseInverseConv3d, read at
+    each call: a forward pre-hook and a forward hook take the change of
+    every entry's count over the conv's forward; where the output carries
+    a gradient, hooks on the output's and the input's gradient take it over
+    the conv's backward (its input gradient: the autograd engine runs the
+    conv's nodes from the one behind its output to its input's ReLU in a
+    row, as nothing else created between them is waiting) -> (counts
+    {"forward", "dx"}, remove)."""
+    from q3d_tpu_torch.ops.spconv import SparseInverseConv3d
+    counts = {"forward": 0, "dx": 0}
+    start = {}
+
+    def total():
+        return sum(conv_k.launches.values())
+
+    def pre(module, args):
+        start[module] = total()
+
+    def post(module, args, out):
+        counts["forward"] += total() - start[module]
+        x = args[0].features
+        if out.features.requires_grad and x.requires_grad:
+            def out_grad(grad, module=module):
+                start[module, "dx"] = total()
+
+            def in_grad(grad, module=module):
+                counts["dx"] += total() - start.pop((module, "dx"))
+            out.features.register_hook(out_grad)
+            x.register_hook(in_grad)
+
+    hooks = []
+    for m in model.modules():
+        if isinstance(m, SparseInverseConv3d):
+            hooks += [m.register_forward_pre_hook(pre),
+                      m.register_forward_hook(post)]
+
+    def remove():
+        for h in hooks:
+            h.remove()
+    return counts, remove
 TS_PROPOSAL_K = 1024
 # the training proposal layer's candidates a frame (ROI_HEAD.NMS_CONFIG.
 # TRAIN.NMS_PRE_MAXSIZE) and kernel 2's widths past 4096 held on crowded
@@ -5209,7 +5332,10 @@ def two_stage_stage_times(model, batch, reps=5):
     inside the PFE and the ROI head: FPS (``pfe.fps``), the BEV sample,
     each source's regrouping, ball query, MLP + pool and its whole set
     abstraction (``<slot>.<source>.total``; the grouping is the total less
-    the query and the MLP), the fusion, and the ROI head's FCs + decode.
+    the query and the MLP), the fusion, and the ROI head's FCs + decode;
+    UNetV2's decoder (the up blocks and conv5), PartA2FCHead's
+    ``roiaware_pool3d`` (cells and pools), SECONDHead's BEV sample and
+    FCs.
     Functions are timed through module attributes that shadow them for
     the run; every stage's start and end events are recorded on the
     stream, so a stage's time is the device's time between them."""
@@ -5217,7 +5343,9 @@ def two_stage_stage_times(model, batch, reps=5):
     import torch
     from q3d_tpu_torch.models.backbones_3d.pfe import (
         voxel_set_abstraction as vsa_mod)
+    from q3d_tpu_torch.models.roi_heads import parta2_head as p2h
     from q3d_tpu_torch.models.roi_heads import pvrcnn_head as pvh
+    from q3d_tpu_torch.models.roi_heads import second_head as s2h
     from q3d_tpu_torch.models.roi_heads import voxelrcnn_head as vrh
     names = {m: n for n, m in model.named_modules()}
     events = collections.defaultdict(list)
@@ -5259,6 +5387,9 @@ def two_stage_stage_times(model, batch, reps=5):
             t = n.rsplit("_r", 1)[0] + ".mlp"
         elif n in ("pfe.vsa_point_feature_fusion", "pfe.fusion_norm"):
             t = "pfe.fusion"
+        elif n in ("backbone_3d.up4", "backbone_3d.up3", "backbone_3d.up2",
+                   "backbone_3d.conv5", "backbone_3d.norm5"):
+            t = "backbone_3d.decoder"
         else:
             continue
         hooks += [mod.register_forward_pre_hook(lambda *_, t=t: mark(t, 0)),
@@ -5269,7 +5400,12 @@ def two_stage_stage_times(model, batch, reps=5):
                     (vsa_mod, "bilinear", "pfe.bev_sample"),
                     (vsa_mod, "stage_points", "pfe.regroup")]
     patches += [(vrh, "stage_points", "roi_head.regroup"),
-                (model.roi_head, "finish", "roi_head.fcs_decode")]
+                (model.roi_head, "finish", "roi_head.fcs_decode"),
+                (p2h, "roiaware_cells", "roi_head.roiaware_pool3d"),
+                (p2h, "pool_cells", "roi_head.roiaware_pool3d"),
+                (s2h, "bilinear", "roi_head.bev_sample")]
+    if isinstance(model.roi_head, s2h.SECONDHead):
+        patches.append((model.roi_head, "shared", "roi_head.fcs"))
     for mod in (vsa_mod, pvh, vrh):
         patches.append((mod, "set_abstraction",
                         lambda a: sa_label(a[0]) + ".total"))
@@ -5319,25 +5455,94 @@ def proposal_candidates(out, k):
     return boxes.contiguous(), valid.contiguous()
 
 
+def inverse_conv_phase(model, batch, conv_rows, name, mode):
+    """Phase ``kernel_conv_<name>_inverse``: UNetV2's inverse convs apart.
+    One forward with each ``SparseInverseConv3d``'s book taken from the
+    rulebook cache: equal to the transpose of its strided conv's book
+    (``engine.transposed_book`` of that book's inverse) and to the rule
+    (``engine.inverse_conv_indices``), integer for integer; then their rows
+    of ``kernel_conv`` (kernel 1 against its plain version, f32 / bf16 /
+    s8) summed -> bf16 totals."""
+    import torch
+    from q3d_tpu_torch.ops.spconv import engine
+    from q3d_tpu_torch.ops.spconv.modules import (SparseInverseConv3d,
+                                                  inverse_cache_key)
+    books = []
+
+    def grab(mod, args, out):
+        st, target, cache = args
+        key = inverse_cache_key(target.spatial_shape, mod.kernel_size,
+                                mod.stride, mod.padding)
+        book, back = cache[key]
+        strided = cache[key[len("inverse|"):]][1]
+        transposed = engine.transposed_book(
+            engine.inverse_book(strided, target.capacity), st.capacity)
+        rule = engine.inverse_conv_indices(st, target.indices,
+                                           mod.kernel_size, mod.stride,
+                                           mod.padding)
+        books.append({"conv": names[mod], "M": book.shape[0],
+                      "N": st.capacity, "present_taps": int(
+                          (book < st.capacity).sum()),
+                      "transposed_equal": torch.equal(book, transposed),
+                      "rule_equal": torch.equal(book, rule),
+                      "dx_over_strided_book": back is strided})
+    names = {m: n for n, m in model.named_modules()}
+    hooks = [m.register_forward_hook(grab) for m in model.modules()
+             if isinstance(m, SparseInverseConv3d)]
+    try:
+        with torch.no_grad():
+            model(dict(batch))
+    finally:
+        for h in hooks:
+            h.remove()
+    check(len(books) == TS_INVERSE[name] and all(
+        b["transposed_equal"] and b["rule_equal"]
+        and b["dx_over_strided_book"] for b in books),
+          f"kernel_conv_{name}_inverse: books {books}")
+    rows = [r for r in conv_rows if ".inv_conv" in r["conv"]]
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")
+    totals = {k: sum(r[f"{k}_bf16"] for r in rows) for k in keys}
+    totals["max_abs_err"] = max(r["err_bf16"] for r in rows)
+    totals["bound_by"] = "bytes" if totals["bytes_ms"] >= totals["ops_ms"] \
+        else "operations"
+    emit(f"kernel_conv_{name}_inverse", convs=len(rows), books=books,
+         mode=mode(), dtype="bf16", **totals,
+         f32={k: sum(r[f"{k}_f32"] for r in rows) for k in keys},
+         s8={k: sum(r[f"{k}_s8"] for r in rows)
+             for k in ("ms", "plain_ms", "bound_ms")},
+         per_conv=[{k: r[k] for k in (
+             "conv", "N", "M", "Cin", "Cout", "present_taps", "ms_bf16",
+             "plain_ms_bf16", "library_ms_bf16", "bound_ms_bf16", "ms_f32",
+             "ms_s8", "err_bf16", "err_f32")} for r in rows],
+         note="the three inverse convs of one bf16 forward's kernel_conv "
+              "rows; each book equal to the transpose of its strided "
+              "conv's and to the rule")
+    return totals
+
+
 def two_stage_phases(name, dev, conv_k, nms_k, mode, strict_f32, flush,
                      clock_mhz):
     """One two-stage model at the KITTI width (``ts_config_path(name)``:
-    PV-RCNN or Voxel R-CNN, seeded weights, conv_cls's bias 0, BN
-    statistics from the first request, f32 with TF32 off where held
-    against plain) on the FOV-cropped KITTI scenes, batch 2:
+    PV-RCNN, Voxel R-CNN, PartA2 or SECOND-IoU, seeded weights, conv_cls's
+    bias 0, BN statistics from the first request, f32 with TF32 off where
+    held against plain) on the FOV-cropped KITTI scenes, batch 2:
     ``data_pvrcnn`` (points against MAX_RAW_POINTS and voxels against the
-    40,000 cap a frame, none dropped), ``kernel_conv`` for the 12 convs,
-    ``serving_<name>`` (4 bf16 requests: 12 kernel-1 launches and one
-    kernel-2 launch of 2 sets of K = 1024 a forward; host ms apart from
-    device ms), ``stages_<name>`` (``two_stage_stage_times``; the forward's
-    peak memory), ``model_<name>`` (f32, kernels vs plain: the spatial
-    features exactly equal, the rois the same keep set, the detections
-    matched at 1e-3 / 1e-4), ``kernel_nms_<name>`` (kernel 2 on the
-    proposal sets against plain, timed, its bound) and, for PV-RCNN,
-    ``recipes_pvrcnn`` (``int8_deploy_recipe()``: 11 s8 launches and the
-    float conv_input, the quantized BEV convs through ``_int_mm``, each
-    launch held against its plain version on its own operands, the maps
-    and detections equal); then its training phases
+    40,000 cap a frame, none dropped), ``kernel_conv`` for its
+    TS_CONVS[name] convs (PartA2: ``kernel_conv_parta2_inverse``, its
+    three inverse convs apart and their books checked,
+    ``inverse_conv_phase``), ``serving_<name>`` (4 bf16 requests:
+    TS_CONVS[name] kernel-1 launches and one kernel-2 launch of 2 sets of
+    K = 1024 a forward; host ms apart from device ms), ``stages_<name>``
+    (``two_stage_stage_times``; the forward's peak memory),
+    ``model_<name>`` (f32, kernels vs plain: the spatial features exactly
+    equal, the rois the same keep set, the detections matched at 1e-3 /
+    1e-4), ``kernel_nms_<name>`` (kernel 2 on the proposal sets against
+    plain, timed, its bound) and, for TS_RECIPES, ``recipes_<name>``
+    (``int8_deploy_recipe()``: every sparse conv s8 but the float
+    conv_input and inverse convs, the quantized BEV convs through
+    ``_int_mm``, each launch held against its plain version on its own
+    operands, the maps and rois equal, the detections equal, or matched
+    after PartA2's float decoder); then its training phases
     (``two_stage_training``) -> summary for the kernels line."""
     import torch
     from q3d_tpu_torch.datasets import build_dataloader
@@ -5380,17 +5585,20 @@ def two_stage_phases(name, dev, conv_k, nms_k, mode, strict_f32, flush,
 
     t0 = time.perf_counter()
     model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=dev)
-    with torch.no_grad():
-        model.dense_head.conv_cls.bias.zero_()
+    seed_like_trained(model)
     build_s = time.perf_counter() - t0
     raw0, _, _ = request(0)
     strict_f32(True)
     batch_f32 = load_data_to_device(raw0, device=dev)
     calibrate_bns(model, batch_f32)
     convs, _ = record_sparse_convs(model, batch_f32)
-    check(len(convs) == TS_CONVS, f"{name}: {len(convs)} sparse convs")
-    totals, worst, _ = kernel_conv(convs, flush, mode, name)
+    n_convs, n_inv = TS_CONVS[name], TS_INVERSE.get(name, 0)
+    check(len(convs) == n_convs, f"{name}: {len(convs)} sparse convs")
+    totals, worst, conv_rows = kernel_conv(convs, flush, mode, name)
     del convs
+    inverse = None
+    if n_inv:
+        inverse = inverse_conv_phase(model, batch_f32, conv_rows, name, mode)
     strict_f32(False)
 
     # ------------------------------------------------------------- serving
@@ -5403,6 +5611,9 @@ def two_stage_phases(name, dev, conv_k, nms_k, mode, strict_f32, flush,
         sets_seen.append(list(corners.shape[:2]))
         return real_boxes_cuda(corners, *args, **kw)
     nms_mod.greedy_suppress_boxes_cuda = seen
+    # the inverse convs' share of kernel 1's launches, read around each
+    # of their calls (the bf16 total is held below)
+    inverse_k, remove_inverse = inverse_conv_launches(model, conv_k)
     clear_launches(conv_k, nms_k)
     per_request = []
     try:
@@ -5434,25 +5645,30 @@ def two_stage_phases(name, dev, conv_k, nms_k, mode, strict_f32, flush,
             emit(f"serving_{name}_request", **per_request[-1])
     finally:
         nms_mod.greedy_suppress_boxes_cuda = real_boxes_cuda
+        remove_inverse()
     launches = kernel_launches(conv_k, nms_k)
     got = {"conv_bf16": launches["sparse_gather_conv_bf16"],
            "conv_other": sum(conv_k.launches.values())
            - launches["sparse_gather_conv_bf16"],
            "nms_boxes": launches["greedy_nms_boxes"],
            "nms_iou": launches["greedy_nms_iou"], "nms_sets": sets_seen}
-    want = {"conv_bf16": TS_CONVS * REQUESTS, "conv_other": 0,
+    want = {"conv_bf16": n_convs * REQUESTS, "conv_other": 0,
             "nms_boxes": REQUESTS, "nms_iou": 0,
             "nms_sets": [[BATCH, TS_PROPOSAL_K]] * REQUESTS}
-    check(got == want, f"serving_{name}: launches {got}, expected {want}")
+    check(got == want and inverse_k["forward"] == n_inv * REQUESTS,
+          f"serving_{name}: launches {got}, expected {want}; inside the "
+          f"inverse convs {inverse_k['forward']}")
     emit(f"serving_{name}", config=config, batch=BATCH, dtype="bf16",
          requests=REQUESTS, launches=launches, nms_sets_k=sets_seen[0],
+         inverse_conv_launches=inverse_k["forward"],
          build_s=build_s, mode=mode(), steady_forward_ms=statistics.median(
              p["device_forward_ms"] for p in per_request[1:]),
          steady_host_ms=statistics.median(
              p["host_ms"] for p in per_request[1:]),
          note="raw points f32, the VFE's voxels and everything to the "
-              "proposals bf16; past each SA block's first BN f32, as the "
-              "reference's flax BNs give it")
+              "proposals bf16; past each SA block's (and each point or ROI "
+              "head MLP's) first BN f32, as the reference's flax BNs give "
+              "it")
     stages = two_stage_stage_times(model, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5482,7 +5698,7 @@ def two_stage_phases(name, dev, conv_k, nms_k, mode, strict_f32, flush,
                 conv_k, nms_k).items() if v}
         model.set_kernel_impl(None)
     ok_, op = outs["cuda"], outs["plain"]
-    check(runs["cuda"] == {"sparse_gather_conv_f32": TS_CONVS,
+    check(runs["cuda"] == {"sparse_gather_conv_f32": n_convs,
                            "greedy_nms_boxes": 1} and not runs["plain"],
           f"model_{name}: launches {runs}")
     check(torch.equal(ok_["spatial_features"], op["spatial_features"]),
@@ -5530,10 +5746,11 @@ def two_stage_phases(name, dev, conv_k, nms_k, mode, strict_f32, flush,
          "evaluated pair, plain IoU exactly 0 at every skipped needed pair")
     del outs, ok_, op, corners, areas
     summary = {"launches": launches, "totals": totals, "worst": worst,
-               "nms": nms_row}
+               "nms": nms_row, "inverse": inverse,
+               "inverse_launches": inverse_k["forward"]}
 
     # ------------------------------------------- int8_deploy_recipe()
-    if name == "pvrcnn":
+    if name in TS_RECIPES:
         m8 = copy.deepcopy(model)
         quant_api.quantize_model(m8, quant_api.int8_deploy_recipe(),
                                  batch_f32)
@@ -5550,25 +5767,39 @@ def two_stage_phases(name, dev, conv_k, nms_k, mode, strict_f32, flush,
                     runs[impl] = {k: v for k, v in kernel_launches(
                         conv_k, nms_k).items() if v}
                 m8.set_kernel_impl(None)
-        want = {"sparse_gather_conv_s8": TS_CONVS - 1,
-                "sparse_gather_conv_f32": 1, "int_mm_conv2d": q_dense,
-                "greedy_nms_boxes": 1}
+        # conv_input and the inverse convs (no recipe lists their kind)
+        # stay float
+        want = {"sparse_gather_conv_s8": n_convs - 1 - n_inv,
+                "sparse_gather_conv_f32": 1 + n_inv,
+                "int_mm_conv2d": q_dense, "greedy_nms_boxes": 1}
         check(runs["cuda"] == want and q_dense > 0 and not runs["plain"],
               f"recipes_{name}: launches {runs}, expected {want}")
-        check(len(calls) == TS_CONVS,
+        check(len(calls) == n_convs,
               f"recipes_{name}: {len(calls)} launches recorded")
         held = hold_launches_on_operands(calls, f"recipes_{name}")
         del calls
-        for key in ("spatial_features", "spatial_features_2d", "rois",
-                    "final_boxes", "final_scores", "final_labels",
-                    "final_valid"):
+        # the decoder's float inverse convs sum in another order on the
+        # kernel: from there on (the point features) PartA2's runs are held
+        # as the f32 model is, the first stage exactly
+        exact = ("spatial_features", "spatial_features_2d", "rois")
+        if not n_inv:
+            exact += ("final_boxes", "final_scores", "final_labels",
+                      "final_valid")
+        for key in exact:
             check(torch.equal(outs["cuda"][key], outs["plain"][key]),
                   f"recipes_{name}: {key} differs, kernels vs plain")
+        matched, total = matched_detections(outs["cuda"], outs["plain"],
+                                            BATCH)
+        check(total > 0 and matched >= 0.99 * total,
+              f"recipes_{name}: only {matched}/{total} detections matched")
         emit(f"recipes_{name}", recipe="int8_deploy_recipe()", dtype="f32",
              batch=BATCH, mode=mode(), launches=runs["cuda"],
-             quantized_dense=q_dense, **held,
+             quantized_dense=q_dense, float_inverse_convs=n_inv, **held,
              valid=int(outs["cuda"]["final_valid"].sum()),
-             equal="spatial maps, rois and detections, kernels vs plain")
+             detections=total, detections_matched=matched,
+             equal=", ".join(exact) + " equal, kernels vs plain"
+             + ("; detections matched (same label, box within 1e-3, score "
+                "within 1e-4)" if n_inv else ""))
         del m8, outs
     strict_f32(False)
     del model, batch_f32
@@ -5632,34 +5863,36 @@ def plant_on_proposals(model, batch, per_frame=4):
 def two_stage_training(name, dev, conv_k, nms_k, mode, strict_f32, flush,
                        clock_mhz):
     """The training phases of a two-stage model at the KITTI width
-    (``ts_config_path(name)``, seeded weights) on 8 synthetic KITTI frames
-    at the yaml's batch of 2 with its whole DATA_AUGMENTOR (gt_sampling
-    from a database ``write_gt_database`` writes to a temporary directory
-    from 8 frames of another seed, then the flip, rotation and scaling):
+    (``ts_config_path(name)``, seeded weights) on 4 batches of synthetic
+    KITTI frames at the yaml's batch (2: PV-RCNN, Voxel R-CNN; 4: PartA2,
+    SECOND-IoU) with its whole DATA_AUGMENTOR (gt_sampling from a database
+    ``write_gt_database`` writes to a temporary directory from 8 frames of
+    another seed, then the flip, rotation and scaling):
 
     * ``kernel_nms_<name>_train``: kernel 2's boxes form on the training
-      proposal layer's input (ROI_HEAD.NMS_CONFIG.TRAIN: 2 sets of
-      TS_TRAIN_K candidates, all valid, conv_cls's bias 0, of a training
-      forward on the first batch) and on crowded boxes with duplicates
-      and a degenerate quad at K in TS_WIDE_K (also through the IoU form),
-      at the TRAIN thresh: keep masks equal to the plain versions', the
-      IoU bit-equal at every evaluated pair and 0 at every skipped needed
-      pair; timed beside the plain version (one call at K = 9000) and the
-      three-term bound;
+      proposal layer's input (ROI_HEAD.NMS_CONFIG.TRAIN: a set of
+      TS_TRAIN_K candidates a frame, all valid, conv_cls's bias 0, of a
+      training forward on the first batch) and on crowded boxes with
+      duplicates and a degenerate quad at K in TS_WIDE_K (also through the
+      IoU form), at the TRAIN thresh: keep masks equal to the plain
+      versions', the IoU bit-equal at every evaluated pair and 0 at every
+      skipped needed pair; timed beside the plain version (one call at K =
+      9000) and the three-term bound;
     * ``train_grad_<name>``: one f32 step (TF32 off) through the kernels
       and through the plain versions on the first batch with gt rows
       planted on its proposals (``plant_on_proposals``: the ROI head's
-      regression loss nonzero), held by ``train_grad`` (12 kernel-1
-      launches forward, 11 as dX) and one kernel-2 launch of 2 sets of
-      TS_TRAIN_K;
+      regression loss, SECONDHead's IoU loss, nonzero), held by
+      ``train_grad`` (TS_CONVS[name] kernel-1 launches forward, one fewer
+      as dX) and one kernel-2 launch of a set a frame of TS_TRAIN_K;
     * ``kernel_fwd_<name>`` / ``kernel_dx_<name>``: kernel 1's f32 entry on
       that step's forward and input-gradient operands, each launch against
-      its plain version;
+      its plain version (PartA2's inverse convs also summed apart,
+      ``*_apart``);
     * ``train_<name>``: ``train_model`` for 2 epochs of 4 steps (the
       yaml's OPTIMIZATION: adam_onecycle, clip 10), timed by
       ``timed_train_model`` (host, forward, backward with dX and dW, the
-      optimizer, peak memory), each step 12 + 11 kernel-1 launches and one
-      kernel-2 launch of 2 sets of TS_TRAIN_K, every loss finite, every
+      optimizer, peak memory), each step TS_CONVS[name] + one fewer
+      kernel-1 launches and one kernel-2 launch, every loss finite, every
       parameter a gradient in some step but the ROI head's reg branch when
       no sampled roi of the run reached REG_FG_THRESH (the foreground
       rois of each step are recorded).
@@ -5679,6 +5912,11 @@ def two_stage_training(name, dev, conv_k, nms_k, mode, strict_f32, flush,
     from q3d_tpu_torch.train_utils import MODEL_KEYS
     config = ts_config_path(name)
     cname = TS_CFG[name]
+    n_convs = TS_CONVS[name]
+    # the config's batch, 8 steps in the run's 2 epochs
+    batch_size = int(kitti_config(cname, 1, SEED).OPTIMIZATION
+                     .BATCH_SIZE_PER_GPU)
+    train_frames = 4 * batch_size
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp) / "db"
@@ -5687,7 +5925,7 @@ def two_stage_training(name, dev, conv_k, nms_k, mode, strict_f32, flush,
             kitti_config(cname, 1, SEED).CLASS_NAMES, 1,
             training=False)[0], root)
         cfg, ds, loader, model = kitti_train_data(
-            cname, dev, KITTI_TRAIN_FRAMES, SEED, augment=True, root=root)
+            cname, dev, train_frames, SEED, augment=True, root=root)
         queue = ds.data_augmentor.data_augmentor_queue
         check([type(q).__name__ if isinstance(q, DataBaseSampler)
                else q.func.__name__ for q in queue]
@@ -5709,15 +5947,16 @@ def two_stage_training(name, dev, conv_k, nms_k, mode, strict_f32, flush,
             m0.dense_head.conv_cls.bias.zero_()
         bx, bv = proposal_candidates(roi_head_inputs(m0, batch), TS_TRAIN_K)
         del m0
-        check(bv.shape == (BATCH, TS_TRAIN_K) and bool(bv.all()),
+        check(bv.shape == (batch_size, TS_TRAIN_K) and bool(bv.all()),
               f"kernel_nms_{name}_train: sets {tuple(bv.shape)}, valid "
               f"{bv.sum(1).tolist()}")
         near, needed, most = check_boxes_form(bx, bv, thresh,
                                               f"{name} training proposals")
         corners, areas = nms_mod.bev_corners_areas(bx)
-        terms = boxes_bound(BATCH, TS_TRAIN_K, needed, near, clock_mhz)
+        terms = boxes_bound(batch_size, TS_TRAIN_K, needed, near, clock_mhz)
         nms_row = {
-            "entry": "q3d_greedy_nms_boxes", "sets": BATCH, "K": TS_TRAIN_K,
+            "entry": "q3d_greedy_nms_boxes", "sets": batch_size,
+            "K": TS_TRAIN_K,
             "thresh": thresh, "valid": int(bv.sum()),
             "candidate_pairs": needed, "near_pairs": near,
             "near_pairs_most_in_a_tile": most,
@@ -5766,20 +6005,25 @@ def two_stage_training(name, dev, conv_k, nms_k, mode, strict_f32, flush,
         planted_batch, planted = plant_on_proposals(model, batch)
         nms_k.launches.clear()
         recorded, run = train_grad(model, planted_batch, conv_k, mode,
-                                   f"train_grad_{name}", config, TS_CONVS)
+                                   f"train_grad_{name}", config, n_convs)
         grad_nms = {k: v for k, v in nms_k.launches.items() if v}
+        # SECONDHead has no regression branch: its IoU loss instead
+        rcnn = "rcnn_reg_loss" if "rcnn_reg_loss" in run["tb"] \
+            else "rcnn_iou_loss"
         check(grad_nms == {"q3d_greedy_nms_boxes": 1}
-              and run["tb"]["rcnn_reg_loss"] > 0,
+              and run["tb"][rcnn] > 0,
               f"train_grad_{name}: kernel-2 launches {grad_nms}, planted "
-              f"{planted}, rcnn_reg_loss {run['tb']['rcnn_reg_loss']}")
+              f"{planted}, {rcnn} {run['tb'][rcnn]}")
         emit(f"planted_{name}", gt_rows_planted_per_frame=planted,
-             rcnn_reg_loss=run["tb"]["rcnn_reg_loss"],
+             **{rcnn: run["tb"][rcnn]},
              note="train_grad's batch: gt rows on the first proposals of "
                   "0.5-10 m a side, shifted 0.1 m (plant_on_proposals)")
         del planted_batch
+        apart = ".inv_conv" if name in TS_INVERSE else None
         fwd = kernel_forward(recorded, flush, mode, f"kernel_fwd_{name}",
-                             config)
-        dx = kernel_dx(recorded, flush, mode, f"kernel_dx_{name}", config)
+                             config, apart)
+        dx = kernel_dx(recorded, flush, mode, f"kernel_dx_{name}", config,
+                       apart)
         del recorded
         strict_f32(False)
         torch.cuda.empty_cache()
@@ -5809,6 +6053,7 @@ def two_stage_training(name, dev, conv_k, nms_k, mode, strict_f32, flush,
                 no_signal.difference_update(reg_branch)
             return t
         head.assign_targets = assign
+        inverse_k, remove_inverse = inverse_conv_launches(model, conv_k)
         nms_k.launches.clear()
         try:
             _, steps, launches, run_s = timed_train_model(
@@ -5818,18 +6063,22 @@ def two_stage_training(name, dev, conv_k, nms_k, mode, strict_f32, flush,
         finally:
             nms_mod.greedy_suppress_boxes_cuda = real_boxes_cuda
             del head.assign_targets
+            remove_inverse()
         n_steps = len(steps)
+        n_inv = TS_INVERSE.get(name, 0)
         t_nms = {k: v for k, v in nms_k.launches.items() if v}
         check(launches == {"q3d_sparse_gather_conv_f32":
-                           (2 * TS_CONVS - 1) * n_steps}
+                           (2 * n_convs - 1) * n_steps}
               and t_nms == {"q3d_greedy_nms_boxes": n_steps}
-              and sets_seen == [[BATCH, TS_TRAIN_K]] * n_steps,
+              and sets_seen == [[batch_size, TS_TRAIN_K]] * n_steps
+              and inverse_k == {"forward": n_inv * n_steps,
+                                "dx": n_inv * n_steps},
               f"train_{name}: launches {launches}, NMS {t_nms}, sets "
-              f"{sets_seen}")
+              f"{sets_seen}, inside the inverse convs {inverse_k}")
         med = median_after_first(steps)
         emit(f"train_{name}", config=config,
              batch=int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU),
-             frames=KITTI_TRAIN_FRAMES, epochs=TRAIN_EPOCHS, steps=n_steps,
+             frames=train_frames, epochs=TRAIN_EPOCHS, steps=n_steps,
              mode=mode(),
              optimization={k: cfg.OPTIMIZATION[k] for k in (
                  "OPTIMIZER", "LR", "WEIGHT_DECAY", "GRAD_NORM_CLIP")},
@@ -5837,13 +6086,15 @@ def two_stage_training(name, dev, conv_k, nms_k, mode, strict_f32, flush,
                         cfg.DATA_CONFIG.DATA_AUGMENTOR.AUG_CONFIG_LIST],
              gt_database=written, losses=[s["loss"] for s in steps],
              launches=launches, nms_launches=t_nms, nms_sets=sets_seen[0],
+             inverse_conv_launches=inverse_k,
              foreground_rois_per_step=foreground,
              zero_gradient_allowed=sorted(no_signal),
              run_s=run_s, median_after_first=med)
-        out = {"nms": nms_row, "fwd": fwd, "dx": dx,
+        out = {"nms": nms_row, "fwd": fwd, "dx": dx, "batch": batch_size,
                "peak_mib": run["peak_mib"], "median": med, "steps": n_steps,
                "launches_forward": sum(s["launches_forward"] for s in steps),
                "launches_dx": sum(s["launches_dx"] for s in steps),
+               "launches_inverse": inverse_k,
                "launches_nms": t_nms["q3d_greedy_nms_boxes"]}
         del model, batch
     torch.cuda.empty_cache()
@@ -5852,46 +6103,63 @@ def two_stage_training(name, dev, conv_k, nms_k, mode, strict_f32, flush,
 
 def two_stage_kernel_rows(ts):
     """The kernels line's entries of the two-stage models: kernel 1 on the
-    12 convs of a bf16 forward and kernel 2 on the proposal sets."""
+    sparse convs of a bf16 forward (PartA2's inverse convs also apart) and
+    of a training step, kernel 2 on the proposal sets."""
     rows = []
+    kernel1 = {"route": "cuda",
+               "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
+               "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274"}
+    kernel2 = {"route": "cuda", "source": "q3d_tpu_torch/csrc/greedy_nms.cu",
+               "replaces": "q3d_tpu/ops/iou3d_nms/pallas_nms.py:45",
+               "entry": "q3d_greedy_nms_boxes", "max_abs_err": 0.0,
+               "library_ms": None, "checks": "passed"}
     for name, s in ts.items():
         t, n = s["totals"], s["nms"]
+        convs = TS_CONVS[name]
+        backbone = TS_BACKBONE.get(name, f"VoxelBackBone8x's {convs} convs")
         rows += [
-            {"name": f"sparse_gather_conv_{name}", "route": "cuda",
-             "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
-             "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",
+            {"name": f"sparse_gather_conv_{name}", **kernel1,
              "entry": "q3d_sparse_gather_conv_bf16",
-             "use": f"{ts_config_path(name)}: VoxelBackBone8x's 12 convs, "
-                    "bf16",
+             "use": f"{ts_config_path(name)}: {backbone}, bf16",
              "launches": s["launches"]["sparse_gather_conv_bf16"],
              "max_abs_err": s["worst"]["bf16"], "ms": t["ms"],
              "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
              "bound_by": "bytes" if t["bytes_ms"] >= t["ops_ms"]
              else "operations", "library_ms": t["library_ms"],
              "checks": "passed",
-             "times_cover": f"one bf16 forward at batch {BATCH} (12 convs); "
-                            f"launches: serving_{name}'s {REQUESTS} "
-                            "requests"},
-            {"name": f"greedy_nms_{name}", "route": "cuda",
-             "source": "q3d_tpu_torch/csrc/greedy_nms.cu",
-             "replaces": "q3d_tpu/ops/iou3d_nms/pallas_nms.py:45",
-             "entry": "q3d_greedy_nms_boxes",
+             "times_cover": f"one bf16 forward at batch {BATCH} ({convs} "
+                            f"convs); launches: serving_{name}'s "
+                            f"{REQUESTS} requests"},
+            {"name": f"greedy_nms_{name}", **kernel2,
              "launches": s["launches"]["greedy_nms_boxes"],
-             "max_abs_err": 0.0, "ms": n["ms"], "plain_ms": n["plain_ms"],
+             "ms": n["ms"], "plain_ms": n["plain_ms"],
              "bound_ms": n["bound_ms"], "bound_by": n["bound_by"],
-             "library_ms": None, "checks": "passed",
              "times_cover": f"the proposal layer's NMS: {n['sets']} sets, "
                             f"K={n['K']}"}]
+        inv = s.get("inverse")
+        if inv is not None:
+            rows.append(
+                {"name": f"sparse_gather_conv_{name}_inverse", **kernel1,
+                 "entry": "q3d_sparse_gather_conv_bf16",
+                 "use": f"{ts_config_path(name)}: UNetV2's 3 "
+                        "SparseInverseConv3d (64->64, 64->32, 32->16) over "
+                        "the transposes of their strided convs' books, bf16",
+                 "launches": s["inverse_launches"],
+                 **{k: inv[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")},
+                 "checks": "passed",
+                 "times_cover": "the 3 inverse convs of one bf16 forward; "
+                                "launches: read around the inverse convs "
+                                f"in serving_{name}'s {REQUESTS} "
+                                "requests"})
         tr = s["train"]
         n = tr["nms"]
         rows.append(
-            {"name": f"greedy_nms_{name}_train", "route": "cuda",
-             "source": "q3d_tpu_torch/csrc/greedy_nms.cu",
-             "replaces": "q3d_tpu/ops/iou3d_nms/pallas_nms.py:45",
-             "entry": "q3d_greedy_nms_boxes", "launches": tr["launches_nms"],
-             "max_abs_err": 0.0, "ms": n["ms"], "plain_ms": n["plain_ms"],
+            {"name": f"greedy_nms_{name}_train", **kernel2,
+             "launches": tr["launches_nms"],
+             "ms": n["ms"], "plain_ms": n["plain_ms"],
              "bound_ms": n["bound_ms"], "bound_by": n["bound_by"],
-             "library_ms": None, "checks": "passed",
              "times_cover": f"the training proposal layer's NMS: "
                             f"{n['sets']} sets, K={n['K']} (plain: one "
                             f"call); launches: train_{name}'s "
@@ -5900,12 +6168,10 @@ def two_stage_kernel_rows(ts):
                 ("forward", tr["fwd"], tr["launches_forward"]),
                 ("dx", tr["dx"], tr["launches_dx"])):
             row = {"name": f"sparse_gather_conv_{use}_{name}_train",
-                   "route": "cuda",
-                   "source": "q3d_tpu_torch/csrc/sparse_gather_conv.cu",
-                   "replaces": "q3d_tpu/ops/spconv/pallas_conv.py:274",
-                   "entry": "q3d_sparse_gather_conv_f32",
-                   "use": f"{ts_config_path(name)} training, batch {BATCH}: "
-                          + ("the forward of its 12 sparse convs"
+                   **kernel1, "entry": "q3d_sparse_gather_conv_f32",
+                   "use": f"{ts_config_path(name)} training, batch "
+                          f"{tr['batch']}: "
+                          + (f"the forward of its {convs} sparse convs"
                              if use == "forward" else
                              "the input gradient of every sparse conv but "
                              "conv_input, over the inverse book"),
@@ -5922,6 +6188,24 @@ def two_stage_kernel_rows(ts):
                 row.update(dw_torch_ms=tot["dw_ms"],
                            inverse_book_ms=tot["inverse_ms"])
             rows.append(row)
+            apart = tot.get("apart")
+            if apart is not None:
+                rows.append({
+                    "name": f"sparse_gather_conv_{use}_{name}_inverse_train",
+                    **kernel1, "entry": "q3d_sparse_gather_conv_f32",
+                    "use": f"{ts_config_path(name)} training: the 3 inverse "
+                           "convs' " + ("forward" if use == "forward" else
+                                        "input gradient, over their strided "
+                                        "convs' books"),
+                    "launches": tr["launches_inverse"][use],
+                    **{k: apart[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "library_ms")},
+                    "checks": "passed",
+                    "times_cover": "one f32 training step's 3 inverse "
+                                   "convs; launches: read around the "
+                                   f"inverse convs in train_{name}'s "
+                                   f"{tr['steps']} steps"})
     return rows
 
 
@@ -5939,7 +6223,10 @@ DS_KITTI_FRAMES = 8            # val: SECOND's phases' frames; train: seed + 1
 DS_NU_FRAMES = 8               # val and train each
 DS_NU_TRAIN_STEPS = 2
 DS_FOV_EDGE_PX = 1e-3          # a point may leave the crop only this near
-DS_CONVS = {"second": 12, "centerpoint": 21}
+DS_CONVS = {"second": 12, "centerpoint": 21, "parta2": 19}
+DS_PARTA2_CFG = ROOT / "q3d_tpu_torch" / "cfgs" / "kitti_models" / \
+    "PartA2.yaml"
+
 
 
 @contextlib.contextmanager
@@ -6123,11 +6410,13 @@ def held_launches(launches, run, convs, nms):
             launches["greedy_nms_iou"]) == (convs, nms, 0)
 
 
-def same_slots(a, b, box_tol=1e-3, score_tol=1e-4):
+def same_slots(a, b, box_tol=1e-3, score_tol=1e-4, worst=None):
     """Two runs' annos (lists of frames' dicts with boxes_lidar or boxes,
     score(s), name) slot for slot -> (slots matched, slots): the same
     count a frame, and at each slot the same name, the box within
-    ``box_tol`` and the score within ``score_tol``."""
+    ``box_tol`` and the score within ``score_tol``.  ``worst``, a dict, takes the largest box element, box
+    difference (absolute, and relative to max(1, |element|)) and score
+    difference of the frames compared."""
     import numpy as np
     matched = total = 0
     for x, y in zip(a, b):
@@ -6137,16 +6426,91 @@ def same_slots(a, b, box_tol=1e-3, score_tol=1e-4):
         if len(bx) != len(by):
             continue
         sx, sy = np.asarray(x["score"]), np.asarray(y["score"])
+        if len(bx) == 0:
+            continue
+        diff = np.abs(bx - by)
         ok = (np.asarray(x["name"]) == np.asarray(y["name"])) \
-            & (np.abs(bx - by).max(-1, initial=0) <= box_tol) \
-            & (np.abs(sx - sy) <= score_tol)
+            & (diff.max(-1) <= box_tol) & (np.abs(sx - sy) <= score_tol)
         matched += int(ok.sum())
+        if worst is not None:
+            for key, v in (("box_max_abs", np.abs(by).max()),
+                           ("box_max_abs_diff", diff.max()),
+                           ("box_max_rel_diff",
+                            (diff / np.maximum(np.abs(by), 1.0)).max()),
+                           ("score_max_abs_diff", np.abs(sx - sy).max())):
+                worst[key] = max(worst.get(key, 0.0), float(v))
     return matched, total
 
 
+def eval_kitti_parta2(root, dev, mode, strict_f32, tmp):
+    """Phase ``eval_kitti_parta2``: ``tools/test.py`` on the port's
+    ``kitti_models/PartA2.yaml`` with only DATA_PATH set to the written
+    KITTI tree, f32 (TF32 off), batch 2, a seeded checkpoint
+    (``seed_like_trained``, BN statistics from the first batch), through
+    the kernels and through the plain versions: 19 kernel-1 and 1 kernel-2
+    launches a forward, the same AP dict, and the runs slot for slot (each
+    box element within 1e-3) -> launches."""
+    import torch
+    from q3d_tpu_torch.config import EDict, cfg_from_yaml_file
+    from q3d_tpu_torch.datasets import build_dataloader
+    from q3d_tpu_torch.models import build_network, load_data_to_device
+    from q3d_tpu_torch.utils.bn_calibration import calibrate_bns
+    from q3d_tpu_torch.utils.checkpoint import save_checkpoint
+    cfg = cfg_from_yaml_file(str(DS_PARTA2_CFG), EDict())
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, BATCH,
+                                     training=False)
+    check(type(ds).__name__ == "KittiDataset" and len(ds) == DS_KITTI_FRAMES,
+          f"PartA2.yaml's dataset: {type(ds).__name__}, {len(ds)} frames")
+    torch.manual_seed(SEED)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), ds, device=dev)
+    seed_like_trained(model)
+    strict_f32(True)
+    calibrate_bns(model, load_data_to_device(next(iter(loader)), device=dev))
+    ckpt = save_checkpoint(Path(tmp) / "parta2_seeded.pth", model)
+    del model
+    runs = {run: run_test_cli(DS_PARTA2_CFG, root, f"chip_parta2_{run}", dev,
+                              ["--ckpt", str(ckpt)], impl)
+            for run, impl in (("f32", None), ("f32_plain", "plain"))}
+    run_mode = mode()
+    strict_f32(False)
+    forwards = -(-DS_KITTI_FRAMES // 2)       # the CLI's batch 2
+    for run, r in runs.items():
+        check(held_launches(r[4], run, DS_CONVS["parta2"] * forwards,
+                            forwards),
+              f"eval_kitti_parta2 {run}: launches {r[4]}")
+    ret_k, annos_k = runs["f32"][:2]
+    ret_p, annos_p = runs["f32_plain"][:2]
+    ap_keys = [k for k in ret_k if "_R40" in k]
+    ap_diff = max(abs(ret_k[k] - ret_p[k]) for k in ap_keys)
+    check(ap_diff <= 1e-6, f"eval_kitti_parta2: AP dicts differ by {ap_diff}")
+    worst = {}
+    matched, slots = same_slots(annos_k, annos_p, worst=worst)
+    check(slots > 0 and matched >= 0.99 * slots,
+          f"eval_kitti_parta2: kernels vs plain {matched}/{slots} slots "
+          f"({worst})")
+    emit("eval_kitti_parta2", config="q3d_tpu_torch/cfgs/kitti_models/"
+         "PartA2.yaml", entry="q3d_tpu_torch.tools.test", frames=len(ds),
+         batch=2, weights="seeded (torch.manual_seed), conv_cls bias 0, "
+         f"dense_head.conv_box and roi_head.reg_out x {TS_BOX_SCALE}, BN "
+         "statistics from the first batch", mode=run_mode,
+         runs={run: {"seconds": r[3], "launches": r[4],
+                     "infer_time_ms": r[0]["infer_time_ms"],
+                     "detections": int(sum(len(a["name"]) for a in r[1])),
+                     "ap": {k: r[0][k] for k in ap_keys}}
+               for run, r in runs.items()},
+         kernels_vs_plain={"slots_matched": matched, "slots": slots,
+                           "ap_max_abs_diff": ap_diff, **worst},
+         tolerance="AP dicts within 1e-6; 99% of the slots with the same "
+                   "name, each box element within 1e-3, the score within "
+                   "1e-4")
+    return runs["f32"][4]
+
+
 def kitti_tree_phases(dev, conv_k, nms_k, mode, strict_f32, tmp):
-    """Phases ``data_kitti_tree``, ``eval_kitti_second`` and
-    ``train_kitti_tree`` (see the module docstring) -> launches."""
+    """Phases ``data_kitti_tree``, ``eval_kitti_second``,
+    ``eval_kitti_parta2`` and ``train_kitti_tree`` (see the module
+    docstring) -> launches."""
     import numpy as np
     import pickle
     import torch
@@ -6331,6 +6695,8 @@ def kitti_tree_phases(dev, conv_k, nms_k, mode, strict_f32, tmp):
                            "unrounded_ap": gt_direct,
                            "unrounded_zero_bev_iou": zero_iou})
 
+    parta2 = eval_kitti_parta2(root, dev, mode, strict_f32, tmp)
+
     # ----------------------------------------------------- train_kitti_tree
     history, placed, train_frames, run_s = run_train_cli(
         DS_KITTI_CFG, root, "chip_train", dev, conv_k, ["--epochs", "2"])
@@ -6353,11 +6719,15 @@ def kitti_tree_phases(dev, conv_k, nms_k, mode, strict_f32, tmp):
              "loss", "host_ms", "forward_ms", "backward_ms", "optimizer_ms",
              "peak_mib", "launches_forward", "launches_dx")}
              for h in history])
-    return {"conv": {f"eval_kitti_second_{run}": r[4]["sparse_gather_conv_"
-                     + ("bf16" if run == "bf16" else "f32")]
-                     for run, r in runs.items() if run != "f32_plain"},
-            "nms": {f"eval_kitti_second_{run}": r[4]["greedy_nms_boxes"]
-                    for run, r in runs.items() if run != "f32_plain"},
+    return {"conv": {**{f"eval_kitti_second_{run}": r[4][
+                         "sparse_gather_conv_" + ("bf16" if run == "bf16"
+                                                  else "f32")]
+                         for run, r in runs.items() if run != "f32_plain"},
+                     "eval_kitti_parta2_f32": parta2[
+                         "sparse_gather_conv_f32"]},
+            "nms": {**{f"eval_kitti_second_{run}": r[4]["greedy_nms_boxes"]
+                       for run, r in runs.items() if run != "f32_plain"},
+                    "eval_kitti_parta2_f32": parta2["greedy_nms_boxes"]},
             "train_conv": sum(h["launches_forward"] + h["launches_dx"]
                               for h in history)}
 
@@ -7354,15 +7724,16 @@ def main():
                           clock_mhz)
     dynvoxel_ref(dev, conv_k, nms_k, mode, strict_f32)
 
-    # ======================================= PV-RCNN and Voxel R-CNN, KITTI
-    # the two-stage detectors' inference: the keypoint set abstraction, the
-    # proposal layer on kernel 2, the ROI grid pooling; and their training
-    # (proposal targets, point-head and ROI-head losses, kernel 2 on the
-    # training proposal layer's 2 x 9000 candidates)
+    # ======== PV-RCNN, Voxel R-CNN, PartA2 and SECOND-IoU at KITTI width
+    # the two-stage detectors' inference: the keypoint set abstraction,
+    # PartA2's sparse UNet (inverse convs on kernel 1), the proposal layer
+    # on kernel 2, the ROI grid, part-aware and BEV pooling; and their
+    # training (proposal targets, point-head and ROI-head losses, kernel 2
+    # on the training proposal layer's 9000 candidates a frame)
     torch.cuda.empty_cache()
     ts = {name: two_stage_phases(name, dev, conv_k, nms_k, mode, strict_f32,
                                  flush, clock_mhz)
-          for name in ("pvrcnn", "voxelrcnn")}
+          for name in ("pvrcnn", "voxelrcnn", "parta2", "second_iou")}
 
     # ======================================== KITTI and nuScenes on disk
     # trees in each dataset's format, read through the port's entry points:

@@ -5,8 +5,11 @@ and PointPillarScatter take the dataset's geometry, as the reference's
 builders give it (:65-86, :99), and VoxelNeXtHead and TransFusionHead
 their voxel size, as CenterHead does.  The two-stage slots (:131-163):
 the PFE takes the geometry, the BEV map's width and the 3D backbone's
-stage widths; the point head the PFE's output width; VoxelRCNNHead the
-geometry and the stage widths, PVRCNNHead the PFE's output width.  ``build_network`` and
+stage widths; the point head the PFE's output width (UNetV2's point width,
+and PointIntraPartOffsetHead also the geometry); VoxelRCNNHead the
+geometry and the stage widths, PVRCNNHead the PFE's output width,
+PartA2FCHead the geometry, the point width and the part head's part
+channels, SECONDHead the geometry and the 2D map's width.  ``build_network`` and
 ``load_data_to_device`` default to the CUDA device and raise when there is
 none; pass ``device="cpu"`` explicitly to run on the CPU.
 """
@@ -25,6 +28,7 @@ from .backbones_3d.spconv_backbone_2d import (PillarBackBone8x,
                                               PillarRes18BackBone8x)
 from .backbones_3d.spconv_backbone_voxelnext import (
     VoxelResBackBone8xVoxelNeXt)
+from .backbones_3d.spconv_unet import UNetV2
 from .backbones_3d.vfe.dynamic_mean_vfe import DynamicMeanVFE
 from .backbones_3d.vfe.dynamic_pillar_vfe import DynamicPillarVFE
 from .backbones_3d.vfe.dynamic_voxel_vfe import DynamicVoxelVFE
@@ -34,19 +38,24 @@ from .backbones_3d.pfe.voxel_set_abstraction import VoxelSetAbstraction
 from .dense_heads.anchor_head_multi import AnchorHeadMulti
 from .dense_heads.anchor_head_single import AnchorHeadSingle
 from .dense_heads.center_head import CenterHead
+from .dense_heads.point_intra_part_head import PointIntraPartOffsetHead
 from .dense_heads.point_head_simple import PointHeadSimple
 from .dense_heads.transfusion_head import TransFusionHead
 from .dense_heads.voxelnext_head import VoxelNeXtHead
 from .detectors.centerpoint import CenterPoint
 from .detectors.detector3d_template import DatasetInfo
+from .detectors.parta2_net import PartA2Net
 from .detectors.pillarnet import PillarNet
 from .detectors.pointpillar import PointPillar
 from .detectors.pv_rcnn import PVRCNN
 from .detectors.second_net import SECONDNet
+from .detectors.second_net_iou import SECONDNetIoU
 from .detectors.transfusion import TransFusion
 from .detectors.voxel_rcnn import VoxelRCNN
 from .detectors.voxelnext import VoxelNeXt
+from .roi_heads.parta2_head import PartA2FCHead
 from .roi_heads.pvrcnn_head import PVRCNNHead
+from .roi_heads.second_head import SECONDHead
 from .roi_heads.voxelrcnn_head import VoxelRCNNHead
 
 _VFE = {"MeanVFE": MeanVFE, "PillarVFE": PillarVFE,
@@ -57,7 +66,8 @@ _BACKBONE_3D = {"PillarBackBone8x": PillarBackBone8x,
                 "PillarRes18BackBone8x": PillarRes18BackBone8x,
                 "VoxelBackBone8x": VoxelBackBone8x,
                 "VoxelResBackBone8x": VoxelResBackBone8x,
-                "VoxelResBackBone8xVoxelNeXt": VoxelResBackBone8xVoxelNeXt}
+                "VoxelResBackBone8xVoxelNeXt": VoxelResBackBone8xVoxelNeXt,
+                "UNetV2": UNetV2}
 _MAP_TO_BEV = {"HeightCompression": HeightCompression,
                "PointPillarScatter": PointPillarScatter}
 _BACKBONE_2D = {"BaseBEVBackbone": BaseBEVBackbone,
@@ -68,11 +78,14 @@ _DENSE_HEAD = {"AnchorHeadMulti": AnchorHeadMulti,
                "TransFusionHead": TransFusionHead,
                "VoxelNeXtHead": VoxelNeXtHead}
 _PFE = {"VoxelSetAbstraction": VoxelSetAbstraction}
-_POINT_HEAD = {"PointHeadSimple": PointHeadSimple}
-_ROI_HEAD = {"PVRCNNHead": PVRCNNHead, "VoxelRCNNHead": VoxelRCNNHead}
-_DETECTORS = {"CenterPoint": CenterPoint, "PillarNet": PillarNet,
-              "PointPillar": PointPillar, "PVRCNN": PVRCNN,
-              "SECONDNet": SECONDNet, "TransFusion": TransFusion,
+_POINT_HEAD = {"PointHeadSimple": PointHeadSimple,
+               "PointIntraPartOffsetHead": PointIntraPartOffsetHead}
+_ROI_HEAD = {"PartA2FCHead": PartA2FCHead, "PVRCNNHead": PVRCNNHead,
+             "SECONDHead": SECONDHead, "VoxelRCNNHead": VoxelRCNNHead}
+_DETECTORS = {"CenterPoint": CenterPoint, "PartA2Net": PartA2Net,
+              "PillarNet": PillarNet, "PointPillar": PointPillar,
+              "PVRCNN": PVRCNN, "SECONDNet": SECONDNet,
+              "SECONDNetIoU": SECONDNetIoU, "TransFusion": TransFusion,
               "VoxelNeXt": VoxelNeXt, "VoxelRCNN": VoxelRCNN}
 
 INIT_SEED = 0
@@ -135,19 +148,33 @@ def build_pfe(cfg, dataset, num_bev_features, backbone_channels):
                           backbone_channels)
 
 
-def build_point_head(cfg, input_channels, num_class):
-    return _POINT_HEAD[cfg.NAME](
-        cfg, input_channels,
-        num_class if not cfg.get("CLASS_AGNOSTIC", False) else 1)
+def build_point_head(cfg, input_channels, num_class, dataset):
+    """The point head; PointIntraPartOffsetHead also takes the dataset's
+    geometry (it reads voxel centres), as the reference's builder gives
+    it (:146)."""
+    num_class = num_class if not cfg.get("CLASS_AGNOSTIC", False) else 1
+    if cfg.NAME == "PointIntraPartOffsetHead":
+        return PointIntraPartOffsetHead(cfg, input_channels, num_class,
+                                        dataset.voxel_size,
+                                        dataset.point_cloud_range)
+    return _POINT_HEAD[cfg.NAME](cfg, input_channels, num_class)
 
 
-def build_roi_head(cfg, input_channels, dataset, backbone_channels):
+def build_roi_head(cfg, input_channels, dataset, backbone_channels,
+                   num_bev_features=None, part_channels=0):
     """The ROI head (one refinement score a roi, as CLASS_AGNOSTIC heads
-    score them): VoxelRCNNHead pools the sparse stages on the dataset's
-    geometry, PVRCNNHead the keypoints' ``input_channels`` features."""
+    score them), on the dataset's geometry where it reads positions, as the
+    reference's builder gives it (:159): VoxelRCNNHead pools the sparse
+    stages, PartA2FCHead the UNet's ``input_channels`` point features and
+    the point head's ``part_channels`` part features, SECONDHead the 2D
+    map's ``num_bev_features``; PVRCNNHead the keypoints' features."""
+    geometry = (dataset.voxel_size, dataset.point_cloud_range)
     if cfg.NAME == "VoxelRCNNHead":
-        return VoxelRCNNHead(cfg, backbone_channels, dataset.voxel_size,
-                             dataset.point_cloud_range)
+        return VoxelRCNNHead(cfg, backbone_channels, *geometry)
+    if cfg.NAME == "PartA2FCHead":
+        return PartA2FCHead(cfg, input_channels, *geometry, part_channels)
+    if cfg.NAME == "SECONDHead":
+        return SECONDHead(cfg, num_bev_features, *geometry)
     return _ROI_HEAD[cfg.NAME](cfg, input_channels)
 
 

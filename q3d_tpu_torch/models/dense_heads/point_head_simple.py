@@ -53,8 +53,19 @@ def assign_point_targets(xyz, batch_idx, gt_boxes, num_class,
     (N, 3), batch_idx (N,), gt_boxes (B, M, 8) -> (N,) int64: the class of
     the first valid gt box holding the point (1 for a one-class head), -1
     inside only an enlarged valid box, else 0."""
+    return assign_point_boxes(xyz, batch_idx, gt_boxes, num_class,
+                              extra_width)[0]
+
+
+def assign_point_boxes(xyz, batch_idx, gt_boxes, num_class,
+                       extra_width=EXTRA_WIDTH):
+    """``assign_point_targets`` -> (labels, box index (N,) int64): the
+    labels, and per point the index within its frame's gt rows of the
+    first box that holds it (0 where none does), as the reference's
+    ``assign_targets`` returns them."""
     m = gt_boxes.shape[1]
     labels = torch.zeros_like(batch_idx, dtype=torch.long)
+    box_idx = torch.zeros_like(labels)
     for b in range(gt_boxes.shape[0]):
         boxes = gt_boxes[b]
         idx = points_in_boxes(xyz, boxes[:, :7])
@@ -69,8 +80,10 @@ def assign_point_targets(xyz, batch_idx, gt_boxes, num_class,
         ignored = (idx < 0) & (idx_big >= 0) \
             & valid_box[idx_big.clamp(0, m - 1)]
         cls = torch.where(ignored, torch.full_like(cls, -1), cls)
-        labels = torch.where(batch_idx == b, cls, labels)
-    return labels
+        mine = batch_idx == b
+        labels = torch.where(mine, cls, labels)
+        box_idx = torch.where(mine, safe, box_idx)
+    return labels, box_idx
 
 
 class PointHeadSimple(nn.Module):

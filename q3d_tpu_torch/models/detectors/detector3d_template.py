@@ -76,10 +76,12 @@ class Detector3DTemplate(nn.Module):
         if cfg.get("POINT_HEAD", None) is not None:
             self.point_head = B.build_point_head(cfg.POINT_HEAD,
                                                  num_point_features,
-                                                 num_class)
+                                                 num_class, dataset)
         if cfg.get("ROI_HEAD", None) is not None:
-            self.roi_head = B.build_roi_head(cfg.ROI_HEAD, num_point_features,
-                                             dataset, backbone_channels)
+            self.roi_head = B.build_roi_head(
+                cfg.ROI_HEAD, num_point_features, dataset, backbone_channels,
+                num_bev_features, getattr(getattr(self, "point_head", None),
+                                          "PART_CHANNELS", 0))
         # the NMS kernel's route in post_processing and proposal_layer
         # (set_kernel_impl)
         self.kernel_impl = None

@@ -32,6 +32,10 @@ from ..layers import Linear
 
 
 class RoIHeadTemplate(nn.Module):
+    # the branches after the shared FCs, each ``<branch>_fc_<i>`` (ReLU)
+    # then ``<branch>_out``: the rcnn score (1) and the box residuals
+    BRANCHES = ("cls", "reg")
+
     def __init__(self, model_cfg, pooled_channels):
         super().__init__()
         self.model_cfg = model_cfg
@@ -43,7 +47,8 @@ class RoIHeadTemplate(nn.Module):
             self.add_module(f"shared_fc_{i}", Linear(cin, c, bias=False))
             self.add_module(f"shared_norm_{i}", f32_batch_norm(c))
             cin = c
-        for branch, out in (("cls", 1), ("reg", self.box_coder.code_size)):
+        for branch in self.BRANCHES:
+            out = self.box_coder.code_size if branch == "reg" else 1
             c_in = cin
             for i, c in enumerate(model_cfg[f"{branch.upper()}_FC"]):
                 self.add_module(f"{branch}_fc_{i}", Linear(c_in, c))
@@ -55,13 +60,18 @@ class RoIHeadTemplate(nn.Module):
             x = torch.relu(getattr(self, f"{branch}_fc_{i}")(x))
         return getattr(self, f"{branch}_out")(x)
 
-    def refine(self, pooled):
-        """(B * R, pooled) -> (cls_preds (B * R, 1), box_preds (B * R,
-        code))."""
+    def shared(self, pooled):
+        """The shared FCs (Linear, BN, ReLU) over (B * R, pooled) rows."""
         x = pooled
         for i in range(self.num_shared):
             x = torch.relu(getattr(self, f"shared_norm_{i}")(
                 getattr(self, f"shared_fc_{i}")(x)))
+        return x
+
+    def refine(self, pooled):
+        """(B * R, pooled) -> (cls_preds (B * R, 1), box_preds (B * R,
+        code))."""
+        x = self.shared(pooled)
         return self._branch(x, "cls"), self._branch(x, "reg")
 
     def decode_boxes(self, rois, box_preds):

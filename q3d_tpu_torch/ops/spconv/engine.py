@@ -140,6 +140,37 @@ def sparse_conv_downsample(st: SparseConvTensor, kernel_size, stride, padding,
     return out_indices, _query(st, oc[:, 0:1], icoord, ok), out_spatial
 
 
+def inverse_conv_indices(st: SparseConvTensor, target_indices, kernel_size,
+                         stride, padding):
+    """Rulebook of a SparseInverseConv (the reference's
+    ``inverse_conv_indices``, :353): the outputs sit at ``target_indices``
+    (the coordinates the matching strided conv took in), and output o pulls
+    from ``st`` at i = (o + p - k) / s where that division is exact ->
+    (M, K) int32, a miss N.  The same book is the transpose of the strided
+    conv's (``transposed_book``)."""
+    nd = len(st.spatial_shape)
+    offsets, _ = kernel_offsets(kernel_size, nd)
+    dev = st.indices.device
+    s = torch.as_tensor(_tuplify(stride, nd), dtype=torch.int64, device=dev)
+    p = torch.as_tensor(_tuplify(padding, nd), dtype=torch.int64, device=dev)
+    tc = target_indices.long()
+    num = tc[:, None, 1:] + p - torch.as_tensor(offsets, device=dev)[None]
+    div_ok = (torch.remainder(num, s) == 0).all(-1)
+    i = torch.div(num, s, rounding_mode="floor")
+    ok = div_ok & _in_bounds(i, st.spatial_shape) & (tc[:, 0:1] >= 0)
+    return _query(st, tc[:, 0:1], i, ok)
+
+
+def transposed_book(inverse, n_in):
+    """The book of the inverse conv of a strided conv, from ``inverse``, the
+    ``inverse_book`` of the strided conv's (N_in, K) book over the rows it
+    reads: output row o takes input row i at tap k where the strided conv's
+    output i read o at tap k (i = (o + p - k) / s) -> int32, its misses
+    renumbered ``n_in``, so equal to ``inverse_conv_indices`` integer for
+    integer."""
+    return torch.where(inverse < 0, torch.full_like(inverse, n_in), inverse)
+
+
 def inverse_book(gather_idx, n):
     """The inverse of an (M, K) book over N input rows: the (N, K) int32
     book with inv[g[m, k], k] = m and -1 where no output row reads input

@@ -347,6 +347,52 @@ class SparseConv2d(_SparseConv):
     QUANT_KIND = "sparse_conv2d"
 
 
+def inverse_cache_key(target_spatial, kernel_size, stride, padding):
+    """The rulebook-cache key of an inverse conv's book: its strided conv's
+    (``down_cache_key`` of the coordinates it restores) under ``inverse|``."""
+    return "inverse|" + down_cache_key(target_spatial, kernel_size, stride,
+                                       padding, None)
+
+
+class SparseInverseConv3d(_SparseConvBase):
+    """The upsampling conv that restores a coordinate set seen before a
+    strided conv (the reference's ``SparseInverseConv3d``, :447; UNetV2's
+    decoder).  ``forward(st, target, cache)``: the output takes
+    ``target``'s coordinates (the strided conv's input) and pulls, at each
+    of them, the rows of ``st`` given by ``engine.inverse_conv_indices``.
+    The book is the transpose of the strided conv's, which the cache must
+    hold with ``st``'s coordinates as its output
+    (``engine.transposed_book``, built from the inverse the strided conv's
+    input gradient uses), and this conv's input gradient runs over the
+    strided conv's book itself; a cache without that book raises.  On
+    kernel 1 like the other convs, forward and as dX.  Its quant kind
+    ``inverse_conv3d`` is in no recipe, so it stays float, as in the
+    reference; an int8 residency input is dequantized first.  The bias is
+    masked to the target's rows."""
+    QUANT_KIND = "inverse_conv3d"
+
+    def forward(self, st: SparseConvTensor, target: SparseConvTensor,
+                rulebook_cache=None):
+        cache = {} if rulebook_cache is None else rulebook_cache
+        key = inverse_cache_key(target.spatial_shape, self.kernel_size,
+                                self.stride, self.padding)
+        if key not in cache:
+            down = key[len("inverse|"):]
+            strided = cache.get(down)
+            if strided is None or strided[0] is not st.indices:
+                raise ValueError(
+                    f"SparseInverseConv3d: the rulebook cache holds no "
+                    f"strided conv's book {down!r} whose output is this "
+                    f"input; run the strided conv over the same cache first")
+            inv = _cached_inverse(cache, down, strided[1], target.capacity)()
+            cache[key] = (engine.transposed_book(inv, st.capacity),
+                          strided[1])
+        book, back = cache[key]
+        out_st = target.replace(features=st.features[:0], feat_scale=None)
+        return self._run(st, book, out_st, out_valid=target.valid,
+                         inverse=lambda: back)
+
+
 class SparseBatchNorm(nn.Module):
     """BatchNorm1d over sparse features (reference ``SparseBatchNorm``,
     :474-517): y = (x - mean) * rsqrt(var + eps) * weight + bias, in f32,

@@ -3,7 +3,8 @@
 normalised by the anchor's BEV diagonal, log-size residuals, the heading
 as a residual or (``encode_angle_by_sincos``) as its cos/sin differences.
 Every operation in the reference's order, on torch tensors.
-``PointResidualCoder`` waits for the point heads.
+``PointResidualCoder``'s encode (the point heads' box targets, :69): the
+residuals of a gt box from a point, by the class's mean size.
 """
 
 import torch
@@ -60,3 +61,40 @@ class ResidualCoder:
         cgs = [box_encodings[..., extra0 + i] + anchors[..., 7 + i]
                for i in range(box_encodings.shape[-1] - extra0)]
         return torch.stack([xg, yg, zg, dxg, dyg, dzg, rg, *cgs], dim=-1)
+
+
+class PointResidualCoder:
+    """Residuals of gt boxes from points (reference :69): centre offsets
+    over the class mean size's BEV diagonal (z over its height), log sizes
+    over it, and the heading's cos / sin.  Only ``use_mean_size`` is
+    ported: no config of the repo sets it false."""
+
+    def __init__(self, code_size=8, use_mean_size=True, **kwargs):
+        if not use_mean_size:
+            raise NotImplementedError(
+                "PointResidualCoder: use_mean_size=False is not ported")
+        self.code_size = code_size
+        self.mean_size = torch.tensor(kwargs["mean_size"],
+                                      dtype=torch.float32)
+        if float(self.mean_size.min()) <= 0:
+            raise ValueError(f"mean_size must be positive: "
+                             f"{kwargs['mean_size']}")
+
+    def encode(self, gt_boxes, points, gt_classes):
+        """gt_boxes (..., 7 + C), points (..., 3), gt_classes 1-based ->
+        (..., 8 + C)."""
+        sizes = gt_boxes[..., 3:6].clamp(min=1e-5)
+        xg, yg, zg = gt_boxes[..., 0:3].unbind(-1)
+        dxg, dyg, dzg = sizes.unbind(-1)
+        rg = gt_boxes[..., 6]
+        xa, ya, za = points[..., 0:3].unbind(-1)
+        mean = self.mean_size.to(gt_boxes.device)[gt_classes - 1]
+        dxa, dya, dza = mean.unbind(-1)
+        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+        xt, yt = (xg - xa) / diagonal, (yg - ya) / diagonal
+        zt = (zg - za) / dza
+        dxt, dyt, dzt = (torch.log(dxg / dxa), torch.log(dyg / dya),
+                         torch.log(dzg / dza))
+        extras = [gt_boxes[..., 7 + i] for i in range(gt_boxes.shape[-1] - 7)]
+        return torch.stack([xt, yt, zt, dxt, dyt, dzt, torch.cos(rg),
+                            torch.sin(rg), *extras], dim=-1)

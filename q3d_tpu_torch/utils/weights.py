@@ -31,10 +31,13 @@ The two-stage modules keep the reference's names (the reference's
 ``pcdet_names.py`` has no rule for them, so the ``.pth`` import has none
 either): the PFE's ``pfe.sa_<source>_r<radius>.{mlp<i>, norm<i>}``,
 ``pfe.vsa_point_feature_fusion`` and ``pfe.fusion_norm``; the point
-head's ``point_head.cls_layers.{fc<i>, norm<i>, out}``; the ROI heads'
-``roi_head.pool_[<source>_]r<radius>.{mlp<i>, norm<i>}``,
-``roi_head.shared_fc_<i> / shared_norm_<i>``, ``roi_head.{cls,reg}_fc_<i>``
-and ``roi_head.{cls,reg}_out``.
+heads' ``point_head.{cls,part_reg,box}_layers.{fc<i>, norm<i>, out}``; the
+ROI heads' ``roi_head.pool_[<source>_]r<radius>.{mlp<i>, norm<i>}``,
+``roi_head.shared_fc_<i> / shared_norm_<i>``,
+``roi_head.{cls,reg,iou}_fc_<i>`` and ``roi_head.{cls,reg,iou}_out``;
+UNetV2's decoder, ``backbone_3d.up<s>.{conv_m, norm_m, conv_t, norm_t,
+inv_conv, norm_up}`` and ``backbone_3d.conv5 / norm5`` (its encoder takes
+VoxelBackBone8x's names; sparse weights in the kernel's (K, Cin, Cout)).
 
 AnchorHeadMulti's towers keep the reference's names,
 ``dense_head.heads.<g>.{conv<i>, norm<i>, conv_cls, conv_box, conv_dir}``
@@ -143,9 +146,11 @@ def _module_rules(module, toks, transfusion=False, res_bev=False):
 _TWO_STAGE = {
     "pfe": r"sa_\w+_r\d+_\d+\.(?:mlp|norm)\d+|vsa_point_feature_fusion"
            r"|fusion_norm",
-    "point_head": r"cls_layers\.(?:fc\d+|norm\d+|out)",
+    "point_head": r"(?:cls|part_reg|box)_layers\.(?:fc\d+|norm\d+|out)",
     "roi_head": r"pool_\w*r\d+_\d+\.(?:mlp|norm)\d+|shared_(?:fc|norm)_\d+"
-                r"|(?:cls|reg)_fc_\d+|(?:cls|reg)_out"}
+                r"|(?:cls|reg|iou)_fc_\d+|(?:cls|reg|iou)_out",
+    "backbone_3d": r"up\d\.(?:conv_m|norm_m|conv_t|norm_t|inv_conv|norm_up)"
+                   r"|conv5|norm5"}
 
 
 def _transfusion_rules(t):
@@ -266,6 +271,8 @@ _REFERENCE_PATHS = (
     (r"backbone_3d\.conv(\d)\.(\d+)\.0", "backbone_3d.conv{0}_{1}.conv"),
     (r"backbone_3d\.conv(\d)\.(\d+)\.(conv1|conv2)",
      "backbone_3d.conv{0}_{1}.{2}"),
+    (r"backbone_3d\.(up\d\.(?:conv_m|conv_t|inv_conv)|conv5)",
+     "backbone_3d.{0}"),
     (r"dense_head\.shared_conv\.0", "dense_head.shared_conv"),
     (r"dense_head\.shared_requant", "dense_head.shared_requant"),
     (r"dense_head\.heads_list\.(\d+)\.([a-z_]+)\.(\d+)\.0",

@@ -549,6 +549,65 @@ def test_gather_conv_backward_kernel_matches_plain(card, cin, cout, kind,
     assert not grads["cuda"][0][pad].any()
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("cin,cout", [(64, 64), (64, 32), (32, 16)])
+def test_inverse_conv_kernel_matches_plain(card, cin, cout, dtype):
+    """UNetV2's three inverse convs' widths: a strided conv (stride 2, pad
+    1) over 6000 of 8000 rows, then ``SparseInverseConv3d`` back onto its
+    input's coordinates, through the kernel and through the plain version.
+    Its book, the transpose of the strided conv's, equals
+    ``engine.inverse_conv_indices``; the output and dX (over the strided
+    conv's own book) agree as in ``test_gather_conv_backward_kernel_
+    matches_plain``; the forward and dX each launch the kernel once; the
+    target's padding rows come out 0."""
+    from q3d_tpu_torch.ops.spconv import (SparseConv3d, SparseInverseConv3d,
+                                          engine)
+    from q3d_tpu_torch.ops.spconv.modules import inverse_cache_key
+    rng = np.random.RandomState(cin + 3 * cout)
+    target = _sparse_tensor(rng, card, 8000, 6000, 16)
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    cache = {}
+    strided = SparseConv3d(16, cin, 3, 2, 1)
+    inv = SparseInverseConv3d(cin, cout, 3, 2, 1)
+    gen = torch.Generator().manual_seed(cin + cout)
+    strided.reset_parameters(gen)
+    inv.reset_parameters(gen)
+    strided, inv = strided.to(card), inv.to(card)
+    with torch.no_grad():
+        x = strided(target, cache)
+    feats = torch.from_numpy(rng.randn(x.capacity, cin).astype(np.float32)
+                             ).to(card, dt) * x.valid[:, None]
+    cot = torch.from_numpy(rng.randn(target.capacity, cout)
+                           .astype(np.float32)).to(card, dt)
+    runs = {}
+    for impl in ("cuda", "plain"):
+        inv.kernel_impl = impl
+        f = feats.detach().requires_grad_(True)
+        entry = f"q3d_sparse_gather_conv_{dtype}"
+        before = gather_conv.KERNEL.launches[entry]
+        out = inv(x.replace(features=f), target, cache)
+        fwd = gather_conv.KERNEL.launches[entry] - before
+        (out.features.float() * cot.float()).sum().backward()
+        torch.cuda.synchronize()
+        bwd = gather_conv.KERNEL.launches[entry] - before - fwd
+        assert (fwd, bwd) == ((1, 1) if impl == "cuda" else (0, 0))
+        runs[impl] = (out.features.detach().float(), f.grad.float())
+    book, back = cache[inverse_cache_key(target.spatial_shape,
+                                         inv.kernel_size, 2, 1)]
+    assert back is not None
+    assert torch.equal(book, engine.inverse_conv_indices(
+        x, target.indices, 3, 2, 1))
+    for name, a, b in zip(("out", "dX"), runs["cuda"], runs["plain"]):
+        assert torch.isfinite(a).all()
+        scale = float(b.abs().max())
+        assert scale > 0, name
+        if dtype == "f32":
+            assert float((a - b).abs().max()) <= 1e-5 * scale, name
+        else:
+            torch.testing.assert_close(a, b, rtol=2 ** -7, atol=2e-2 * scale)
+    assert not runs["cuda"][0][~target.valid].any()
+
+
 @pytest.mark.parametrize("kind", ["subm", "stride1"])
 def test_gather_conv_backward_2d_books_match_plain(card, kind):
     """VoxelNeXt's 2D convs under autograd (f32, 128 -> 128, K = 9, over

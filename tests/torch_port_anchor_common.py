@@ -58,12 +58,13 @@ OUT_KEYS = ("spatial_features", "spatial_features_2d", "batch_cls_preds",
             "final_valid")
 
 
-def configs(name):
+def configs(name, keep_roi_head=False):
     """Both packages' configs of ``synthetic_models/<name>.yaml``, each read
-    by its own reader; second_iou_tiny becomes plain SECOND."""
+    by its own reader; second_iou_tiny becomes plain SECOND unless
+    ``keep_roi_head``."""
     cfgs = (jax_cfg_from_yaml(str(CFG_DIR / f"{name}.yaml"), JaxEDict()),
             cfg_from_yaml_file(str(CFG_DIR / f"{name}.yaml"), EDict()))
-    if name == "second_iou_tiny":
+    if name == "second_iou_tiny" and not keep_roi_head:
         for cfg in cfgs:
             cfg.MODEL.NAME = "SECONDNet"
             del cfg.MODEL["ROI_HEAD"]
@@ -97,10 +98,13 @@ def _seeded_variables(shapes, seed=0):
     return flax.core.unfreeze(jax.tree_util.tree_map_with_path(fill, shapes))
 
 
-def build(name):
+def build(name, keep_roi_head=False):
     """-> dict: the reference's model, batch and variables, the port's model
     (holding the same variables) and batch, and both configs."""
-    jcfg, pcfg = configs(name)
+    # a one-argument ``configs`` stays patchable (test_torch_port_voxelnext_
+    # quant.py swaps in its own)
+    jcfg, pcfg = configs(name, keep_roi_head=True) if keep_roi_head \
+        else configs(name)
     jds, jloader, _ = jax_build_dataloader(jcfg.DATA_CONFIG, jcfg.CLASS_NAMES,
                                            batch_size=2, training=False)
     jmodel = jax_build_network(jcfg.MODEL, num_class=len(jcfg.CLASS_NAMES),

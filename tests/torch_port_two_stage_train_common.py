@@ -94,7 +94,7 @@ def build(name):
     seeded init (BN statistics 0 and 1), and two training frames with
     planted gt boxes -> dict: the reference's model and variables, the
     port's model, the numpy batch, the port's config."""
-    jcfg, pcfg = common.configs(name)
+    jcfg, pcfg = common.configs(name, keep_roi_head=True)
     ds, raw = _frames(pcfg, 2)
     raw = {k: v for k, v in raw.items() if k in MODEL_KEYS}
     jds = jax_build_dataloader(jcfg.DATA_CONFIG, jcfg.CLASS_NAMES,
